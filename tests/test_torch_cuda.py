@@ -1,0 +1,153 @@
+"""Card tests of the port's CUDA kernels against their plain versions.
+
+Marked `cuda`; each test decides at run time whether a card is present and
+skips without one. This file imports no JAX, so it also runs on a machine
+with the card and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_*.py
+
+Tolerances: f32 kernels against the plain f32 version (TF32 off) at
+rtol/atol 1e-4 (sums in another order); bf16 by cosine >= 0.9999 on the
+flattened output, the bar of scripts/check_fused_tpu.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from wespeaker_tpu_torch.ops import mfa_astp, se_block
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def se_args(rng, b, t, c, dtype, device, masked):
+    """Random SE-Res2 block operands with folded BN, as the model passes
+    them (weights f32; the wrapper rounds them to x's type)."""
+    w = c // 8
+
+    def r(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                               * scale, device=device)
+
+    args = dict(
+        x=r(b, t, c).to(dtype), w1=r(c, c, scale=c ** -0.5), b1=r(c, scale=.1),
+        s1=1 + r(c, scale=.1), h1=r(c, scale=.1),
+        cw=r(7, 3, w, w, scale=(3 * w) ** -0.5), cb=r(7, w, scale=.1),
+        cs=1 + r(7, w, scale=.1), ch=r(7, w, scale=.1),
+        w2=r(c, c, scale=c ** -0.5), b2=r(c, scale=.1), s2=1 + r(c, scale=.1),
+        h2=r(c, scale=.1), sw1=r(c, 128, scale=c ** -0.5), sb1=r(128, scale=.1),
+        sw2=r(128, c, scale=128 ** -0.5), sb2=r(c, scale=.1))
+    mask = None
+    if masked:
+        lens = rng.integers(t // 2, t + 1, b)
+        lens[0] = t
+        mask = torch.as_tensor((np.arange(t)[None] < lens[:, None]).astype(
+            np.float32), device=device)
+    return args, mask
+
+
+def tail_args(rng, b, t, c, dtype, device, masked, glob):
+    d, a = 1536, 128
+
+    def r(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                               * scale, device=device)
+
+    xs = [r(b, t, c).to(dtype) for _ in range(3)]
+    args = dict(wm=r(3 * c, d, scale=(3 * c) ** -0.5), bm=r(d, scale=.1),
+                k1=r((3 if glob else 1) * d, a, scale=d ** -0.5),
+                b1=r(a, scale=.1), k2=r(a, d, scale=a ** -0.5),
+                b2=r(d, scale=.1))
+    mask = None
+    if masked:
+        lens = rng.integers(t // 2, t + 1, b)
+        lens[0] = t
+        mask = torch.as_tensor((np.arange(t)[None] < lens[:, None]).astype(
+            np.float32), device=device)
+    return xs, args, mask
+
+
+def assert_matches(got, want, dtype):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.float().flatten(), want.float().flatten()
+    assert torch.isfinite(g).all()
+    if dtype == torch.float32:
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    else:
+        g, w = g.double(), w.double()  # an f32 sum drifts by ~1e-5 here
+        cos = (g @ w / (g.norm() * w.norm())).item()
+        assert cos >= 0.9999, cos
+
+
+CASES = [(torch.bfloat16, False, 200, 512), (torch.float32, True, 198, 512),
+         (torch.float32, False, 37, 512), (torch.bfloat16, True, 98, 1024)]
+
+
+@pytest.mark.parametrize("dtype,masked,t,c", CASES)
+def test_se_block_kernel_matches_plain(cuda, dtype, masked, t, c):
+    args, mask = se_args(np.random.default_rng(0), 3, t, c, dtype, cuda,
+                         masked)
+    before = se_block.fused_se_res2_block.launches
+    got = se_block.fused_se_res2_block(**args, dilation=3, mask=mask)
+    torch.cuda.synchronize()
+    assert se_block.fused_se_res2_block.launches == before + 1
+    want = se_block.se_res2_block_reference(**args, dilation=3, mask=mask)
+    assert_matches(got, want, dtype)
+
+
+@pytest.mark.parametrize("glob", [True, False])
+@pytest.mark.parametrize("dtype,masked,t,c", CASES)
+def test_mfa_astp_kernel_matches_plain(cuda, dtype, masked, t, c, glob):
+    xs, args, mask = tail_args(np.random.default_rng(1), 3, t, c, dtype,
+                               cuda, masked, glob)
+    before = mfa_astp.fused_mfa_astp.launches
+    got = mfa_astp.fused_mfa_astp(*xs, **args, mask=mask, glob=glob)
+    torch.cuda.synchronize()
+    assert mfa_astp.fused_mfa_astp.launches == before + 1
+    want = mfa_astp.mfa_astp_reference(*xs, **args, mask=mask, glob=glob)
+    assert_matches(got, want, torch.float32 if dtype == torch.float32
+                   else dtype)
+
+
+def test_wrappers_raise_for_unsupported_shapes(cuda):
+    """No fallback on the card: a shape the kernel does not take raises."""
+    args, _ = se_args(np.random.default_rng(2), 2, 16, 64, torch.float32,
+                      cuda, False)
+    with pytest.raises(ValueError):
+        se_block.fused_se_res2_block(**args, dilation=2)
+    xs, targs, _ = tail_args(np.random.default_rng(3), 2, 16, 512,
+                             torch.float16, cuda, False, True)
+    with pytest.raises(TypeError):
+        mfa_astp.fused_mfa_astp(*xs, **targs)
+
+
+def test_ecapa_kernel_path_matches_plain_path(cuda):
+    """ECAPA_TDNN_GLOB_c512 in eval: the kernel path (fused) against the
+    layer-by-layer path on the same card, f32 with a ragged mask."""
+    from wespeaker_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN
+
+    torch.manual_seed(0)
+    model = ECAPA_TDNN(512, 80, 192, global_context_att=True).to(cuda).eval()
+    rng = np.random.default_rng(4)
+    x = torch.as_tensor(rng.standard_normal((3, 150, 80)).astype(np.float32),
+                        device=cuda)
+    mask = torch.ones(3, 150, device=cuda)
+    mask[1, 120:] = 0
+    with torch.inference_mode():
+        s0 = se_block.fused_se_res2_block.launches
+        t0 = mfa_astp.fused_mfa_astp.launches
+        got = model(x, mask)
+        assert se_block.fused_se_res2_block.launches == s0 + 3
+        assert mfa_astp.fused_mfa_astp.launches == t0 + 1
+        want = model.set_fused(False)(x, mask)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -1,0 +1,83 @@
+"""The port stands alone: no file of wespeaker_tpu_torch/, nor
+chip_smoke.py, imports JAX, flax, optax or the JAX package; and its entry
+points refuse to run when no card is present unless the caller asks for
+the CPU."""
+
+import ast
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "wespeaker_tpu")
+
+
+def _port_files():
+    files = sorted((REPO / "wespeaker_tpu_torch").rglob("*.py"))
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield node.args[0].value
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    files = _port_files()
+    assert len(files) > 20 and files[-1].exists()
+    bad = []
+    for path in files:
+        for name in _imported(ast.parse(path.read_text(), str(path))):
+            if name.split(".")[0] in FORBIDDEN:
+                bad.append(f"{path.relative_to(REPO)}: {name}")
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card, tmp_path):
+    from wespeaker_tpu_torch.bin import serve
+    from wespeaker_tpu_torch.device import resolve_device
+    from wespeaker_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN
+    from wespeaker_tpu_torch.serving import EmbeddingServer
+    from wespeaker_tpu_torch.train import make_eval_embed_fn
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_eval_embed_fn(ECAPA_TDNN(64, 24, 16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EmbeddingServer({}, "", port=0,
+                        embed_fn=lambda w, m: np.zeros((len(w), 4)))
+    cfg = tmp_path / "conf.yaml"
+    cfg.write_text("model: ECAPA_TDNN\nmodel_args: {channels: 64}\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--config", str(cfg), "--checkpoint", "none.pt",
+                    "--port", "0"])
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    """Neither wrapper drops to its plain version for anything but a CPU
+    tensor."""
+    from wespeaker_tpu_torch.ops.mfa_astp import fused_mfa_astp
+    from wespeaker_tpu_torch.ops.se_block import fused_se_res2_block
+
+    x = torch.empty(1, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_se_res2_block(x, *([x] * 16), dilation=2)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_mfa_astp(x, x, x, *([x] * 6))

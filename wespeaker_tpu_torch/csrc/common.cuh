@@ -1,0 +1,328 @@
+// Pieces shared by the SE-Res2 block and the MFA+ASTP tail kernels.
+//
+// - gemm: C[M, N] = epilogue(sum_p A_p[M, Kp] @ W[p*Kp:(p+1)*Kp, N]) with up
+//   to three A operands read as K-slices of one product (a concat that is
+//   never materialised). bf16 runs on the tensor cores through WMMA
+//   (16x16x16 bf16 fragments, f32 accumulation); f32 runs on the CUDA cores
+//   with FMA, so it stays exact f32 (no TF32). The epilogue adds a column
+//   bias and/or a per-utterance row bias, applies relu/tanh/sigmoid and an
+//   optional per-column affine (folded BatchNorm), and stores in the
+//   output type.
+// - col_stats: masked mean (and unbiased std + 1e-7) over T of (B, T, C),
+//   one thread per (utterance, channel).
+//
+// Kernels launch on the caller's stream, allocate nothing and do not
+// synchronise; each host launcher returns cudaGetLastError().
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstddef>
+#include <type_traits>
+
+namespace ws {
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as torch and XLA
+}
+
+enum Act { kNone = 0, kRelu = 1, kTanh = 2, kSigmoid = 3 };
+
+struct GemmArgs {
+  const void* a[3];  // A operands, each (m, kp) row-major
+  int nparts;
+  int kp;
+  const void* w;  // (nparts * kp, n) row-major
+  void* out;      // (m, n) row-major
+  int m;
+  int n;
+  const float* bias;      // (n) or null
+  const float* row_bias;  // (m / rows_per_group, n) or null
+  int rows_per_group;
+  int act;
+  const float* scale;  // (n) or null; with shift: v * scale + shift
+  const float* shift;
+};
+
+__device__ __forceinline__ float epilogue(const GemmArgs& p, int row, int col,
+                                          float acc) {
+  float v = acc;
+  if (p.bias) v += p.bias[col];
+  if (p.row_bias)
+    v += p.row_bias[(size_t)(row / p.rows_per_group) * p.n + col];
+  if (p.act == kRelu) {
+    v = fmaxf(v, 0.f);
+  } else if (p.act == kTanh) {
+    v = tanhf(v);
+  } else if (p.act == kSigmoid) {
+    v = 1.f / (1.f + expf(-v));
+  }
+  if (p.scale) v = v * p.scale[col] + p.shift[col];
+  return v;
+}
+
+// A select, not a dynamic index into p.a, keeps the kernel argument out of
+// local memory.
+__device__ __forceinline__ const void* part_ptr(const GemmArgs& p, int part) {
+  return part == 0 ? p.a[0] : (part == 1 ? p.a[1] : p.a[2]);
+}
+
+// ---- f32 GEMM on the CUDA cores: 128x128 block tile, 8x8 per thread ----
+
+constexpr int kFBM = 128, kFBN = 128, kFBK = 16;
+
+template <typename OutT>
+__global__ void __launch_bounds__(256) gemm_fma_kernel(GemmArgs p) {
+  __shared__ float as[kFBK][kFBM + 4];
+  __shared__ float bs[kFBK][kFBN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.y * kFBM, col0 = blockIdx.x * kFBN;
+  const int k_total = p.nparts * p.kp;
+  const float* w = static_cast<const float*>(p.w);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < k_total; k0 += kFBK) {
+    const int part = k0 / p.kp;
+    const int kk0 = k0 - part * p.kp;
+    const float* a = static_cast<const float*>(part_ptr(p, part));
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int idx = tid + i * 256;
+      const int r = idx / kFBK, kk = idx % kFBK;
+      const int grow = row0 + r;
+      as[kk][r] = grow < p.m ? a[(size_t)grow * p.kp + kk0 + kk] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int idx = tid + i * 256;
+      const int kk = idx / kFBN, c = idx % kFBN;
+      bs[kk][c] = w[(size_t)(k0 + kk) * p.n + col0 + c];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kFBK; ++kk) {
+      float av[8], bv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) av[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bv[j] = bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  OutT* out = static_cast<OutT*>(p.out);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= p.m) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = col0 + tx + 16 * j;
+      out[(size_t)row * p.n + col] = from_f<OutT>(epilogue(p, row, col,
+                                                           acc[i][j]));
+    }
+  }
+}
+
+// ---- bf16 GEMM on the tensor cores (WMMA): 128x128x32 block tile,
+//      8 warps as 4 x 2, each warp 32 x 64 = 2 x 4 fragments ----
+
+constexpr int kWBM = 128, kWBN = 128, kWBK = 32;
+constexpr int kALd = kWBK + 8;  // bf16 elements; multiple of 8 for WMMA
+constexpr int kBLd = kWBN + 8;
+
+template <typename OutT>
+__global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
+  using namespace nvcuda;
+  __shared__ __align__(32) __nv_bfloat16 as[kWBM * kALd];
+  __shared__ __align__(32) __nv_bfloat16 bs[kWBK * kBLd];
+  __shared__ __align__(32) float cs[8][16 * 16];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp / 2, wc = warp % 2;
+  const int row0 = blockIdx.y * kWBM, col0 = blockIdx.x * kWBN;
+  const int k_total = p.nparts * p.kp;
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = 0; k0 < k_total; k0 += kWBK) {
+    const int part = k0 / p.kp;
+    const int kk0 = k0 - part * p.kp;
+    const __nv_bfloat16* a =
+        static_cast<const __nv_bfloat16*>(part_ptr(p, part));
+    // A tile: 128 rows x 4 chunks of 8 bf16 (16 bytes)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * 256;
+      const int r = idx / 4, ch = idx % 4;
+      const int grow = row0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (grow < p.m)
+        v = *reinterpret_cast<const uint4*>(a + (size_t)grow * p.kp + kk0 +
+                                            ch * 8);
+      *reinterpret_cast<uint4*>(&as[r * kALd + ch * 8]) = v;
+    }
+    // W tile: 32 rows x 16 chunks of 8 bf16
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * 256;
+      const int r = idx / 16, ch = idx % 16;
+      *reinterpret_cast<uint4*>(&bs[r * kBLd + ch * 8]) =
+          *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * p.n + col0 +
+                                          ch * 8);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          af[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          bf[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(af[i], &as[(wr * 32 + i * 16) * kALd + kk],
+                               kALd);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(bf[j], &bs[kk * kBLd + wc * 64 + j * 16],
+                               kBLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  OutT* out = static_cast<OutT*>(p.out);
+  float* c = cs[warp];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(c, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int row = row0 + wr * 32 + i * 16 + e / 16;
+        const int col = col0 + wc * 64 + j * 16 + e % 16;
+        if (row < p.m)
+          out[(size_t)row * p.n + col] =
+              from_f<OutT>(epilogue(p, row, col, c[e]));
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// T: operand type (float or __nv_bfloat16); OutT: output type.
+// Requires n % 128 == 0 and kp % 32 == 0 (checked here and by the Python
+// wrappers, which only pass the model's widths).
+template <typename T, typename OutT>
+cudaError_t gemm(const GemmArgs& p, cudaStream_t stream) {
+  if (p.n % 128 || p.kp % 32 || p.m <= 0 || p.nparts < 1 || p.nparts > 3)
+    return cudaErrorInvalidValue;
+  const dim3 grid(p.n / 128, (p.m + 127) / 128);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    gemm_wmma_kernel<OutT><<<grid, 256, 0, stream>>>(p);
+  } else {
+    static_assert(std::is_same<T, float>::value, "f32 or bf16 operands");
+    gemm_fma_kernel<OutT><<<grid, 256, 0, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+inline GemmArgs gemm_args(const void* a0, const void* a1, const void* a2,
+                          int nparts, int kp, const void* w, void* out, int m,
+                          int n, int act) {
+  GemmArgs p{};
+  p.a[0] = a0;
+  p.a[1] = a1;
+  p.a[2] = a2;
+  p.nparts = nparts;
+  p.kp = kp;
+  p.w = w;
+  p.out = out;
+  p.m = m;
+  p.n = n;
+  p.act = act;
+  p.rows_per_group = 1;
+  return p;
+}
+
+// ---- masked mean / unbiased std over T ----
+
+// h: (b, t, c); mask: (b, t) f32 or null. mean_out/std_out: (b, c) in T.
+// mean = sum(h * m) / max(sum(m), 1)   (plain mean over t when unmasked)
+// std  = sqrt(sum((h - mean)^2 * m) / max(count - 1, 1) + 1e-7)
+template <typename T>
+__global__ void col_stats_kernel(const T* __restrict__ h,
+                                 const float* __restrict__ mask,
+                                 T* __restrict__ mean_out,
+                                 T* __restrict__ std_out, int t, int c) {
+  const int b = blockIdx.y;
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= c) return;
+  const T* hb = h + (size_t)b * t * c + col;
+  const float* mb = mask ? mask + (size_t)b * t : nullptr;
+  float s = 0.f, cnt = 0.f;
+  for (int i = 0; i < t; ++i) {
+    const float m = mb ? mb[i] : 1.f;
+    s += to_f(hb[(size_t)i * c]) * m;
+    cnt += m;
+  }
+  const float denom = mb ? fmaxf(cnt, 1.f) : (float)t;
+  const float mean = s / denom;
+  mean_out[(size_t)b * c + col] = from_f<T>(mean);
+  if (!std_out) return;
+  float q = 0.f;
+  for (int i = 0; i < t; ++i) {
+    const float m = mb ? mb[i] : 1.f;
+    const float dv = to_f(hb[(size_t)i * c]) - mean;
+    q += dv * dv * m;
+  }
+  std_out[(size_t)b * c + col] =
+      from_f<T>(sqrtf(q / fmaxf(denom - 1.f, 1.f) + 1e-7f));
+}
+
+template <typename T>
+cudaError_t col_stats(const T* h, const float* mask, T* mean_out, T* std_out,
+                      int b, int t, int c, cudaStream_t stream) {
+  const dim3 grid((c + 127) / 128, b);
+  col_stats_kernel<T><<<grid, 128, 0, stream>>>(h, mask, mean_out, std_out,
+                                                t, c);
+  return cudaGetLastError();
+}
+
+}  // namespace ws
+
+extern "C" const char* ws_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,15 @@
+"""Speaker-model registry: `get_speaker_model(name)` returns a constructor
+`f(feat_dim=..., embed_dim=..., **kwargs) -> nn.Module`, as in
+wespeaker_tpu/models/__init__.py. Only the ECAPA family is ported so far."""
+
+from wespeaker_tpu_torch.models import ecapa_tdnn
+
+_MODULES = [ecapa_tdnn]
+
+
+def get_speaker_model(model_name: str):
+    for mod in _MODULES:
+        fn = getattr(mod, model_name, None)
+        if fn is not None:
+            return fn
+    raise KeyError(f"unknown or not yet ported speaker model: {model_name}")

@@ -1,0 +1,52 @@
+"""Shared building blocks for the speaker models.
+
+Counterpart of wespeaker_tpu/models/layers.py. Activations are channels-last,
+(B, T, C), as in the JAX package; parameters keep the upstream torch modules
+(`nn.Conv1d` weight (O, I, K)), so upstream state_dicts load unchanged.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
+    """Run `conv` on channels-last x (B, T, C_in) -> (B, T, C_out), in x's
+    dtype (parameters are cast to it)."""
+    w = conv.weight.to(x.dtype)
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = F.conv1d(x.transpose(1, 2), w, b, stride=conv.stride,
+                 padding=conv.padding, dilation=conv.dilation,
+                 groups=conv.groups)
+    return y.transpose(1, 2)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
+    """`bn` on channels-last x (B, T, C) or (B, C). Statistics and affine in
+    f32, result in x's dtype."""
+    y = x.float()
+    if y.dim() == 3:
+        y = y.transpose(1, 2)
+    y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                     training=bn.training, momentum=bn.momentum, eps=bn.eps)
+    if y.dim() == 3:
+        y = y.transpose(1, 2)
+    return y.to(x.dtype)
+
+
+def fold_bn(bn: nn.BatchNorm1d):
+    """Eval-mode BN as f32 (scale, shift): y = x * scale + shift."""
+    scale = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)
+    return scale, bn.bias.float() - bn.running_mean.float() * scale
+
+
+def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int,
+                keepdim: bool = False) -> torch.Tensor:
+    """Mean over `dim` counting only mask==1 positions; mask broadcasts to x."""
+    if mask is None:
+        return x.mean(dim=dim, keepdim=keepdim)
+    total = (x * mask).sum(dim=dim, keepdim=keepdim)
+    count = mask.sum(dim=dim, keepdim=keepdim)
+    return total / torch.clamp(count, min=1.0)

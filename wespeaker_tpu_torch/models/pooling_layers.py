@@ -1,0 +1,91 @@
+"""Temporal pooling: frame-level features -> utterance-level statistics.
+
+Counterpart of wespeaker_tpu/models/pooling_layers.py. Layout (B, T, D);
+every pooling takes an optional (B, T) frame-validity mask so padded
+batches pool exactly like the unpadded batch=1 path. Only ASTP (with and
+without global context) is ported so far.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from wespeaker_tpu_torch.models.layers import conv1d, masked_mean
+
+_NEG_INF = -1e30
+
+
+def _mask3(mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if mask is None else mask[..., None]
+
+
+def _std(x: torch.Tensor, mask: Optional[torch.Tensor], ddof: int):
+    """Masked mean and std over T; std = sqrt(var + 1e-7) with
+    var = sum((x - mean)^2) / max(count - ddof, 1) (torch.var's unbiased
+    default at ddof=1)."""
+    m = _mask3(mask)
+    mean = masked_mean(x, m, dim=1, keepdim=True)
+    sq = (x - mean) ** 2
+    if m is not None:
+        sq = sq * m
+        count = m.sum(dim=1)
+    else:
+        count = torch.tensor(float(x.shape[1]), dtype=x.dtype,
+                             device=x.device)
+    var = sq.sum(dim=1) / torch.clamp(count - ddof, min=1.0)
+    return mean.squeeze(1), torch.sqrt(var + 1e-7)
+
+
+class ASTP(nn.Module):
+    """Attentive statistics pooling (ECAPA-TDNN), optional global context.
+    Upstream parameter names: linear1 / linear2 (k=1 Conv1d)."""
+
+    def __init__(self, in_dim: int, bottleneck_dim: int = 128,
+                 global_context_att: bool = False):
+        super().__init__()
+        self.global_context_att = global_context_att
+        k_in = 3 * in_dim if global_context_att else in_dim
+        self.linear1 = nn.Conv1d(k_in, bottleneck_dim, kernel_size=1)
+        self.linear2 = nn.Conv1d(bottleneck_dim, in_dim, kernel_size=1)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.global_context_att:
+            ctx_mean, ctx_std = _std(x, mask, ddof=1)
+            # linear1 over concat([x, mean, std]) without materialising the
+            # (B, T, 3C) concat: the context rows of the k=1 kernel reduce
+            # to a per-utterance bias broadcast over T
+            c = x.shape[-1]
+            k = self.linear1.weight[:, :, 0].t().to(x.dtype)  # (3C, A)
+            ctx = (ctx_mean.to(x.dtype) @ k[c:2 * c]
+                   + ctx_std.to(x.dtype) @ k[2 * c:]
+                   + self.linear1.bias.to(x.dtype))
+            alpha = torch.tanh(x @ k[:c] + ctx[:, None, :])
+        else:
+            alpha = torch.tanh(conv1d(x, self.linear1))
+        alpha = conv1d(alpha, self.linear2)
+        if mask is not None:
+            alpha = torch.where(mask[..., None] > 0, alpha,
+                                torch.full_like(alpha, _NEG_INF))
+        alpha = torch.softmax(alpha, dim=1)
+        mean = (alpha * x).sum(dim=1)
+        var = (alpha * x ** 2).sum(dim=1) - mean ** 2
+        std = torch.sqrt(torch.clamp(var, min=1e-7))
+        return torch.cat([mean, std], dim=-1)
+
+
+_POOLINGS = {"ASTP": ASTP}
+
+
+def get_pooling(name: str, in_dim: int, **kwargs) -> nn.Module:
+    if name not in _POOLINGS:
+        raise KeyError(f"pooling {name} is not ported yet; "
+                       f"ported: {sorted(_POOLINGS)}")
+    return _POOLINGS[name](in_dim, **kwargs)
+
+
+def pooling_out_dim(name: str, in_dim: int) -> int:
+    if name not in _POOLINGS:
+        raise KeyError(f"pooling {name} is not ported yet")
+    return 2 * in_dim

@@ -1,0 +1,192 @@
+"""ECAPA's MFA conv + attentive statistics pooling tail as a CUDA kernel.
+
+Replaces the Pallas kernel wespeaker_tpu/ops/mfa_astp_pallas.py
+(`fused_mfa_astp`, pallas_call at :191; `_tail_kernel`, `_tail_math`). It
+computes, per utterance:
+
+    h      = relu(concat(x2, x3, x4) @ wm + bm)     (T, D), D = 1536
+    ctx    = mean_T(h) @ k1m + std_T(h) @ k1s + b1   global context (glob)
+    logits = tanh(h @ k1x + ctx) @ k2 + b2           (T, D)
+    w      = softmax over T of logits (masked frames at -1e30)
+    out    = [sum_T w h | sqrt(max(sum_T w h^2 - mean^2, 1e-7))]   (2D,)
+
+with f32 accumulation; h and the tanh activations are stored in the input
+type, as the JAX kernel rounds them.
+
+Bound on an H100 at the flagship shape (B=512, T=200, C=512, bf16): about
+564 GFLOP (the MFA GEMM alone is 483) and 315 MB of x2, x3, x4 read, so
+about 0.57 ms at 989 TFLOP/s: compute-bound. The design: h is
+(200, 1536) per utterance, 600 KB in bf16, and the logits depend on the
+context statistics of h over all T, so h cannot stay on chip as it did in
+the TPU's VMEM. The tail is split into launches with h, the tanh
+activations and the f32 logits in device memory:
+  1. the MFA GEMM reads x2, x3, x4 as three K-slices of one product (the
+     concat never exists), + bias + relu;
+  2. context mean and unbiased std over T, one thread per channel;
+  3. the context rows of linear1 as a small GEMM giving a per-utterance
+     bias (glob only);
+  4. h @ k1x + that bias, tanh;
+  5. @ k2 + b2 -> f32 logits;
+  6. softmax over T and the weighted mean and std, one thread per
+     (utterance, channel), two passes over T.
+The GEMMs use WMMA tensor cores for bf16 and CUDA-core FMA for exact f32.
+Keeping h on chip (T tiles, online softmax) and wgmma are later work.
+"""
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from wespeaker_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+_CHANNELS = (512, 1024)
+_MFA_DIM = 1536
+_ATT_DIM = 128
+
+
+def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w with w rounded to a's type and f32 accumulation."""
+    return torch.matmul(a.float(), w.to(a.dtype).float())
+
+
+def _tail_math(parts, mask, wm, bm, k1x, k1m, k1s, b1, k2, b2, *,
+               glob: bool, io_dtype):
+    """parts = [x2, x3, x4] (B, T, C); mask (B, T) f32 or None. Returns
+    (B, 2D) f32 pooled [mean | std]."""
+    c = parts[0].shape[-1]
+    t = parts[0].shape[1]
+    acc = bm.float()
+    for i, p in enumerate(parts):
+        acc = acc + _dot(p, wm[i * c:(i + 1) * c])
+    h = torch.relu(acc).to(io_dtype)
+    hf = h.float()
+    if mask is not None:
+        m3 = mask[..., None]
+        cnt = torch.clamp(m3.sum(dim=1, keepdim=True), min=1.0)
+    if glob:
+        # unbiased context stats over valid frames (pooling_layers._std)
+        if mask is not None:
+            cmean = (hf * m3).sum(dim=1, keepdim=True) / cnt
+            sq = ((hf - cmean) ** 2) * m3
+            cvar = sq.sum(dim=1) / torch.clamp(cnt.squeeze(1) - 1.0,
+                                               min=1.0)
+        else:
+            cmean = hf.mean(dim=1, keepdim=True)
+            cvar = ((hf - cmean) ** 2).sum(dim=1) / max(t - 1, 1)
+        cstd = torch.sqrt(cvar + 1e-7)
+        ctx = (_dot(cmean.squeeze(1).to(io_dtype), k1m)
+               + _dot(cstd.to(io_dtype), k1s) + b1.float())
+        alpha = torch.tanh(_dot(h, k1x) + ctx[:, None, :])
+    else:
+        alpha = torch.tanh(_dot(h, k1x) + b1.float())
+    alpha = _dot(alpha.to(io_dtype), k2) + b2.float()  # f32 logits
+    if mask is not None:
+        alpha = torch.where(m3 > 0, alpha, torch.full_like(alpha, _NEG_INF))
+    alpha = alpha - alpha.amax(dim=1, keepdim=True)
+    e = torch.exp(alpha)
+    w = e / e.sum(dim=1, keepdim=True)
+    mean = (w * hf).sum(dim=1)
+    var = (w * hf * hf).sum(dim=1) - mean * mean
+    std = torch.sqrt(torch.clamp(var, min=1e-7))
+    return torch.cat([mean, std], dim=-1)
+
+
+def mfa_astp_reference(x2, x3, x4, wm, bm, k1, b1, k2, b2,
+                       mask: Optional[torch.Tensor] = None,
+                       glob: bool = True):
+    """Plain PyTorch tail with the contract of fused_mfa_astp."""
+    d = wm.shape[-1]
+    if glob:
+        k1x, k1m, k1s = k1[:d], k1[d:2 * d], k1[2 * d:]
+    else:
+        k1x, k1m, k1s = k1, None, None
+    m = None if mask is None else mask.float()
+    return _tail_math([x2, x3, x4], m, wm, bm, k1x, k1m, k1s, b1, k2, b2,
+                      glob=glob, io_dtype=x2.dtype)
+
+
+def _check_cuda_args(x2, x3, x4, wm, k1, k2, mask, glob):
+    b, t, c = x2.shape
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_mfa_astp takes f32 or bf16, not {x2.dtype}")
+    if x3.shape != x2.shape or x4.shape != x2.shape or len({
+            x2.dtype, x3.dtype, x4.dtype}) != 1:
+        raise ValueError("x2, x3, x4 must share shape and dtype")
+    want_k1 = ((3 if glob else 1) * _MFA_DIM, _ATT_DIM)
+    if (c not in _CHANNELS or tuple(wm.shape) != (3 * c, _MFA_DIM)
+            or tuple(k1.shape) != want_k1
+            or tuple(k2.shape) != (_ATT_DIM, _MFA_DIM)):
+        raise ValueError(
+            f"fused_mfa_astp takes C in {_CHANNELS}, wm (3C, {_MFA_DIM}), "
+            f"k1 {want_k1}, k2 ({_ATT_DIM}, {_MFA_DIM}); got x "
+            f"{tuple(x2.shape)}, wm {tuple(wm.shape)}, k1 {tuple(k1.shape)},"
+            f" k2 {tuple(k2.shape)}")
+    if mask is not None and tuple(mask.shape) != (b, t):
+        raise ValueError(f"mask {tuple(mask.shape)} != {(b, t)}")
+
+
+def fused_mfa_astp(x2, x3, x4, wm, bm, k1, b1, k2, b2,
+                   mask: Optional[torch.Tensor] = None, glob: bool = True):
+    """x2/x3/x4: (B, T, C) SE-Res2 block outputs. wm: (3C, D) MFA conv
+    weight, bm: (D,). k1: ASTP linear1 kernel, (3D, A) when glob (row
+    slices [x, ctx_mean, ctx_std]) else (D, A); b1: (A,). k2: (A, D),
+    b2: (D,). mask: optional (B, T) frame validity. Returns (B, 2D) f32
+    pooled [mean | std].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel, or raises for a shape or type it does not take."""
+    if x2.device.type == "cpu":
+        return mfa_astp_reference(x2, x3, x4, wm, bm, k1, b1, k2, b2,
+                                  mask=mask, glob=glob)
+    if x2.device.type != "cuda":
+        raise ValueError(f"fused_mfa_astp: no kernel for {x2.device}")
+    _check_cuda_args(x2, x3, x4, wm, k1, k2, mask, glob)
+    b, t, c = x2.shape
+    d, a = _MFA_DIM, _ATT_DIM
+    io = x2.dtype
+    dev = x2.device
+
+    def io_(v):
+        return v.to(device=dev, dtype=io).contiguous()
+
+    def f32(v):
+        return v.to(device=dev, dtype=torch.float32).contiguous()
+
+    xs = [v.contiguous() for v in (x2, x3, x4)]
+    # glob: k1 rows [x | ctx_mean | ctx_std]; the last two are one
+    # (2D, A) operand of the context GEMM
+    k1x, k1ms = (io_(k1[:d]), io_(k1[d:])) if glob else (io_(k1), None)
+    wts = [io_(wm), f32(bm), k1x, f32(b1), io_(k2), f32(b2)]
+    m = None if mask is None else f32(mask)
+    h = torch.empty((b, t, d), device=dev, dtype=io)
+    cstats = torch.empty((2, b, d), device=dev, dtype=io)
+    ctx = torch.empty((b, a), device=dev, dtype=torch.float32)
+    att = torch.empty((b, t, a), device=dev, dtype=io)
+    logits = torch.empty((b, t, d), device=dev, dtype=torch.float32)
+    out = torch.empty((b, 2 * d), device=dev, dtype=torch.float32)
+
+    lib = _lib()
+    ptr = _build.pointers(xs + wts + [h, cstats, ctx, att, logits, out])
+    rc = lib.ws_mfa_astp(
+        *ptr[:3], None if m is None else m.data_ptr(), *ptr[3:6],
+        None if k1ms is None else _build.pointers([k1ms])[0], *ptr[6:],
+        b, t, c, d, a, int(glob), int(io == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "fused_mfa_astp")
+    fused_mfa_astp.launches += 1
+    return out
+
+
+fused_mfa_astp.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("mfa_astp")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ws_mfa_astp.argtypes = [p] * 17 + [i] * 7 + [p]
+    lib.ws_mfa_astp.restype = i
+    return lib
