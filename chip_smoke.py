@@ -8,22 +8,51 @@ itself on the card.
 Phases, each printing one line:
   1. device   the card's name and power limit (nvidia-smi) and the time to
               build the CUDA kernels from csrc/ into build/;
-  2. kernels  each kernel against its plain PyTorch version on the card at
-              the flagship width (C=512): bf16 unmasked at T=200 (cosine
-              >= 0.9999) and f32 masked at T=198 (TF32 off, rtol/atol
-              1e-4);
-  3. slice    ECAPA_TDNN_GLOB_c512 at full width with random weights and
+  2. kernels  each inference kernel against its plain PyTorch version on
+              the card at the flagship width (C=512): bf16 unmasked at
+              T=200 (cosine >= 0.9999) and f32 masked at T=198 (TF32 off,
+              rtol/atol 1e-4);
+  3. train kernels  the training tail's forward kernel against its plain
+              version on all four outputs (pooled, h, att, cstats), and
+              its backward kernel against the plain backward and against
+              autograd through the plain forward, at B=64, C=512: bf16 at
+              T=200 (cosine >= 0.9999 per output) and f32 at T=198
+              (rtol/atol 1e-4, each gradient scaled by its largest
+              magnitude), except db1 against bf16 autograd (cosine >=
+              0.99, see phase_train_kernels); db2 must be exactly zero;
+  4. slice    ECAPA_TDNN_GLOB_c512 at full width with random weights and
               randomised BN statistics from a seed: make_eval_embed_fn in
               bf16 over 2 s chunks (32,240 samples), the kernel path
               against the layer-by-layer plain path (cosine >= 0.9999);
               the SE kernel must launch 3 times and the tail kernel once;
-  4. serving  an EmbeddingServer on port 0 answers concurrent /embed
+  5. serving  an EmbeddingServer on port 0 answers concurrent /embed
               requests of 1 to 3 s and one /similarity; each reply against
               the port's own batch=1 forward (cosine >= 0.9999); both
-              kernels must have launched;
-  5. timing   CUDA events after warm-up at B=512, T=200, C=512, bf16: each
-              kernel and its plain version, with the bound from the shapes
-              (989 TFLOP/s bf16, 3.35 TB/s); extraction audio-s/s at B=512.
+              inference kernels must have launched;
+  6. train step  ECAPA_TDNN_GLOB_c512 + ArcMargin over 17,982 classes,
+              B=64, bf16 AMP, dither and spec-aug: 3 steps must be finite
+              and launch each train kernel once per step and no inference
+              kernel; then one step of the kernel path and one of the
+              plain path from the same initial weights without
+              randomness, in bf16 and in f32 (TF32 off): the loss within
+              1e-3 relative and each layer's update (its parameters as one
+              vector) at cosine >= 0.999;
+  7. trainer  bin/train.py at full width on a synthetic corpus written
+              from the seed (12 speakers x 4 utterances of 2.5-4 s): bf16,
+              batch 32 x 200 frames, speed perturb, one epoch of 3 steps;
+              it must log, write model_0.pt and final_model.pt and launch
+              both train kernels 3 times; the extractor loads the
+              checkpoint and embeds one utterance;
+  8. timing   CUDA events after warm-up at B=512, T=200, C=512, bf16: each
+              inference kernel and its plain version, with the bound from
+              the shapes (bin/kernel_bounds.py: 989 TFLOP/s bf16, 3.35
+              TB/s); extraction
+              audio-s/s at B=512;
+  9. train timing  the train kernels and their plain versions at B=256,
+              T=200, C=512, bf16, with bounds; train-step audio-s/s at
+              bench.py's train config (B=256, 2 s chunks, bf16, dither,
+              spec-aug, ArcMargin 17,982, SGD) on the kernel path and the
+              plain path (fused=False).
 Then one JSON line of per-kernel results and, last, the result line. Any
 failure raises and exits non-zero; without a GPU the script exits 1.
 """
@@ -42,20 +71,51 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
+from wespeaker_tpu_torch.bin.extract import load_model_for_eval  # noqa: E402
+from wespeaker_tpu_torch.bin.kernel_bounds import bound  # noqa: E402
+from wespeaker_tpu_torch.data.wav_io import write_wav  # noqa: E402
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
 from wespeaker_tpu_torch.models.ecapa_tdnn import (  # noqa: E402
     ECAPA_TDNN_GLOB_c512)
-from wespeaker_tpu_torch.ops import _build, mfa_astp, se_block  # noqa: E402
+from wespeaker_tpu_torch.models.projections import (  # noqa: E402
+    ArcMarginProduct)
+from wespeaker_tpu_torch.ops import (_build, mfa_astp,  # noqa: E402
+                                     mfa_astp_vjp, se_block)
 from wespeaker_tpu_torch.serving import EmbeddingServer  # noqa: E402
-from wespeaker_tpu_torch.train import make_eval_embed_fn  # noqa: E402
+from wespeaker_tpu_torch.train import (AugConfig,  # noqa: E402
+                                       build_train_state, make_eval_embed_fn,
+                                       make_train_step)
+from wespeaker_tpu_torch.utils.config import load_yaml  # noqa: E402
+from wespeaker_tpu_torch.utils.schedulers import (  # noqa: E402
+    ExponentialDecrease, MarginScheduler)
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 B, T, C = 512, 200, 512
 SLICE_BATCH = 64
 CHUNK_SAMPLES = (200 - 1) * 160 + 400  # 32,240 samples: 200 frames
 CHUNK_SECONDS = 2.0                     # counted as bench.py counts them
 SEED = 0
+# the train step of bench.py: ArcMargin over 5,994 VoxCeleb2 speakers x 3
+# speed-perturb classes, SGD with momentum 0.9, at B=256
+NUM_CLASS = 17982
+TRAIN_BATCH = 256
+TRAINER_BATCH = 32   # bin/train.py phase: 3 steps of it
+B2 = "pool.linear2.bias"  # its exact gradient is 0: a softmax shift
+SGD_CONF = {"optimizer": "SGD", "optimizer_args": {
+    "momentum": 0.9, "nesterov": False, "weight_decay": 0.0}}
+COUNTERS = {"se": se_block.fused_se_res2_block,
+            "tail": mfa_astp.fused_mfa_astp,
+            "train_fwd": mfa_astp_vjp.mfa_astp_train_fwd,
+            "train_bwd": mfa_astp_vjp.mfa_astp_train_bwd}
+
+
+def zero_counts():
+    for fn in COUNTERS.values():
+        fn.launches = 0
+
+
+def counts():
+    return {k: fn.launches for k, fn in COUNTERS.items()}
 
 
 def cosine(a, b):
@@ -180,15 +240,13 @@ def phase_slice(model, dev):
     embed = make_eval_embed_fn(model, FbankConfig(),
                                compute_dtype=torch.bfloat16,
                                fbank_conv_dtype=torch.bfloat16, device=dev)
-    se_block.fused_se_res2_block.launches = 0
-    mfa_astp.fused_mfa_astp.launches = 0
+    zero_counts()
     emb = embed({"wav": wav})
     torch.cuda.synchronize()
-    launches = {"se": se_block.fused_se_res2_block.launches,
-                "tail": mfa_astp.fused_mfa_astp.launches}
-    if launches != {"se": 3, "tail": 1}:
+    launches = counts()
+    if launches != {"se": 3, "tail": 1, "train_fwd": 0, "train_bwd": 0}:
         raise AssertionError(f"main path launches {launches}, want SE 3 "
-                             "and tail 1 per forward")
+                             "and tail 1 per forward, no train kernel")
     assert emb.shape == (SLICE_BATCH, 192) and torch.isfinite(emb).all()
     plain = make_eval_embed_fn(model.set_fused(False), FbankConfig(),
                                compute_dtype=torch.bfloat16,
@@ -230,8 +288,7 @@ def phase_serving(model, dev):
             url = f"http://127.0.0.1:{server.port}"
             with urllib.request.urlopen(f"{url}/health", timeout=60) as r:
                 assert json.load(r)["status"] == "ok"
-            se_block.fused_se_res2_block.launches = 0
-            mfa_astp.fused_mfa_astp.launches = 0
+            zero_counts()
             with concurrent.futures.ThreadPoolExecutor(len(wavs)) as ex:
                 replies = list(ex.map(
                     lambda w: _post(f"{url}/embed", {"wav": w.tolist(),
@@ -239,11 +296,10 @@ def phase_serving(model, dev):
                     wavs))
             sim = _post(f"{url}/similarity",
                         {"wav1": wavs[0].tolist(), "wav2": wavs[3].tolist()})
-            launches = {"se": se_block.fused_se_res2_block.launches,
-                        "tail": mfa_astp.fused_mfa_astp.launches}
+            launches = counts()
         finally:
             server.close()
-    if min(launches.values()) < 1:
+    if min(launches["se"], launches["tail"]) < 1:
         raise AssertionError(f"serving did not reach the kernels: {launches}")
     single = make_eval_embed_fn(model, FbankConfig(), device=dev)
     cos, refs = [], []
@@ -274,12 +330,6 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def _nbytes(tensors, io):
@@ -337,6 +387,345 @@ def phase_timing(model, dev, smi):
     return res
 
 
+def scaled_compare(got, want, dtype, cos_min=0.9999):
+    """A gradient against its plain version: f32 scaled by the plain
+    one's largest magnitude at rtol/atol 1e-4 (sums over B*T rows in
+    another order), bf16 by cosine >= cos_min. Returns (max abs error,
+    cosine); raises outside the tolerance."""
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got.float() - want.float()).abs().max().item()
+    cos = cosine(got, want)
+    if dtype == torch.float32:
+        scale = max(want.abs().max().item(), 1e-3)
+        torch.testing.assert_close(got.float() / scale, want.float() / scale,
+                                   rtol=1e-4, atol=1e-4)
+    elif cos < cos_min:
+        raise AssertionError(f"cosine {cos} < {cos_min}")
+    return err, cos
+
+
+FWD_NAMES = ("pooled", "h", "att", "cstats")
+GRAD_NAMES = ("dx2", "dx3", "dx4", "dwm", "dbm", "dk1", "db1", "dk2")
+
+
+def phase_train_kernels(model, dev):
+    """The training tail's forward and backward kernels against their
+    plain versions at B=64, C=512: bf16 at T=200 and f32 at T=198. The
+    backward takes the plain forward's residuals, so both sides see the
+    same relu mask, and is also held against autograd through the plain
+    forward: at the same bars, but db1 in bf16 at cosine >= 0.99, since
+    autograd rounds datt to bf16 where the kernels (and the JAX kernel)
+    keep it in f32, and db1, a sum of dpre over B*T with cancellation,
+    shows it (0.998 at B=2 on the CPU, every other gradient >= 0.99999)."""
+    rng = np.random.default_rng(SEED + 4)
+    errs, parts = {}, []
+    for dtype, t in ((torch.bfloat16, T), (torch.float32, 198)):
+        xs, tw = tail_inputs(model, rng, SLICE_BATCH, t, dtype, dev)
+        wm, bm, k1, b1, k2, b2 = tw
+        got = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw, glob=True)
+        torch.cuda.synchronize()
+        want = mfa_astp_vjp.mfa_astp_train_fwd_reference(*xs, *tw, glob=True)
+        fwd = [compare(gv, wv, dtype) for gv, wv in zip(got, want)]
+        errs.setdefault("train_fwd", max(e for e, _ in fwd))
+        parts.append(f"train fwd {str(dtype)[6:]} T={t} " + " ".join(
+            f"{n}(err={e:.3g} cos={c:.7f})" for n, (e, c) in zip(FWD_NAMES,
+                                                                  fwd)))
+        g = torch.as_tensor(rng.standard_normal((SLICE_BATCH, 3072)).astype(
+            np.float32), device=dev)
+        pooled, h, att, cstats = want
+        res = (*xs, wm, k1, b2, k2, pooled, h, att, cstats, g)
+        grads = mfa_astp_vjp.mfa_astp_train_bwd(*res, glob=True)
+        torch.cuda.synchronize()
+        if grads[-1].abs().max().item() != 0.0:
+            raise AssertionError("db2 is not exactly zero")
+        plain = mfa_astp_vjp.mfa_astp_train_bwd_reference(*res, glob=True)
+        bwd = [scaled_compare(gv, wv, dtype)
+               for gv, wv in zip(grads[:-1], plain[:-1])]
+        ins = [v.clone().requires_grad_(True) for v in (*xs, *tw)]
+        out = mfa_astp_vjp.mfa_astp_train_reference(*ins, glob=True)
+        auto = torch.autograd.grad((out * g).sum(), ins)
+        vs_auto = [scaled_compare(gv, av.to(gv.dtype), dtype,
+                                  0.99 if n == "db1" else 0.9999)
+                   for n, gv, av in zip(GRAD_NAMES, grads[:-1], auto[:-1])]
+        errs.setdefault("train_bwd", max(e for e, _ in bwd))
+        parts.append(f"train bwd {str(dtype)[6:]} T={t} db2=0 " + " ".join(
+            f"{n}(err={e:.3g} cos={c:.7f} autograd cos={ca:.7f})"
+            for n, (e, c), (_, ca) in zip(GRAD_NAMES, bwd, vs_auto)))
+        del xs, got, want, grads, plain, ins, out, auto
+    print("train kernels: " + "; ".join(parts))
+    return errs
+
+
+def train_modules(dev):
+    """Full-width ECAPA_TDNN_GLOB_c512 and an ArcMargin head over
+    NUM_CLASS classes, torch's default init from SEED, with SGD."""
+    return build_train_state(
+        lambda: (ECAPA_TDNN_GLOB_c512(80, 192),
+                 ArcMarginProduct(192, NUM_CLASS)),
+        SGD_CONF, seed=SEED, device=dev)
+
+
+def bench_schedules(batch):
+    """bench.py's LR and margin schedules (VoxCeleb2 epoch length)."""
+    epoch_iter = 1092009 // batch
+    return (ExponentialDecrease(150, epoch_iter, 0.1, 5e-5, warm_up_epoch=6),
+            MarginScheduler(epoch_iter, 20, 40, 0.0, 0.2))
+
+
+def train_batch(rng, b, dev):
+    return {"wav": torch.as_tensor(rng.uniform(
+        -0.5, 0.5, (b, CHUNK_SAMPLES)).astype(np.float32), device=dev),
+        "label": torch.as_tensor(rng.integers(0, NUM_CLASS, b), device=dev)}
+
+
+def phase_train_step(dev):
+    """A few bf16 AMP train steps with dither and spec-aug on the kernel
+    path, one launch of each train kernel per step and none of the
+    inference kernels; then one step of each path from the same initial
+    weights without randomness, the updates compared layer by layer."""
+    model, proj, opt, gen = train_modules(dev)
+    rng = np.random.default_rng(SEED + 5)
+    batch = train_batch(rng, SLICE_BATCH, dev)
+    lr_fn, margin_fn = (lambda s: 0.1), (lambda s: 0.2)
+    step = make_train_step(model, proj, opt, lr_fn, margin_fn,
+                           FbankConfig(dither=1.0), AugConfig(),
+                           compute_dtype=torch.bfloat16, device=dev,
+                           generator=gen)
+    losses = []
+    zero_counts()
+    for i in range(3):
+        losses.append(float(step(batch)["loss"]))
+        want = {"se": 0, "tail": 0, "train_fwd": i + 1, "train_bwd": i + 1}
+        if counts() != want:
+            raise AssertionError(f"after step {i}: launches {counts()}, "
+                                 f"want {want}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+
+    del model, proj, opt, step
+    # from the seeded initial weights again, once per path and type
+    parts, bad = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, worst, per_tensor = compare_train_paths(dev, batch, lr_fn,
+                                                     margin_fn, dtype)
+        parts.append(
+            f"{str(dtype)[6:]}: loss rel {rel:.2e}, update cosine per layer "
+            "lowest " + ", ".join(f"{n} {c:.6f}" for n, c in worst)
+            + f" (per tensor lowest {per_tensor[1]} {per_tensor[0]:.6f})")
+        if rel > 1e-3 or worst[0][1] < 0.999:
+            bad.append(str(dtype))
+    print(f"train step: ECAPA_TDNN_GLOB_c512 + ArcMargin {NUM_CLASS} bf16 "
+          f"B={SLICE_BATCH}, dither 1 + spec-aug: losses "
+          f"{[round(v, 4) for v in losses]}, launches per step train_fwd=1 "
+          f"train_bwd=1 se=0 tail=0; one step of each path from the same "
+          "weights without randomness, kernel vs plain (bars 1e-3 and "
+          "0.999): " + "; ".join(parts))
+    if bad:
+        raise AssertionError(f"kernel and plain train steps disagree in "
+                             f"{bad}")
+
+
+def compare_train_paths(dev, batch, lr_fn, margin_fn, dtype):
+    """One step of the kernel path and one of the plain path from the
+    seeded initial weights, dither 0 and spec-aug off. Returns the loss's
+    relative difference, the three lowest update cosines per layer (a
+    module's parameters as one vector) and the lowest per tensor. b2's
+    update must be exactly zero on the kernel path (its gradient is 0) and
+    is left out of the cosines."""
+    updates, loss = {}, {}
+    for fused in (True, False):
+        model, proj, opt, _ = train_modules(dev)
+        model.set_fused(fused)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        one = make_train_step(model, proj, opt, lr_fn, margin_fn,
+                              FbankConfig(dither=0.0),
+                              AugConfig(spec_aug=False),
+                              compute_dtype=dtype, device=dev)
+        loss[fused] = float(one(batch)["loss"])
+        updates[fused] = {n: (p.detach() - start[n]).float()
+                          for n, p in model.named_parameters()}
+        del model, proj, opt, one
+    if updates[True].pop(B2).abs().max().item() != 0.0:
+        raise AssertionError("kernel path: b2 moved; its gradient is 0")
+    updates[False].pop(B2)
+    layers = {}
+    for n in updates[True]:
+        layers.setdefault(n.rsplit(".", 1)[0], []).append(n)
+    cos = {k: cosine(torch.cat([updates[True][n].flatten() for n in ns]),
+                     torch.cat([updates[False][n].flatten() for n in ns]))
+           for k, ns in layers.items()}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    per_tensor = min((cosine(updates[True][n], updates[False][n]), n)
+                     for n in updates[True])
+    return abs(loss[True] - loss[False]) / abs(loss[False]), worst, per_tensor
+
+
+def write_corpus(root, rng, n_spk=12, n_utt=4):
+    """PCM16 wavs of 2.5-4 s (a tone per speaker plus noise), a jsonl raw
+    list and utt2spk."""
+    lines, u2s = [], []
+    for s in range(n_spk):
+        tone = 2 * np.pi * (150 + 40 * s) / 16000
+        for u in range(n_utt):
+            key = f"spk{s:02d}-utt{u}"
+            n = int(rng.uniform(2.5, 4.0) * 16000)
+            wav = (0.3 * np.sin(tone * np.arange(n))
+                   + rng.uniform(-0.1, 0.1, n)).astype(np.float32)
+            path = os.path.join(root, f"{key}.wav")
+            write_wav(path, wav, 16000)
+            lines.append(json.dumps({"key": key, "wav": path,
+                                     "spk": f"spk{s:02d}"}))
+            u2s.append(f"{key} spk{s:02d}")
+    for name, rows in (("raw.list", lines), ("utt2spk", u2s)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return os.path.join(root, "raw.list"), os.path.join(root, "utt2spk")
+
+
+def phase_trainer(dev):
+    """bin/train.py at full width on a synthetic corpus: bf16 AMP, batch
+    TRAINER_BATCH, 200 frames, speed perturb, one epoch of 3 steps; then
+    the extractor loads its checkpoint and embeds one utterance."""
+    import yaml
+
+    rng = np.random.default_rng(SEED + 6)
+    with tempfile.TemporaryDirectory() as d:
+        raw, utt2spk = write_corpus(d, rng)
+        conf = {
+            "exp_dir": os.path.join(d, "exp"), "train_data": raw,
+            "utt2spk": utt2spk, "data_type": "raw", "num_epochs": 1,
+            "samples_per_epoch": 3 * TRAINER_BATCH, "seed": SEED,
+            "log_batch_interval": 1,
+            "enable_amp": True, "model": "ECAPA_TDNN_GLOB_c512",
+            "model_args": {"feat_dim": 80, "embed_dim": 192},
+            "projection_args": {"project_type": "arc_margin"},
+            "dataset_args": {"batch_size": TRAINER_BATCH, "num_frms": 200,
+                             "fbank_args": {"num_mel_bins": 80},
+                             "speed_perturb": True, "spec_aug": True},
+            "scheduler_args": {"initial_lr": 0.1, "final_lr": 0.01,
+                               "warm_up_epoch": 0}}
+        path = os.path.join(d, "conf.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(conf, f)
+        zero_counts()
+        t0 = time.perf_counter()
+        step = train_cli.train(path, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = counts()
+        want = {"se": 0, "tail": 0, "train_fwd": 3, "train_bwd": 3}
+        if launches != want or step.step != 3:
+            raise AssertionError(f"trainer: {step.step} steps, launches "
+                                 f"{launches}, want 3 and {want}")
+        exp = os.path.join(d, "exp")
+        with open(os.path.join(exp, "train.log")) as f:
+            log = f.read()
+        last = [ln for ln in log.splitlines() if "it 2/3 loss" in ln]
+        if not last:
+            raise AssertionError(f"trainer log: {log}")
+        final = os.path.join(exp, "models", "final_model.pt")
+        if os.readlink(final) != "model_0.pt":
+            raise AssertionError("final_model.pt does not link model_0.pt")
+        configs = load_yaml(os.path.join(exp, "config.yaml"))
+        loaded = load_model_for_eval(configs, final, device=dev)
+        for k, v in step.model.state_dict().items():
+            if not torch.equal(loaded.state_dict()[k], v):
+                raise AssertionError(f"checkpoint differs from the trained "
+                                     f"model at {k}")
+        wav = np.random.default_rng(SEED + 7).uniform(
+            -0.5, 0.5, (1, 48000)).astype(np.float32)
+        emb = make_eval_embed_fn(loaded, FbankConfig(), device=dev)(
+            {"wav": wav})
+    if emb.shape != (1, 192) or not torch.isfinite(emb).all():
+        raise AssertionError(f"embedding {emb}")
+    print(f"trainer: bin/train.py ECAPA_TDNN_GLOB_c512 bf16 batch "
+          f"{TRAINER_BATCH} x 200 frames, 48 utterances of 12 speakers (36 "
+          f"classes with speed perturb), 3 steps in {train_s:.1f} s; launches "
+          f"train_fwd={launches['train_fwd']} "
+          f"train_bwd={launches['train_bwd']}; log "
+          f"'{last[0].split(' ', 3)[3]}'; model_0.pt served a (1, 192) "
+          f"embedding, norm {emb.norm().item():.4f}")
+    return launches
+
+
+def phase_train_timing(model, dev, smi):
+    """CUDA events after warm-up at B=256, T=200, C=512, bf16: the train
+    kernels and their plain versions with bounds; then the train step of
+    bench.py (B=256, 2 s chunks, bf16, dither, spec-aug, ArcMargin 17,982,
+    SGD) on the kernel path and the plain path, host clock around 5 steps
+    that end in a synchronize."""
+    rng = np.random.default_rng(SEED + 8)
+    io, b = torch.bfloat16, TRAIN_BATCH
+    m, d, a = b * T, 1536, 128
+    xs, tw = tail_inputs(model, rng, b, T, io, dev)
+    wm, bm, k1, b1, k2, b2 = tw
+    g = torch.as_tensor(rng.standard_normal((b, 2 * d)).astype(np.float32),
+                        device=dev)
+    pooled, h, att, cstats = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw)
+    res = (*xs, wm, k1, b2, k2, pooled, h, att, cstats, g)
+    # forward: MFA conv, attention and logits products, context product;
+    # reads x and the weights, writes pooled, h, att, cstats
+    fwd_flops = 2 * m * 3 * C * d + 2 * 2 * m * d * a + 2 * b * 2 * d * a
+    fwd_bytes = (3 * xs[0].numel() * io.itemsize + _nbytes(tw, io)
+                 + (h.numel() + att.numel()) * io.itemsize + 2 * b * 2 * d * 4)
+    # backward: logits recomputed, datt, dh_att, dk2, dk1x; dx and dwm; the
+    # context products dcms and dk1's context rows. Reads x, h, att,
+    # pooled, cstats, g and the weights; writes dx (io) and the f32 weight
+    # gradients
+    bwd_flops = (5 * 2 * m * d * a + 2 * 2 * m * 3 * C * d
+                 + 2 * 2 * b * 2 * d * a)
+    bwd_bytes = (2 * 3 * xs[0].numel() * io.itemsize
+                 + (h.numel() + att.numel()) * io.itemsize
+                 + 3 * b * 2 * d * 4 + _nbytes([wm, k1, k2, b2], io)
+                 + 4 * (wm.numel() + k1.numel() + k2.numel() + 2 * d + a))
+    res_t = {
+        "train_fwd": {
+            "ms": cuda_ms(lambda: mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw)),
+            "plain_ms": cuda_ms(
+                lambda: mfa_astp_vjp.mfa_astp_train_fwd_reference(*xs, *tw),
+                iters=5)},
+        "train_bwd": {
+            "ms": cuda_ms(lambda: mfa_astp_vjp.mfa_astp_train_bwd(*res)),
+            "plain_ms": cuda_ms(
+                lambda: mfa_astp_vjp.mfa_astp_train_bwd_reference(*res),
+                iters=3, warmup=1)}}
+    for k, (fl, nb) in (("train_fwd", (fwd_flops, fwd_bytes)),
+                        ("train_bwd", (bwd_flops, bwd_bytes))):
+        res_t[k]["bound_ms"], res_t[k]["bound_by"] = bound(fl, nb)
+    del xs, tw, res, pooled, h, att, cstats, g
+
+    lr_fn, margin_fn = bench_schedules(b)
+    batch = train_batch(rng, b, dev)
+    rates = {}
+    for path, fused in (("kernel", True), ("plain", False)):
+        tm, tp, opt, gen = train_modules(dev)
+        step = make_train_step(tm.set_fused(fused), tp, opt, lr_fn,
+                               margin_fn, FbankConfig(dither=1.0),
+                               AugConfig(), compute_dtype=io, device=dev,
+                               generator=gen)
+        for _ in range(2):
+            step(batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            loss = step(batch)["loss"]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 5 * 1e3
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"{path} train step loss {float(loss)}")
+        rates[path] = (b * CHUNK_SECONDS / (ms / 1e3), ms,
+                       torch.cuda.max_memory_allocated() / 2**30)
+        del tm, tp, opt, step
+    fmt = "; ".join(
+        f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound "
+        f"{v['bound_ms']:.3f} by {v['bound_by']})" for k, v in res_t.items())
+    print(f"train timing [{smi}] B={b} T={T} C={C} bf16: {fmt}; train step "
+          + "; ".join(f"{k} path {v[0]:.1f} audio-s/s ({v[1]:.1f} ms/step, "
+                      f"peak {v[2]:.1f} GiB)" for k, v in rates.items()))
+    return res_t
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -349,13 +738,24 @@ def main():
     smi = phase_device()
     model = random_model(dev)
     errs = phase_kernels(model, dev)
+    errs.update(phase_train_kernels(model, dev))
     launches = phase_slice(model, dev)
     phase_serving(model, dev)
+    phase_train_step(dev)
+    train_launches = phase_trainer(dev)
+    launches.update(train_fwd=train_launches["train_fwd"],
+                    train_bwd=train_launches["train_bwd"])
     timing = phase_timing(model, dev, smi)
-    rows = [("fused_se_res2_block", "se", "wespeaker_tpu_torch/csrc/se_block.cu",
-             "wespeaker_tpu/ops/se_block_pallas.py:204"),
-            ("fused_mfa_astp", "tail", "wespeaker_tpu_torch/csrc/mfa_astp.cu",
-             "wespeaker_tpu/ops/mfa_astp_pallas.py:191")]
+    timing.update(phase_train_timing(model, dev, smi))
+    csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
+    rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
+             ops + "se_block_pallas.py:204"),
+            ("fused_mfa_astp", "tail", csrc + "mfa_astp.cu",
+             ops + "mfa_astp_pallas.py:191"),
+            ("mfa_astp_train_fwd", "train_fwd", csrc + "mfa_astp_train.cu",
+             ops + "mfa_astp_vjp.py:166"),
+            ("mfa_astp_train_bwd", "train_bwd", csrc + "mfa_astp_train.cu",
+             ops + "mfa_astp_vjp.py:350")]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],

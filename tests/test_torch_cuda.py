@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from wespeaker_tpu_torch.ops import mfa_astp, se_block
+from wespeaker_tpu_torch.ops import mfa_astp, mfa_astp_vjp, se_block
 
 pytestmark = pytest.mark.cuda
 
@@ -151,3 +151,96 @@ def test_ecapa_kernel_path_matches_plain_path(cuda):
         assert mfa_astp.fused_mfa_astp.launches == t0 + 1
         want = model.set_fused(False)(x, mask)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def scaled_close(got, want, name):
+    """f32 gradient against its plain version, each scaled by its largest
+    magnitude (sums over B*T rows in another order), rtol/atol 1e-4."""
+    scale = max(want.abs().max().item(), 1e-3)
+    torch.testing.assert_close(got / scale, want / scale, rtol=1e-4,
+                               atol=1e-4, msg=lambda m: f"{name}: {m}")
+
+
+TRAIN_CASES = [(torch.float32, 30, 128, True), (torch.float32, 30, 128, False),
+               (torch.float32, 198, 512, True), (torch.bfloat16, 200, 512, True)]
+GRAD_NAMES = ["dx2", "dx3", "dx4", "dwm", "dbm", "dk1", "db1", "dk2", "db2"]
+
+
+def train_args(rng, b, t, c, dtype, device, glob):
+    xs, args, _ = tail_args(rng, b, t, c, dtype, device, False, glob)
+    w = [args[k] for k in ("wm", "bm", "k1", "b1", "k2", "b2")]
+    g = torch.as_tensor(rng.standard_normal((b, 2 * 1536)).astype(
+        np.float32), device=device)
+    return xs, w, g
+
+
+@pytest.mark.parametrize("dtype,t,c,glob", TRAIN_CASES)
+def test_mfa_astp_train_fwd_kernel_matches_plain(cuda, dtype, t, c, glob):
+    xs, w, _ = train_args(np.random.default_rng(5), 3, t, c, dtype, cuda,
+                          glob)
+    before = mfa_astp_vjp.mfa_astp_train_fwd.launches
+    got = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *w, glob=glob)
+    torch.cuda.synchronize()
+    assert mfa_astp_vjp.mfa_astp_train_fwd.launches == before + 1
+    want = mfa_astp_vjp.mfa_astp_train_fwd_reference(*xs, *w, glob=glob)
+    for gv, wv in zip(got, want):
+        assert_matches(gv, wv, dtype)
+
+
+@pytest.mark.parametrize("dtype,t,c,glob", TRAIN_CASES)
+def test_mfa_astp_train_bwd_kernel_matches_plain(cuda, dtype, t, c, glob):
+    """Both sides take the residuals of the plain forward, so the relu
+    mask is the same on both."""
+    xs, w, g = train_args(np.random.default_rng(6), 3, t, c, dtype, cuda,
+                          glob)
+    wm, bm, k1, b1, k2, b2 = w
+    pooled, h, att, cstats = mfa_astp_vjp.mfa_astp_train_fwd_reference(
+        *xs, *w, glob=glob)
+    res = (*xs, wm, k1, b2, k2, pooled, h, att, cstats, g)
+    before = mfa_astp_vjp.mfa_astp_train_bwd.launches
+    got = mfa_astp_vjp.mfa_astp_train_bwd(*res, glob=glob)
+    torch.cuda.synchronize()
+    assert mfa_astp_vjp.mfa_astp_train_bwd.launches == before + 1
+    want = mfa_astp_vjp.mfa_astp_train_bwd_reference(*res, glob=glob)
+    assert got[-1].abs().max().item() == 0.0  # db2
+    for name, gv, wv in zip(GRAD_NAMES[:-1], got, want):
+        assert gv.shape == wv.shape and gv.dtype == wv.dtype, name
+        if dtype == torch.float32:
+            scaled_close(gv, wv, name)
+        else:
+            assert_matches(gv, wv, dtype)
+    if dtype == torch.float32:
+        # and against autograd through the plain forward
+        ins = [v.clone().requires_grad_(True) for v in (*xs, *w)]
+        out = mfa_astp_vjp.mfa_astp_train_reference(*ins, glob=glob)
+        auto = torch.autograd.grad((out * g).sum(), ins)
+        for name, gv, av in zip(GRAD_NAMES[:-1], got, auto):
+            scaled_close(gv, av, name)
+
+
+def test_mfa_astp_train_function_uses_both_kernels(cuda):
+    """The autograd Function runs the forward kernel, then the backward
+    kernel on its residuals: the same numbers as calling the two wrappers
+    directly (both kernels are deterministic)."""
+    xs, w, g = train_args(np.random.default_rng(7), 2, 40, 128,
+                          torch.float32, cuda, True)
+    ins = [v.clone().requires_grad_(True) for v in (*xs, *w)]
+    f0 = mfa_astp_vjp.mfa_astp_train_fwd.launches
+    b0 = mfa_astp_vjp.mfa_astp_train_bwd.launches
+    out = mfa_astp_vjp.mfa_astp_train(*ins, glob=True)
+    grads = torch.autograd.grad((out * g).sum(), ins)
+    torch.cuda.synchronize()
+    assert mfa_astp_vjp.mfa_astp_train_fwd.launches == f0 + 1
+    assert mfa_astp_vjp.mfa_astp_train_bwd.launches == b0 + 1
+    wm, bm, k1, b1, k2, b2 = w
+    pooled, h, att, cstats = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *w)
+    direct = mfa_astp_vjp.mfa_astp_train_bwd(*xs, wm, k1, b2, k2, pooled, h,
+                                             att, cstats, g)
+    assert torch.equal(out, pooled)
+    for name, gv, dv in zip(GRAD_NAMES, grads, direct):
+        assert torch.equal(gv, dv), name
+    with pytest.raises(ValueError, match="mask"):
+        mfa_astp_vjp.mfa_astp_train(*ins, glob=True,
+                                    mask=torch.ones(2, 40, device=cuda))
+    with pytest.raises(TypeError):
+        mfa_astp_vjp.mfa_astp_train_fwd(*(x.half() for x in xs), *w)

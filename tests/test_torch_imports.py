@@ -35,6 +35,11 @@ def _imported(tree):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
     assert len(files) > 20 and files[-1].exists()
+    names = {str(f.relative_to(REPO / "wespeaker_tpu_torch")) for f in files
+             if f.parent != REPO}
+    assert {"ops/mfa_astp_vjp.py", "bin/train.py", "train/optim.py",
+            "data/dataset.py", "utils/checkpoint.py",
+            "utils/schedulers.py", "models/projections.py"} <= names
     bad = []
     for path in files:
         for name in _imported(ast.parse(path.read_text(), str(path))):
@@ -74,6 +79,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
     """Neither wrapper drops to its plain version for anything but a CPU
     tensor."""
     from wespeaker_tpu_torch.ops.mfa_astp import fused_mfa_astp
+    from wespeaker_tpu_torch.ops.mfa_astp_vjp import (mfa_astp_train_bwd,
+                                                      mfa_astp_train_fwd)
     from wespeaker_tpu_torch.ops.se_block import fused_se_res2_block
 
     x = torch.empty(1, 8, 64, device="meta")
@@ -81,3 +88,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
         fused_se_res2_block(x, *([x] * 16), dilation=2)
     with pytest.raises(ValueError, match="no kernel"):
         fused_mfa_astp(x, x, x, *([x] * 6))
+    with pytest.raises(ValueError, match="no kernel"):
+        mfa_astp_train_fwd(x, x, x, *([x] * 6))
+    with pytest.raises(ValueError, match="no kernel"):
+        mfa_astp_train_bwd(x, x, x, *([x] * 9))

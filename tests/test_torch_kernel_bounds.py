@@ -1,0 +1,38 @@
+"""The bounds that PERF.md's kernel table gives the TPU kernels still to
+port (wespeaker_tpu_torch/bin/kernel_bounds.py): the arithmetic on shapes
+whose counts are known by hand."""
+
+import pytest
+
+from wespeaker_tpu_torch.bin import kernel_bounds as kb
+
+
+@pytest.mark.parametrize("flops,nbytes,want", [
+    (989e9, 1.0, (1.0, "operations")),
+    (1.0, 3.35e9, (1.0, "bytes")),
+])
+def test_bound_is_the_larger_time(flops, nbytes, want):
+    ms, by = kb.bound(flops, nbytes)
+    assert ms == pytest.approx(want[0]) and by == want[1]
+
+
+def test_counts_by_hand():
+    # the Res2 chain of one ECAPA c512 block at B=512, T=200: 7 k=3 convs
+    # of width 64
+    flops, nbytes = kb.res2_chain(512, 200, 512)
+    assert flops == 2 * 7 * 512 * 200 * 3 * 64 * 64
+    assert nbytes > 2 * 512 * 200 * 512 * 2
+    # one CAM layer on 128 channels, T=100: 1x1 to 128, k=3 to 32, and the
+    # gate once per segment
+    flops, _ = kb.cam_dense_block(2, 100, 128, 1)
+    assert flops == (2 * 200 * 128 * 128 + 2 * 200 * 3 * 128 * 32
+                     + 2 * 2 * (128 * 64 + 64 * 32))
+    flops, nbytes = kb.dw_pack(1, 4, 5, 2, 3)
+    assert flops == 2 * 20 * 9 * 6 and nbytes == 20 * 5 * 2 + 9 * 6 * 4
+
+
+def test_every_unported_row_has_a_bound(capsys):
+    kb.main()
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split()[1] for ln in lines] == ["3", "6", "7", "8", "9", "10"]
+    assert all(" ms (" in ln for ln in lines)

@@ -13,7 +13,9 @@ from wespeaker_tpu_torch.utils.weights import load_checkpoint
 
 def load_model_for_eval(configs: Dict[str, Any], checkpoint_path: str,
                         device: DeviceLike = None) -> nn.Module:
-    """config + `.pt` state_dict -> the model on `device`, in eval mode."""
+    """config + `.pt` checkpoint -> the model on `device`, in eval mode.
+    The checkpoint is a model state_dict (port or upstream) or a file the
+    trainer (bin/train.py) wrote, whose model part is read."""
     dev = resolve_device(device)
     model = load_checkpoint(build_model(configs), checkpoint_path)
     return model.to(dev).eval()

@@ -1,0 +1,141 @@
+"""Least time an H100 could take for each TPU kernel of the JAX package that
+the port has not ported yet, from its shapes at the configuration whose
+path runs it.
+
+    python -m wespeaker_tpu_torch.bin.kernel_bounds
+
+A bound is the larger of two times: the operations over the card's peak
+rate for their type, and the bytes the function must move (each input read
+once, each output written once) over the memory rate. Rates are the H100
+SXM data sheet's dense ones: 989 TFLOP/s bf16 on the tensor cores, 67
+TFLOP/s f32 outside them, 3.35 TB/s. Activations and matrices are bf16
+(the compute type of the configurations below), per-channel vectors and
+f32 outputs 4 bytes. Products count a multiply-add as two operations and
+only the live work (a CAM layer's zero-padded input rows, a segment's
+repeated context, are not counted); the stats kernels count their f32
+operations per element. chip_smoke.py computes the ported kernels' bounds
+from its own inputs with the same `bound`.
+"""
+
+import math
+
+PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
+PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
+PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+BF16, F32 = 2, 4
+
+
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS):
+    """(ms, "operations" or "bytes"): the larger of flops / peak and
+    nbytes / PEAK_BYTES."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def res2_chain(b, t, c, scale=8):
+    """ops/res2_pallas.py::fused_res2_chain on (B, T, C): scale - 1 k=3
+    convs of width C/scale, BN folded. -> (flops, bytes)."""
+    w, nums = c // scale, scale - 1
+    flops = 2 * nums * b * t * 3 * w * w
+    nbytes = 2 * b * t * c * BF16 + nums * (3 * w * w * BF16 + 3 * w * F32)
+    return flops, nbytes
+
+
+def softmax_stats(b, t, d):
+    """ops/pooling_pallas.py::fused_softmax_stats: f32 logits and bf16 x
+    (B, T, D) -> mean, std (B, D) f32; ~8 f32 operations per element (max,
+    exp, three products, three sums)."""
+    return 8 * b * t * d, b * t * d * (F32 + BF16) + 2 * b * d * F32
+
+
+def masked_stats(b, t, d):
+    """ops/pooling_pallas.py::fused_masked_stats: x (B, T, D) bf16 and a
+    (B, T) f32 mask -> mean, std (B, D) f32; ~6 f32 operations per
+    element."""
+    return 6 * b * t * d, b * t * (d * BF16 + F32) + 2 * b * d * F32
+
+
+def cam_dense_block(b, t, c0, num_layers, seg_len=100, growth=32, bn=128):
+    """ops/cam_block_pallas.py::fused_cam_dense_block: layer i takes the
+    C0 + 32 i live channels through BN-relu, a 1x1 conv to 128, BN-relu, a
+    k=3 conv to 32 and a CAM gate (128 -> 64 -> 32) computed once per
+    segment; (B, T, C0) -> (B, T, C0 + 32 L)."""
+    m, nseg = b * t, math.ceil(t / seg_len)
+    flops = nbytes = 0
+    for i in range(num_layers):
+        ci = c0 + growth * i
+        flops += (2 * m * ci * bn + 2 * m * 3 * bn * growth
+                  + 2 * b * nseg * (bn * 64 + 64 * growth))
+        nbytes += ((ci * bn + 3 * bn * growth + bn * 64 + 64 * growth) * BF16
+                   + (2 * ci + 2 * bn + 64 + growth) * F32)
+    nbytes += b * t * (2 * c0 + growth * num_layers) * BF16
+    return flops, nbytes
+
+
+def inv_bottleneck_stage(b, f, t, c, depth):
+    """ops/inv_bottleneck_pallas.py::fused_inv_bottleneck_stage on
+    (B, F, T, C): per block a 1x1 expand to 4C, a depthwise 3x3, a 1x1
+    project to C and the residual, BN folded."""
+    p = b * f * t
+    flops = depth * (2 * 2 * p * c * 4 * c + 2 * p * 9 * 4 * c)
+    nbytes = (2 * p * c * BF16
+              + depth * ((2 * 4 * c * c + 9 * 4 * c) * BF16
+                         + (4 * 4 * c + 2 * c) * F32))
+    return flops, nbytes
+
+
+def dw_pack(b, h, w, ci, co):
+    """ops/conv_dw_pack.py::dw_pack: the filter gradient of a 3x3 stride-1
+    conv, x (B, H, W, Ci) and dy (B, H, W, Co) bf16 -> (3, 3, Ci, Co) f32."""
+    return (2 * b * h * w * 9 * ci * co,
+            b * h * w * (ci + co) * BF16 + 9 * ci * co * F32)
+
+
+# (PERF.md row, kernel, configuration, [(call, flops, bytes, peak)])
+ROWS = [
+    (3, "fused_res2_chain",
+     "ECAPA_TDNN_GLOB_c512 with fused_res2 (opt-in), extraction B=512 x "
+     "200 frames, one call per SE-Res2 block",
+     [("block", *res2_chain(512, 200, 512), PEAK_BF16_FLOPS)]),
+    (6, "fused_softmax_stats",
+     "ASTP of ECAPA_TDNN_GLOB_c512 (no model calls it), B=512 x 200 "
+     "frames, D=1536",
+     [("call", *softmax_stats(512, 200, 1536), PEAK_F32_FLOPS)]),
+    (7, "fused_masked_stats",
+     "TSTP of ResNet34 (no model calls it), B=512 x 200 frames: T=25, "
+     "D=32*8*10=2560",
+     [("call", *masked_stats(512, 25, 2560), PEAK_F32_FLOPS)]),
+    (8, "fused_cam_dense_block",
+     "CAMPPlus extraction B=512 x 200 frames (T=100 after the stride-2 "
+     "TDNN), blocks of 12/24/16 layers",
+     [(f"block{i + 1}", *cam_dense_block(512, 100, c0, n), PEAK_BF16_FLOPS)
+      for i, (c0, n) in enumerate(((128, 12), (256, 24), (512, 16)))]),
+    (9, "fused_inv_bottleneck_stage",
+     "Gemini_DF_ResNet114 extraction B=512 x 200 frames, feat 80, four "
+     "stages",
+     [(f"stage{i}", *inv_bottleneck_stage(512, f, t, c, n), PEAK_BF16_FLOPS)
+      for i, (f, t, c, n) in enumerate(((40, 200, 32, 3), (20, 100, 64, 3),
+                                        (10, 100, 128, 27),
+                                        (5, 100, 256, 3)))]),
+    (10, "dw_pack",
+     "ResNet34 training, the recipe's B=128 x 200 frames, a layer1 3x3 "
+     "conv (80 x 200, 32 -> 32), conv_dw_mode packed (opt-in)",
+     [("call", *dw_pack(128, 80, 200, 32, 32), PEAK_BF16_FLOPS)]),
+]
+
+
+def main():
+    for row, name, config, calls in ROWS:
+        parts, total = [], 0.0
+        for call, flops, nbytes, peak in calls:
+            ms, by = bound(flops, nbytes, peak)
+            total += ms
+            parts.append(f"{call} {ms:.4f} ms ({flops / 1e9:.2f} GFLOP, "
+                         f"{nbytes / 1e6:.1f} MB; {by})")
+        print(f"row {row} {name} [{config}]: " + "; ".join(parts)
+              + (f"; total {total:.4f} ms" if len(calls) > 1 else ""))
+
+
+if __name__ == "__main__":
+    main()

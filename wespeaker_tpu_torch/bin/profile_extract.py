@@ -6,8 +6,10 @@ Builds ECAPA_TDNN_GLOB_c512 with random weights, runs make_eval_embed_fn
 in bf16 over 2 s chunks (32,240 samples) and prints, for one forward after
 warm-up, the device time of every CUDA kernel name (torch.profiler), its
 share of the total and its launch count, then the forward's wall time from
-CUDA events. --plain profiles the layer-by-layer path instead of the
-kernel path.
+CUDA events and the share of it the device was busy, and the device
+time by kernel family (the port's kernels, cuDNN/cuBLAS, PyTorch's own,
+copies). --plain profiles the layer-by-layer path instead of the kernel
+path.
 """
 
 import argparse
@@ -31,6 +33,59 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+# kernel families by name, first match wins: the port's own CUDA kernels,
+# the vendor libraries' convs and matmuls, PyTorch's own kernels, copies
+FAMILIES = (("port (ws::)", ("ws::",)),
+            ("cuDNN/cuBLAS", ("xmma", "cudnn", "cutlass", "nvjet", "sgemm",
+                              "convolve", "gemm")),
+            ("PyTorch at::native", ("at::native",)),
+            ("copies", ("Memcpy", "Memset")))
+
+
+def family(key: str) -> str:
+    for name, marks in FAMILIES:
+        if any(m in key for m in marks):
+            return name
+    return "other"
+
+
+def breakdown(fn, what: str, warmup: int = 3):
+    """Print, for one call of fn after warm-up, the device time of every
+    CUDA kernel name (torch.profiler), its share and launch count, then the
+    call's time between two CUDA events and the share of it the device
+    was busy, and the device time by kernel family."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(_device_us(e), e.count, e.key) for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    total = sum(r[0] for r in rows)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = start.elapsed_time(end)
+    print(f"{what}, {torch.cuda.get_device_name(0)}: device total "
+          f"{total / 1e3:.3f} ms over {sum(r[1] for r in rows)} launches; "
+          f"call {wall_ms:.3f} ms (CUDA events), device busy "
+          f"{100 * total / 1e3 / max(wall_ms, 1e-9):.1f}%")
+    fams = {}
+    for us, count, key in rows:
+        print(f"{us / 1e3:9.3f} ms {100 * us / max(total, 1e-9):5.1f}% "
+              f"x{count:<4d} {key[:110]}")
+        acc = fams.setdefault(family(key), [0.0, 0])
+        acc[0] += us
+        acc[1] += count
+    print("by family: " + "; ".join(
+        f"{k} {us / 1e3:.3f} ms ({100 * us / max(total, 1e-9):.1f}%) x{n}"
+        for k, (us, n) in sorted(fams.items(), key=lambda kv: -kv[1][0])))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=512)
@@ -45,28 +100,9 @@ def main(argv=None):
     wav = torch.as_tensor(np.random.default_rng(0).uniform(
         -0.5, 0.5, (args.batch, CHUNK_SAMPLES)).astype(np.float32),
         device=dev)
-    for _ in range(3):
-        embed({"wav": wav})
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        embed({"wav": wav})
-        torch.cuda.synchronize()
-    rows = [(_device_us(e), e.count, e.key) for e in prof.key_averages()]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-    total = sum(r[0] for r in rows)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    embed({"wav": wav})
-    end.record()
-    torch.cuda.synchronize()
-    print(f"{'kernel' if not args.plain else 'plain'} path, B={args.batch}, "
-          f"{torch.cuda.get_device_name(0)}: device total "
-          f"{total / 1e3:.3f} ms over {sum(r[1] for r in rows)} launches; "
-          f"forward {start.elapsed_time(end):.3f} ms (CUDA events)")
-    for us, count, key in rows:
-        print(f"{us / 1e3:9.3f} ms {100 * us / max(total, 1e-9):5.1f}% "
-              f"x{count:<4d} {key[:110]}")
+    breakdown(lambda: embed({"wav": wav}),
+              f"{'plain' if args.plain else 'kernel'} path forward, "
+              f"B={args.batch}")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,263 @@
+"""Supervised trainer CLI on the card.
+
+    python -m wespeaker_tpu_torch.bin.train --config conf.yaml \
+        [--device cuda|cpu] [k=v overrides]
+
+Counterpart of wespeaker_tpu/bin/train.py (upstream
+wespeaker/bin/train.py:39-266): config and overrides, spk2id from
+utt2spk, the raw/shard dataset, model and margin head (3x classes under
+speed perturb), iteration-granular LR and margin schedules with
+scale_ratio = batch / 64, fbank and spec-aug on the device, bf16 AMP with
+`enable_amp`, a `checkpoint` (resume) or `model_init` (weights only) load,
+a log line every `log_batch_interval` steps, `models/model_<epoch>.pt`
+every `save_epoch_interval` epochs (and the last `num_avg`), the
+`final_model.pt` symlink, and on SIGTERM `preempt_model_<epoch>.pt` after
+the step in flight. A resumed run continues the schedules at
+start_epoch * epoch_iter, as upstream does.
+
+Not ported yet, and refused rather than dropped: `distributed_args`
+(multi-process training), a model axis > 1, `conv_dw_mode: packed`,
+non-fbank frontends, `reverb_data` / `noise_data`, `profile_args`,
+`dataloader_args.num_workers` > 0, the `feat` data type and every head but
+arc_margin.
+"""
+
+import argparse
+import contextlib
+import logging
+import os
+import signal
+import threading
+import time
+
+import torch
+
+from wespeaker_tpu_torch.data.dataset import Prefetcher, SpeakerDataset
+from wespeaker_tpu_torch.data.pipeline import spk2id_from_utt2spk
+from wespeaker_tpu_torch.device import DeviceLike, resolve_device
+from wespeaker_tpu_torch.frontend.fbank import FbankConfig
+from wespeaker_tpu_torch.models.projections import get_projection
+from wespeaker_tpu_torch.train.composite import build_model
+from wespeaker_tpu_torch.train.optim import lr_scale_ratio
+from wespeaker_tpu_torch.train.train_step import (AugConfig,
+                                                  build_train_state,
+                                                  make_train_step)
+from wespeaker_tpu_torch.utils import checkpoint as ckpt
+from wespeaker_tpu_torch.utils.config import dump_yaml, parse_config_or_kwargs
+from wespeaker_tpu_torch.utils.schedulers import (MarginScheduler,
+                                                  get_lr_scheduler)
+
+
+def setup_logger(exp_dir):
+    os.makedirs(exp_dir, exist_ok=True)
+    logger = logging.getLogger("wespeaker_tpu_torch")
+    logger.setLevel(logging.INFO)
+    log_file = os.path.join(exp_dir, "train.log")
+    if not any(getattr(h, "baseFilename", None) == os.path.abspath(log_file)
+               for h in logger.handlers):
+        fmt = logging.Formatter("%(asctime)s %(levelname)s %(message)s")
+        handlers = [logging.FileHandler(log_file)]
+        if not logger.handlers:
+            handlers.append(logging.StreamHandler())
+        for h in handlers:
+            h.setFormatter(fmt)
+            logger.addHandler(h)
+    return logger
+
+
+def _refuse_unported(configs):
+    unported = {
+        "distributed_args": bool(configs.get("distributed_args")),
+        "parallel_args.model > 1":
+            configs.get("parallel_args", {}).get("model", 1) > 1,
+        "conv_dw_mode: packed":
+            configs.get("conv_dw_mode", "native") != "native",
+        "reverb_data / noise_data":
+            bool(configs.get("reverb_data") or configs.get("noise_data")),
+        "profile_args": bool(configs.get("profile_args")),
+        "dataloader_args.num_workers > 0 (multi-process prefetch)":
+            configs.get("dataloader_args", {}).get("num_workers", 0) > 0,
+    }
+    bad = [k for k, v in unported.items() if v]
+    if bad:
+        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+
+
+def build_projection(configs, num_class):
+    proj_conf = dict(configs.get("projection_args", {}))
+    proj_conf.setdefault("project_type", "arc_margin")
+    proj_conf["embed_dim"] = configs["model_args"]["embed_dim"]
+    proj_conf["num_class"] = num_class
+    proj_conf.setdefault("scale", 32.0)
+    proj_conf.setdefault("easy_margin", False)
+    return get_projection(proj_conf)
+
+
+def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
+    """Run the training of `config` on `device` (the card unless the caller
+    passes device="cpu"). Returns the TrainStep (modules, optimizer, step
+    count)."""
+    configs = parse_config_or_kwargs(config, overrides, **kwargs)
+    _refuse_unported(configs)
+    dev = resolve_device(device)
+    exp_dir = configs["exp_dir"]
+    model_dir = os.path.join(exp_dir, "models")
+    os.makedirs(model_dir, exist_ok=True)
+    logger = setup_logger(exp_dir)
+
+    spk2id = spk2id_from_utt2spk(configs["spk2id"] if "spk2id" in configs
+                                 else configs["utt2spk"])
+    dataset_args = configs["dataset_args"]
+    lm_keep_3x = False
+    if configs.get("do_lm") and dataset_args.get("speed_perturb", True):
+        # large-margin fine-tune from a speed-perturbed checkpoint: keep the
+        # 3x classifier rows, train without speed perturb
+        logger.info("do_lm: speed perturb disabled, classifier keeps 3x rows")
+        dataset_args = {**dataset_args, "speed_perturb": False}
+        lm_keep_3x = True
+    dataset = SpeakerDataset(configs["data_type"], configs["train_data"],
+                             dataset_args, spk2id,
+                             seed=configs.get("seed", 42))
+    num_class = dataset.num_classes() * (3 if lm_keep_3x else 1)
+    logger.info(f"speakers: {len(spk2id)} classes: {num_class} device: "
+                f"{dev}")
+
+    seed = configs.get("seed", 42)
+    model, projection, optimizer, generator = build_train_state(
+        lambda: (build_model(configs), build_projection(configs, num_class)),
+        configs, seed=seed, device=dev)
+
+    batch_size = dataset_args.get(
+        "batch_size", configs.get("dataloader_args", {}).get("batch_size",
+                                                             64))
+    num_epochs = configs.get("num_epochs", 10)
+    num_samples = configs.get("samples_per_epoch")
+    if num_samples is None:
+        with open(configs["train_data"]) as f:
+            num_samples = sum(1 for _ in f)
+        if configs["data_type"] == "shard":
+            num_samples *= 1000
+    epoch_iter = max(num_samples // batch_size, 1)
+
+    sched_args = dict(configs.get("scheduler_args", {}))
+    sched_args.setdefault("initial_lr", 0.1)
+    sched_args.setdefault("final_lr", 5e-5)
+    sched_args.setdefault("warm_up_epoch", 6)
+    sched_args["num_epochs"] = num_epochs
+    sched_args["epoch_iter"] = epoch_iter
+    sched_args["scale_ratio"] = lr_scale_ratio(1, batch_size)
+    lr_fn = get_lr_scheduler(configs.get("scheduler", "ExponentialDecrease"),
+                             **sched_args)
+    margin_args = dict(configs.get("margin_scheduler_args",
+                                   configs.get("margin_update", {})))
+    margin_fn = MarginScheduler(
+        epoch_iter=epoch_iter,
+        increase_start_epoch=margin_args.get("increase_start_epoch", 20),
+        fix_start_epoch=margin_args.get("fix_start_epoch", 40),
+        initial_margin=margin_args.get("initial_margin", 0.0),
+        final_margin=margin_args.get("final_margin", 0.2),
+        increase_type=margin_args.get("increase_type", "exp"))
+
+    fbank_args = dataset_args.get("fbank_args", {})
+    fbank_cfg = FbankConfig(
+        num_mel_bins=fbank_args.get("num_mel_bins",
+                                    configs["model_args"].get("feat_dim",
+                                                              80)),
+        frame_length_ms=fbank_args.get("frame_length", 25),
+        frame_shift_ms=fbank_args.get("frame_shift", 10),
+        sample_rate=dataset_args.get("resample_rate", 16000),
+        dither=fbank_args.get("dither", 1.0))
+    aug = AugConfig.from_spec_aug_args(
+        dataset_args.get("spec_aug_args", {}),
+        enabled=dataset_args.get("spec_aug", True))
+    step = make_train_step(
+        model, projection, optimizer, lr_fn, margin_fn, fbank_cfg, aug,
+        compute_dtype=(torch.bfloat16 if configs.get("enable_amp")
+                       else torch.float32),
+        device=dev, generator=generator)
+
+    start_epoch = 0
+    if configs.get("model_init"):
+        # weights only, fresh head and schedules (the SSL fine-tune entry)
+        ckpt.load_checkpoint(configs["model_init"], model)
+        logger.info(f"initialized model from {configs['model_init']}")
+    if configs.get("checkpoint"):
+        ckpt.load_checkpoint(configs["checkpoint"], model, projection)
+        start_epoch = ckpt.parse_start_epoch(configs["checkpoint"])
+        step.step = start_epoch * epoch_iter
+        logger.info(f"resumed from {configs['checkpoint']} at epoch "
+                    f"{start_epoch}")
+
+    dump_yaml({**configs, "num_class": num_class, "epoch_iter": epoch_iter},
+              os.path.join(exp_dir, "config.yaml"))
+
+    batches = iter(Prefetcher(dataset.batches(batch_size)))
+
+    log_interval = configs.get("log_batch_interval", 100)
+    save_interval = configs.get("save_epoch_interval", 1)
+    num_avg = configs.get("num_avg", 1)
+    with _sigterm_event() as preempted:
+        for epoch in range(start_epoch, num_epochs):
+            t0 = time.time()
+            for it in range(epoch_iter):
+                metrics = step(next(batches))
+                if it % log_interval == 0:
+                    logger.info(
+                        f"epoch {epoch} it {it}/{epoch_iter} "
+                        f"loss {float(metrics['loss']):.4f} "
+                        f"acc {float(metrics['acc']):.4f} "
+                        f"lr {metrics['lr']:.6f} "
+                        f"margin {metrics['margin']:.3f}")
+                if preempted.is_set():
+                    path = os.path.join(model_dir,
+                                        f"preempt_model_{epoch}.pt")
+                    ckpt.save_checkpoint(path, model, projection)
+                    logger.info(f"SIGTERM: saved {path} at epoch {epoch} "
+                                f"it {it}; resume with checkpoint={path}")
+                    return step
+            logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
+            # every save_interval epochs plus the last num_avg (upstream
+            # counts epochs from 1, this loop from 0)
+            if ((epoch + 1) % save_interval == 0
+                    or epoch + 1 > num_epochs - num_avg):
+                ckpt.save_checkpoint(os.path.join(model_dir,
+                                                  f"model_{epoch}.pt"),
+                                     model, projection)
+    last = os.path.join(model_dir, f"model_{num_epochs - 1}.pt")
+    if num_epochs > start_epoch and os.path.exists(last):
+        final = os.path.join(model_dir, "final_model.pt")
+        if os.path.lexists(final):
+            os.remove(final)
+        os.symlink(os.path.basename(last), final)
+    return step
+
+
+@contextlib.contextmanager
+def _sigterm_event():
+    """An event that SIGTERM (maintenance, rescheduling) sets: the trainer
+    finishes the step in flight, saves preempt_model_<epoch>.pt and
+    returns; resume with that checkpoint. The caller's handler is restored
+    on exit. Off the main thread no handler can be installed, and the event
+    stays clear."""
+    event = threading.Event()
+    if threading.current_thread() is not threading.main_thread():
+        yield event
+        return
+    old = signal.signal(signal.SIGTERM, lambda s, f: event.set())
+    try:
+        yield event
+    finally:
+        signal.signal(signal.SIGTERM, old)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("overrides", nargs="*")
+    args = ap.parse_args(argv)
+    train(args.config, args.overrides, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

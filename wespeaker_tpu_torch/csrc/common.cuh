@@ -10,6 +10,13 @@
 //   output type.
 // - col_stats: masked mean (and unbiased std + 1e-7) over T of (B, T, C),
 //   one thread per (utterance, channel).
+// - softmax_stats: ASTP's softmax over T and the weighted mean and std.
+// - gemm_tn: C[M, N] = A^T B with A (K, M) and B (K, N) row-major, the
+//   weight-gradient product whose reduction runs over K = B*T rows. K is
+//   split across blocks (split-K); each split writes its f32 partial to a
+//   workspace and a second pass sums the splits in a fixed order, so the
+//   result does not depend on the order blocks run in (no float atomics).
+// - col_sum: f32 column sums of a (rows, n) matrix, rows in order.
 //
 // Kernels launch on the caller's stream, allocate nothing and do not
 // synchronise; each host launcher returns cudaGetLastError().
@@ -318,6 +325,275 @@ cudaError_t col_stats(const T* h, const float* mask, T* mean_out, T* std_out,
   const dim3 grid((c + 127) / 128, b);
   col_stats_kernel<T><<<grid, 128, 0, stream>>>(h, mask, mean_out, std_out,
                                                 t, c);
+  return cudaGetLastError();
+}
+
+// ---- ASTP softmax over T and weighted stats ----
+
+// Softmax over T per (utterance, channel) and the weighted mean and std of
+// h, one thread per channel, two passes over T: the max, then the sums of
+// e, e*h and e*h^2 with e = exp(logit - max). Masked frames (mask may be
+// null) take the logit -1e30, as in the JAX kernel. out: (b, 2d) f32
+// [mean | sqrt(max(var, 1e-7))].
+template <typename T>
+__global__ void softmax_stats_kernel(const float* __restrict__ logits,
+                                     const T* __restrict__ h,
+                                     const float* __restrict__ mask,
+                                     float* __restrict__ out, int t, int d) {
+  const int b = blockIdx.y;
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= d) return;
+  const float* lb = logits + (size_t)b * t * d + col;
+  const T* hb = h + (size_t)b * t * d + col;
+  const float* mb = mask ? mask + (size_t)b * t : nullptr;
+  float mx = -3.0e38f;  // below any logit, masked ones included
+  for (int i = 0; i < t; ++i) {
+    const float a = (mb && !(mb[i] > 0.f)) ? -1e30f : lb[(size_t)i * d];
+    mx = fmaxf(mx, a);
+  }
+  float s = 0.f, s1 = 0.f, s2 = 0.f;
+  for (int i = 0; i < t; ++i) {
+    const float a = (mb && !(mb[i] > 0.f)) ? -1e30f : lb[(size_t)i * d];
+    const float e = expf(a - mx);
+    const float hv = to_f(hb[(size_t)i * d]);
+    s += e;
+    s1 += e * hv;
+    s2 += e * hv * hv;
+  }
+  const float mean = s1 / s;
+  const float var = s2 / s - mean * mean;
+  out[(size_t)b * 2 * d + col] = mean;
+  out[(size_t)b * 2 * d + d + col] = sqrtf(fmaxf(var, 1e-7f));
+}
+
+template <typename T>
+cudaError_t softmax_stats(const float* logits, const T* h, const float* mask,
+                          float* out, int b, int t, int d,
+                          cudaStream_t stream) {
+  const dim3 grid((d + 127) / 128, b);
+  softmax_stats_kernel<T><<<grid, 128, 0, stream>>>(logits, h, mask, out, t,
+                                                    d);
+  return cudaGetLastError();
+}
+
+// ---- A^T B with split-K over the rows (weight gradients) ----
+
+struct GemmTnArgs {
+  const void* a;  // (k, m) row-major
+  const void* b;  // (k, n) row-major
+  float* work;    // (splits, m, n) f32 partial sums
+  int m;
+  int n;
+  int k;
+  int kc;  // rows of K per split, a multiple of 32
+};
+
+// bf16 on the tensor cores: the A tile is stored [k][m] in shared memory,
+// which WMMA reads as a column-major (m x k) fragment.
+__global__ void __launch_bounds__(256) gemm_tn_wmma_kernel(GemmTnArgs p) {
+  using namespace nvcuda;
+  __shared__ __align__(32) __nv_bfloat16 as[kWBK * kBLd];
+  __shared__ __align__(32) __nv_bfloat16 bs[kWBK * kBLd];
+  __shared__ __align__(32) float cs[8][16 * 16];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wr = warp / 2, wc = warp % 2;
+  const int row0 = blockIdx.y * kWBM, col0 = blockIdx.x * kWBN;
+  const int kbeg = blockIdx.z * p.kc;
+  const int kend = min(kbeg + p.kc, p.k);
+  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(p.a);
+  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(p.b);
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int k0 = kbeg; k0 < kend; k0 += kWBK) {
+    // A and B tiles: 32 rows of K x 16 chunks of 8 bf16 (16 bytes)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int idx = tid + i * 256;
+      const int r = idx / 16, ch = idx % 16;
+      const int gk = k0 + r;
+      const int gm = row0 + ch * 8;
+      uint4 va = make_uint4(0u, 0u, 0u, 0u);
+      uint4 vb = make_uint4(0u, 0u, 0u, 0u);
+      if (gk < kend) {
+        if (gm < p.m)
+          va = *reinterpret_cast<const uint4*>(a + (size_t)gk * p.m + gm);
+        vb = *reinterpret_cast<const uint4*>(b + (size_t)gk * p.n + col0 +
+                                             ch * 8);
+      }
+      *reinterpret_cast<uint4*>(&as[r * kBLd + ch * 8]) = va;
+      *reinterpret_cast<uint4*>(&bs[r * kBLd + ch * 8]) = vb;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWBK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::col_major>
+          af[2];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major>
+          bf[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        wmma::load_matrix_sync(af[i], &as[kk * kBLd + wr * 32 + i * 16],
+                               kBLd);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(bf[j], &bs[kk * kBLd + wc * 64 + j * 16],
+                               kBLd);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* out = p.work + (size_t)blockIdx.z * p.m * p.n;
+  float* c = cs[warp];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wmma::store_matrix_sync(c, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      for (int e = lane; e < 256; e += 32) {
+        const int row = row0 + wr * 32 + i * 16 + e / 16;
+        const int col = col0 + wc * 64 + j * 16 + e % 16;
+        if (row < p.m) out[(size_t)row * p.n + col] = c[e];
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// f32 on the CUDA cores (exact f32, no TF32), 8x8 outputs per thread.
+__global__ void __launch_bounds__(256) gemm_tn_fma_kernel(GemmTnArgs p) {
+  __shared__ float as[kFBK][kFBM + 4];
+  __shared__ float bs[kFBK][kFBN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.y * kFBM, col0 = blockIdx.x * kFBN;
+  const int kbeg = blockIdx.z * p.kc;
+  const int kend = min(kbeg + p.kc, p.k);
+  const float* a = static_cast<const float*>(p.a);
+  const float* b = static_cast<const float*>(p.b);
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = kbeg; k0 < kend; k0 += kFBK) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int idx = tid + i * 256;
+      const int kk = idx / kFBM, r = idx % kFBM;
+      const int gk = k0 + kk;
+      const bool in_k = gk < kend;
+      as[kk][r] = (in_k && row0 + r < p.m)
+                      ? a[(size_t)gk * p.m + row0 + r] : 0.f;
+      bs[kk][r] = in_k ? b[(size_t)gk * p.n + col0 + r] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kFBK; ++kk) {
+      float av[8], bv[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) av[i] = as[kk][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) bv[j] = bs[kk][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* out = p.work + (size_t)blockIdx.z * p.m * p.n;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + ty + 16 * i;
+    if (row >= p.m) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      out[(size_t)row * p.n + col0 + tx + 16 * j] = acc[i][j];
+  }
+}
+
+// out[i] = sum over z of work[z][i], z in order: the same sum every run.
+__global__ void splitk_reduce_kernel(const float* __restrict__ work,
+                                     float* __restrict__ out, int splits,
+                                     size_t mn) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += work[(size_t)z * mn + i];
+  out[i] = s;
+}
+
+// Splits of K: enough blocks for two per SM on 132 SMs, each split a
+// multiple of the 32-row K tile. Writes the rows per split to *kc.
+inline int gemm_tn_splits(int m, int n, int k, int* kc) {
+  const int tiles = ((m + 127) / 128) * (n / 128);
+  const int ktiles = (k + 31) / 32;
+  int splits = (264 + tiles - 1) / tiles;
+  if (splits > ktiles) splits = ktiles;
+  if (splits < 1) splits = 1;
+  const int rows = ((ktiles + splits - 1) / splits) * 32;
+  if (kc) *kc = rows;
+  return (k + rows - 1) / rows;
+}
+
+// f32 elements of workspace gemm_tn needs for these sizes.
+inline size_t gemm_tn_workspace(int m, int n, int k) {
+  return (size_t)gemm_tn_splits(m, n, k, nullptr) * m * n;
+}
+
+// out (m, n) f32 = a^T b, a (k, m) and b (k, n) of type T. Requires
+// n % 128 == 0 and m % 8 == 0; work holds work_elems floats.
+template <typename T>
+cudaError_t gemm_tn(const void* a, const void* b, float* out, int m, int n,
+                    int k, float* work, size_t work_elems,
+                    cudaStream_t stream) {
+  if (n % 128 || m % 8 || m <= 0 || k <= 0) return cudaErrorInvalidValue;
+  GemmTnArgs p{a, b, work, m, n, k, 0};
+  const int splits = gemm_tn_splits(m, n, k, &p.kc);
+  if ((size_t)splits * m * n > work_elems) return cudaErrorInvalidValue;
+  const dim3 grid(n / 128, (m + 127) / 128, splits);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    gemm_tn_wmma_kernel<<<grid, 256, 0, stream>>>(p);
+  } else {
+    static_assert(std::is_same<T, float>::value, "f32 or bf16 operands");
+    gemm_tn_fma_kernel<<<grid, 256, 0, stream>>>(p);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t mn = (size_t)m * n;
+  splitk_reduce_kernel<<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
+      work, out, splits, mn);
+  return cudaGetLastError();
+}
+
+// ---- column sums ----
+
+__global__ void col_sum_kernel(const float* __restrict__ x,
+                               float* __restrict__ out, int rows, int n) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n) return;
+  float s = 0.f;
+  for (int r = 0; r < rows; ++r) s += x[(size_t)r * n + col];
+  out[col] = s;
+}
+
+inline cudaError_t col_sum(const float* x, float* out, int rows, int n,
+                           cudaStream_t stream) {
+  col_sum_kernel<<<(n + 127) / 128, 128, 0, stream>>>(x, out, rows, n);
   return cudaGetLastError();
 }
 

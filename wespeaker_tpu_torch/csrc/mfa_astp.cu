@@ -12,41 +12,6 @@
 
 namespace ws {
 
-// Softmax over T per (utterance, channel) and the weighted mean and std of
-// h, one thread per channel, two passes over T: the max, then the sums of
-// e, e*h and e*h^2 with e = exp(logit - max). Masked frames take the logit
-// -1e30, as in the JAX kernel.
-template <typename T>
-__global__ void softmax_stats_kernel(const float* __restrict__ logits,
-                                     const T* __restrict__ h,
-                                     const float* __restrict__ mask,
-                                     float* __restrict__ out, int t, int d) {
-  const int b = blockIdx.y;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= d) return;
-  const float* lb = logits + (size_t)b * t * d + col;
-  const T* hb = h + (size_t)b * t * d + col;
-  const float* mb = mask ? mask + (size_t)b * t : nullptr;
-  float mx = -3.0e38f;  // below any logit, masked ones included
-  for (int i = 0; i < t; ++i) {
-    const float a = (mb && !(mb[i] > 0.f)) ? -1e30f : lb[(size_t)i * d];
-    mx = fmaxf(mx, a);
-  }
-  float s = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int i = 0; i < t; ++i) {
-    const float a = (mb && !(mb[i] > 0.f)) ? -1e30f : lb[(size_t)i * d];
-    const float e = expf(a - mx);
-    const float hv = to_f(hb[(size_t)i * d]);
-    s += e;
-    s1 += e * hv;
-    s2 += e * hv * hv;
-  }
-  const float mean = s1 / s;
-  const float var = s2 / s - mean * mean;
-  out[(size_t)b * 2 * d + col] = mean;
-  out[(size_t)b * 2 * d + d + col] = sqrtf(fmaxf(var, 1e-7f));
-}
-
 template <typename T>
 cudaError_t mfa_astp(const void* x2, const void* x3, const void* x4,
                      const float* mask, const void* wm, const float* bm,
@@ -87,10 +52,8 @@ cudaError_t mfa_astp(const void* x2, const void* x3, const void* x4,
   p.bias = b2;
   if ((err = gemm<T, float>(p, stream)) != cudaSuccess) return err;
   // 6. softmax over T and weighted stats
-  const dim3 grid((d + 127) / 128, b);
-  softmax_stats_kernel<T><<<grid, 128, 0, stream>>>(
-      logits, static_cast<const T*>(h), mask, out, t, d);
-  return cudaGetLastError();
+  return softmax_stats<T>(logits, static_cast<const T*>(h), mask, out, b, t,
+                          d, stream);
 }
 
 }  // namespace ws

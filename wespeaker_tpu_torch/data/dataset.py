@@ -1,0 +1,130 @@
+"""Training dataset composition and background prefetch.
+
+Counterpart of wespeaker_tpu/data/dataset.py (upstream
+wespeaker/dataset/dataset.py:136-273): the processor chain of
+data/pipeline.py for `raw` and `shard` lists, repeated without end with a
+reshuffle per epoch, yielding fixed-shape numpy batches for the train
+step, and a one-thread prefetcher. Not ported yet, and refused: the
+`feat` data type, the host half of device-side augmentation and SSL
+multi-crop. Reverb/noise augmentation (the packed audio stores), the
+evaluation mode, the per-rank and per-worker split and the multi-process
+prefetcher are not ported either (bin/train.py refuses their options).
+"""
+
+import queue
+import threading
+from typing import Dict, Iterator
+
+import numpy as np
+
+from wespeaker_tpu_torch.data import pipeline as P
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+class SpeakerDataset:
+    """Iterable over fixed-shape training batches, for one process: the
+    trainer refuses distributed and multi-worker runs, so every list is
+    this process's."""
+
+    def __init__(self, data_type: str, data_list_file: str, configs: Dict,
+                 spk2id: Dict[str, int], seed: int = 42):
+        if data_type == "feat":
+            raise _not_ported("data_type feat")
+        if data_type not in ("shard", "raw"):
+            raise ValueError(f"unknown data_type {data_type}")
+        if configs.get("device_aug", False):
+            raise _not_ported("device_aug")
+        if configs.get("defer_chunk_aug", False):
+            raise _not_ported("defer_chunk_aug (SSL multi-crop)")
+        if configs.get("speed_perturb_mode", "random") != "random":
+            raise _not_ported("speed_perturb_mode "
+                              f"{configs['speed_perturb_mode']}")
+        self.data_type = data_type
+        self.lists = P.read_lists(data_list_file)
+        self.configs = configs
+        self.spk2id = spk2id
+        self.seed = seed
+
+    def _epoch_iter(self, epoch: int) -> Iterator[dict]:
+        cfg = self.configs
+        rng = np.random.default_rng(self.seed + 1000 * epoch)
+        lists = P.distributed_shard(self.lists, epoch=epoch,
+                                    shuffle=cfg.get("shuffle", True),
+                                    seed=self.seed)
+        data = (P.parse_shard(lists) if self.data_type == "shard"
+                else P.parse_raw(lists))
+        fbank_args = cfg.get("fbank_args", {})
+        if cfg.get("filter", True):
+            # upstream order: filter right after parse, before speed
+            # perturb; thresholds scale with the sample's own rate
+            data = P.filter_and_cap(
+                data, cfg.get("filter_args", {}).get("min_num_frames", 100),
+                cfg.get("filter_args", {}).get("max_num_frames", 800),
+                fbank_args.get("frame_shift", 10), rng)
+        data = P.resample(data, cfg.get("resample_rate", 16000))
+        if cfg.get("shuffle", True):
+            data = P.local_shuffle(
+                data, cfg.get("shuffle_args", {}).get("shuffle_size", 2500),
+                rng)
+        data = P.spk_to_id(data, self.spk2id)
+        if cfg.get("speed_perturb", True):
+            data = P.speed_perturb(data, len(self.spk2id), rng)
+        num_frms = cfg.get("num_frms", 200)
+        sr = cfg.get("resample_rate", 16000)
+        chunk_len = ((num_frms - 1) * fbank_args.get("frame_shift", 10)
+                     + fbank_args.get("frame_length", 25)) * sr // 1000
+        return P.random_chunk(data, chunk_len, rng)
+
+    def batches(self, batch_size: int) -> Iterator[dict]:
+        """Batches from one endless sample stream spanning epochs, so a
+        partial batch at an epoch boundary carries over instead of being
+        dropped."""
+
+        def stream():
+            epoch = 0
+            while True:
+                yield from self._epoch_iter(epoch)
+                epoch += 1
+
+        yield from P.batch_samples(stream(), batch_size)
+
+    def num_classes(self) -> int:
+        n = len(self.spk2id)
+        if self.configs.get("speed_perturb", True):
+            return n * 3  # perturbed speeds are new classes
+        return n
+
+
+class Prefetcher:
+    """Background-thread batch prefetch with a bounded queue; an error in
+    the producer is raised in the consumer."""
+
+    def __init__(self, iterator, depth: int = 4):
+        self.q = queue.Queue(maxsize=depth)
+        self._done = object()
+        self._err = None
+
+        def worker():
+            try:
+                for item in iterator:
+                    self.q.put(item)
+            except BaseException as e:  # propagate to consumer
+                self._err = e
+            finally:
+                self.q.put(self._done)
+
+        self.thread = threading.Thread(target=worker, daemon=True)
+        self.thread.start()
+
+    def __iter__(self):
+        while True:
+            item = self.q.get()
+            if item is self._done:
+                if self._err is not None:
+                    raise self._err
+                return
+            yield item
+

@@ -11,7 +11,11 @@ In eval mode with `fused=True` (the default), each SE_Res2Block runs as one
 call of `ops.se_block.fused_se_res2_block` and the MFA conv + ASTP tail as
 one call of `ops.mfa_astp.fused_mfa_astp`, with BN folded: on a CUDA tensor
 those launch the hand-written kernels, on a CPU tensor their plain
-versions. Training, and `fused=False`, run the modules layer by layer.
+versions. In training with `fused=True` and no mask, the tail is one call
+of the differentiable `ops.mfa_astp_vjp.mfa_astp_train` (forward and
+backward kernels; the tail has no BatchNorm, so it is exact in training),
+and the SE blocks run layer by layer, as in the JAX package, whose block
+kernel is inference-only. `fused=False` runs every module layer by layer.
 """
 
 from typing import Optional
@@ -24,6 +28,7 @@ from wespeaker_tpu_torch.models.layers import (batch_norm, conv1d, fold_bn,
 from wespeaker_tpu_torch.models.pooling_layers import (get_pooling,
                                                        pooling_out_dim)
 from wespeaker_tpu_torch.ops.mfa_astp import fused_mfa_astp
+from wespeaker_tpu_torch.ops.mfa_astp_vjp import mfa_astp_train
 from wespeaker_tpu_torch.ops.se_block import fused_se_res2_block
 
 _MFA_DIM = 512 * 3  # the MFA conv's output width for every ECAPA size
@@ -166,12 +171,12 @@ class ECAPA_TDNN(nn.Module):
             layer.fused = fused
         return self
 
-    def _fused_tail(self, out2, out3, out4, mask):
-        return fused_mfa_astp(
-            out2, out3, out4, self.conv.weight[:, :, 0].t(), self.conv.bias,
-            self.pool.linear1.weight[:, :, 0].t(), self.pool.linear1.bias,
-            self.pool.linear2.weight[:, :, 0].t(), self.pool.linear2.bias,
-            mask=mask, glob=self.global_context_att)
+    def _tail_weights(self):
+        """(wm (3C, D), bm, k1 (·, A), b1, k2 (A, D), b2) as views of the
+        k=1 conv weights, so gradients reach the parameters."""
+        return (self.conv.weight[:, :, 0].t(), self.conv.bias,
+                self.pool.linear1.weight[:, :, 0].t(), self.pool.linear1.bias,
+                self.pool.linear2.weight[:, :, 0].t(), self.pool.linear2.bias)
 
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -181,8 +186,15 @@ class ECAPA_TDNN(nn.Module):
         out2 = self.layer2(out1, mask)
         out3 = self.layer3(out2, mask)
         out4 = self.layer4(out3, mask)
-        if self.fused and not self.training:  # ASTP: the only pooling ported
-            pooled = self._fused_tail(out2, out3, out4, mask).to(x.dtype)
+        # ASTP is the only pooling ported, so the tail is always fusable
+        if self.fused and not self.training:
+            pooled = fused_mfa_astp(
+                out2, out3, out4, *self._tail_weights(), mask=mask,
+                glob=self.global_context_att).to(x.dtype)
+        elif self.fused and mask is None:
+            pooled = mfa_astp_train(
+                out2, out3, out4, *self._tail_weights(),
+                glob=self.global_context_att).to(x.dtype)
         else:
             out = conv1d(torch.cat([out2, out3, out4], dim=-1), self.conv)
             pooled = self.pool(torch.relu(out), mask)

@@ -25,12 +25,30 @@ def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
     """`bn` on channels-last x (B, T, C) or (B, C). Statistics and affine in
-    f32, result in x's dtype."""
+    f32, result in x's dtype.
+
+    In training the batch statistics normalise x and update the running
+    ones as flax's nn.BatchNorm (momentum 0.9) does, which the JAX package
+    uses: running = (1 - m) running + m batch with torch's m = 0.1, and the
+    batch variance is the biased one (mean of squared deviations). PyTorch's
+    own update would store the unbiased variance, n / (n - 1) times it."""
     y = x.float()
     if y.dim() == 3:
-        y = y.transpose(1, 2)
-    y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                     training=bn.training, momentum=bn.momentum, eps=bn.eps)
+        y = y.transpose(1, 2)  # F.batch_norm takes channels second
+    if bn.training:
+        with torch.no_grad():
+            dims = [d for d in range(y.dim()) if d != 1]
+            var, mean = torch.var_mean(y, dim=dims, correction=0)
+            bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+            bn.num_batches_tracked.add_(1)
+        # normalised by the batch statistics (biased variance, as flax); no
+        # running statistics given, so F.batch_norm updates none
+        y = F.batch_norm(y, None, None, bn.weight, bn.bias, training=True,
+                         eps=bn.eps)
+    else:
+        y = F.batch_norm(y, bn.running_mean, bn.running_var, bn.weight,
+                         bn.bias, training=False, eps=bn.eps)
     if y.dim() == 3:
         y = y.transpose(1, 2)
     return y.to(x.dtype)

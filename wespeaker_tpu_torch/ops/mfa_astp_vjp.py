@@ -1,0 +1,344 @@
+"""ECAPA's MFA conv + ASTP tail for training: differentiable, with CUDA
+kernels for the forward and the backward.
+
+Replaces the Pallas kernels of wespeaker_tpu/ops/mfa_astp_vjp.py:
+`_fwd_values` (pallas_call at :166) and `_bwd_pallas` (pallas_call at
+:350, `_bwd_kernel`). `mfa_astp_train` is a `torch.autograd.Function` with
+the contract of the JAX `mfa_astp_train` (:135): the unmasked tail of
+ops/mfa_astp.py, returning (B, 2D) f32 pooled [mean | std]. Its forward
+saves the residuals of the JAX `_fwd` (x2, x3, x4, wm, k1, b2, k2, pooled,
+h, att, cstats); its backward returns the nine gradients, db2 exactly zero
+(b2 shifts every frame of a softmax column equally, so the output does not
+depend on it).
+
+The tail has no BatchNorm, so the fused training tail is exact, not an
+approximation of the layer-by-layer path.
+
+A CPU tensor takes the plain versions (`mfa_astp_train_fwd_reference`,
+`mfa_astp_train_bwd_reference`); a CUDA tensor launches the kernels of
+csrc/mfa_astp_train.cu (bound and design in that file), or raises for a
+shape or type they do not take. Rounding follows the JAX kernels: h, the
+tanh activations, dlogits, dpre and dacc are rounded to the I/O type before
+their products, dctx and dbm are summed from the f32 values, cstats are
+f32, every product accumulates in f32.
+"""
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from wespeaker_tpu_torch.ops import _build
+from wespeaker_tpu_torch.ops.mfa_astp import _dot, mfa_astp_reference
+
+__all__ = ["mfa_astp_train", "mfa_astp_train_reference",
+           "mfa_astp_train_fwd", "mfa_astp_train_bwd",
+           "mfa_astp_train_fwd_reference", "mfa_astp_train_bwd_reference"]
+
+
+def _split_k1(k1, d, glob):
+    if glob:
+        return k1[:d], k1[d:2 * d], k1[2 * d:]
+    return k1, None, None
+
+
+def _dot_tn(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b over all leading rows: (..., M), (..., N) -> (M, N) f32."""
+    return torch.matmul(a.reshape(-1, a.shape[-1]).float().t(),
+                        b.reshape(-1, b.shape[-1]).float())
+
+
+def mfa_astp_train_reference(x2, x3, x4, wm, bm, k1, b1, k2, b2,
+                             glob: bool = True):
+    """Plain forward with the contract of mfa_astp_train, differentiable by
+    autograd: the oracle of the custom backward (JAX
+    mfa_astp_vjp.py:503)."""
+    return mfa_astp_reference(x2, x3, x4, wm, bm, k1, b1, k2, b2, mask=None,
+                              glob=glob)
+
+
+def mfa_astp_train_fwd_reference(x2, x3, x4, wm, bm, k1, b1, k2, b2,
+                                 glob: bool = True):
+    """Plain forward returning (pooled (B, 2D) f32, h (B, T, D) and att
+    (B, T, A) in the I/O type, cstats (B, 2D) f32 [cmean | cstd], zeros
+    without glob), as the JAX `_tail_math_aux` (:52-98)."""
+    io = x2.dtype
+    b, t, c = x2.shape
+    d = wm.shape[-1]
+    k1x, k1m, k1s = _split_k1(k1, d, glob)
+    acc = bm.float()
+    for i, p in enumerate((x2, x3, x4)):
+        acc = acc + _dot(p, wm[i * c:(i + 1) * c])
+    h = torch.relu(acc).to(io)
+    hf = h.float()
+    if glob:
+        cmean = hf.mean(dim=1)
+        cvar = ((hf - cmean[:, None, :]) ** 2).sum(dim=1) / max(t - 1, 1)
+        cstd = torch.sqrt(cvar + 1e-7)
+        ctx = (_dot(cmean.to(io), k1m) + _dot(cstd.to(io), k1s)
+               + b1.float())
+        att = torch.tanh(_dot(h, k1x) + ctx[:, None, :])
+        cstats = torch.cat([cmean, cstd], dim=-1)
+    else:
+        att = torch.tanh(_dot(h, k1x) + b1.float())
+        cstats = torch.zeros((b, 2 * d), device=x2.device)
+    att = att.to(io)
+    w = torch.softmax(_dot(att, k2) + b2.float(), dim=1)
+    mean = (w * hf).sum(dim=1)
+    var = (w * hf * hf).sum(dim=1) - mean * mean
+    std = torch.sqrt(torch.clamp(var, min=1e-7))
+    return torch.cat([mean, std], dim=-1), h, att, cstats
+
+
+def mfa_astp_train_bwd_reference(x2, x3, x4, wm, k1, b2, k2, pooled, h, att,
+                                 cstats, g, glob: bool = True):
+    """Plain backward: the math of the JAX `_bwd_kernel` (:206-301) and the
+    outer products of `_bwd_pallas` (:372-385), written out. g: (B, 2D)
+    dL/dpooled. Returns (dx2, dx3, dx4 in the I/O type; dwm, dbm, dk1, db1,
+    dk2, db2 in f32), db2 exactly zero."""
+    io = x2.dtype
+    t, c = x2.shape[1], x2.shape[2]
+    d = wm.shape[-1]
+    k1x, k1m, k1s = _split_k1(k1, d, glob)
+    hf = h.float()
+    # softmax weights recomputed from att
+    w = torch.softmax(_dot(att, k2) + b2.float(), dim=1)
+    mean, std = pooled[:, :d], pooled[:, d:]
+    gm, gs = g[:, :d].float(), g[:, d:].float()
+    gv = torch.where(std * std > 1e-7,
+                     gs * 0.5 / torch.clamp(std, min=1e-12),
+                     torch.zeros_like(gs))                      # dL/dvar
+    gm_eff = gm - 2.0 * gv * mean                               # dL/dmean
+    dw = gm_eff[:, None, :] * hf + gv[:, None, :] * hf * hf     # dL/dw
+    dlogits = w * (dw - (w * dw).sum(dim=1, keepdim=True))
+    dh_pool = w * (gm_eff[:, None, :] + 2.0 * gv[:, None, :] * hf)
+
+    dl = dlogits.to(io)
+    datt = _dot(dl, k2.t())
+    dk2 = _dot_tn(att, dl)
+    attf = att.float()
+    dpre = datt * (1.0 - attf * attf)
+    dp = dpre.to(io)
+    dk1x = _dot_tn(h, dp)
+    dh = _dot(dp, k1x.t())                                      # dh_att
+    dctx = dpre.sum(dim=1)                                      # (B, A)
+    db1 = dctx.sum(dim=0)
+    dh = dh + dh_pool
+    if glob:
+        cmean, cstd = cstats[:, :d], cstats[:, d:]
+        dc = dctx.to(io)
+        dcmean, dcstd = _dot(dc, k1m.t()), _dot(dc, k1s.t())
+        dcvar = dcstd * 0.5 / cstd
+        # the cmean-through-cvar term is zero: sum_T (h - cmean) = 0
+        dh = dh + ((2.0 / max(t - 1, 1)) * (hf - cmean[:, None, :])
+                   * dcvar[:, None, :] + dcmean[:, None, :] / t)
+        dk1 = torch.cat([dk1x, cmean.t() @ dctx, cstd.t() @ dctx], dim=0)
+    else:
+        dk1 = dk1x
+    dacc = torch.where(hf > 0, dh, torch.zeros_like(dh))        # relu
+    da = dacc.to(io)
+    dbm = dacc.sum(dim=(0, 1))
+    dxs = [_dot(da, wm[i * c:(i + 1) * c].t()).to(io) for i in range(3)]
+    dwm = torch.cat([_dot_tn(x, da) for x in (x2, x3, x4)], dim=0)
+    db2 = torch.zeros(d, device=x2.device)
+    return (*dxs, dwm, dbm, dk1, db1, dk2, db2)
+
+
+def _check_cuda_args(x2, x3, x4, wm, k1, k2, glob):
+    if x2.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"mfa_astp_train takes f32 or bf16, not {x2.dtype}")
+    if x3.shape != x2.shape or x4.shape != x2.shape or len({
+            x2.dtype, x3.dtype, x4.dtype}) != 1:
+        raise ValueError("x2, x3, x4 must share shape and dtype")
+    b, t, c = x2.shape
+    d, a = wm.shape[-1], k2.shape[0]
+    want_k1 = ((3 if glob else 1) * d, a)
+    if (b * t == 0 or c % 128 or d % 128 or a % 128
+            or tuple(wm.shape) != (3 * c, d)
+            or tuple(k1.shape) != want_k1 or tuple(k2.shape) != (a, d)):
+        raise ValueError(
+            "mfa_astp_train kernels take C, D and A multiples of 128, wm "
+            f"(3C, D), k1 {want_k1}, k2 (A, D); got x {tuple(x2.shape)}, wm "
+            f"{tuple(wm.shape)}, k1 {tuple(k1.shape)}, k2 "
+            f"{tuple(k2.shape)}")
+
+
+def _on_cuda(x2, what):
+    if x2.device.type == "cpu":
+        return False
+    if x2.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {x2.device}")
+    return True
+
+
+def mfa_astp_train_fwd(x2, x3, x4, wm, bm, k1, b1, k2, b2,
+                       glob: bool = True):
+    """Training forward: (pooled, h, att, cstats) as
+    mfa_astp_train_fwd_reference. A CPU tensor takes that plain version; a
+    CUDA tensor launches the forward kernel or raises."""
+    if not _on_cuda(x2, "mfa_astp_train_fwd"):
+        return mfa_astp_train_fwd_reference(x2, x3, x4, wm, bm, k1, b1, k2,
+                                            b2, glob=glob)
+    _check_cuda_args(x2, x3, x4, wm, k1, k2, glob)
+    b, t, c = x2.shape
+    d, a = wm.shape[-1], k2.shape[0]
+    io, dev = x2.dtype, x2.device
+
+    def io_(v):
+        return v.detach().to(device=dev, dtype=io).contiguous()
+
+    def f32(v):
+        return v.detach().to(device=dev, dtype=torch.float32).contiguous()
+
+    xs = [v.detach().contiguous() for v in (x2, x3, x4)]
+    # glob: k1 rows [x | ctx_mean | ctx_std]; the last two are one (2D, A)
+    # operand of the context GEMM
+    k1x, k1ms = (io_(k1[:d]), io_(k1[d:])) if glob else (io_(k1), None)
+    h = torch.empty((b, t, d), device=dev, dtype=io)
+    att = torch.empty((b, t, a), device=dev, dtype=io)
+    cstats = torch.empty((b, 2 * d), device=dev, dtype=torch.float32)
+    cstats_io = torch.empty((b, 2 * d), device=dev, dtype=io)
+    ctx = torch.empty((b, a), device=dev, dtype=torch.float32)
+    logits = torch.empty((b, t, d), device=dev, dtype=torch.float32)
+    pooled = torch.empty((b, 2 * d), device=dev, dtype=torch.float32)
+
+    # every operand is held in a name until the launch is queued: a
+    # temporary freed earlier could be handed to the next allocation
+    head = xs + [io_(wm), f32(bm), k1x]
+    tail = [f32(b1), io_(k2), f32(b2), h, att, cstats, cstats_io, ctx,
+            logits, pooled]
+    lib = _lib()
+    ptr = _build.pointers
+    rc = lib.ws_mfa_astp_train_fwd(
+        *ptr(head), None if k1ms is None else ptr([k1ms])[0], *ptr(tail),
+        b, t, c, d, a, int(glob), int(io == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "mfa_astp_train_fwd")
+    mfa_astp_train_fwd.launches += 1
+    return pooled, h, att, cstats
+
+
+mfa_astp_train_fwd.launches = 0
+
+
+def mfa_astp_train_bwd(x2, x3, x4, wm, k1, b2, k2, pooled, h, att, cstats,
+                       g, glob: bool = True):
+    """Training backward: the nine gradients as
+    mfa_astp_train_bwd_reference. A CPU tensor takes that plain version; a
+    CUDA tensor launches the backward kernel or raises. dk1's context rows
+    and db1 are the small per-batch outer products the JAX package also
+    computes outside its kernel (`_bwd_pallas` :372-382)."""
+    if not _on_cuda(x2, "mfa_astp_train_bwd"):
+        return mfa_astp_train_bwd_reference(x2, x3, x4, wm, k1, b2, k2,
+                                            pooled, h, att, cstats, g,
+                                            glob=glob)
+    _check_cuda_args(x2, x3, x4, wm, k1, k2, glob)
+    b, t, c = x2.shape
+    d, a = wm.shape[-1], k2.shape[0]
+    io, dev = x2.dtype, x2.device
+    f32t = torch.float32
+
+    def io_(v):
+        return v.detach().to(device=dev, dtype=io).contiguous()
+
+    def f32(v):
+        return v.detach().to(device=dev, dtype=f32t).contiguous()
+
+    def empty(*shape, dtype=f32t):
+        return torch.empty(shape, device=dev, dtype=dtype)
+
+    ins = [v.detach().contiguous() for v in (x2, x3, x4, h, att)]
+    ins += [f32(pooled), f32(cstats), f32(g)]
+    weights = [io_(k2), io_(k2.t()), io_(k1[:d].t())]      # k2, k2^T, k1x^T
+    k1mst = io_(k1[d:].t()) if glob else None              # [k1m|k1s]^T
+    wmt = [io_(wm[i * c:(i + 1) * c].t()) for i in range(3)]  # wm_i^T
+    b2f = f32(b2)
+    dxs = [empty(b, t, c, dtype=io) for _ in range(3)]
+    dwm, dbm, dk1x = empty(3 * c, d), empty(d), empty(d, a)
+    dctx, dk2 = empty(b, a), empty(a, d)
+    logits, dl = empty(b, t, d), empty(b, t, d, dtype=io)
+    datt, dp = empty(b, t, a), empty(b, t, a, dtype=io)
+    dctx_io = empty(b, a, dtype=io)
+    dcms = empty(b, 2 * d) if glob else None
+    dh, da, dbm_part = empty(b, t, d), empty(b, t, d, dtype=io), empty(b, d)
+
+    lib = _lib()
+    n_work = lib.ws_mfa_astp_train_bwd_workspace(b, t, c, d, a)
+    work = empty(n_work)
+    ptr = _build.pointers
+
+    def opt(v):
+        return None if v is None else ptr([v])[0]
+
+    rc = lib.ws_mfa_astp_train_bwd(
+        *ptr(ins + weights), opt(k1mst), *ptr(wmt + [b2f] + dxs),
+        *ptr([dwm, dbm, dk1x, dctx, dk2, logits, dl, datt, dp, dctx_io]),
+        opt(dcms), *ptr([dh, da, dbm_part, work]), n_work,
+        b, t, c, d, a, int(glob), int(io == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "mfa_astp_train_bwd")
+    mfa_astp_train_bwd.launches += 1
+    db1 = dctx.sum(dim=0)
+    if glob:
+        cst = ins[6]
+        dk1 = torch.cat([dk1x, cst[:, :d].t() @ dctx, cst[:, d:].t() @ dctx],
+                        dim=0)
+    else:
+        dk1 = dk1x
+    return (*dxs, dwm, dbm, dk1, db1, dk2, torch.zeros(d, device=dev))
+
+
+mfa_astp_train_bwd.launches = 0
+
+
+class _MfaAstpTrain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, x3, x4, wm, bm, k1, b1, k2, b2, glob):
+        pooled, h, att, cstats = mfa_astp_train_fwd(x2, x3, x4, wm, bm, k1,
+                                                    b1, k2, b2, glob=glob)
+        ctx.save_for_backward(x2, x3, x4, wm, k1, b2, k2, pooled, h, att,
+                              cstats)
+        ctx.glob = glob
+        ctx.dtypes = [v.dtype for v in (x2, x3, x4, wm, bm, k1, b1, k2, b2)]
+        # the residuals are outputs only so that they can be saved; no
+        # gradient flows into them, and none is materialised
+        ctx.mark_non_differentiable(h, att, cstats)
+        ctx.set_materialize_grads(False)
+        return pooled, h, att, cstats
+
+    @staticmethod
+    def backward(ctx, g, _gh, _gatt, _gcs):
+        x2, x3, x4, wm, k1, b2, k2, pooled, h, att, cstats = \
+            ctx.saved_tensors
+        grads = mfa_astp_train_bwd(x2, x3, x4, wm, k1, b2, k2, pooled, h,
+                                   att, cstats, g.contiguous(),
+                                   glob=ctx.glob)
+        return (*(gr.to(dt) for gr, dt in zip(grads, ctx.dtypes)), None)
+
+
+def mfa_astp_train(x2, x3, x4, wm, bm, k1, b1, k2, b2, glob: bool = True,
+                   mask: Optional[torch.Tensor] = None):
+    """Differentiable tail. x2/x3/x4: (B, T, C) SE-Res2 block outputs; wm
+    (3C, D), bm (D,); k1 (3D, A) with glob (rows [x | ctx_mean | ctx_std])
+    else (D, A); b1 (A,); k2 (A, D); b2 (D,). Returns (B, 2D) f32 pooled
+    [mean | std]. Training uses fixed chunks: there is no masked form, and
+    a mask raises."""
+    if mask is not None:
+        raise ValueError("mfa_astp_train takes no mask: training chunks are "
+                         "unpadded; use the layer-by-layer path")
+    return _MfaAstpTrain.apply(x2, x3, x4, wm, bm, k1, b1, k2, b2, glob)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("mfa_astp_train")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ws_mfa_astp_train_fwd.argtypes = [p] * 17 + [i] * 7 + [p]
+    lib.ws_mfa_astp_train_fwd.restype = i
+    lib.ws_mfa_astp_train_bwd_workspace.argtypes = [i] * 5
+    lib.ws_mfa_astp_train_bwd_workspace.restype = ctypes.c_longlong
+    lib.ws_mfa_astp_train_bwd.argtypes = ([p] * 34 + [ctypes.c_longlong]
+                                          + [i] * 7 + [p])
+    lib.ws_mfa_astp_train_bwd.restype = i
+    return lib

@@ -1,1 +1,3 @@
-from wespeaker_tpu_torch.train.train_step import make_eval_embed_fn  # noqa: F401
+from wespeaker_tpu_torch.train.train_step import (  # noqa: F401
+    AugConfig, TrainStep, build_train_state, make_eval_embed_fn,
+    make_train_step)

@@ -1,25 +1,197 @@
-"""The embedding-extraction forward.
+"""The supervised training step and the embedding-extraction forward.
 
-Counterpart of wespeaker_tpu/train/train_step.py::make_eval_embed_fn; the
-training step is not ported yet.
+Counterpart of wespeaker_tpu/train/train_step.py. One step is
+
+    wav chunk -> x 2^15 + dither -> fbank -> CMVN -> spec-aug -> speaker
+    model -> margin head -> cross-entropy -> backward -> optimizer step
+
+with the LR and margin schedules evaluated on the host from the step
+counter. AMP is the JAX package's (`amp_cast`): parameters stay f32, the
+modules cast them to the activation type (models/layers.py), and their
+gradients come back f32; features are computed in f32 and only then cast
+to the compute type, so no autocast region is needed. Random numbers
+(dither, spec-aug) come from an explicit torch.Generator on the device;
+they are not JAX's numbers, only the same distributions.
 """
 
-from typing import Any, Callable, Dict
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
 from wespeaker_tpu_torch.frontend.fbank import (FbankConfig, apply_cmvn,
                                                 compute_fbank)
 from wespeaker_tpu_torch.train.composite import _sample_to_frame_mask
+from wespeaker_tpu_torch.train.optim import make_optimizer
 
 
-def _on(x, device: torch.device) -> torch.Tensor:
+def _on(x, device: torch.device, dtype=torch.float32) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(x)
-    return x.to(device=device, dtype=torch.float32)
+    return x.to(device=device, dtype=dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class AugConfig:
+    """Spec-aug on the device (upstream processor.py:550-587)."""
+    spec_aug: bool = True
+    spec_aug_prob: float = 0.6
+    num_t_mask: int = 1
+    num_f_mask: int = 1
+    max_t: int = 10
+    max_f: int = 8
+
+    @classmethod
+    def from_spec_aug_args(cls, args, enabled: bool = True) -> "AugConfig":
+        """Build from a config dict, accepting the upstream YAML key `prob`
+        for spec_aug_prob. Unknown keys raise."""
+        args = dict(args or {})
+        if "prob" in args:
+            args["spec_aug_prob"] = args.pop("prob")
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = sorted(set(args) - known)
+        if unknown:
+            raise ValueError(f"unknown spec_aug_args keys {unknown}; "
+                             f"supported: {sorted(known)}")
+        return cls(spec_aug=enabled, **args)
+
+
+def spec_aug_batch(generator: torch.Generator, feat: torch.Tensor,
+                   cfg: AugConfig) -> torch.Tensor:
+    """Random time and frequency masking with the per-utterance semantics
+    of the reference: with probability spec_aug_prob an utterance gets
+    num_t_mask time masks and num_f_mask frequency masks, each starting at
+    U[0, dim - 1] with width U[1, max]."""
+    b, t, f = feat.shape
+    dev = feat.device
+
+    def rand_int(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=generator, device=dev)
+
+    apply = torch.rand((b, 1, 1), generator=generator,
+                       device=dev) < cfg.spec_aug_prob
+
+    def keep_axis(dim, max_w, count):
+        start = rand_int(0, dim, (b, count, 1))
+        width = rand_int(1, max_w + 1, (b, count, 1))
+        pos = torch.arange(dim, device=dev)[None, None, :]
+        hit = (pos >= start) & (pos < start + width)     # (b, count, dim)
+        return ~hit.any(dim=1)                           # (b, dim)
+
+    keep = (keep_axis(t, cfg.max_t, cfg.num_t_mask)[:, :, None]
+            & keep_axis(f, cfg.max_f, cfg.num_f_mask)[:, None, :])
+    return torch.where(apply & ~keep, torch.zeros_like(feat), feat)
+
+
+def dither_wav(wav: torch.Tensor, amount: float,
+               generator: torch.Generator) -> torch.Tensor:
+    """wav + amount * N(0, 1) per sample, on the waveform (x 2^15) rather
+    than per kaldi frame, so overlapping windows see the same noise; a
+    regulariser either way, and evaluation runs without it."""
+    return wav + amount * torch.randn(wav.shape, generator=generator,
+                                      device=wav.device)
+
+
+def features_from_batch(batch: Dict[str, Any], fbank_cfg: FbankConfig,
+                        aug: Optional[AugConfig],
+                        generator: Optional[torch.Generator], train: bool,
+                        device: torch.device) -> torch.Tensor:
+    """{'wav': (B, N) in [-1, 1]} -> (B, T, F) f32 normalised features. In
+    training, dither is added to the waveform (after x 2^15) so the fused
+    DFT-conv fbank stays usable, then spec-aug follows CMVN."""
+    wav = _on(batch["wav"], device) * (1 << 15)
+    if train and fbank_cfg.dither != 0.0:
+        wav = dither_wav(wav, fbank_cfg.dither, generator)
+        fbank_cfg = dataclasses.replace(fbank_cfg, dither=0.0)
+    feat = apply_cmvn(compute_fbank(wav, fbank_cfg))
+    if train and aug is not None and aug.spec_aug:
+        feat = spec_aug_batch(generator, feat, aug)
+    return feat
+
+
+class TrainStep:
+    """batch -> metrics {loss, acc, lr, margin}; updates the modules and
+    the optimizer in place and counts steps in `step`. loss and acc are
+    device tensors (reading them synchronises), lr and margin floats."""
+
+    def __init__(self, model: nn.Module, projection: nn.Module,
+                 optimizer: torch.optim.Optimizer, lr_fn: Callable,
+                 margin_fn: Callable, fbank_cfg: FbankConfig,
+                 aug: Optional[AugConfig], compute_dtype: torch.dtype,
+                 device: torch.device, generator: torch.Generator,
+                 step: int = 0):
+        self.model, self.projection = model, projection
+        self.optimizer = optimizer
+        self.lr_fn, self.margin_fn = lr_fn, margin_fn
+        self.fbank_cfg, self.aug = fbank_cfg, aug
+        self.compute_dtype, self.device = compute_dtype, device
+        self.generator = generator
+        self.step = step
+
+    def __call__(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        lr, margin = float(self.lr_fn(self.step)), float(
+            self.margin_fn(self.step))
+        for group in self.optimizer.param_groups:
+            group["lr"] = lr
+        self.model.train()
+        self.projection.train()
+        label = _on(batch["label"], self.device, torch.long)
+        feat = features_from_batch(batch, self.fbank_cfg, self.aug,
+                                   self.generator, True, self.device)
+        embed = self.model(feat.to(self.compute_dtype)).float()
+        logits = self.projection(embed, label, margin)
+        loss = F.cross_entropy(logits, label)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self.optimizer.step()
+        self.step += 1
+        acc = (logits.detach().argmax(dim=-1) == label).float().mean()
+        return {"loss": loss.detach(), "acc": acc, "lr": lr, "margin": margin}
+
+
+def make_train_step(model: nn.Module, projection: nn.Module,
+                    optimizer: torch.optim.Optimizer, lr_fn: Callable,
+                    margin_fn: Callable,
+                    fbank_cfg: FbankConfig = FbankConfig(dither=1.0),
+                    aug: Optional[AugConfig] = AugConfig(),
+                    compute_dtype: torch.dtype = torch.float32,
+                    device: DeviceLike = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> TrainStep:
+    """The train step on `device` (the card unless the caller passes
+    device="cpu"); the modules are moved there. `generator` (on that
+    device) drives dither and spec-aug; a fresh unseeded one if None."""
+    dev = resolve_device(device)
+    model.to(dev)
+    projection.to(dev)
+    if generator is None:
+        generator = torch.Generator(device=dev)
+    return TrainStep(model, projection, optimizer, lr_fn, margin_fn,
+                     fbank_cfg, aug, compute_dtype, dev, generator)
+
+
+def build_train_state(build_modules: Callable[[], Tuple[nn.Module,
+                                                        nn.Module]],
+                      optimizer_conf: Dict[str, Any], seed: int = 42,
+                      device: DeviceLike = None):
+    """The role of the JAX init_train_state: seed torch from `seed`, build
+    (model, projection) with build_modules() on the CPU and move them to
+    `device`, make the optimizer over both, and a generator on the device
+    seeded from `seed`. Returns (model, projection, optimizer,
+    generator)."""
+    dev = resolve_device(device)
+    torch.manual_seed(seed)
+    model, projection = build_modules()
+    model.to(dev)
+    projection.to(dev)
+    optimizer = make_optimizer(optimizer_conf, list(model.parameters())
+                               + list(projection.parameters()))
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    return model, projection, optimizer, generator
 
 
 def make_eval_embed_fn(model: nn.Module,

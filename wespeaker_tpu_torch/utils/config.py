@@ -2,7 +2,8 @@
 
 Counterpart of wespeaker_tpu/utils/config.py: a YAML file merged with
 'a.b=c' override strings (YAML-parsed values), then python kwargs, which
-win. PyYAML is imported only where a YAML file or value is parsed.
+win; and the config written back as YAML. PyYAML is imported only where a
+YAML file or value is parsed or written.
 """
 
 from typing import Any, Dict, List, Optional
@@ -13,6 +14,13 @@ def load_yaml(path: str) -> Dict[str, Any]:
 
     with open(path) as f:
         return yaml.safe_load(f) or {}
+
+
+def dump_yaml(config: Dict[str, Any], path: str):
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(config, f, sort_keys=False)
 
 
 def set_dotted(config: Dict[str, Any], key: str, value: Any):
