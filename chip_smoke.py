@@ -52,7 +52,30 @@ Phases, each printing one line:
               T=200, C=512, bf16, with bounds; train-step audio-s/s at
               bench.py's train config (B=256, 2 s chunks, bf16, dither,
               spec-aug, ArcMargin 17,982, SGD) on the kernel path and the
-              plain path (fused=False).
+              plain path (fused=False);
+ 10. cam kernels  the CAM++ dense-block kernel against its plain version
+              at each of CAMPPlus's three full-width block shapes (C0 128,
+              256, 512; 12, 24, 16 layers; dilation 1, 2, 2): bf16
+              unmasked at T'=100, B=64 (cosine >= 0.9999 on the new
+              channels) and f32 with a ragged mask at T'=249 (TF32 off,
+              rtol/atol 1e-4);
+ 11. campplus slice  CAMPPlus at the width of campplus.yaml (feat 80,
+              embed 512, TSTP) with random weights and randomised BN
+              statistics from a seed: make_eval_embed_fn in bf16 over 2 s
+              chunks at B=64, the kernel path against the layer-by-layer
+              path (cosine >= 0.9999), exactly 3 kernel launches per
+              forward; then the same in f32 on a copy whose BN statistics
+              come from one train-mode forward over seeded synthetic
+              voices, so that its embeddings depend on the input;
+ 12. campplus serving  an EmbeddingServer built from a CAM++ YAML and a .pt
+              the phase saves: three waves of concurrent /embed requests of
+              1-3 s served in buckets of T' = 49, 99 and 149 frames; each
+              reply against batch=1 (cosine >= 0.9999); the kernel must
+              have launched;
+ 13. campplus timing  CUDA events after warm-up at B=512, T=200 (T'=100),
+              bf16: each block's kernel and plain version with its bound;
+              CAMPPlus extraction audio-s/s on the kernel path and with
+              fused_blocks=False.
 Then one JSON line of per-kernel results and, last, the result line. Any
 failure raises and exits non-zero; without a GPU the script exits 1.
 """
@@ -73,20 +96,25 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import load_model_for_eval  # noqa: E402
-from wespeaker_tpu_torch.bin.kernel_bounds import bound  # noqa: E402
+from wespeaker_tpu_torch.bin.kernel_bounds import (  # noqa: E402
+    bound, cam_dense_block)
 from wespeaker_tpu_torch.data.wav_io import write_wav  # noqa: E402
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
+from wespeaker_tpu_torch.models.campplus import CAMPPlus  # noqa: E402
 from wespeaker_tpu_torch.models.ecapa_tdnn import (  # noqa: E402
     ECAPA_TDNN_GLOB_c512)
 from wespeaker_tpu_torch.models.projections import (  # noqa: E402
     ArcMarginProduct)
-from wespeaker_tpu_torch.ops import (_build, mfa_astp,  # noqa: E402
-                                     mfa_astp_vjp, se_block)
+from wespeaker_tpu_torch.ops import (_build, cam_block,  # noqa: E402
+                                     mfa_astp, mfa_astp_vjp, se_block)
 from wespeaker_tpu_torch.serving import EmbeddingServer  # noqa: E402
 from wespeaker_tpu_torch.train import (AugConfig,  # noqa: E402
                                        build_train_state, make_eval_embed_fn,
                                        make_train_step)
-from wespeaker_tpu_torch.utils.config import load_yaml  # noqa: E402
+from wespeaker_tpu_torch.train.train_step import (  # noqa: E402
+    features_from_batch)
+from wespeaker_tpu_torch.utils.config import (  # noqa: E402
+    load_yaml, parse_config_or_kwargs)
 from wespeaker_tpu_torch.utils.schedulers import (  # noqa: E402
     ExponentialDecrease, MarginScheduler)
 
@@ -106,7 +134,14 @@ SGD_CONF = {"optimizer": "SGD", "optimizer_args": {
 COUNTERS = {"se": se_block.fused_se_res2_block,
             "tail": mfa_astp.fused_mfa_astp,
             "train_fwd": mfa_astp_vjp.mfa_astp_train_fwd,
-            "train_bwd": mfa_astp_vjp.mfa_astp_train_bwd}
+            "train_bwd": mfa_astp_vjp.mfa_astp_train_bwd,
+            "cam": cam_block.fused_cam_dense_block}
+NO_LAUNCH = dict.fromkeys(COUNTERS, 0)
+# CAMPPlus's dense blocks: (C0, layers, dilation); T' = 100 after the
+# stride-2 TDNN at 200 frames
+CAM_BLOCKS = ((128, 12, 1), (256, 24, 2), (512, 16, 2))
+CAM_T = 100
+CAM_EMBED = 512
 
 
 def zero_counts():
@@ -244,7 +279,7 @@ def phase_slice(model, dev):
     emb = embed({"wav": wav})
     torch.cuda.synchronize()
     launches = counts()
-    if launches != {"se": 3, "tail": 1, "train_fwd": 0, "train_bwd": 0}:
+    if launches != dict(NO_LAUNCH, se=3, tail=1):
         raise AssertionError(f"main path launches {launches}, want SE 3 "
                              "and tail 1 per forward, no train kernel")
     assert emb.shape == (SLICE_BATCH, 192) and torch.isfinite(emb).all()
@@ -495,7 +530,7 @@ def phase_train_step(dev):
     zero_counts()
     for i in range(3):
         losses.append(float(step(batch)["loss"]))
-        want = {"se": 0, "tail": 0, "train_fwd": i + 1, "train_bwd": i + 1}
+        want = dict(NO_LAUNCH, train_fwd=i + 1, train_bwd=i + 1)
         if counts() != want:
             raise AssertionError(f"after step {i}: launches {counts()}, "
                                  f"want {want}")
@@ -613,7 +648,7 @@ def phase_trainer(dev):
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = counts()
-        want = {"se": 0, "tail": 0, "train_fwd": 3, "train_bwd": 3}
+        want = dict(NO_LAUNCH, train_fwd=3, train_bwd=3)
         if launches != want or step.step != 3:
             raise AssertionError(f"trainer: {step.step} steps, launches "
                                  f"{launches}, want 3 and {want}")
@@ -726,6 +761,271 @@ def phase_train_timing(model, dev, smi):
     return res_t
 
 
+def voice(rng, n):
+    """A synthetic voice: a harmonic tone at a random pitch with a slow
+    random amplitude modulation, plus noise; n samples at 16 kHz."""
+    t = np.arange(n) / 16000
+    f0, rate = rng.uniform(90, 260), rng.uniform(1.0, 5.0)
+    tone = sum(np.sin(2 * np.pi * f0 * k * t) / k for k in range(1, 8))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * rate * t + rng.uniform(0, 6.3))
+    return (0.2 * tone * env + rng.uniform(-0.05, 0.05, n)).astype(np.float32)
+
+
+def random_campplus(dev, calibrate=False):
+    """CAMPPlus at campplus.yaml's width with torch's default init from
+    SEED and BN statistics and affines randomised from a generator. With
+    `calibrate`, the BN statistics are then those of one train-mode
+    forward over 16 seeded synthetic voices: with random statistics the
+    52-layer trunk maps every input onto nearly one embedding."""
+    torch.manual_seed(SEED)
+    model = CAMPPlus(80, CAM_EMBED, pooling_func="TSTP")
+    g = torch.Generator().manual_seed(SEED)
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    with torch.no_grad():
+        for m in bns:
+            m.running_mean.normal_(0.0, 0.1, generator=g)
+            m.running_var.uniform_(0.5, 1.5, generator=g)
+            if m.affine:
+                m.weight.uniform_(0.8, 1.2, generator=g)
+                m.bias.normal_(0.0, 0.1, generator=g)
+    model = model.to(dev)
+    if calibrate:
+        rng = np.random.default_rng(SEED + 20)
+        wav = np.stack([voice(rng, CHUNK_SAMPLES) for _ in range(16)])
+        feat = features_from_batch({"wav": wav}, FbankConfig(), None, None,
+                                   False, dev)
+        for m in bns:
+            m.momentum = 1.0  # running statistics := this batch's
+        with torch.no_grad():
+            model.train()(feat)
+        for m in bns:
+            m.momentum = 0.1
+    return model.eval()
+
+
+def cam_inputs(model, i, rng, b, t, dtype, dev):
+    """Block i's folded, stacked weights as CAMPPlus passes them, and a
+    random block input."""
+    block = getattr(model.xvector, f"block{i + 1}")
+    c0, layers, _ = CAM_BLOCKS[i]
+    cols = zip(*(layer.folded(c0 + 32 * layers)
+                 for layer in block.children()))
+    w = [torch.stack(c).detach() for c in cols]
+    x = torch.as_tensor(rng.standard_normal((b, t, c0)).astype(np.float32),
+                        device=dev).to(dtype)
+    return x, w, block.dilation
+
+
+def phase_cam_kernels(model, dev):
+    rng = np.random.default_rng(SEED + 10)
+    errs, parts = [], []
+    for dtype, t, masked in ((torch.bfloat16, CAM_T, False),
+                             (torch.float32, 249, True)):
+        mask = ragged_mask(rng, SLICE_BATCH, t, dev) if masked else None
+        for i, (c0, layers, _) in enumerate(CAM_BLOCKS):
+            x, w, dil = cam_inputs(model, i, rng, SLICE_BATCH, t, dtype, dev)
+            got = cam_block.fused_cam_dense_block(x, *w, dilation=dil,
+                                                  mask=mask)
+            torch.cuda.synchronize()
+            want = cam_block.cam_dense_block_reference(x, *w, dilation=dil,
+                                                       mask=mask)
+            if not torch.equal(got[..., :c0], x):
+                raise AssertionError(f"block{i + 1}: input channels moved")
+            err, cos = compare(got[..., c0:], want[..., c0:], dtype)
+            errs.append(err)
+            parts.append(f"block{i + 1} (C0={c0}, L={layers}, d={dil}) "
+                         f"{str(dtype)[6:]} T'={t} "
+                         f"{'masked' if masked else 'unmasked'} "
+                         f"max_abs_err={err:.3g} cos={cos:.7f}")
+            del x, w, got, want
+    print("cam kernels: " + "; ".join(parts))
+    return {"cam": max(errs)}
+
+
+def phase_campplus_slice(model, dev):
+    """The CAM++ extraction path: bf16 kernel path against the
+    layer-by-layer path, 3 launches per forward; then f32 on the
+    calibrated copy."""
+    rng = np.random.default_rng(SEED + 11)
+    wav = torch.as_tensor(np.stack([voice(rng, CHUNK_SAMPLES)
+                                    for _ in range(SLICE_BATCH)]), device=dev)
+    io = torch.bfloat16
+    embed = make_eval_embed_fn(model, FbankConfig(), compute_dtype=io,
+                               fbank_conv_dtype=io, device=dev)
+    zero_counts()
+    emb = embed({"wav": wav})
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != dict(NO_LAUNCH, cam=3):
+        raise AssertionError(f"CAM++ path launches {launches}, want the "
+                             "CAM block 3 times per forward and nothing else")
+    assert emb.shape == (SLICE_BATCH, CAM_EMBED) and torch.isfinite(emb).all()
+    plain = make_eval_embed_fn(model.set_fused(False), FbankConfig(),
+                               compute_dtype=io, fbank_conv_dtype=io,
+                               device=dev)({"wav": wav})
+    model.set_fused(None)
+    cos = row_cosines(emb, plain).min().item()
+    if cos < 0.9999:
+        raise AssertionError(f"CAM++ kernel path vs plain path cosine {cos}")
+    cross = row_cosines(emb[:-1], emb[1:]).mean().item()
+
+    cal = random_campplus(dev, calibrate=True)
+    fn = make_eval_embed_fn(cal, FbankConfig(), device=dev)
+    zero_counts()
+    emb32 = fn({"wav": wav[:16]})
+    torch.cuda.synchronize()
+    if counts() != dict(NO_LAUNCH, cam=3):
+        raise AssertionError(f"calibrated CAM++ launches {counts()}")
+    plain32 = make_eval_embed_fn(cal.set_fused(False), FbankConfig(),
+                                 device=dev)({"wav": wav[:16]})
+    cos32 = row_cosines(emb32, plain32).min().item()
+    err32 = (emb32 - plain32).abs().max().item()
+    cross32 = row_cosines(emb32[:-1], emb32[1:]).mean().item()
+    if cos32 < 0.9999:
+        raise AssertionError(f"calibrated CAM++ f32 kernel path vs plain "
+                             f"path cosine {cos32}")
+    print(f"campplus slice: CAMPPlus feat 80 embed {CAM_EMBED} TSTP bf16 "
+          f"B={SLICE_BATCH} x {CHUNK_SAMPLES} samples (T'={CAM_T}) -> "
+          f"{tuple(emb.shape)}; launches cam={launches['cam']}; min cosine "
+          f"vs plain bf16 path {cos:.7f} (mean cosine between neighbouring "
+          f"utterances {cross:.7f}); calibrated BN statistics, f32 B=16: "
+          f"min cosine vs plain path {cos32:.7f}, max abs err {err32:.3g} "
+          f"(between utterances {cross32:.4f})")
+    return launches
+
+
+def serve_cam_waves(model, dev, waves):
+    """An EmbeddingServer built from a CAM++ YAML and `model` saved as a
+    .pt; each wave's requests are posted concurrently, the waves in turn.
+    Returns the replies, the batch shapes served and the launches."""
+    with tempfile.TemporaryDirectory() as d:
+        ckpt, conf = os.path.join(d, "model.pt"), os.path.join(d, "cam.yaml")
+        torch.save(model.state_dict(), ckpt)
+        with open(conf, "w") as f:
+            f.write("model: CAMPPlus\nmodel_args:\n  feat_dim: 80\n"
+                    f"  embed_dim: {CAM_EMBED}\n  pooling_func: TSTP\n"
+                    "dataset_args:\n  fbank_args:\n    num_mel_bins: 80\n")
+        server = EmbeddingServer(parse_config_or_kwargs(conf), ckpt, port=0,
+                                 max_batch=8, max_wait_ms=50,
+                                 device=dev).start()
+        served, inner = [], server.batcher.embed_fn
+
+        def recording(wavs, mask):
+            served.append(wavs.shape)
+            return inner(wavs, mask)
+
+        server.batcher.embed_fn = recording
+        replies = []
+        try:
+            url = f"http://127.0.0.1:{server.port}"
+            zero_counts()
+            for wave in waves:
+                with concurrent.futures.ThreadPoolExecutor(len(wave)) as ex:
+                    replies += ex.map(
+                        lambda w: _post(f"{url}/embed",
+                                        {"wav": w.tolist(),
+                                         "sample_rate": 16000}), wave)
+            launches = counts()
+        finally:
+            server.close()
+    return torch.tensor([r["embedding"] for r in replies]), served, launches
+
+
+def phase_campplus_serving(model, dev):
+    """Three waves of concurrent /embed requests, one per bucket (16,000,
+    32,000 and 48,000 samples: T' = 49, 99, 149), each reply against
+    batch=1 (cosine >= 0.9999). Then the same requests to a server of the
+    calibrated copy, whose embeddings depend on the input: each reply
+    against the same request padded and masked to its bucket and embedded
+    directly (cosine >= 0.9999), and, measured only, against batch=1 (the
+    frames next to the padding see it through the convolutions, as in the
+    JAX package; tests/test_masked_eval_equivalence.py)."""
+    rng = np.random.default_rng(SEED + 12)
+    wavs = [voice(rng, n) for n in (12000, 16000, 20800, 27200, 32000,
+                                    35200, 41600, 48000)]
+    waves = [wavs[:2], wavs[2:5], wavs[5:]]
+    parts = []
+    for name, m in (("random", model),
+                    ("calibrated", random_campplus(dev, calibrate=True))):
+        embs, served, launches = serve_cam_waves(m, dev, waves)
+        if launches["cam"] < 3 or launches["se"] or launches["tail"]:
+            raise AssertionError(f"CAM++ serving launches {launches}")
+        frames = sorted({((n - 400) // 160 + 2) // 2 for _, n in served})
+        if frames != [49, 99, 149]:
+            raise AssertionError(f"served buckets {served}: T' {frames}")
+        fn = make_eval_embed_fn(m, FbankConfig(), device=dev)
+        single = torch.cat([fn({"wav": w[None]}).cpu() for w in wavs])
+        bucket = []
+        for w in wavs:
+            n = -(-len(w) // 16000) * 16000
+            padded, mask = np.zeros((1, n), np.float32), np.zeros((1, n),
+                                                                  np.float32)
+            padded[0, :len(w)], mask[0, :len(w)] = w, 1.0
+            bucket.append(fn({"wav": padded, "mask": mask}).cpu())
+        vs_single = row_cosines(embs, single)
+        vs_bucket = row_cosines(embs, torch.cat(bucket))
+        bar = vs_single if name == "random" else vs_bucket
+        if bar.min().item() < 0.9999:
+            raise AssertionError(f"CAM++ {name} served replies: vs batch=1 "
+                                 f"{vs_single}, vs bucket {vs_bucket}")
+        parts.append(
+            f"{name} BN statistics: batches {served} (T' {frames}), "
+            f"launches cam={launches['cam']}; min cosine vs batch=1 "
+            f"{vs_single.min().item():.7f}, vs the bucket embedded directly "
+            f"{vs_bucket.min().item():.7f}, between neighbouring replies "
+            f"{row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
+    print(f"campplus serving: CAMPPlus from a YAML + .pt, {len(wavs)} /embed "
+          "(0.75-3 s) in three concurrent waves; " + "; ".join(parts))
+
+
+def phase_campplus_timing(model, dev, smi):
+    """CUDA events after warm-up at B=512, T'=100, bf16: each block's
+    kernel and plain version with its bound; CAMPPlus extraction audio-s/s
+    on the kernel path and with fused_blocks=False."""
+    rng = np.random.default_rng(SEED + 13)
+    io = torch.bfloat16
+    blocks, res = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    flops_all = bytes_all = 0
+    for i, (c0, layers, _) in enumerate(CAM_BLOCKS):
+        x, w, dil = cam_inputs(model, i, rng, B, CAM_T, io, dev)
+        # from this call's shapes: live channels only, the gate once per
+        # segment; x read once, the dense map written once, the weights
+        # in the io type and the affines in f32
+        flops, nbytes = cam_dense_block(*x.shape, layers)
+        ms = cuda_ms(lambda: cam_block.fused_cam_dense_block(
+            x, *w, dilation=dil))
+        plain_ms = cuda_ms(lambda: cam_block.cam_dense_block_reference(
+            x, *w, dilation=dil), iters=3, warmup=1)
+        bms, by = bound(flops, nbytes)
+        blocks.append((i, ms, plain_ms, bms, by))
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        flops_all += flops
+        bytes_all += nbytes
+        del x, w
+    res["bound_ms"], res["bound_by"] = bound(flops_all, bytes_all)
+    wav = torch.as_tensor(np.stack([voice(rng, CHUNK_SAMPLES)
+                                    for _ in range(B)]), device=dev)
+    rates = {}
+    for path, fused in (("kernel", None), ("plain", False)):
+        embed = make_eval_embed_fn(model.set_fused(fused), FbankConfig(),
+                                   compute_dtype=io, fbank_conv_dtype=io,
+                                   device=dev)
+        ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
+        rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
+    model.set_fused(None)
+    fmt = "; ".join(f"block{i + 1} {ms:.3f} ms (plain {pm:.3f}, bound "
+                    f"{bm:.3f} by {by})" for i, ms, pm, bm, by in blocks)
+    print(f"campplus timing [{smi}] B={B} T'={CAM_T} bf16: {fmt}; three "
+          f"blocks {res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, bound "
+          f"{res['bound_ms']:.3f}); CAMPPlus extraction kernel path "
+          f"{rates['kernel'][0]:.1f} audio-s/s ({rates['kernel'][1]:.2f} "
+          f"ms/batch), fused_blocks=False {rates['plain'][0]:.1f} audio-s/s "
+          f"({rates['plain'][1]:.2f} ms/batch)")
+    return {"cam": res}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -747,6 +1047,12 @@ def main():
                     train_bwd=train_launches["train_bwd"])
     timing = phase_timing(model, dev, smi)
     timing.update(phase_train_timing(model, dev, smi))
+    del model
+    cam = random_campplus(dev)
+    errs.update(phase_cam_kernels(cam, dev))
+    launches["cam"] = phase_campplus_slice(cam, dev)["cam"]
+    phase_campplus_serving(cam, dev)
+    timing.update(phase_campplus_timing(cam, dev, smi))
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),
@@ -755,7 +1061,9 @@ def main():
             ("mfa_astp_train_fwd", "train_fwd", csrc + "mfa_astp_train.cu",
              ops + "mfa_astp_vjp.py:166"),
             ("mfa_astp_train_bwd", "train_bwd", csrc + "mfa_astp_train.cu",
-             ops + "mfa_astp_vjp.py:350")]
+             ops + "mfa_astp_vjp.py:350"),
+            ("fused_cam_dense_block", "cam", csrc + "cam_block.cu",
+             ops + "cam_block_pallas.py:204")]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],

@@ -15,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from wespeaker_tpu_torch.ops import mfa_astp, mfa_astp_vjp, se_block
+from wespeaker_tpu_torch.ops import (cam_block, mfa_astp, mfa_astp_vjp,
+                                     se_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -244,3 +245,89 @@ def test_mfa_astp_train_function_uses_both_kernels(cuda):
                                     mask=torch.ones(2, 40, device=cuda))
     with pytest.raises(TypeError):
         mfa_astp_vjp.mfa_astp_train_fwd(*(x.half() for x in xs), *w)
+
+
+def cam_args(rng, num_layers, c0, device):
+    """Random CAM++ dense-block operands, the input rows of s1, t1 and w1
+    zero-padded to C_end, as CAMPPlus passes them (f32; the wrapper rounds
+    the matrices to x's type)."""
+    cend = c0 + 32 * num_layers
+
+    def r(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                               * scale, device=device)
+
+    live = (torch.arange(cend, device=device)[None]
+            < (c0 + 32 * torch.arange(num_layers, device=device))[:, None])
+    return dict(s1=(1 + r(num_layers, cend, scale=.1)) * live,
+                t1=r(num_layers, cend, scale=.1) * live,
+                w1=r(num_layers, cend, 128, scale=c0 ** -0.5) * live[..., None],
+                s2=1 + r(num_layers, 128, scale=.1),
+                t2=r(num_layers, 128, scale=.1),
+                w2=r(num_layers, 3, 128, 32, scale=384 ** -0.5),
+                wc1=r(num_layers, 128, 64, scale=128 ** -0.5),
+                bc1=r(num_layers, 64, scale=.1),
+                wc2=r(num_layers, 64, 32, scale=64 ** -0.5),
+                bc2=r(num_layers, 32, scale=.1))
+
+
+@pytest.mark.parametrize("dtype,masked,t,dilation", [
+    (torch.bfloat16, False, 100, 1), (torch.float32, True, 249, 2),
+    (torch.float32, False, 37, 1), (torch.bfloat16, True, 149, 2)])
+def test_cam_block_kernel_matches_plain(cuda, dtype, masked, t, dilation):
+    rng = np.random.default_rng(8)
+    b, c0, num_layers = 3, 128, 4
+    args = cam_args(rng, num_layers, c0, cuda)
+    x = torch.as_tensor(rng.standard_normal((b, t, c0)).astype(np.float32),
+                        device=cuda).to(dtype)
+    mask = None
+    if masked:
+        mask = torch.ones(b, t, device=cuda)
+        mask[1, t // 2:] = 0
+    before = cam_block.fused_cam_dense_block.launches
+    got = cam_block.fused_cam_dense_block(x, **args, dilation=dilation,
+                                          mask=mask)
+    torch.cuda.synchronize()
+    assert cam_block.fused_cam_dense_block.launches == before + 1
+    want = cam_block.cam_dense_block_reference(x, **args, dilation=dilation,
+                                               mask=mask)
+    assert torch.equal(got[..., :c0], x)
+    assert_matches(got[..., c0:].contiguous(), want[..., c0:].contiguous(),
+                   dtype)
+
+
+def test_cam_block_raises_for_unsupported_shapes(cuda):
+    """No fallback on the card: a type or a growth the kernel does not take
+    raises."""
+    rng = np.random.default_rng(9)
+    args = cam_args(rng, 2, 128, cuda)
+    x = torch.zeros(2, 20, 128, device=cuda)
+    with pytest.raises(TypeError):
+        cam_block.fused_cam_dense_block(x.half(), **args, dilation=1)
+    bad = dict(args, w2=args["w2"][..., :16])
+    with pytest.raises(ValueError, match="growth"):
+        cam_block.fused_cam_dense_block(x, **bad, dilation=1)
+    with pytest.raises(ValueError, match="mask"):
+        cam_block.fused_cam_dense_block(x, **args, dilation=1,
+                                        mask=torch.ones(2, 19, device=cuda))
+
+
+def test_campplus_kernel_path_matches_plain_path(cuda):
+    """CAMPPlus at full width in eval: three kernel launches per forward,
+    against the layer-by-layer path on the same card, f32 with a ragged
+    mask."""
+    from wespeaker_tpu_torch.models.campplus import CAMPPlus
+
+    torch.manual_seed(0)
+    model = CAMPPlus(80, 512).to(cuda).eval()
+    rng = np.random.default_rng(10)
+    x = torch.as_tensor(rng.standard_normal((3, 150, 80)).astype(np.float32),
+                        device=cuda)
+    mask = torch.ones(3, 150, device=cuda)
+    mask[1, 110:] = 0
+    with torch.inference_mode():
+        before = cam_block.fused_cam_dense_block.launches
+        got = model(x, mask)
+        assert cam_block.fused_cam_dense_block.launches == before + 3
+        want = model.set_fused(False)(x, mask)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -31,8 +31,22 @@ def test_counts_by_hand():
     assert flops == 2 * 20 * 9 * 6 and nbytes == 20 * 5 * 2 + 9 * 6 * 4
 
 
+def test_cam_block_counts_by_hand():
+    # CAMPPlus block1 at B=512, T'=100: 12 layers on 128 + 32 i channels,
+    # each a 1x1 to 128, a k=3 conv to 32 and the gate once per segment
+    flops, nbytes = kb.cam_dense_block(512, 100, 128, 12)
+    m = 512 * 100
+    k_sum = sum(128 + 32 * i for i in range(12))   # 3648
+    assert k_sum == 3648
+    assert flops == (2 * m * 128 * k_sum + 12 * 2 * m * 3 * 128 * 32
+                     + 12 * 2 * 512 * (128 * 64 + 64 * 32))
+    assert round(flops / 1e9) == 63
+    # x read once (128 channels), out written once (128 + 384)
+    assert nbytes > m * (128 + 512) * 2
+
+
 def test_every_unported_row_has_a_bound(capsys):
     kb.main()
     lines = capsys.readouterr().out.splitlines()
-    assert [ln.split()[1] for ln in lines] == ["3", "6", "7", "8", "9", "10"]
+    assert [ln.split()[1] for ln in lines] == ["3", "6", "7", "9", "10"]
     assert all(" ms (" in ln for ln in lines)

@@ -1,6 +1,6 @@
 """Least time an H100 could take for each TPU kernel of the JAX package that
 the port has not ported yet, from its shapes at the configuration whose
-path runs it.
+path runs it (PERF.md rows 3, 6, 7, 9 and 10).
 
     python -m wespeaker_tpu_torch.bin.kernel_bounds
 
@@ -14,7 +14,8 @@ f32 outputs 4 bytes. Products count a multiply-add as two operations and
 only the live work (a CAM layer's zero-padded input rows, a segment's
 repeated context, are not counted); the stats kernels count their f32
 operations per element. chip_smoke.py computes the ported kernels' bounds
-from its own inputs with the same `bound`.
+from its own inputs with the same `bound` (and, for the CAM++ dense block,
+ported, with `cam_dense_block`).
 """
 
 import math
@@ -106,11 +107,6 @@ ROWS = [
      "TSTP of ResNet34 (no model calls it), B=512 x 200 frames: T=25, "
      "D=32*8*10=2560",
      [("call", *masked_stats(512, 25, 2560), PEAK_F32_FLOPS)]),
-    (8, "fused_cam_dense_block",
-     "CAMPPlus extraction B=512 x 200 frames (T=100 after the stride-2 "
-     "TDNN), blocks of 12/24/16 layers",
-     [(f"block{i + 1}", *cam_dense_block(512, 100, c0, n), PEAK_BF16_FLOPS)
-      for i, (c0, n) in enumerate(((128, 12), (256, 24), (512, 16)))]),
     (9, "fused_inv_bottleneck_stage",
      "Gemini_DF_ResNet114 extraction B=512 x 200 frames, feat 80, four "
      "stages",

@@ -1,10 +1,12 @@
 """Device-time breakdown of the extraction forward on the card.
 
     python -m wespeaker_tpu_torch.bin.profile_extract [--batch 512] [--plain]
+        [--model ECAPA_TDNN_GLOB_c512|CAMPPlus]
 
-Builds ECAPA_TDNN_GLOB_c512 with random weights, runs make_eval_embed_fn
-in bf16 over 2 s chunks (32,240 samples) and prints, for one forward after
-warm-up, the device time of every CUDA kernel name (torch.profiler), its
+Builds the model (ECAPA_TDNN_GLOB_c512, embed 192, by default; CAMPPlus at
+campplus.yaml's width: feat 80, embed 512, TSTP) with random weights, runs
+make_eval_embed_fn in bf16 over 2 s chunks (32,240 samples) and prints,
+for one forward after warm-up, the device time of every CUDA kernel name (torch.profiler), its
 share of the total and its launch count, then the forward's wall time from
 CUDA events and the share of it the device was busy, and the device
 time by kernel family (the port's kernels, cuDNN/cuBLAS, PyTorch's own,
@@ -20,10 +22,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from wespeaker_tpu_torch.device import resolve_device
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig
-from wespeaker_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN_GLOB_c512
+from wespeaker_tpu_torch.models import get_speaker_model
 from wespeaker_tpu_torch.train import make_eval_embed_fn
 
 CHUNK_SAMPLES = (200 - 1) * 160 + 400
+# feat_dim, embed_dim of each model profiled: bench.py's ECAPA and
+# examples/voxceleb/v2/conf/campplus.yaml
+MODEL_ARGS = {"ECAPA_TDNN_GLOB_c512": (80, 192), "CAMPPlus": (80, 512)}
 
 
 def _device_us(evt) -> float:
@@ -90,10 +95,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--model", choices=sorted(MODEL_ARGS),
+                    default="ECAPA_TDNN_GLOB_c512")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.manual_seed(0)
-    model = ECAPA_TDNN_GLOB_c512(80, 192).set_fused(not args.plain)
+    model = get_speaker_model(args.model)(*MODEL_ARGS[args.model])
+    model.set_fused(not args.plain)
     embed = make_eval_embed_fn(model, FbankConfig(),
                                compute_dtype=torch.bfloat16,
                                fbank_conv_dtype=torch.bfloat16, device=dev)
@@ -101,8 +109,8 @@ def main(argv=None):
         -0.5, 0.5, (args.batch, CHUNK_SAMPLES)).astype(np.float32),
         device=dev)
     breakdown(lambda: embed({"wav": wav}),
-              f"{'plain' if args.plain else 'kernel'} path forward, "
-              f"B={args.batch}")
+              f"{args.model} {'plain' if args.plain else 'kernel'} path "
+              f"forward, B={args.batch}")
 
 
 if __name__ == "__main__":

@@ -1,0 +1,121 @@
+"""Time every ported CUDA kernel of the package it is run from, on the card.
+
+    python -m wespeaker_tpu_torch.bin.time_kernels [--iters 50]
+
+Each kernel runs at its main-path shape in bf16 on random operands made
+from a seed (the SE-Res2 block and the MFA+ASTP tail at B=512, T=200,
+C=512; the training tail's forward and backward at B=256; the three CAM++
+dense blocks of one CAMPPlus forward at B=512, T'=100), timed with CUDA
+events after warm-up. Prints the card and one JSON line {kernel: ms}. A
+kernel the package does not have is left out, so the same file times an
+older checkout: run it with that checkout first on PYTHONPATH to compare
+two trees in one call (old, new, new, old).
+"""
+
+import argparse
+import importlib
+import json
+
+import numpy as np
+import torch
+
+from wespeaker_tpu_torch.device import resolve_device
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _ops(name):
+    try:
+        return importlib.import_module(f"wespeaker_tpu_torch.ops.{name}")
+    except ModuleNotFoundError:
+        return None
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--iters", type=int, default=50)
+    args = ap.parse_args(argv)
+    dev = resolve_device("cuda")
+    rng = np.random.default_rng(0)
+    io = torch.bfloat16
+
+    def r(*shape, scale=1.0, dtype=torch.float32):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                               * scale, device=dev).to(dtype)
+
+    out = {}
+    b, t, c, d, a = 512, 200, 512, 1536, 128
+    se = _ops("se_block")
+    if se is not None:
+        w = c // 8
+        x = r(b, t, c, dtype=io)
+        ws = (r(c, c, scale=c ** -0.5), r(c, scale=.1), 1 + r(c, scale=.1),
+              r(c, scale=.1), r(7, 3, w, w, scale=(3 * w) ** -0.5),
+              r(7, w, scale=.1), 1 + r(7, w, scale=.1), r(7, w, scale=.1),
+              r(c, c, scale=c ** -0.5), r(c, scale=.1), 1 + r(c, scale=.1),
+              r(c, scale=.1), r(c, 128, scale=c ** -0.5), r(128, scale=.1),
+              r(128, c, scale=128 ** -0.5), r(c, scale=.1))
+        out["se"] = cuda_ms(lambda: se.fused_se_res2_block(x, *ws,
+                                                           dilation=3),
+                            args.iters)
+        del x
+    tail_w = (r(3 * c, d, scale=(3 * c) ** -0.5), r(d, scale=.1),
+              r(3 * d, a, scale=d ** -0.5), r(a, scale=.1),
+              r(a, d, scale=a ** -0.5), r(d, scale=.1))
+    tail = _ops("mfa_astp")
+    if tail is not None:
+        xs = [r(b, t, c, dtype=io) for _ in range(3)]
+        out["tail"] = cuda_ms(lambda: tail.fused_mfa_astp(*xs, *tail_w,
+                                                          glob=True),
+                              args.iters)
+        del xs
+    vjp = _ops("mfa_astp_vjp")
+    if vjp is not None:
+        xs = [r(256, t, c, dtype=io) for _ in range(3)]
+        wm, bm, k1, b1, k2, b2 = tail_w
+        pooled, h, att, cstats = vjp.mfa_astp_train_fwd(*xs, *tail_w)
+        g = r(256, 2 * d)
+        res = (*xs, wm, k1, b2, k2, pooled, h, att, cstats, g)
+        out["train_fwd"] = cuda_ms(lambda: vjp.mfa_astp_train_fwd(*xs,
+                                                                  *tail_w),
+                                   args.iters)
+        out["train_bwd"] = cuda_ms(lambda: vjp.mfa_astp_train_bwd(*res),
+                                   args.iters)
+        del xs, res, pooled, h, att, cstats
+    cam = _ops("cam_block")
+    if cam is not None:
+        total = 0.0
+        for c0, layers, dil in ((128, 12, 1), (256, 24, 2), (512, 16, 2)):
+            cend = c0 + 32 * layers
+            live = (torch.arange(cend, device=dev)[None]
+                    < (c0 + 32 * torch.arange(layers, device=dev))[:, None])
+            ws = ((1 + r(layers, cend, scale=.1)) * live,
+                  r(layers, cend, scale=.1) * live,
+                  r(layers, cend, 128, scale=c0 ** -0.5) * live[..., None],
+                  1 + r(layers, 128, scale=.1), r(layers, 128, scale=.1),
+                  r(layers, 3, 128, 32, scale=384 ** -0.5),
+                  r(layers, 128, 64, scale=128 ** -0.5),
+                  r(layers, 64, scale=.1),
+                  r(layers, 64, 32, scale=64 ** -0.5), r(layers, 32, scale=.1))
+            x = r(b, 100, c0, dtype=io)
+            total += cuda_ms(lambda: cam.fused_cam_dense_block(
+                x, *ws, dilation=dil), args.iters)
+        out["cam"] = total
+    print(torch.cuda.get_device_name(0))
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

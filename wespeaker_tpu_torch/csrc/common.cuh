@@ -1,13 +1,19 @@
-// Pieces shared by the SE-Res2 block and the MFA+ASTP tail kernels.
+// Pieces shared by the SE-Res2 block, the MFA+ASTP tail and the CAM++ dense
+// block kernels.
 //
 // - gemm: C[M, N] = epilogue(sum_p A_p[M, Kp] @ W[p*Kp:(p+1)*Kp, N]) with up
 //   to three A operands read as K-slices of one product (a concat that is
-//   never materialised). bf16 runs on the tensor cores through WMMA
+//   never materialised), each with a row stride lda >= Kp (the live prefix
+//   of a wider map). bf16 runs on the tensor cores through WMMA
 //   (16x16x16 bf16 fragments, f32 accumulation); f32 runs on the CUDA cores
 //   with FMA, so it stays exact f32 (no TF32). The epilogue adds a column
 //   bias and/or a per-utterance row bias, applies relu/tanh/sigmoid and an
-//   optional per-column affine (folded BatchNorm), and stores in the
-//   output type.
+//   optional per-column affine (folded BatchNorm), and stores in the output
+//   type. In the bn_relu form (the CAM++ bottleneck) A is turned into
+//   relu(A * a_scale + a_shift) per K column, rounded to the operand type,
+//   as it is loaded, and the epilogue applies the affine before the
+//   activation: BatchNorm + relu on both sides of the product. The form is
+//   a template parameter, so the other GEMMs compile without it.
 // - col_stats: masked mean (and unbiased std + 1e-7) over T of (B, T, C),
 //   one thread per (utterance, channel).
 // - softmax_stats: ASTP's softmax over T and the weighted mean and std.
@@ -49,9 +55,10 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 enum Act { kNone = 0, kRelu = 1, kTanh = 2, kSigmoid = 3 };
 
 struct GemmArgs {
-  const void* a[3];  // A operands, each (m, kp) row-major
+  const void* a[3];  // A operands, each (m, kp) row-major with row stride lda
   int nparts;
   int kp;
+  int lda;
   const void* w;  // (nparts * kp, n) row-major
   void* out;      // (m, n) row-major
   int m;
@@ -62,11 +69,18 @@ struct GemmArgs {
   int act;
   const float* scale;  // (n) or null; with shift: v * scale + shift
   const float* shift;
+  // the bn_relu form: A's affine a_scale, a_shift (nparts * kp) and the
+  // output's scale, shift are all set; bias is not
+  int bn_relu;
+  const float* a_scale;
+  const float* a_shift;
 };
 
+template <bool kBnRelu>
 __device__ __forceinline__ float epilogue(const GemmArgs& p, int row, int col,
                                           float acc) {
   float v = acc;
+  if (kBnRelu) v = v * p.scale[col] + p.shift[col];
   if (p.bias) v += p.bias[col];
   if (p.row_bias)
     v += p.row_bias[(size_t)(row / p.rows_per_group) * p.n + col];
@@ -77,7 +91,19 @@ __device__ __forceinline__ float epilogue(const GemmArgs& p, int row, int col,
   } else if (p.act == kSigmoid) {
     v = 1.f / (1.f + expf(-v));
   }
-  if (p.scale) v = v * p.scale[col] + p.shift[col];
+  if (!kBnRelu && p.scale) v = v * p.scale[col] + p.shift[col];
+  return v;
+}
+
+// The bn_relu form's A prologue on 8 bf16 values of K columns k..k+7, one
+// 16-byte vector: relu(a * a_scale + a_shift), rounded to bf16.
+__device__ __forceinline__ uint4 prologue8(const GemmArgs& p, int k, uint4 v) {
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    e[i] = __float2bfloat16(
+        fmaxf(__bfloat162float(e[i]) * p.a_scale[k + i] + p.a_shift[k + i],
+              0.f));
   return v;
 }
 
@@ -91,7 +117,7 @@ __device__ __forceinline__ const void* part_ptr(const GemmArgs& p, int part) {
 
 constexpr int kFBM = 128, kFBN = 128, kFBK = 16;
 
-template <typename OutT>
+template <typename OutT, bool kBnRelu>
 __global__ void __launch_bounds__(256) gemm_fma_kernel(GemmArgs p) {
   __shared__ float as[kFBK][kFBM + 4];
   __shared__ float bs[kFBK][kFBN];
@@ -115,7 +141,13 @@ __global__ void __launch_bounds__(256) gemm_fma_kernel(GemmArgs p) {
       const int idx = tid + i * 256;
       const int r = idx / kFBK, kk = idx % kFBK;
       const int grow = row0 + r;
-      as[kk][r] = grow < p.m ? a[(size_t)grow * p.kp + kk0 + kk] : 0.f;
+      float v = 0.f;
+      if (grow < p.m) {
+        v = a[(size_t)grow * p.lda + kk0 + kk];
+        if (kBnRelu)
+          v = fmaxf(v * p.a_scale[k0 + kk] + p.a_shift[k0 + kk], 0.f);
+      }
+      as[kk][r] = v;
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
@@ -146,8 +178,8 @@ __global__ void __launch_bounds__(256) gemm_fma_kernel(GemmArgs p) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = col0 + tx + 16 * j;
-      out[(size_t)row * p.n + col] = from_f<OutT>(epilogue(p, row, col,
-                                                           acc[i][j]));
+      out[(size_t)row * p.n + col] =
+          from_f<OutT>(epilogue<kBnRelu>(p, row, col, acc[i][j]));
     }
   }
 }
@@ -159,7 +191,7 @@ constexpr int kWBM = 128, kWBN = 128, kWBK = 32;
 constexpr int kALd = kWBK + 8;  // bf16 elements; multiple of 8 for WMMA
 constexpr int kBLd = kWBN + 8;
 
-template <typename OutT>
+template <typename OutT, bool kBnRelu>
 __global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
   using namespace nvcuda;
   __shared__ __align__(32) __nv_bfloat16 as[kWBM * kALd];
@@ -189,9 +221,11 @@ __global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
       const int r = idx / 4, ch = idx % 4;
       const int grow = row0 + r;
       uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (grow < p.m)
-        v = *reinterpret_cast<const uint4*>(a + (size_t)grow * p.kp + kk0 +
+      if (grow < p.m) {
+        v = *reinterpret_cast<const uint4*>(a + (size_t)grow * p.lda + kk0 +
                                             ch * 8);
+        if (kBnRelu) v = prologue8(p, k0 + ch * 8, v);
+      }
       *reinterpret_cast<uint4*>(&as[r * kALd + ch * 8]) = v;
     }
     // W tile: 32 rows x 16 chunks of 8 bf16
@@ -242,7 +276,7 @@ __global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
         const int col = col0 + wc * 64 + j * 16 + e % 16;
         if (row < p.m)
           out[(size_t)row * p.n + col] =
-              from_f<OutT>(epilogue(p, row, col, c[e]));
+              from_f<OutT>(epilogue<kBnRelu>(p, row, col, c[e]));
       }
       __syncwarp();
     }
@@ -250,18 +284,25 @@ __global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
 }
 
 // T: operand type (float or __nv_bfloat16); OutT: output type.
-// Requires n % 128 == 0 and kp % 32 == 0 (checked here and by the Python
-// wrappers, which only pass the model's widths).
+// Requires n % 128 == 0, kp % 32 == 0 and lda % 8 == 0 (checked here and by
+// the Python wrappers, which only pass the model's widths).
 template <typename T, typename OutT>
 cudaError_t gemm(const GemmArgs& p, cudaStream_t stream) {
-  if (p.n % 128 || p.kp % 32 || p.m <= 0 || p.nparts < 1 || p.nparts > 3)
+  if (p.n % 128 || p.kp % 32 || p.lda < p.kp || p.lda % 8 || p.m <= 0 ||
+      p.nparts < 1 || p.nparts > 3)
     return cudaErrorInvalidValue;
   const dim3 grid(p.n / 128, (p.m + 127) / 128);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    gemm_wmma_kernel<OutT><<<grid, 256, 0, stream>>>(p);
+    if (p.bn_relu)
+      gemm_wmma_kernel<OutT, true><<<grid, 256, 0, stream>>>(p);
+    else
+      gemm_wmma_kernel<OutT, false><<<grid, 256, 0, stream>>>(p);
   } else {
     static_assert(std::is_same<T, float>::value, "f32 or bf16 operands");
-    gemm_fma_kernel<OutT><<<grid, 256, 0, stream>>>(p);
+    if (p.bn_relu)
+      gemm_fma_kernel<OutT, true><<<grid, 256, 0, stream>>>(p);
+    else
+      gemm_fma_kernel<OutT, false><<<grid, 256, 0, stream>>>(p);
   }
   return cudaGetLastError();
 }
@@ -275,6 +316,7 @@ inline GemmArgs gemm_args(const void* a0, const void* a1, const void* a2,
   p.a[2] = a2;
   p.nparts = nparts;
   p.kp = kp;
+  p.lda = kp;
   p.w = w;
   p.out = out;
   p.m = m;

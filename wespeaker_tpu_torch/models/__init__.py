@@ -1,10 +1,11 @@
 """Speaker-model registry: `get_speaker_model(name)` returns a constructor
 `f(feat_dim=..., embed_dim=..., **kwargs) -> nn.Module`, as in
-wespeaker_tpu/models/__init__.py. Only the ECAPA family is ported so far."""
+wespeaker_tpu/models/__init__.py. Ported so far: the ECAPA family and
+CAMPPlus."""
 
-from wespeaker_tpu_torch.models import ecapa_tdnn
+from wespeaker_tpu_torch.models import campplus, ecapa_tdnn
 
-_MODULES = [ecapa_tdnn]
+_MODULES = [ecapa_tdnn, campplus]
 
 
 def get_speaker_model(model_name: str):

@@ -1,8 +1,12 @@
 """Shared building blocks for the speaker models.
 
-Counterpart of wespeaker_tpu/models/layers.py. Activations are channels-last,
-(B, T, C), as in the JAX package; parameters keep the upstream torch modules
-(`nn.Conv1d` weight (O, I, K)), so upstream state_dicts load unchanged.
+Counterpart of wespeaker_tpu/models/layers.py. 1-D activations are
+channels-last, (B, T, C), as in the JAX package; 2-D maps (the CAM++ and
+ResNet heads) run (B, C, F, T), channels second, as cuDNN takes them, where
+the JAX package keeps (B, F, T, C): each model flattens them to the same
+(B, T, C * F) layout. Parameters keep the upstream torch modules
+(`nn.Conv1d` weight (O, I, K), `nn.Conv2d` (O, I, kh, kw)), so upstream
+state_dicts load unchanged.
 """
 
 from typing import Optional
@@ -23,9 +27,19 @@ def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
     return y.transpose(1, 2)
 
 
-def batch_norm(x: torch.Tensor, bn: nn.BatchNorm1d) -> torch.Tensor:
-    """`bn` on channels-last x (B, T, C) or (B, C). Statistics and affine in
-    f32, result in x's dtype.
+def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """Run `conv` on x (B, C_in, F, T) -> (B, C_out, F', T'), in x's dtype
+    (parameters are cast to it); the counterpart of JAX `conv2d` on
+    (B, F, T, C)."""
+    w = conv.weight.to(x.dtype)
+    b = None if conv.bias is None else conv.bias.to(x.dtype)
+    return F.conv2d(x, w, b, stride=conv.stride, padding=conv.padding,
+                    dilation=conv.dilation, groups=conv.groups)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.Module) -> torch.Tensor:
+    """`bn` on channels-last x (B, T, C) or (B, C), or on a 2-D map
+    (B, C, F, T). Statistics and affine in f32, result in x's dtype.
 
     In training the batch statistics normalise x and update the running
     ones as flax's nn.BatchNorm (momentum 0.9) does, which the JAX package

@@ -2,8 +2,8 @@
 
 Counterpart of wespeaker_tpu/models/pooling_layers.py. Layout (B, T, D);
 every pooling takes an optional (B, T) frame-validity mask so padded
-batches pool exactly like the unpadded batch=1 path. Only ASTP (with and
-without global context) is ported so far.
+batches pool exactly like the unpadded batch=1 path. Ported: TAP, TSDP,
+TSTP and ASTP (with and without global context); the rest raise.
 """
 
 from typing import Optional
@@ -35,6 +35,35 @@ def _std(x: torch.Tensor, mask: Optional[torch.Tensor], ddof: int):
                              device=x.device)
     var = sq.sum(dim=1) / torch.clamp(count - ddof, min=1.0)
     return mean.squeeze(1), torch.sqrt(var + 1e-7)
+
+
+class TAP(nn.Module):
+    """Temporal average pooling."""
+
+    def __init__(self, in_dim: int):
+        super().__init__()
+        self.in_dim = in_dim
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return masked_mean(x, _mask3(mask), dim=1)
+
+
+class TSDP(TAP):
+    """Temporal standard-deviation pooling (unbiased, as torch.var)."""
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return _std(x, mask, ddof=1)[1]
+
+
+class TSTP(TAP):
+    """Temporal statistics pooling: concat(mean, unbiased std), the
+    x-vector and CAM++ default."""
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return torch.cat(_std(x, mask, ddof=1), dim=-1)
 
 
 class ASTP(nn.Module):
@@ -75,7 +104,7 @@ class ASTP(nn.Module):
         return torch.cat([mean, std], dim=-1)
 
 
-_POOLINGS = {"ASTP": ASTP}
+_POOLINGS = {"TAP": TAP, "TSDP": TSDP, "TSTP": TSTP, "ASTP": ASTP}
 
 
 def get_pooling(name: str, in_dim: int, **kwargs) -> nn.Module:
@@ -88,4 +117,4 @@ def get_pooling(name: str, in_dim: int, **kwargs) -> nn.Module:
 def pooling_out_dim(name: str, in_dim: int) -> int:
     if name not in _POOLINGS:
         raise KeyError(f"pooling {name} is not ported yet")
-    return 2 * in_dim
+    return in_dim if name in ("TAP", "TSDP") else 2 * in_dim

@@ -1,0 +1,200 @@
+"""A whole CAM++ dense TDNN block (inference, BN folded) as a CUDA kernel.
+
+Replaces the Pallas kernel wespeaker_tpu/ops/cam_block_pallas.py
+(`fused_cam_dense_block`, pallas_call at :204; `_block_kernel`,
+`_layer_math`). Layer i of L, on the ci = C0 + 32 i live channels of the
+dense map, computes
+
+    h    = relu(bn2(relu(bn1(x[..., :ci])) @ w1))       1x1 to 128
+    ctx  = mean_T(h) + mean over the frame's 100-frame segment of h
+    gate = sigmoid(relu(ctx @ wc1 + bc1) @ wc2 + bc2)   CAM gate, 128->64->32
+    y    = (h[t-d] @ w2[0] + h[t] @ w2[1] + h[t+d] @ w2[2]) * gate
+
+and appends y as channels ci..ci+32. The means are masked (the mask gates
+only the context, not y); f32 accumulation everywhere, and x's type (bf16
+or f32) wherever `_layer_math` rounds: h, ctx, the gate's hidden layer and
+y.
+
+Bound on an H100 at CAMPPlus's extraction shape (B=512 x 200 frames, so
+T' = 100 after the stride-2 TDNN): 63, 227 and 178 GFLOP for the three
+blocks of 12, 24 and 16 layers, 0.064 + 0.229 + 0.180 ms at 989 TFLOP/s
+(`bin/kernel_bounds.py`): compute-bound, almost all of it the 1x1 products
+whose K grows with the block. The design: the TPU kernel kept 16
+utterances' whole (T, C_end) map resident in VMEM; one utterance's (100,
+1024) bf16 map is already 200 KB of the H100's 227 KB of shared memory,
+served utterances run to minutes, and Hopper blocks run in no order. So
+the dense map `out` (B, T, C_end) lives in device memory (much of it in the
+50 MB L2), x is copied into its first C0 channels, and each layer is three
+launches:
+  1. the 1x1 GEMM over the live channels only (M = B*T, K = ci, N = 128;
+     `common.cuh::gemm` with a row stride of C_end), BN1-relu applied to A
+     as it is loaded, BN2-relu in the epilogue; bf16 on WMMA tensor cores,
+     f32 on CUDA-core FMA (TF32 misses 1e-4);
+  2. one block per utterance: the masked f32 mean of h over T, then per
+     segment its mean, ctx rounded, and the gate MLP once per segment (ctx
+     is constant within a segment, so this equals the per-frame gate);
+  3. the k=3 dilated conv over 64-frame tiles of one utterance with a halo
+     of d frames (zeros beyond the real ends, so any T works and no frame is
+     padded), times the gate, rounded, into the next 32 channels.
+That is 3 L kernel launches and one copy per call (156 and 3 for
+CAMPPlus's three blocks); fusing them, wgmma and TMA are later work.
+"""
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from wespeaker_tpu_torch.ops import _build
+from wespeaker_tpu_torch.ops.se_block import _dot, _tap
+
+GROWTH = 32
+BOTTLENECK = 128
+
+
+def segment_means(x: torch.Tensor, mask: Optional[torch.Tensor],
+                  seg_len: int) -> torch.Tensor:
+    """Masked means of x (B, T, C) over non-overlapping segments of seg_len
+    frames (the last one partial): (B, ceil(T / seg_len), C), in x's
+    dtype. mask: (B, T) frame validity or None."""
+    b, t, c = x.shape
+    m = x.new_ones(b, t) if mask is None else mask.to(x.dtype)
+    nseg = -(-t // seg_len)
+    pad = nseg * seg_len - t
+    xs = F.pad(x * m[..., None], (0, 0, 0, pad)).view(b, nseg, seg_len, c)
+    cnt = F.pad(m, (0, pad)).view(b, nseg, seg_len, 1).sum(2)
+    return xs.sum(2) / cnt.clamp(min=1.0)
+
+
+def _context_gate(h, mask, wc1, bc1, wc2, bc2, seg_len: int, io_dtype):
+    """The CAM gate per segment: (B, nseg, 32) f32. h: (B, T, 128) in the
+    io type; mask (B, T) f32 or None. The means are f32 over the rounded h
+    and the context is rounded, as in `_layer_math`."""
+    hf = h.float()
+    gmean = segment_means(hf, mask, hf.shape[1])
+    ctx = (gmean + segment_means(hf, mask, seg_len)).to(io_dtype)
+    g = torch.relu(_dot(ctx, wc1.to(io_dtype)) + bc1.float()).to(io_dtype)
+    return torch.sigmoid(_dot(g, wc2.to(io_dtype)) + bc2.float())
+
+
+def cam_dense_block_reference(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2,
+                              dilation: int, seg_len: int = 100,
+                              mask: Optional[torch.Tensor] = None):
+    """Plain PyTorch CAM++ dense block with the contract of
+    fused_cam_dense_block; rounds where JAX `_layer_math` rounds."""
+    io = x.dtype
+    b, t, c0 = x.shape
+    num_layers = w1.shape[0]
+    m = None if mask is None else mask.float()
+    xc = x
+    for i in range(num_layers):
+        ci = c0 + GROWTH * i
+        h = torch.relu(xc.float() * s1[i, :ci].float()
+                       + t1[i, :ci].float()).to(io)
+        h = _dot(h, w1[i, :ci].to(io))
+        h = torch.relu(h * s2[i].float() + t2[i].float()).to(io)
+        k = w2[i].to(io)
+        y = (_dot(_tap(h, -dilation), k[0]) + _dot(h, k[1])
+             + _dot(_tap(h, dilation), k[2]))
+        gate = _context_gate(h, m, wc1[i], bc1[i], wc2[i], bc2[i], seg_len,
+                             io)
+        gate = gate.repeat_interleave(seg_len, dim=1)[:, :t]
+        xc = torch.cat([xc, (y * gate).to(io)], dim=-1)
+    return xc
+
+
+def _check_cuda_args(x, s1, w1, w2, wc1, wc2, mask, seg_len):
+    b, t, c0 = x.shape
+    num_layers = w1.shape[0]
+    cend = c0 + GROWTH * num_layers
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_cam_dense_block takes f32 or bf16, not "
+                        f"{x.dtype}")
+    if tuple(w2.shape[1:]) != (3, BOTTLENECK, GROWTH):
+        raise ValueError(f"fused_cam_dense_block takes k=3 convs of "
+                         f"bottleneck {BOTTLENECK} to growth {GROWTH}; got "
+                         f"w2 {tuple(w2.shape)}")
+    if tuple(w1.shape) != (num_layers, cend, BOTTLENECK):
+        raise ValueError(f"w1 {tuple(w1.shape)} != "
+                         f"{(num_layers, cend, BOTTLENECK)}")
+    if tuple(s1.shape) != (num_layers, cend):
+        raise ValueError(f"s1 {tuple(s1.shape)} != {(num_layers, cend)}")
+    if (tuple(wc1.shape) != (num_layers, BOTTLENECK, BOTTLENECK // 2)
+            or tuple(wc2.shape) != (num_layers, BOTTLENECK // 2, GROWTH)):
+        raise ValueError(f"CAM gate weights {tuple(wc1.shape)}, "
+                         f"{tuple(wc2.shape)} are not 128 -> 64 -> 32")
+    if c0 % 32:
+        raise ValueError(f"the block's input width {c0} must be a multiple "
+                         "of 32")
+    if mask is not None and tuple(mask.shape) != (b, t):
+        raise ValueError(f"mask {tuple(mask.shape)} != {(b, t)}")
+    if seg_len < 1 or t < 1 or b < 1:
+        raise ValueError(f"empty block input {tuple(x.shape)} or seg_len "
+                         f"{seg_len}")
+
+
+def fused_cam_dense_block(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2,
+                          dilation: int, seg_len: int = 100,
+                          mask: Optional[torch.Tensor] = None):
+    """x: (B, T, C0). Stacked per-layer weights, the input width zero-padded
+    to C_end = C0 + 32 L:
+      s1/t1 (L, C_end)        folded bn1 scale/shift
+      w1    (L, C_end, 128)   1x1 bottleneck (in, out), no bias
+      s2/t2 (L, 128)          folded bn2
+      w2    (L, 3, 128, 32)   k=3 taps [t-d, t, t+d] (in, out), no bias
+      wc1 (L, 128, 64), bc1 (L, 64), wc2 (L, 64, 32), bc2 (L, 32)  CAM gate
+    mask: optional (B, T) frame validity; it gates only the context means.
+    Returns the dense-concatenated (B, T, C_end) in x's dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel, or raises for a shape or type it does not take."""
+    if x.device.type == "cpu":
+        return cam_dense_block_reference(x, s1, t1, w1, s2, t2, w2, wc1, bc1,
+                                         wc2, bc2, dilation, seg_len, mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_cam_dense_block: no kernel for {x.device}")
+    _check_cuda_args(x, s1, w1, w2, wc1, wc2, mask, seg_len)
+    b, t, c0 = x.shape
+    num_layers = w1.shape[0]
+    cend = c0 + GROWTH * num_layers
+    nseg = -(-t // seg_len)
+    io = x.dtype
+    dev = x.device
+
+    def io_(v):
+        return v.to(device=dev, dtype=io).contiguous()
+
+    def f32(v):
+        return v.to(device=dev, dtype=torch.float32).contiguous()
+
+    x = x.contiguous()
+    wts = [f32(s1), f32(t1), io_(w1), f32(s2), f32(t2), io_(w2), io_(wc1),
+           f32(bc1), io_(wc2), f32(bc2)]
+    m = None if mask is None else f32(mask)
+    h = torch.empty((b * t, BOTTLENECK), device=dev, dtype=io)
+    gate = torch.empty((b, nseg, GROWTH), device=dev, dtype=torch.float32)
+    out = torch.empty((b, t, cend), device=dev, dtype=io)
+
+    lib = _lib()
+    ptr = _build.pointers([x] + wts + [h, gate, out])
+    rc = lib.ws_cam_dense_block(
+        ptr[0], None if m is None else m.data_ptr(), *ptr[1:],
+        b, t, c0, num_layers, dilation, seg_len, int(io == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "fused_cam_dense_block")
+    fused_cam_dense_block.launches += 1
+    return out
+
+
+fused_cam_dense_block.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("cam_block")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ws_cam_dense_block.argtypes = [p] * 15 + [i] * 7 + [p]
+    lib.ws_cam_dense_block.restype = i
+    return lib

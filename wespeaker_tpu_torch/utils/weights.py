@@ -4,12 +4,18 @@
 ({"params", "batch_stats"} as nested dicts of arrays) into the port's
 state_dict. It inverts the rules of wespeaker_tpu/utils/torch_compat.py:
 
-  - conv kernel (K, I, O) -> weight (O, I, K)
+  - conv kernel (K, I, O) -> weight (O, I, K); 2-D conv kernel
+    (kh, kw, I, O) -> weight (O, I, kh, kw)
   - dense kernel (I, O)   -> weight (O, I)
   - BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
     running_var, plus num_batches_tracked = 0, which flax does not keep
-  - ECAPA child names: block_<i> -> se_res2block.<i>, convs_<i> ->
-    convs.<i>, bns_<i> -> bns.<i>
+  - child names by model, chosen from the model's name as
+    torch_compat.rules_for chooses them (the longest matching prefix of
+    `MODEL_RULES`): ECAPA block_<i> -> se_res2block.<i>, convs_<i> ->
+    convs.<i>, bns_<i> -> bns.<i>; CAMPPlus layer<n>_<m> -> layer<n>.<m>,
+    shortcut_conv / shortcut_bn -> shortcut.0 / shortcut.1,
+    out_nonlinear_bn -> out_nonlinear.batchnorm, nonlinear<n>_bn ->
+    nonlinear<n>.batchnorm
 
 `load_checkpoint` reads an upstream or port `.pt` state_dict into a model
 with `load_state_dict(strict=True)`; the keys the port has no use for are
@@ -18,7 +24,7 @@ handled by name, not by a lenient load.
 
 import re
 from collections import OrderedDict
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -32,11 +38,20 @@ _LEAF_TO_TORCH = {
     "var": "running_var",
 }
 
-_ECAPA_RULES = (
-    (r"\bblock_(\d+)\b", r"se_res2block.\1"),
-    (r"\bconvs_(\d+)\b", r"convs.\1"),
-    (r"\bbns_(\d+)\b", r"bns.\1"),
-)
+MODEL_RULES = {
+    "ECAPA_TDNN": (
+        (r"\bblock_(\d+)\b", r"se_res2block.\1"),
+        (r"\bconvs_(\d+)\b", r"convs.\1"),
+        (r"\bbns_(\d+)\b", r"bns.\1"),
+    ),
+    "CAMPPlus": (
+        (r"\blayer(\d)_(\d+)\b", r"layer\1.\2"),
+        (r"\bshortcut_conv\b", "shortcut.0"),
+        (r"\bshortcut_bn\b", "shortcut.1"),
+        (r"\bout_nonlinear_bn\b", "out_nonlinear.batchnorm"),
+        (r"\bnonlinear(\d?)_bn\b", r"nonlinear\1.batchnorm"),
+    ),
+}
 
 # upstream training checkpoints carry the margin head beside the model
 _TRAINING_ONLY_PREFIXES = ("projection.",)
@@ -50,16 +65,32 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
-def _torch_key(mods, leaf: str) -> str:
+def rules_for(model_name: str) -> Tuple[Tuple[str, str], ...]:
+    """The name rules of the longest `MODEL_RULES` prefix of model_name;
+    none for a model without rules."""
+    best = max((p for p in MODEL_RULES if model_name.startswith(p)),
+               key=len, default=None)
+    return MODEL_RULES[best] if best else ()
+
+
+def _torch_key(mods, leaf: str, rules) -> str:
     key = ".".join(mods + (_LEAF_TO_TORCH.get(leaf, leaf),))
-    for pat, repl in _ECAPA_RULES:
+    for pat, repl in rules:
         key = re.sub(pat, repl, key)
     return key
 
 
-def from_jax_variables(variables: Mapping[str, Any]) -> "OrderedDict":
+# flax kernel layout -> torch weight layout, by rank: dense (I, O), conv1d
+# (K, I, O), conv2d (kh, kw, I, O)
+_KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+
+
+def from_jax_variables(variables: Mapping[str, Any],
+                       model_name: str = "ECAPA_TDNN") -> "OrderedDict":
     """flax {"params", "batch_stats"} tree (nested dicts of numpy or JAX
-    arrays) -> the port's state_dict of torch tensors."""
+    arrays) of the model `model_name` -> the port's state_dict of torch
+    tensors."""
+    rules = rules_for(model_name)
     sd = OrderedDict()
     bn_prefixes = []
     for collection in ("params", "batch_stats"):
@@ -67,8 +98,8 @@ def from_jax_variables(variables: Mapping[str, Any]) -> "OrderedDict":
             *mods, leaf = path
             arr = np.asarray(value, dtype=np.float32)
             if leaf == "kernel":
-                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
-            key = _torch_key(tuple(mods), leaf)
+                arr = arr.transpose(_KERNEL_AXES[arr.ndim])
+            key = _torch_key(tuple(mods), leaf, rules)
             sd[key] = torch.tensor(arr)
             if collection == "batch_stats" and leaf == "mean":
                 bn_prefixes.append(key[:-len("running_mean")])
