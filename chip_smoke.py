@@ -75,7 +75,28 @@ Phases, each printing one line:
  13. campplus timing  CUDA events after warm-up at B=512, T=200 (T'=100),
               bf16: each block's kernel and plain version with its bound;
               CAMPPlus extraction audio-s/s on the kernel path and with
-              fused_blocks=False.
+              fused_blocks=False;
+ 14. gemini kernels  the Gemini stage kernel against its plain version at
+              each of Gemini_DF_ResNet114's four full-width stage shapes
+              ((F, C, blocks) = (40, 32, 3), (20, 64, 3), (10, 128, 27),
+              (5, 256, 3)), B=64: bf16 at 200 frames (cosine >= 0.9999)
+              and f32 at a ragged 198 frames (TF32 off, rtol/atol 1e-4);
+ 15. gemini slice  Gemini_DF_ResNet114 at the width of
+              gemini_dfresnet_adam.yaml (feat 80, embed 256, TSTP), random
+              weights and BN statistics from a seed: make_eval_embed_fn in
+              bf16 over 2 s chunks at B=64, the kernel path against the
+              block-by-block path (cosine >= 0.9999), exactly 4 kernel
+              launches per forward; then f32 on a copy whose BN statistics
+              come from synthetic voices;
+ 16. gemini serving  an EmbeddingServer from a Gemini YAML and a .pt of the
+              calibrated copy: three waves of concurrent /embed requests in
+              buckets of T' = 49, 99 and 149 frames; each reply against the
+              same request padded to its bucket (cosine >= 0.9999), and
+              against batch=1, recorded only;
+ 17. gemini timing  CUDA events after warm-up at B=512 x 200 frames, bf16:
+              each stage's kernel and plain version with its bound;
+              Gemini_DF_ResNet114 extraction audio-s/s on the kernel path
+              and with fused_stages=False.
 Then one JSON line of per-kernel results and, last, the result line. Any
 failure raises and exits non-zero; without a GPU the script exits 1.
 """
@@ -97,16 +118,19 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import load_model_for_eval  # noqa: E402
 from wespeaker_tpu_torch.bin.kernel_bounds import (  # noqa: E402
-    bound, cam_dense_block)
+    bound, cam_dense_block, inv_bottleneck_stage)
 from wespeaker_tpu_torch.data.wav_io import write_wav  # noqa: E402
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
 from wespeaker_tpu_torch.models.campplus import CAMPPlus  # noqa: E402
 from wespeaker_tpu_torch.models.ecapa_tdnn import (  # noqa: E402
     ECAPA_TDNN_GLOB_c512)
+from wespeaker_tpu_torch.models.gemini_dfresnet import (  # noqa: E402
+    Gemini_DF_ResNet114, folded_stage)
 from wespeaker_tpu_torch.models.projections import (  # noqa: E402
     ArcMarginProduct)
 from wespeaker_tpu_torch.ops import (_build, cam_block,  # noqa: E402
-                                     mfa_astp, mfa_astp_vjp, se_block)
+                                     inv_bottleneck, mfa_astp, mfa_astp_vjp,
+                                     se_block)
 from wespeaker_tpu_torch.serving import EmbeddingServer  # noqa: E402
 from wespeaker_tpu_torch.train import (AugConfig,  # noqa: E402
                                        build_train_state, make_eval_embed_fn,
@@ -135,13 +159,23 @@ COUNTERS = {"se": se_block.fused_se_res2_block,
             "tail": mfa_astp.fused_mfa_astp,
             "train_fwd": mfa_astp_vjp.mfa_astp_train_fwd,
             "train_bwd": mfa_astp_vjp.mfa_astp_train_bwd,
-            "cam": cam_block.fused_cam_dense_block}
+            "cam": cam_block.fused_cam_dense_block,
+            "gemini": inv_bottleneck.fused_inv_bottleneck_stage}
 NO_LAUNCH = dict.fromkeys(COUNTERS, 0)
 # CAMPPlus's dense blocks: (C0, layers, dilation); T' = 100 after the
 # stride-2 TDNN at 200 frames
 CAM_BLOCKS = ((128, 12, 1), (256, 24, 2), (512, 16, 2))
 CAM_T = 100
 CAM_EMBED = 512
+# Gemini_DF_ResNet114 (gemini_dfresnet_adam.yaml: feat 80, embed 256, TSTP):
+# its stages at 200 frames, (F, T, C, blocks)
+GEMINI_EMBED = 256
+GEMINI_STAGES = ((40, 200, 32, 3), (20, 100, 64, 3), (10, 100, 128, 27),
+                 (5, 100, 256, 3))
+GEMINI_YAML = ("model: Gemini_DF_ResNet114\nmodel_args:\n  feat_dim: 80\n"
+               f"  embed_dim: {GEMINI_EMBED}\n  pooling_func: TSTP\n"
+               "  two_emb_layer: false\ndataset_args:\n  fbank_args:\n"
+               "    num_mel_bins: 80\n")
 
 
 def zero_counts():
@@ -778,7 +812,15 @@ def random_campplus(dev, calibrate=False):
     forward over 16 seeded synthetic voices: with random statistics the
     52-layer trunk maps every input onto nearly one embedding."""
     torch.manual_seed(SEED)
-    model = CAMPPlus(80, CAM_EMBED, pooling_func="TSTP")
+    return randomised_bn(CAMPPlus(80, CAM_EMBED, pooling_func="TSTP"), dev,
+                         calibrate)
+
+
+def randomised_bn(model, dev, calibrate):
+    """`model` on dev in eval mode, its BN statistics and affines
+    randomised from a generator seeded with SEED; with `calibrate`, the
+    statistics then replaced by those of one train-mode forward over 16
+    seeded synthetic voices."""
     g = torch.Generator().manual_seed(SEED)
     bns = [m for m in model.modules()
            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
@@ -895,17 +937,20 @@ def phase_campplus_slice(model, dev):
     return launches
 
 
-def serve_cam_waves(model, dev, waves):
-    """An EmbeddingServer built from a CAM++ YAML and `model` saved as a
-    .pt; each wave's requests are posted concurrently, the waves in turn.
-    Returns the replies, the batch shapes served and the launches."""
+CAM_YAML = ("model: CAMPPlus\nmodel_args:\n  feat_dim: 80\n"
+            f"  embed_dim: {CAM_EMBED}\n  pooling_func: TSTP\n"
+            "dataset_args:\n  fbank_args:\n    num_mel_bins: 80\n")
+
+
+def serve_waves(model, dev, waves, yaml_text):
+    """An EmbeddingServer built from a YAML and `model` saved as a .pt; each wave's requests are posted concurrently,
+    the waves in turn. Returns the replies, the batch shapes served and the
+    launches."""
     with tempfile.TemporaryDirectory() as d:
-        ckpt, conf = os.path.join(d, "model.pt"), os.path.join(d, "cam.yaml")
+        ckpt, conf = os.path.join(d, "model.pt"), os.path.join(d, "m.yaml")
         torch.save(model.state_dict(), ckpt)
         with open(conf, "w") as f:
-            f.write("model: CAMPPlus\nmodel_args:\n  feat_dim: 80\n"
-                    f"  embed_dim: {CAM_EMBED}\n  pooling_func: TSTP\n"
-                    "dataset_args:\n  fbank_args:\n    num_mel_bins: 80\n")
+            f.write(yaml_text)
         server = EmbeddingServer(parse_config_or_kwargs(conf), ckpt, port=0,
                                  max_batch=8, max_wait_ms=50,
                                  device=dev).start()
@@ -948,7 +993,7 @@ def phase_campplus_serving(model, dev):
     parts = []
     for name, m in (("random", model),
                     ("calibrated", random_campplus(dev, calibrate=True))):
-        embs, served, launches = serve_cam_waves(m, dev, waves)
+        embs, served, launches = serve_waves(m, dev, waves, CAM_YAML)
         if launches["cam"] < 3 or launches["se"] or launches["tail"]:
             raise AssertionError(f"CAM++ serving launches {launches}")
         frames = sorted({((n - 400) // 160 + 2) // 2 for _, n in served})
@@ -1026,6 +1071,198 @@ def phase_campplus_timing(model, dev, smi):
     return {"cam": res}
 
 
+def random_gemini(dev, calibrate=False):
+    """Gemini_DF_ResNet114 at gemini_dfresnet_adam.yaml's width with
+    torch's default init from SEED and BN statistics randomised (or, with
+    `calibrate`, taken from synthetic voices) as random_campplus's."""
+    torch.manual_seed(SEED)
+    return randomised_bn(Gemini_DF_ResNet114(80, GEMINI_EMBED), dev,
+                         calibrate)
+
+
+def stage_frames(t, i):
+    """Frames of stage i at t input frames: stage 1's downsample halves
+    T."""
+    return t if i == 0 else (t - 1) // 2 + 1
+
+
+def gemini_inputs(model, i, rng, b, t, dtype, dev):
+    """Stage i's folded, stacked weights as the model passes them, and a
+    random channels-last stage input at t input frames."""
+    f, _, c, _ = GEMINI_STAGES[i]
+    x = torch.as_tensor(rng.standard_normal(
+        (b, f, stage_frames(t, i), c)).astype(np.float32), device=dev)
+    return x.to(dtype).permute(0, 3, 1, 2), folded_stage(model.stages[i])
+
+
+def phase_gemini_kernels(model, dev):
+    """The stage kernel against its plain version at each of the four
+    Gemini_DF_ResNet114 stage shapes, B=64: bf16 at 200 frames (T' = 200,
+    100, 100, 100) and f32 at 198 (T' = 198, 99, 99, 99)."""
+    rng = np.random.default_rng(SEED + 14)
+    errs, parts = [], []
+    for dtype, t in ((torch.bfloat16, T), (torch.float32, 198)):
+        for i, (f, _, c, blocks) in enumerate(GEMINI_STAGES):
+            x, w = gemini_inputs(model, i, rng, SLICE_BATCH, t, dtype, dev)
+            got = inv_bottleneck.fused_inv_bottleneck_stage(x, *w)
+            torch.cuda.synchronize()
+            want = inv_bottleneck.inv_bottleneck_stage_reference(x, *w)
+            if not got.is_contiguous(memory_format=torch.channels_last):
+                raise AssertionError(f"stage{i}: output not channels-last")
+            err, cos = compare(got, want, dtype)
+            errs.append(err)
+            parts.append(f"stage{i} (F={f}, T'={x.shape[-1]}, C={c}, "
+                         f"L={blocks}) {str(dtype)[6:]} max_abs_err="
+                         f"{err:.3g} cos={cos:.7f}")
+            del x, w, got, want
+    print("gemini kernels: " + "; ".join(parts))
+    return {"gemini": max(errs)}
+
+
+def phase_gemini_slice(model, dev):
+    """The Gemini extraction path: bf16 kernel path against the
+    block-by-block path, 4 launches per forward; then f32 on the
+    calibrated copy."""
+    rng = np.random.default_rng(SEED + 15)
+    wav = torch.as_tensor(np.stack([voice(rng, CHUNK_SAMPLES)
+                                    for _ in range(SLICE_BATCH)]), device=dev)
+    io = torch.bfloat16
+    embed = make_eval_embed_fn(model, FbankConfig(), compute_dtype=io,
+                               fbank_conv_dtype=io, device=dev)
+    zero_counts()
+    emb = embed({"wav": wav})
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != dict(NO_LAUNCH, gemini=4):
+        raise AssertionError(f"Gemini path launches {launches}, want the "
+                             "stage kernel 4 times per forward and nothing "
+                             "else")
+    assert emb.shape == (SLICE_BATCH, GEMINI_EMBED)
+    assert torch.isfinite(emb).all()
+    plain = make_eval_embed_fn(model.set_fused(False), FbankConfig(),
+                               compute_dtype=io, fbank_conv_dtype=io,
+                               device=dev)({"wav": wav})
+    model.set_fused(None)
+    cos = row_cosines(emb, plain).min().item()
+    cross = row_cosines(emb[:-1], emb[1:]).mean().item()
+    if cos < 0.9999:
+        raise AssertionError(f"Gemini kernel path vs plain path cosine {cos}")
+
+    cal = random_gemini(dev, calibrate=True)
+    fn = make_eval_embed_fn(cal, FbankConfig(), device=dev)
+    zero_counts()
+    emb32 = fn({"wav": wav[:16]})
+    torch.cuda.synchronize()
+    if counts() != dict(NO_LAUNCH, gemini=4):
+        raise AssertionError(f"calibrated Gemini launches {counts()}")
+    plain32 = make_eval_embed_fn(cal.set_fused(False), FbankConfig(),
+                                 device=dev)({"wav": wav[:16]})
+    cos32 = row_cosines(emb32, plain32).min().item()
+    err32 = (emb32 - plain32).abs().max().item()
+    cross32 = row_cosines(emb32[:-1], emb32[1:]).mean().item()
+    if cos32 < 0.9999:
+        raise AssertionError(f"calibrated Gemini f32 kernel path vs plain "
+                             f"path cosine {cos32}")
+    print(f"gemini slice: Gemini_DF_ResNet114 feat 80 embed {GEMINI_EMBED} "
+          f"TSTP bf16 B={SLICE_BATCH} x {CHUNK_SAMPLES} samples -> "
+          f"{tuple(emb.shape)}; launches gemini={launches['gemini']}; min "
+          f"cosine vs plain bf16 path {cos:.7f} (mean cosine between "
+          f"neighbouring utterances {cross:.7f}); calibrated BN statistics, "
+          f"f32 B=16: min cosine vs plain path {cos32:.7f}, max abs err "
+          f"{err32:.3g} (between utterances {cross32:.4f})")
+    return launches
+
+
+def phase_gemini_serving(dev):
+    """An EmbeddingServer built from a Gemini YAML and a .pt of the
+    calibrated copy (embeddings that depend on the input): three waves of
+    concurrent /embed requests, one per bucket (T' = 49, 99, 149); each
+    reply against the same request padded and masked to its bucket and
+    embedded directly (cosine >= 0.9999) and, measured only, against
+    batch=1 (the stages see the padding through their 3x3 convs, as in the
+    JAX package)."""
+    rng = np.random.default_rng(SEED + 16)
+    wavs = [voice(rng, n) for n in (12000, 16000, 20800, 27200, 32000,
+                                    35200, 41600, 48000)]
+    model = random_gemini(dev, calibrate=True)
+    embs, served, launches = serve_waves(
+        model, dev, [wavs[:2], wavs[2:5], wavs[5:]], GEMINI_YAML)
+    if launches["gemini"] < 12 or launches["gemini"] % 4 or any(
+            v for k, v in launches.items() if k != "gemini"):
+        raise AssertionError(f"Gemini serving launches {launches}")
+    frames = sorted({((n - 400) // 160 + 2) // 2 for _, n in served})
+    if frames != [49, 99, 149]:
+        raise AssertionError(f"served buckets {served}: T' {frames}")
+    fn = make_eval_embed_fn(model, FbankConfig(), device=dev)
+    single = torch.cat([fn({"wav": w[None]}).cpu() for w in wavs])
+    bucket = []
+    for w in wavs:
+        n = -(-len(w) // 16000) * 16000
+        padded, mask = np.zeros((1, n), np.float32), np.zeros((1, n),
+                                                              np.float32)
+        padded[0, :len(w)], mask[0, :len(w)] = w, 1.0
+        bucket.append(fn({"wav": padded, "mask": mask}).cpu())
+    vs_single = row_cosines(embs, single)
+    vs_bucket = row_cosines(embs, torch.cat(bucket))
+    if vs_bucket.min().item() < 0.9999:
+        raise AssertionError(f"Gemini served replies vs bucket {vs_bucket}")
+    print(f"gemini serving: Gemini_DF_ResNet114 from a YAML + .pt "
+          f"(calibrated BN statistics), {len(wavs)} /embed (0.75-3 s) in "
+          f"three concurrent waves; batches {served} (T' {frames}), launches "
+          f"gemini={launches['gemini']}; min cosine vs the bucket embedded "
+          f"directly {vs_bucket.min().item():.7f}, vs batch=1 (not gated) "
+          f"{vs_single.min().item():.7f}, between neighbouring replies "
+          f"{row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
+
+
+def phase_gemini_timing(model, dev, smi):
+    """CUDA events after warm-up at B=512 x 200 frames, bf16: each stage's
+    kernel and plain version with its bound; Gemini_DF_ResNet114
+    extraction audio-s/s on the kernel path and with fused_stages=False."""
+    rng = np.random.default_rng(SEED + 17)
+    io = torch.bfloat16
+    stages, res = [], {"ms": 0.0, "plain_ms": 0.0}
+    flops_all = bytes_all = 0
+    for i, (f, _, c, blocks) in enumerate(GEMINI_STAGES):
+        x, w = gemini_inputs(model, i, rng, B, T, io, dev)
+        # from this call's shapes: x read once, the output written once,
+        # the matrices and taps in the io type, the affines in f32
+        flops, nbytes = inv_bottleneck_stage(B, f, x.shape[-1], c, blocks)
+        ms = cuda_ms(lambda: inv_bottleneck.fused_inv_bottleneck_stage(
+            x, *w))
+        plain_ms = cuda_ms(
+            lambda: inv_bottleneck.inv_bottleneck_stage_reference(x, *w),
+            iters=3, warmup=1)
+        bms, by = bound(flops, nbytes)
+        stages.append((i, ms, plain_ms, bms, by))
+        res["ms"] += ms
+        res["plain_ms"] += plain_ms
+        flops_all += flops
+        bytes_all += nbytes
+        del x, w
+        torch.cuda.empty_cache()
+    res["bound_ms"], res["bound_by"] = bound(flops_all, bytes_all)
+    wav = torch.as_tensor(np.stack([voice(rng, CHUNK_SAMPLES)
+                                    for _ in range(B)]), device=dev)
+    rates = {}
+    for path, fused in (("kernel", None), ("plain", False)):
+        embed = make_eval_embed_fn(model.set_fused(fused), FbankConfig(),
+                                   compute_dtype=io, fbank_conv_dtype=io,
+                                   device=dev)
+        ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
+        rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
+    model.set_fused(None)
+    fmt = "; ".join(f"stage{i} {ms:.3f} ms (plain {pm:.3f}, bound {bm:.3f} "
+                    f"by {by})" for i, ms, pm, bm, by in stages)
+    print(f"gemini timing [{smi}] B={B} T={T} bf16: {fmt}; four stages "
+          f"{res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, bound "
+          f"{res['bound_ms']:.3f}); Gemini_DF_ResNet114 extraction kernel "
+          f"path {rates['kernel'][0]:.1f} audio-s/s ({rates['kernel'][1]:.2f} "
+          f"ms/batch), fused_stages=False {rates['plain'][0]:.1f} audio-s/s "
+          f"({rates['plain'][1]:.2f} ms/batch)")
+    return {"gemini": res}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1053,6 +1290,12 @@ def main():
     launches["cam"] = phase_campplus_slice(cam, dev)["cam"]
     phase_campplus_serving(cam, dev)
     timing.update(phase_campplus_timing(cam, dev, smi))
+    del cam
+    gemini = random_gemini(dev)
+    errs.update(phase_gemini_kernels(gemini, dev))
+    launches["gemini"] = phase_gemini_slice(gemini, dev)["gemini"]
+    phase_gemini_serving(dev)
+    timing.update(phase_gemini_timing(gemini, dev, smi))
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),
@@ -1063,7 +1306,9 @@ def main():
             ("mfa_astp_train_bwd", "train_bwd", csrc + "mfa_astp_train.cu",
              ops + "mfa_astp_vjp.py:350"),
             ("fused_cam_dense_block", "cam", csrc + "cam_block.cu",
-             ops + "cam_block_pallas.py:204")]
+             ops + "cam_block_pallas.py:204"),
+            ("fused_inv_bottleneck_stage", "gemini",
+             csrc + "inv_bottleneck.cu", ops + "inv_bottleneck_pallas.py:167")]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from wespeaker_tpu_torch.ops import (cam_block, mfa_astp, mfa_astp_vjp,
-                                     se_block)
+from wespeaker_tpu_torch.ops import (cam_block, inv_bottleneck, mfa_astp,
+                                     mfa_astp_vjp, se_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -329,5 +329,81 @@ def test_campplus_kernel_path_matches_plain_path(cuda):
         before = cam_block.fused_cam_dense_block.launches
         got = model(x, mask)
         assert cam_block.fused_cam_dense_block.launches == before + 3
+        want = model.set_fused(False)(x, mask)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def stage_args(rng, num_blocks, c, device):
+    """Random Gemini stage operands with folded BN, stacked over the blocks
+    (f32; the wrapper rounds the matrices to x's type)."""
+    d = 4 * c
+
+    def r(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                               * scale, device=device)
+
+    L = num_blocks
+    return dict(w1=r(L, c, d, scale=c ** -0.5), s1=1 + r(L, d, scale=.1),
+                t1=r(L, d, scale=.1), wdw=r(L, 3, 3, d, scale=1 / 3),
+                s2=1 + r(L, d, scale=.1), t2=r(L, d, scale=.1),
+                w2=r(L, d, c, scale=d ** -0.5), s3=1 + r(L, c, scale=.1),
+                t3=r(L, c, scale=.1))
+
+
+# Gemini_DF_ResNet114's four stage widths at 2 s (T'=100 after stage 0),
+# in both types, ragged T in f32
+STAGE_CASES = [(torch.bfloat16, 40, 200, 32), (torch.float32, 20, 99, 64),
+               (torch.bfloat16, 10, 100, 128), (torch.float32, 5, 37, 256),
+               (torch.float32, 40, 198, 32), (torch.bfloat16, 5, 99, 256)]
+
+
+@pytest.mark.parametrize("dtype,f,t,c", STAGE_CASES)
+def test_inv_bottleneck_kernel_matches_plain(cuda, dtype, f, t, c):
+    rng = np.random.default_rng(11)
+    args = stage_args(rng, 3, c, cuda)
+    x = torch.as_tensor(rng.standard_normal((3, f, t, c)).astype(np.float32),
+                        device=cuda).to(dtype).permute(0, 3, 1, 2)
+    before = inv_bottleneck.fused_inv_bottleneck_stage.launches
+    got = inv_bottleneck.fused_inv_bottleneck_stage(x, **args)
+    torch.cuda.synchronize()
+    assert inv_bottleneck.fused_inv_bottleneck_stage.launches == before + 1
+    want = inv_bottleneck.inv_bottleneck_stage_reference(x, **args)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert_matches(got, want, dtype)
+
+
+def test_inv_bottleneck_raises_for_unsupported_shapes(cuda):
+    """No fallback on the card: a type, a width or a layout the kernel does
+    not take raises."""
+    args = stage_args(np.random.default_rng(12), 2, 16, cuda)
+    x = torch.zeros(2, 4, 8, 16, device=cuda).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        inv_bottleneck.fused_inv_bottleneck_stage(x, **args)
+    args = stage_args(np.random.default_rng(12), 2, 32, cuda)
+    x = torch.zeros(2, 4, 8, 32, device=cuda).permute(0, 3, 1, 2)
+    with pytest.raises(TypeError):
+        inv_bottleneck.fused_inv_bottleneck_stage(x.half(), **args)
+    with pytest.raises(ValueError, match="channels-last"):
+        inv_bottleneck.fused_inv_bottleneck_stage(x.contiguous(), **args)
+
+
+def test_gemini_kernel_path_matches_plain_path(cuda):
+    """Gemini_DF_ResNet114 at full width in eval: four stage launches per
+    forward, against the block-by-block path on the same card, f32 with a
+    ragged mask."""
+    from wespeaker_tpu_torch.models.gemini_dfresnet import (
+        Gemini_DF_ResNet114)
+
+    torch.manual_seed(0)
+    model = Gemini_DF_ResNet114(80, 256).to(cuda).eval()
+    rng = np.random.default_rng(13)
+    x = torch.as_tensor(rng.standard_normal((3, 150, 80)).astype(np.float32),
+                        device=cuda)
+    mask = torch.ones(3, 150, device=cuda)
+    mask[1, 110:] = 0
+    with torch.inference_mode():
+        before = inv_bottleneck.fused_inv_bottleneck_stage.launches
+        got = model(x, mask)
+        assert inv_bottleneck.fused_inv_bottleneck_stage.launches == before + 4
         want = model.set_fused(False)(x, mask)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -40,7 +40,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {"ops/mfa_astp_vjp.py", "bin/train.py", "train/optim.py",
             "data/dataset.py", "utils/checkpoint.py",
             "utils/schedulers.py", "models/projections.py",
-            "ops/cam_block.py", "models/campplus.py"} <= names
+            "ops/cam_block.py", "models/campplus.py",
+            "ops/inv_bottleneck.py", "models/gemini_dfresnet.py"} <= names
     bad = []
     for path in files:
         for name in _imported(ast.parse(path.read_text(), str(path))):
@@ -77,8 +78,10 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
-    """Neither wrapper drops to its plain version for anything but a CPU
+    """No wrapper drops to its plain version for anything but a CPU
     tensor."""
+    from wespeaker_tpu_torch.ops.inv_bottleneck import (
+        fused_inv_bottleneck_stage)
     from wespeaker_tpu_torch.ops.mfa_astp import fused_mfa_astp
     from wespeaker_tpu_torch.ops.mfa_astp_vjp import (mfa_astp_train_bwd,
                                                       mfa_astp_train_fwd)
@@ -93,3 +96,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
         mfa_astp_train_fwd(x, x, x, *([x] * 6))
     with pytest.raises(ValueError, match="no kernel"):
         mfa_astp_train_bwd(x, x, x, *([x] * 9))
+    m = torch.empty(1, 4, 8, 32, device="meta").permute(0, 3, 1, 2)
+    w = [torch.empty(s, device="meta") for s in (
+        (2, 32, 128), (2, 128), (2, 128), (2, 3, 3, 128), (2, 128),
+        (2, 128), (2, 128, 32), (2, 32), (2, 32))]
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_inv_bottleneck_stage(m, *w)

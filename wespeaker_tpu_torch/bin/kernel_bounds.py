@@ -1,6 +1,6 @@
 """Least time an H100 could take for each TPU kernel of the JAX package that
 the port has not ported yet, from its shapes at the configuration whose
-path runs it (PERF.md rows 3, 6, 7, 9 and 10).
+path runs it (PERF.md rows 3, 6, 7 and 10).
 
     python -m wespeaker_tpu_torch.bin.kernel_bounds
 
@@ -14,8 +14,9 @@ f32 outputs 4 bytes. Products count a multiply-add as two operations and
 only the live work (a CAM layer's zero-padded input rows, a segment's
 repeated context, are not counted); the stats kernels count their f32
 operations per element. chip_smoke.py computes the ported kernels' bounds
-from its own inputs with the same `bound` (and, for the CAM++ dense block,
-ported, with `cam_dense_block`).
+from its own inputs with the same `bound` (and, for the CAM++ dense block
+and the Gemini stage, ported, with `cam_dense_block` and
+`inv_bottleneck_stage`).
 """
 
 import math
@@ -107,13 +108,6 @@ ROWS = [
      "TSTP of ResNet34 (no model calls it), B=512 x 200 frames: T=25, "
      "D=32*8*10=2560",
      [("call", *masked_stats(512, 25, 2560), PEAK_F32_FLOPS)]),
-    (9, "fused_inv_bottleneck_stage",
-     "Gemini_DF_ResNet114 extraction B=512 x 200 frames, feat 80, four "
-     "stages",
-     [(f"stage{i}", *inv_bottleneck_stage(512, f, t, c, n), PEAK_BF16_FLOPS)
-      for i, (f, t, c, n) in enumerate(((40, 200, 32, 3), (20, 100, 64, 3),
-                                        (10, 100, 128, 27),
-                                        (5, 100, 256, 3)))]),
     (10, "dw_pack",
      "ResNet34 training, the recipe's B=128 x 200 frames, a layer1 3x3 "
      "conv (80 x 200, 32 -> 32), conv_dw_mode packed (opt-in)",

@@ -5,7 +5,8 @@
 Each kernel runs at its main-path shape in bf16 on random operands made
 from a seed (the SE-Res2 block and the MFA+ASTP tail at B=512, T=200,
 C=512; the training tail's forward and backward at B=256; the three CAM++
-dense blocks of one CAMPPlus forward at B=512, T'=100), timed with CUDA
+dense blocks of one CAMPPlus forward at B=512, T'=100; the four stages of
+one Gemini_DF_ResNet114 forward at B=512 x 200 frames), timed with CUDA
 events after warm-up. Prints the card and one JSON line {kernel: ms}. A
 kernel the package does not have is left out, so the same file times an
 older checkout: run it with that checkout first on PYTHONPATH to compare
@@ -113,6 +114,23 @@ def main(argv=None):
             total += cuda_ms(lambda: cam.fused_cam_dense_block(
                 x, *ws, dilation=dil), args.iters)
         out["cam"] = total
+    inv = _ops("inv_bottleneck")
+    if inv is not None:
+        total = 0.0
+        for f, tt, ch, blocks in ((40, 200, 32, 3), (20, 100, 64, 3),
+                                  (10, 100, 128, 27), (5, 100, 256, 3)):
+            dd = 4 * ch
+            ws = (r(blocks, ch, dd, scale=ch ** -0.5),
+                  1 + r(blocks, dd, scale=.1), r(blocks, dd, scale=.1),
+                  r(blocks, 3, 3, dd, scale=1 / 3),
+                  1 + r(blocks, dd, scale=.1), r(blocks, dd, scale=.1),
+                  r(blocks, dd, ch, scale=dd ** -0.5),
+                  1 + r(blocks, ch, scale=.1), r(blocks, ch, scale=.1))
+            x = r(b, f, tt, ch, dtype=io).permute(0, 3, 1, 2)
+            total += cuda_ms(lambda: inv.fused_inv_bottleneck_stage(x, *ws),
+                             args.iters)
+            del x
+        out["gemini"] = total
     print(torch.cuda.get_device_name(0))
     print(json.dumps(out))
 

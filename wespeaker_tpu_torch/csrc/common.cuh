@@ -1,5 +1,5 @@
-// Pieces shared by the SE-Res2 block, the MFA+ASTP tail and the CAM++ dense
-// block kernels.
+// Pieces shared by the SE-Res2 block, the MFA+ASTP tail, the CAM++ dense
+// block and the Gemini stage kernels.
 //
 // - gemm: C[M, N] = epilogue(sum_p A_p[M, Kp] @ W[p*Kp:(p+1)*Kp, N]) with up
 //   to three A operands read as K-slices of one product (a concat that is
@@ -12,8 +12,14 @@
 //   type. In the bn_relu form (the CAM++ bottleneck) A is turned into
 //   relu(A * a_scale + a_shift) per K column, rounded to the operand type,
 //   as it is loaded, and the epilogue applies the affine before the
-//   activation: BatchNorm + relu on both sides of the product. The form is
-//   a template parameter, so the other GEMMs compile without it.
+//   activation: BatchNorm + relu on both sides of the product. Two more
+//   forms serve the Gemini stage: relu(acc * scale + shift), and
+//   relu(acc * scale + shift + res) with a residual res (m, n) in the output
+//   type, which may be the output itself (each element is read, then
+//   written, by the same thread). The form and the block's column count
+//   (128, or 64 and 32 for narrow outputs) are template parameters, so no
+//   GEMM compiles another's branches. The grid is one-dimensional, column
+//   tiles fastest, so any m < 2^31 launches.
 // - col_stats: masked mean (and unbiased std + 1e-7) over T of (B, T, C),
 //   one thread per (utterance, channel).
 // - softmax_stats: ASTP's softmax over T and the weighted mean and std.
@@ -54,6 +60,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 
 enum Act { kNone = 0, kRelu = 1, kTanh = 2, kSigmoid = 3 };
 
+// Epilogue (and prologue) forms of gemm, template parameters of the kernels.
+enum Form {
+  kFormPost = 0,        // bias / row bias, activation, then the affine
+  kFormBnRelu = 1,      // A prologue relu(A * a_scale + a_shift); affine, act
+  kFormAffineRelu = 2,  // relu(acc * scale + shift)
+  kFormAffineResRelu = 3,  // relu(acc * scale + shift + res)
+};
+
 struct GemmArgs {
   const void* a[3];  // A operands, each (m, kp) row-major with row stride lda
   int nparts;
@@ -74,11 +88,19 @@ struct GemmArgs {
   int bn_relu;
   const float* a_scale;
   const float* a_shift;
+  const void* res;  // kFormAffineResRelu: (m, n) in the output type
 };
 
-template <bool kBnRelu>
+template <typename OutT, int kForm>
 __device__ __forceinline__ float epilogue(const GemmArgs& p, int row, int col,
                                           float acc) {
+  if constexpr (kForm == kFormAffineRelu || kForm == kFormAffineResRelu) {
+    float v = acc * p.scale[col] + p.shift[col];
+    if constexpr (kForm == kFormAffineResRelu)
+      v += to_f(static_cast<const OutT*>(p.res)[(size_t)row * p.n + col]);
+    return fmaxf(v, 0.f);
+  }
+  constexpr bool kBnRelu = kForm == kFormBnRelu;
   float v = acc;
   if (kBnRelu) v = v * p.scale[col] + p.shift[col];
   if (p.bias) v += p.bias[col];
@@ -113,24 +135,29 @@ __device__ __forceinline__ const void* part_ptr(const GemmArgs& p, int part) {
   return part == 0 ? p.a[0] : (part == 1 ? p.a[1] : p.a[2]);
 }
 
-// ---- f32 GEMM on the CUDA cores: 128x128 block tile, 8x8 per thread ----
+// ---- f32 GEMM on the CUDA cores: 128 x kBN block tile, 8 x kBN/16 per
+//      thread ----
 
 constexpr int kFBM = 128, kFBN = 128, kFBK = 16;
 
-template <typename OutT, bool kBnRelu>
+template <typename OutT, int kForm, int kBN>
 __global__ void __launch_bounds__(256) gemm_fma_kernel(GemmArgs p) {
+  constexpr bool kBnRelu = kForm == kFormBnRelu;
+  constexpr int kTN = kBN / 16;  // columns per thread
   __shared__ float as[kFBK][kFBM + 4];
-  __shared__ float bs[kFBK][kFBN];
+  __shared__ float bs[kFBK][kBN];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * kFBM, col0 = blockIdx.x * kFBN;
+  const int ntn = p.n / kBN;
+  const int row0 = (int)(blockIdx.x / ntn) * kFBM;
+  const int col0 = (int)(blockIdx.x % ntn) * kBN;
   const int k_total = p.nparts * p.kp;
   const float* w = static_cast<const float*>(p.w);
-  float acc[8][8];
+  float acc[8][kTN];
 #pragma unroll
   for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < k_total; k0 += kFBK) {
     const int part = k0 / p.kp;
@@ -150,23 +177,24 @@ __global__ void __launch_bounds__(256) gemm_fma_kernel(GemmArgs p) {
       as[kk][r] = v;
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < kTN; ++i) {
       const int idx = tid + i * 256;
-      const int kk = idx / kFBN, c = idx % kFBN;
+      const int kk = idx / kBN, c = idx % kBN;
       bs[kk][c] = w[(size_t)(k0 + kk) * p.n + col0 + c];
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kFBK; ++kk) {
-      float av[8], bv[8];
+      float av[8], bv[kTN];
 #pragma unroll
       for (int i = 0; i < 8; ++i) av[i] = as[kk][ty + 16 * i];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) bv[j] = bs[kk][tx + 16 * j];
+      for (int j = 0; j < kTN; ++j) bv[j] = bs[kk][tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < kTN; ++j)
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -176,38 +204,44 @@ __global__ void __launch_bounds__(256) gemm_fma_kernel(GemmArgs p) {
     const int row = row0 + ty + 16 * i;
     if (row >= p.m) continue;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < kTN; ++j) {
       const int col = col0 + tx + 16 * j;
       out[(size_t)row * p.n + col] =
-          from_f<OutT>(epilogue<kBnRelu>(p, row, col, acc[i][j]));
+          from_f<OutT>(epilogue<OutT, kForm>(p, row, col, acc[i][j]));
     }
   }
 }
 
-// ---- bf16 GEMM on the tensor cores (WMMA): 128x128x32 block tile,
-//      8 warps as 4 x 2, each warp 32 x 64 = 2 x 4 fragments ----
+// ---- bf16 GEMM on the tensor cores (WMMA): 128 x kBN x 32 block tile,
+//      8 warps as 4 x 2, each warp 32 x kBN/2 = 2 x kBN/32 fragments ----
 
 constexpr int kWBM = 128, kWBN = 128, kWBK = 32;
 constexpr int kALd = kWBK + 8;  // bf16 elements; multiple of 8 for WMMA
 constexpr int kBLd = kWBN + 8;
 
-template <typename OutT, bool kBnRelu>
+template <typename OutT, int kForm, int kBN>
 __global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
   using namespace nvcuda;
+  constexpr bool kBnRelu = kForm == kFormBnRelu;
+  constexpr int kFN = kBN / 32;  // fragments per warp along N
+  constexpr int kLd = kBN + 8;
+  constexpr int kWChunks = kWBK * kBN / 8;  // 16-byte chunks of a W tile
   __shared__ __align__(32) __nv_bfloat16 as[kWBM * kALd];
-  __shared__ __align__(32) __nv_bfloat16 bs[kWBK * kBLd];
+  __shared__ __align__(32) __nv_bfloat16 bs[kWBK * kLd];
   __shared__ __align__(32) float cs[8][16 * 16];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int wr = warp / 2, wc = warp % 2;
-  const int row0 = blockIdx.y * kWBM, col0 = blockIdx.x * kWBN;
+  const int ntn = p.n / kBN;
+  const int row0 = (int)(blockIdx.x / ntn) * kWBM;
+  const int col0 = (int)(blockIdx.x % ntn) * kBN;
   const int k_total = p.nparts * p.kp;
   const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][kFN];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+    for (int j = 0; j < kFN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
   for (int k0 = 0; k0 < k_total; k0 += kWBK) {
     const int part = k0 / p.kp;
@@ -228,14 +262,16 @@ __global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
       }
       *reinterpret_cast<uint4*>(&as[r * kALd + ch * 8]) = v;
     }
-    // W tile: 32 rows x 16 chunks of 8 bf16
+    // W tile: 32 rows x kBN/8 chunks of 8 bf16
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
+    for (int i = 0; i < (kWChunks + 255) / 256; ++i) {
       const int idx = tid + i * 256;
-      const int r = idx / 16, ch = idx % 16;
-      *reinterpret_cast<uint4*>(&bs[r * kBLd + ch * 8]) =
-          *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * p.n + col0 +
-                                          ch * 8);
+      if (kWChunks % 256 == 0 || idx < kWChunks) {
+        const int r = idx / (kBN / 8), ch = idx % (kBN / 8);
+        *reinterpret_cast<uint4*>(&bs[r * kLd + ch * 8]) =
+            *reinterpret_cast<const uint4*>(w + (size_t)(k0 + r) * p.n +
+                                            col0 + ch * 8);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -245,19 +281,19 @@ __global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
           af[2];
       wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                      wmma::row_major>
-          bf[4];
+          bf[kFN];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(af[i], &as[(wr * 32 + i * 16) * kALd + kk],
                                kALd);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bf[j], &bs[kk * kBLd + wc * 64 + j * 16],
-                               kBLd);
+      for (int j = 0; j < kFN; ++j)
+        wmma::load_matrix_sync(bf[j],
+                               &bs[kk * kLd + wc * (kBN / 2) + j * 16], kLd);
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < kFN; ++j)
           wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
     }
     __syncthreads();
@@ -268,43 +304,62 @@ __global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < kFN; ++j) {
       wmma::store_matrix_sync(c, acc[i][j], 16, wmma::mem_row_major);
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int row = row0 + wr * 32 + i * 16 + e / 16;
-        const int col = col0 + wc * 64 + j * 16 + e % 16;
+        const int col = col0 + wc * (kBN / 2) + j * 16 + e % 16;
         if (row < p.m)
           out[(size_t)row * p.n + col] =
-              from_f<OutT>(epilogue<kBnRelu>(p, row, col, c[e]));
+              from_f<OutT>(epilogue<OutT, kForm>(p, row, col, c[e]));
       }
       __syncwarp();
     }
   }
 }
 
-// T: operand type (float or __nv_bfloat16); OutT: output type.
+// One launch of the GEMM kernel for operand type T in the given form and
+// column tile; checks the sizes every form shares.
+template <typename T, typename OutT, int kForm, int kBN>
+cudaError_t gemm_launch(const GemmArgs& p, cudaStream_t stream) {
+  if (p.n % kBN || p.kp % 32 || p.lda < p.kp || p.lda % 8 || p.m <= 0 ||
+      p.nparts < 1 || p.nparts > 3)
+    return cudaErrorInvalidValue;
+  const long long blocks = (long long)((p.m + 127) / 128) * (p.n / kBN);
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    gemm_wmma_kernel<OutT, kForm, kBN><<<grid, 256, 0, stream>>>(p);
+  } else {
+    static_assert(std::is_same<T, float>::value, "f32 or bf16 operands");
+    gemm_fma_kernel<OutT, kForm, kBN><<<grid, 256, 0, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+// T: operand type (float or __nv_bfloat16); OutT: output type. The post
+// form, or the bn_relu form when p.bn_relu is set.
 // Requires n % 128 == 0, kp % 32 == 0 and lda % 8 == 0 (checked here and by
 // the Python wrappers, which only pass the model's widths).
 template <typename T, typename OutT>
 cudaError_t gemm(const GemmArgs& p, cudaStream_t stream) {
-  if (p.n % 128 || p.kp % 32 || p.lda < p.kp || p.lda % 8 || p.m <= 0 ||
-      p.nparts < 1 || p.nparts > 3)
+  if (p.bn_relu) return gemm_launch<T, OutT, kFormBnRelu, 128>(p, stream);
+  return gemm_launch<T, OutT, kFormPost, 128>(p, stream);
+}
+
+// The affine-relu forms (kFormAffineRelu, kFormAffineResRelu), output in
+// the operand type: relu(acc * scale + shift [+ res]). n a multiple of 32;
+// the column tile is the widest of 128, 64 and 32 that divides n.
+template <typename T, int kForm>
+cudaError_t gemm_affine_relu(const GemmArgs& p, cudaStream_t stream) {
+  static_assert(kForm == kFormAffineRelu || kForm == kFormAffineResRelu,
+                "an affine-relu form");
+  if (!p.scale || !p.shift || (kForm == kFormAffineResRelu && !p.res))
     return cudaErrorInvalidValue;
-  const dim3 grid(p.n / 128, (p.m + 127) / 128);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (p.bn_relu)
-      gemm_wmma_kernel<OutT, true><<<grid, 256, 0, stream>>>(p);
-    else
-      gemm_wmma_kernel<OutT, false><<<grid, 256, 0, stream>>>(p);
-  } else {
-    static_assert(std::is_same<T, float>::value, "f32 or bf16 operands");
-    if (p.bn_relu)
-      gemm_fma_kernel<OutT, true><<<grid, 256, 0, stream>>>(p);
-    else
-      gemm_fma_kernel<OutT, false><<<grid, 256, 0, stream>>>(p);
-  }
-  return cudaGetLastError();
+  if (p.n % 128 == 0) return gemm_launch<T, T, kForm, 128>(p, stream);
+  if (p.n % 64 == 0) return gemm_launch<T, T, kForm, 64>(p, stream);
+  return gemm_launch<T, T, kForm, 32>(p, stream);
 }
 
 inline GemmArgs gemm_args(const void* a0, const void* a1, const void* a2,

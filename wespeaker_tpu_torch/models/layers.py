@@ -1,12 +1,16 @@
 """Shared building blocks for the speaker models.
 
 Counterpart of wespeaker_tpu/models/layers.py. 1-D activations are
-channels-last, (B, T, C), as in the JAX package; 2-D maps (the CAM++ and
-ResNet heads) run (B, C, F, T), channels second, as cuDNN takes them, where
-the JAX package keeps (B, F, T, C): each model flattens them to the same
-(B, T, C * F) layout. Parameters keep the upstream torch modules
-(`nn.Conv1d` weight (O, I, K), `nn.Conv2d` (O, I, kh, kw)), so upstream
-state_dicts load unchanged.
+channels-last, (B, T, C), as in the JAX package. 2-D maps are logical
+(B, C, F, T) tensors, where the JAX package keeps (B, F, T, C): the CAM++
+head stores them contiguous (NCHW); Gemini DF-ResNet stores them in
+`torch.channels_last` memory format, whose storage is JAX's (B, F, T, C),
+so cuDNN runs NHWC and its stage kernel reads rows of C. `conv2d` and
+`batch_norm` keep the memory format they are given, and each model
+flattens its map to the JAX package's layout. A grouped conv (JAX
+`ops/grouped_conv.py`) is `conv2d` of an `nn.Conv2d` with `groups=`.
+Parameters keep the upstream torch modules (`nn.Conv1d` weight (O, I, K),
+`nn.Conv2d` (O, I, kh, kw)), so upstream state_dicts load unchanged.
 """
 
 from typing import Optional

@@ -15,7 +15,9 @@ state_dict. It inverts the rules of wespeaker_tpu/utils/torch_compat.py:
     convs.<i>, bns_<i> -> bns.<i>; CAMPPlus layer<n>_<m> -> layer<n>.<m>,
     shortcut_conv / shortcut_bn -> shortcut.0 / shortcut.1,
     out_nonlinear_bn -> out_nonlinear.batchnorm, nonlinear<n>_bn ->
-    nonlinear<n>.batchnorm
+    nonlinear<n>.batchnorm; Gemini downsample_layers_<i>_<j> ->
+    downsample_layers.<i>.<j>, stages_<i>_<j> -> stages.<i>.<j> (a
+    depthwise kernel (3, 3, 1, 4C) becomes the (4C, 1, 3, 3) weight)
 
 `load_checkpoint` reads an upstream or port `.pt` state_dict into a model
 with `load_state_dict(strict=True)`; the keys the port has no use for are
@@ -50,6 +52,10 @@ MODEL_RULES = {
         (r"\bshortcut_bn\b", "shortcut.1"),
         (r"\bout_nonlinear_bn\b", "out_nonlinear.batchnorm"),
         (r"\bnonlinear(\d?)_bn\b", r"nonlinear\1.batchnorm"),
+    ),
+    "Gemini": (
+        (r"\bdownsample_layers_(\d+)_(\d+)\b", r"downsample_layers.\1.\2"),
+        (r"\bstages_(\d+)_(\d+)\b", r"stages.\1.\2"),
     ),
 }
 
