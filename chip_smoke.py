@@ -96,12 +96,56 @@ Phases, each printing one line:
  17. gemini timing  CUDA events after warm-up at B=512 x 200 frames, bf16:
               each stage's kernel and plain version with its bound;
               Gemini_DF_ResNet114 extraction audio-s/s on the kernel path
-              and with fused_stages=False.
-Then one JSON line of per-kernel results and, last, the result line. Any
-failure raises and exits non-zero; without a GPU the script exits 1.
+              and with fused_stages=False;
+ 18. res2 kernels  the Res2 chain kernel (ECAPA's fused_res2 route) against
+              its plain version at ECAPA_TDNN_GLOB_c512's three chains (width
+              64, dilation 2/3/4) and a c1024 chain (width 128), B=64: bf16
+              at T=200 (cosine >= 0.9999) and f32 at T=198 (TF32 off,
+              rtol/atol 1e-4);
+ 19. res2 slice  ECAPA_TDNN_GLOB_c512 in eval with fused=False,
+              fused_res2=True, make_eval_embed_fn in bf16 over 2 s chunks at
+              B=64, against the layer-by-layer path (cosine >= 0.9999),
+              exactly 3 chain launches per forward and nothing else;
+ 20. res2 timing  CUDA events at B=512, T=200, C=512, bf16: the chain kernel,
+              its plain version and its bound; ECAPA extraction audio-s/s
+              with fused_res2 and layer by layer;
+ 21. dw kernels  dw_pack (the tap-packed 3x3 filter gradient) against its
+              plain version at ResNet34's three packed shapes at B=128 x
+              200 frames (the stem 80 x 200, 1 -> 32; layer1 80 x 200,
+              32 -> 32; layer2 40 x 100, 64 -> 64): bf16 (cosine >= 0.9999)
+              and f32 (TF32 off, error <= 1e-4 of the largest magnitude),
+              two calls bit-identical; an ineligible shape (Ci = 128, a
+              stride-2 conv's dy) raises;
+ 22. resnet slice  ResNet34 at resnet.yaml's width (feat 80, embed 256,
+              TSTP), weights from the seed and BN statistics from synthetic
+              voices: make_eval_embed_fn over 2 s chunks at B=64, f32 on the
+              card (TF32 off) against the same weights on the CPU (cosine
+              >= 0.9999), bf16 against f32 recorded; no dw launch;
+ 23. resnet serving  an EmbeddingServer from a ResNet34 YAML and a .pt:
+              three waves of concurrent /embed requests in buckets of 1, 2
+              and 3 s; each reply against the same request padded to its
+              bucket (cosine >= 0.9999), against batch=1 recorded only;
+ 24. resnet train  ResNet34 + ArcMargin over 17,982 classes, B=128 x 200
+              frames, bf16 AMP, SGD (nesterov, momentum 0.9, wd 1e-4),
+              conv_dw_mode packed: 3 finite steps with exactly 14 dw
+              launches each; one step packed and one native from the same
+              weights without randomness, bf16 and f32 (TF32 off): loss
+              within 1e-3 relative, each layer's update at cosine >= 0.999;
+              then bin/train.py with a ResNet34 YAML (conv_dw_mode: packed)
+              for one epoch of 3 steps on the synthetic corpus (batch 32):
+              42 dw launches, final_model.pt, reloaded by the extractor;
+ 25. resnet timing  CUDA events after warm-up: dw_pack at each of the three
+              shapes (kernel, plain, cuDNN's weight gradient, bound);
+              ResNet34 extraction audio-s/s at B=512 x 2 s bf16; the
+              ResNet34 train step's audio-s/s at B=128 bf16, packed and
+              native.
+Then the script's total seconds, one JSON line of per-kernel results and,
+last, the result line. Any failure raises and exits non-zero; without a
+GPU the script exits 1.
 """
 
 import concurrent.futures
+import copy
 import json
 import os
 import subprocess
@@ -117,6 +161,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import load_model_for_eval  # noqa: E402
+from wespeaker_tpu_torch.bin import kernel_bounds  # noqa: E402
 from wespeaker_tpu_torch.bin.kernel_bounds import (  # noqa: E402
     bound, cam_dense_block, inv_bottleneck_stage)
 from wespeaker_tpu_torch.data.wav_io import write_wav  # noqa: E402
@@ -128,9 +173,10 @@ from wespeaker_tpu_torch.models.gemini_dfresnet import (  # noqa: E402
     Gemini_DF_ResNet114, folded_stage)
 from wespeaker_tpu_torch.models.projections import (  # noqa: E402
     ArcMarginProduct)
+from wespeaker_tpu_torch.models.resnet import ResNet34  # noqa: E402
 from wespeaker_tpu_torch.ops import (_build, cam_block,  # noqa: E402
-                                     inv_bottleneck, mfa_astp, mfa_astp_vjp,
-                                     se_block)
+                                     conv_dw_pack, inv_bottleneck, mfa_astp,
+                                     mfa_astp_vjp, res2_chain, se_block)
 from wespeaker_tpu_torch.serving import EmbeddingServer  # noqa: E402
 from wespeaker_tpu_torch.train import (AugConfig,  # noqa: E402
                                        build_train_state, make_eval_embed_fn,
@@ -160,7 +206,9 @@ COUNTERS = {"se": se_block.fused_se_res2_block,
             "train_fwd": mfa_astp_vjp.mfa_astp_train_fwd,
             "train_bwd": mfa_astp_vjp.mfa_astp_train_bwd,
             "cam": cam_block.fused_cam_dense_block,
-            "gemini": inv_bottleneck.fused_inv_bottleneck_stage}
+            "gemini": inv_bottleneck.fused_inv_bottleneck_stage,
+            "res2": res2_chain.fused_res2_chain,
+            "dw": conv_dw_pack.dw_pack}
 NO_LAUNCH = dict.fromkeys(COUNTERS, 0)
 # CAMPPlus's dense blocks: (C0, layers, dilation); T' = 100 after the
 # stride-2 TDNN at 200 frames
@@ -176,6 +224,20 @@ GEMINI_YAML = ("model: Gemini_DF_ResNet114\nmodel_args:\n  feat_dim: 80\n"
                f"  embed_dim: {GEMINI_EMBED}\n  pooling_func: TSTP\n"
                "  two_emb_layer: false\ndataset_args:\n  fbank_args:\n"
                "    num_mel_bins: 80\n")
+# ResNet34 (resnet.yaml: feat 80, embed 256, TSTP, B=128, SGD with nesterov
+# momentum 0.9 and weight decay 1e-4, no spec-aug); its packed dW shapes at
+# 200 frames, (H, W, Ci, Co, calls per train step): the stem, layer1's six
+# 3x3 convs, layer2's seven stride-1 ones (layer2.0.conv1 has stride 2)
+RESNET_EMBED = 256
+RESNET_BATCH = 128
+RESNET_DW = ((80, 200, 1, 32, 1), (80, 200, 32, 32, 6), (40, 100, 64, 64, 7))
+DW_PER_STEP = sum(n for *_, n in RESNET_DW)
+RESNET_YAML = ("model: ResNet34\nmodel_args:\n  feat_dim: 80\n"
+               f"  embed_dim: {RESNET_EMBED}\n  pooling_func: TSTP\n"
+               "  two_emb_layer: false\ndataset_args:\n  fbank_args:\n"
+               "    num_mel_bins: 80\n")
+RESNET_SGD = {"optimizer": "SGD", "optimizer_args": {
+    "momentum": 0.9, "nesterov": True, "weight_decay": 1e-4}}
 
 
 def zero_counts():
@@ -1263,11 +1325,499 @@ def phase_gemini_timing(model, dev, smi):
     return {"gemini": res}
 
 
+def chain_inputs(block, rng, b, t, dtype, dev):
+    """A random chain input and the chain's folded weights: an ECAPA c512
+    block's (width 64), or, for block None, random ones of a c1024 chain
+    (width 128, dilation 3)."""
+    if block is None:
+        c, dil = 1024, 3
+        w = c // 8
+
+        def r(*shape, scale=1.0):
+            return torch.as_tensor(rng.standard_normal(shape).astype(
+                np.float32) * scale, device=dev)
+
+        weights = [r(7, 3, w, w, scale=(3 * w) ** -0.5), r(7, w, scale=.1),
+                   1 + r(7, w, scale=.1), r(7, w, scale=.1)]
+    else:
+        c, dil = C, block.dilation
+        weights = [v.detach() for v in block.se_res2block[1].folded()]
+    x = torch.as_tensor(rng.standard_normal((b, t, c)).astype(np.float32),
+                        device=dev).to(dtype)
+    return x, weights, dil
+
+
+def phase_res2_kernels(model, dev):
+    """The chain kernel against its plain version at the three c512 chains
+    and a c1024 chain, B=64: bf16 at T=200, f32 at T=198."""
+    rng = np.random.default_rng(SEED + 21)
+    errs, parts = [], []
+    for dtype, t in ((torch.bfloat16, T), (torch.float32, 198)):
+        for name, block in (("layer2", model.layer2),
+                            ("layer3", model.layer3),
+                            ("layer4", model.layer4), ("c1024", None)):
+            x, w, dil = chain_inputs(block, rng, SLICE_BATCH, t, dtype, dev)
+            got = res2_chain.fused_res2_chain(x, *w, dilation=dil)
+            torch.cuda.synchronize()
+            want = res2_chain.res2_chain_reference(x, *w, dilation=dil)
+            err, cos = compare(got, want, dtype)
+            errs.append(err)
+            parts.append(f"{name} (C={x.shape[-1]}, d={dil}) "
+                         f"{str(dtype)[6:]} T={t} max_abs_err={err:.3g} "
+                         f"cos={cos:.7f}")
+            del x, w, got, want
+    print("res2 kernels: " + "; ".join(parts))
+    return {"res2": max(errs)}
+
+
+def phase_res2_slice(model, dev):
+    """ECAPA_TDNN_GLOB_c512 in eval with fused=False, fused_res2=True: 3
+    chain launches per forward and nothing else, against the layer-by-layer
+    path."""
+    rng = np.random.default_rng(SEED + 22)
+    wav = torch.as_tensor(rng.uniform(-0.5, 0.5, (SLICE_BATCH, CHUNK_SAMPLES))
+                          .astype(np.float32), device=dev)
+    io = torch.bfloat16
+    embed = make_eval_embed_fn(model.set_fused(False, fused_res2=True),
+                               FbankConfig(), compute_dtype=io,
+                               fbank_conv_dtype=io, device=dev)
+    zero_counts()
+    emb = embed({"wav": wav})
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != dict(NO_LAUNCH, res2=3):
+        raise AssertionError(f"fused_res2 path launches {launches}, want "
+                             "the chain 3 times per forward, nothing else")
+    assert emb.shape == (SLICE_BATCH, 192) and torch.isfinite(emb).all()
+    plain = make_eval_embed_fn(model.set_fused(False, fused_res2=False),
+                               FbankConfig(), compute_dtype=io,
+                               fbank_conv_dtype=io, device=dev)({"wav": wav})
+    model.set_fused(True)
+    cos = row_cosines(emb, plain).min().item()
+    if cos < 0.9999:
+        raise AssertionError(f"fused_res2 path vs layer path cosine {cos}")
+    print(f"res2 slice: ECAPA_TDNN_GLOB_c512 fused=False fused_res2=True bf16 "
+          f"B={SLICE_BATCH} x {CHUNK_SAMPLES} samples -> {tuple(emb.shape)}; "
+          f"launches res2={launches['res2']}; min cosine vs the layer path "
+          f"{cos:.7f}")
+    return launches
+
+
+def phase_res2_timing(model, dev, smi):
+    """CUDA events at B=512, T=200, C=512, bf16: the layer3 chain's kernel,
+    plain version and bound; ECAPA extraction with fused_res2 and layer by
+    layer (fused=False both)."""
+    rng = np.random.default_rng(SEED + 23)
+    io = torch.bfloat16
+    x, w, dil = chain_inputs(model.layer3, rng, B, T, io, dev)
+    res = {"ms": cuda_ms(lambda: res2_chain.fused_res2_chain(
+        x, *w, dilation=dil)),
+        "plain_ms": cuda_ms(lambda: res2_chain.res2_chain_reference(
+            x, *w, dilation=dil), iters=5), "library_ms": None}
+    res["bound_ms"], res["bound_by"] = bound(
+        *kernel_bounds.res2_chain(B, T, C))
+    del x
+    wav = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, CHUNK_SAMPLES)).astype(
+        np.float32), device=dev)
+    rates = {}
+    for path, flag in (("fused_res2", True), ("layer", False)):
+        embed = make_eval_embed_fn(model.set_fused(False, fused_res2=flag),
+                                   FbankConfig(), compute_dtype=io,
+                                   fbank_conv_dtype=io, device=dev)
+        ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
+        rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
+    model.set_fused(True, fused_res2=False)
+    print(f"res2 timing [{smi}] B={B} T={T} C={C} d={dil} bf16: chain "
+          f"{res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, bound "
+          f"{res['bound_ms']:.3f} by {res['bound_by']}); ECAPA extraction "
+          "fused=False: fused_res2 " + ", layer path ".join(
+              f"{v[0]:.1f} audio-s/s ({v[1]:.2f} ms/batch)"
+              for v in rates.values()))
+    return {"res2": res}
+
+
+def dw_inputs(rng, b, h, w, ci, co, dtype, dev):
+    def r(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev).to(dtype)
+
+    return r(b, h, w, ci), r(b, h, w, co)
+
+
+def phase_dw_kernels(dev):
+    """dw_pack against its plain version at ResNet34's three packed shapes,
+    B=128 x 200 frames: bf16 by cosine, f32 within 1e-4 of the largest
+    magnitude; two calls bit-identical; ineligible shapes raise."""
+    rng = np.random.default_rng(SEED + 24)
+    errs, parts = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, w, ci, co, _ in RESNET_DW:
+            x, dy = dw_inputs(rng, RESNET_BATCH, h, w, ci, co, dtype, dev)
+            got = conv_dw_pack.dw_pack(x, dy)
+            again = conv_dw_pack.dw_pack(x, dy)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"dw_pack {h}x{w} {ci}->{co}: two calls "
+                                     "differ")
+            want = conv_dw_pack.dw_pack_reference(x, dy)
+            err = (got - want).abs().max().item()
+            rel = err / want.abs().max().item()
+            cos = cosine(got, want)
+            if (rel > 1e-4 if dtype == torch.float32 else cos < 0.9999):
+                raise AssertionError(f"dw_pack {h}x{w} {ci}->{co} "
+                                     f"{dtype}: error {rel:.3g} of the "
+                                     f"largest magnitude, cosine {cos}")
+            errs.append(err)
+            parts.append(f"{h}x{w} {ci}->{co} {str(dtype)[6:]} "
+                         f"max_abs_err={err:.3g} ({rel:.2g} of max) "
+                         f"cos={cos:.7f} bit-identical")
+            del x, dy, got, again, want
+    x = torch.zeros(2, 8, 10, 32, device=dev, dtype=torch.bfloat16)
+    wide = torch.zeros(2, 8, 10, 128, device=dev, dtype=torch.bfloat16)
+    refused = 0
+    for args in ((wide, x), (x, x[:, ::2, ::2].contiguous())):
+        try:
+            conv_dw_pack.dw_pack(*args)
+        except ValueError:
+            refused += 1
+    strided = torch.nn.Conv2d(32, 32, 3, stride=2, padding=1, bias=False)
+    if refused != 2 or conv_dw_pack.eligible((2, 32, 8, 10), strided):
+        raise AssertionError("dw_pack took Ci = 128 or a stride-2 conv")
+    print("dw kernels: " + "; ".join(parts) + "; Ci=128 and a stride-2 "
+          "conv's dy raise, and a stride-2 conv is not eligible")
+    return {"dw": max(errs)}
+
+
+def random_resnet(dev, calibrate=True):
+    """ResNet34 at resnet.yaml's width with torch's default init from SEED
+    and BN statistics from synthetic voices (random_campplus's
+    calibration)."""
+    torch.manual_seed(SEED)
+    return randomised_bn(ResNet34(80, RESNET_EMBED), dev, calibrate)
+
+
+def phase_resnet_slice(dev):
+    """ResNet34 extraction: f32 on the card against the same weights on the
+    CPU, bf16 against f32 recorded; no dw launch."""
+    rng = np.random.default_rng(SEED + 25)
+    wav = torch.as_tensor(np.stack([voice(rng, CHUNK_SAMPLES)
+                                    for _ in range(SLICE_BATCH)]), device=dev)
+    model = random_resnet(dev)
+    cpu_model = copy.deepcopy(model).cpu()
+    zero_counts()
+    emb32 = make_eval_embed_fn(model, FbankConfig(), device=dev)({"wav": wav})
+    emb16 = make_eval_embed_fn(model, FbankConfig(),
+                               compute_dtype=torch.bfloat16,
+                               fbank_conv_dtype=torch.bfloat16,
+                               device=dev)({"wav": wav})
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != NO_LAUNCH:
+        raise AssertionError(f"ResNet34 extraction launched {launches}")
+    assert emb32.shape == (SLICE_BATCH, RESNET_EMBED)
+    assert torch.isfinite(emb32).all() and torch.isfinite(emb16).all()
+    cpu = make_eval_embed_fn(cpu_model, FbankConfig(), device="cpu")(
+        {"wav": wav.cpu()})
+    cos32 = row_cosines(emb32.cpu(), cpu).min().item()
+    err32 = (emb32.cpu() - cpu).abs().max().item()
+    cos16 = row_cosines(emb16, emb32).min().item()
+    cross = row_cosines(emb32[:-1], emb32[1:]).mean().item()
+    if cos32 < 0.9999:
+        raise AssertionError(f"ResNet34 f32 card vs CPU cosine {cos32}")
+    print(f"resnet slice: ResNet34 feat 80 embed {RESNET_EMBED} TSTP, BN "
+          f"statistics from synthetic voices, B={SLICE_BATCH} x "
+          f"{CHUNK_SAMPLES} samples -> {tuple(emb32.shape)}; launches "
+          f"dw={launches['dw']}; f32 card vs CPU min cosine {cos32:.7f} "
+          f"(max abs err {err32:.3g}); bf16 vs f32 min cosine {cos16:.7f} "
+          f"(not gated); between neighbouring utterances {cross:.4f}")
+
+
+def phase_resnet_serving(dev):
+    """A server from a ResNet34 YAML and a .pt: three waves of concurrent
+    /embed requests in buckets of 1, 2 and 3 s; each reply against the same
+    request padded and masked to its bucket (cosine >= 0.9999), against
+    batch=1 recorded."""
+    rng = np.random.default_rng(SEED + 26)
+    wavs = [voice(rng, n) for n in (12000, 16000, 20800, 27200, 32000,
+                                    35200, 41600, 48000)]
+    model = random_resnet(dev)
+    embs, served, launches = serve_waves(
+        model, dev, [wavs[:2], wavs[2:5], wavs[5:]], RESNET_YAML)
+    if launches != NO_LAUNCH:
+        raise AssertionError(f"ResNet34 serving launches {launches}")
+    lengths = sorted({n for _, n in served})
+    if lengths != [16000, 32000, 48000]:
+        raise AssertionError(f"served buckets {served}")
+    fn = make_eval_embed_fn(model, FbankConfig(), device=dev)
+    single = torch.cat([fn({"wav": w[None]}).cpu() for w in wavs])
+    bucket = []
+    for w in wavs:
+        n = -(-len(w) // 16000) * 16000
+        padded, mask = np.zeros((1, n), np.float32), np.zeros((1, n),
+                                                              np.float32)
+        padded[0, :len(w)], mask[0, :len(w)] = w, 1.0
+        bucket.append(fn({"wav": padded, "mask": mask}).cpu())
+    vs_single = row_cosines(embs, single)
+    vs_bucket = row_cosines(embs, torch.cat(bucket))
+    if vs_bucket.min().item() < 0.9999:
+        raise AssertionError(f"ResNet34 served replies vs bucket {vs_bucket}")
+    print(f"resnet serving: ResNet34 from a YAML + .pt (BN statistics from "
+          f"synthetic voices), {len(wavs)} /embed (0.75-3 s) in three "
+          f"concurrent waves; batches {served}; min cosine vs the bucket "
+          f"embedded directly {vs_bucket.min().item():.7f}, vs batch=1 (not "
+          f"gated) {vs_single.min().item():.7f}, between neighbouring "
+          f"replies {row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
+
+
+def resnet_train_modules(dev):
+    """ResNet34 and an ArcMargin head over NUM_CLASS classes, torch's
+    default init from SEED, with resnet.yaml's SGD."""
+    return build_train_state(
+        lambda: (ResNet34(80, RESNET_EMBED),
+                 ArcMarginProduct(RESNET_EMBED, NUM_CLASS)),
+        RESNET_SGD, seed=SEED, device=dev)
+
+
+def resnet_step(model, proj, opt, dtype, dev, gen=None):
+    """resnet.yaml's train step (dither, no spec-aug) at a constant LR and
+    margin; dither 0 without a generator."""
+    return make_train_step(model, proj, opt, lambda s: 0.1, lambda s: 0.2,
+                           FbankConfig(dither=1.0 if gen else 0.0),
+                           AugConfig(spec_aug=False), compute_dtype=dtype,
+                           device=dev, generator=gen)
+
+
+def phase_resnet_train(dev):
+    """3 bf16 packed steps, 14 dw launches each; then one step packed and
+    one native from the same weights without randomness, in bf16 and f32,
+    the updates compared layer by layer."""
+    model, proj, opt, gen = resnet_train_modules(dev)
+    rng = np.random.default_rng(SEED + 27)
+    batch = train_batch(rng, RESNET_BATCH, dev)
+    step = resnet_step(model, proj, opt, torch.bfloat16, dev, gen)
+    losses = []
+    relayouts = conv_dw_pack.Conv2dPackedDW.relayouts
+    conv_dw_pack.set_conv_dw_mode("packed")
+    try:
+        zero_counts()
+        for i in range(3):
+            losses.append(float(step(batch)["loss"]))
+            want = dict(NO_LAUNCH, dw=DW_PER_STEP * (i + 1))
+            if counts() != want:
+                raise AssertionError(f"after step {i}: launches {counts()}, "
+                                     f"want {want}")
+    finally:
+        conv_dw_pack.set_conv_dw_mode("native")
+    relayouts = conv_dw_pack.Conv2dPackedDW.relayouts - relayouts
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"losses {losses}")
+    del model, proj, opt, step
+    parts, bad = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, worst, per_tensor = compare_dw_modes(dev, batch, dtype)
+        parts.append(
+            f"{str(dtype)[6:]}: loss rel {rel:.2e}, update cosine per layer "
+            "lowest " + ", ".join(f"{n} {c:.6f}" for n, c in worst)
+            + f" (per tensor lowest {per_tensor[1]} {per_tensor[0]:.6f})")
+        if rel > 1e-3 or worst[0][1] < 0.999:
+            bad.append(str(dtype))
+    print(f"resnet train: ResNet34 + ArcMargin {NUM_CLASS} bf16 "
+          f"B={RESNET_BATCH}, dither 1, conv_dw_mode packed: losses "
+          f"{[round(v, 4) for v in losses]}, dw launches per step "
+          f"{DW_PER_STEP}, maps copied to channels-last for the kernel "
+          f"{relayouts}; one step packed and one native from the same "
+          "weights without randomness (bars 1e-3 and 0.999): "
+          + "; ".join(parts))
+    if bad:
+        raise AssertionError(f"packed and native steps disagree in {bad}")
+
+
+def compare_dw_modes(dev, batch, dtype):
+    """One step with conv_dw_mode packed and one native from the seeded
+    weights, dither 0. Returns the loss's relative difference, the three
+    lowest update cosines per layer and the lowest per tensor."""
+    updates, loss = {}, {}
+    for mode in ("packed", "native"):
+        model, proj, opt, _ = resnet_train_modules(dev)
+        start = {n: p.detach().clone() for n, p in model.named_parameters()}
+        one = resnet_step(model, proj, opt, dtype, dev)
+        conv_dw_pack.set_conv_dw_mode(mode)
+        try:
+            zero_counts()
+            loss[mode] = float(one(batch)["loss"])
+            want = DW_PER_STEP if mode == "packed" else 0
+            if counts() != dict(NO_LAUNCH, dw=want):
+                raise AssertionError(f"{mode} step launches {counts()}")
+        finally:
+            conv_dw_pack.set_conv_dw_mode("native")
+        updates[mode] = {n: (p.detach() - start[n]).float()
+                         for n, p in model.named_parameters()}
+        del model, proj, opt, one
+    layers = {}
+    for n in updates["packed"]:
+        layers.setdefault(n.rsplit(".", 1)[0], []).append(n)
+    cos = {k: cosine(torch.cat([updates["packed"][n].flatten() for n in ns]),
+                     torch.cat([updates["native"][n].flatten() for n in ns]))
+           for k, ns in layers.items()}
+    worst = sorted(cos.items(), key=lambda kv: kv[1])[:3]
+    per_tensor = min((cosine(updates["packed"][n], updates["native"][n]), n)
+                     for n in updates["packed"])
+    return (abs(loss["packed"] - loss["native"]) / abs(loss["native"]), worst,
+            per_tensor)
+
+
+def phase_resnet_trainer(dev):
+    """bin/train.py with a ResNet34 YAML, conv_dw_mode packed, bf16, batch
+    TRAINER_BATCH x 200 frames, one epoch of 3 steps on the synthetic
+    corpus; the extractor reloads final_model.pt."""
+    import yaml
+
+    rng = np.random.default_rng(SEED + 28)
+    with tempfile.TemporaryDirectory() as d:
+        raw, utt2spk = write_corpus(d, rng)
+        conf = {
+            "exp_dir": os.path.join(d, "exp"), "train_data": raw,
+            "utt2spk": utt2spk, "data_type": "raw", "num_epochs": 1,
+            "samples_per_epoch": 3 * TRAINER_BATCH, "seed": SEED,
+            "log_batch_interval": 1, "enable_amp": True,
+            "conv_dw_mode": "packed", "model": "ResNet34",
+            "model_args": {"feat_dim": 80, "embed_dim": RESNET_EMBED,
+                           "pooling_func": "TSTP", "two_emb_layer": False},
+            "projection_args": {"project_type": "arc_margin"},
+            "optimizer": "SGD", "optimizer_args": RESNET_SGD[
+                "optimizer_args"],
+            "dataset_args": {"batch_size": TRAINER_BATCH, "num_frms": 200,
+                             "fbank_args": {"num_mel_bins": 80},
+                             "speed_perturb": True, "spec_aug": False},
+            "scheduler_args": {"initial_lr": 0.1, "final_lr": 0.01,
+                               "warm_up_epoch": 0}}
+        path = os.path.join(d, "conf.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(conf, f)
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            step = train_cli.train(path, device=dev)
+            torch.cuda.synchronize()
+        finally:
+            conv_dw_pack.set_conv_dw_mode("native")
+        train_s = time.perf_counter() - t0
+        launches = counts()
+        want = dict(NO_LAUNCH, dw=3 * DW_PER_STEP)
+        if launches != want or step.step != 3:
+            raise AssertionError(f"ResNet34 trainer: {step.step} steps, "
+                                 f"launches {launches}, want 3 and {want}")
+        exp = os.path.join(d, "exp")
+        with open(os.path.join(exp, "train.log")) as f:
+            last = [ln for ln in f.read().splitlines() if "it 2/3 loss" in ln]
+        if not last:
+            raise AssertionError("ResNet34 trainer log has no step 2")
+        final = os.path.join(exp, "models", "final_model.pt")
+        if os.readlink(final) != "model_0.pt":
+            raise AssertionError("final_model.pt does not link model_0.pt")
+        loaded = load_model_for_eval(
+            load_yaml(os.path.join(exp, "config.yaml")), final, device=dev)
+        for k, v in step.model.state_dict().items():
+            if not torch.equal(loaded.state_dict()[k], v):
+                raise AssertionError(f"checkpoint differs at {k}")
+        wav = np.random.default_rng(SEED + 29).uniform(
+            -0.5, 0.5, (1, 48000)).astype(np.float32)
+        emb = make_eval_embed_fn(loaded, FbankConfig(), device=dev)(
+            {"wav": wav})
+    if emb.shape != (1, RESNET_EMBED) or not torch.isfinite(emb).all():
+        raise AssertionError(f"embedding {emb}")
+    print(f"resnet trainer: bin/train.py ResNet34 conv_dw_mode packed bf16 "
+          f"batch {TRAINER_BATCH} x 200 frames, 3 steps in {train_s:.1f} s; "
+          f"launches dw={launches['dw']}; log "
+          f"'{last[0].split(' ', 3)[3]}'; final_model.pt served a "
+          f"(1, {RESNET_EMBED}) embedding, norm {emb.norm().item():.4f}")
+    return launches
+
+
+def phase_resnet_timing(dev, smi):
+    """CUDA events after warm-up: dw_pack at the three shapes (kernel,
+    plain, cuDNN's weight gradient, bound), summed over the 14 calls of a
+    step; ResNet34 extraction at B=512 x 2 s bf16; the ResNet34 train step
+    at B=128 bf16, packed and native (host clock around 5 steps that end in
+    a synchronize, after 2 warm-up steps)."""
+    rng = np.random.default_rng(SEED + 30)
+    io = torch.bfloat16
+    shapes, res = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    flops_all = bytes_all = 0
+    for h, w, ci, co, calls in RESNET_DW:
+        x, dy = dw_inputs(rng, RESNET_BATCH, h, w, ci, co, io, dev)
+        weight = torch.zeros(co, ci, 3, 3, device=dev, dtype=io)
+        xm, dym = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        ms = cuda_ms(lambda: conv_dw_pack.dw_pack(x, dy))
+        plain_ms = cuda_ms(lambda: conv_dw_pack.dw_pack_reference(x, dy),
+                           iters=3, warmup=1)
+        lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            dym, xm, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, False]))
+        flops, nbytes = kernel_bounds.dw_pack(RESNET_BATCH, h, w, ci, co)
+        bms, by = bound(flops, nbytes)
+        shapes.append((h, w, ci, co, calls, ms, plain_ms, lib_ms, bms, by))
+        res["ms"] += calls * ms
+        res["plain_ms"] += calls * plain_ms
+        res["library_ms"] += calls * lib_ms
+        flops_all += calls * flops
+        bytes_all += calls * nbytes
+        del x, dy, xm, dym
+    res["bound_ms"], res["bound_by"] = bound(flops_all, bytes_all)
+
+    model = random_resnet(dev, calibrate=False)
+    wav = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, CHUNK_SAMPLES)).astype(
+        np.float32), device=dev)
+    embed = make_eval_embed_fn(model, FbankConfig(), compute_dtype=io,
+                               fbank_conv_dtype=io, device=dev)
+    ext_ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
+    del model, embed, wav
+    torch.cuda.empty_cache()
+
+    batch = train_batch(rng, RESNET_BATCH, dev)
+    rates = {}
+    for mode in ("packed", "native"):
+        tm, tp, opt, gen = resnet_train_modules(dev)
+        step = resnet_step(tm, tp, opt, io, dev, gen)
+        conv_dw_pack.set_conv_dw_mode(mode)
+        try:
+            for _ in range(2):
+                step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                loss = step(batch)["loss"]
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 5 * 1e3
+        finally:
+            conv_dw_pack.set_conv_dw_mode("native")
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"{mode} train step loss {float(loss)}")
+        rates[mode] = (RESNET_BATCH * CHUNK_SECONDS / (ms / 1e3), ms,
+                       torch.cuda.max_memory_allocated() / 2**30)
+        del tm, tp, opt, step
+    fmt = "; ".join(
+        f"{h}x{w} {ci}->{co} x{n}: {ms:.3f} ms (plain {pm:.3f}, cuDNN "
+        f"{lm:.3f}, bound {bm:.3f} by {by})"
+        for h, w, ci, co, n, ms, pm, lm, bm, by in shapes)
+    print(f"resnet timing [{smi}] dw_pack B={RESNET_BATCH} bf16: {fmt}; the "
+          f"{DW_PER_STEP} calls of a step {res['ms']:.3f} ms (plain "
+          f"{res['plain_ms']:.3f}, cuDNN {res['library_ms']:.3f}, bound "
+          f"{res['bound_ms']:.3f}); ResNet34 extraction B={B} x 2 s bf16 "
+          f"{B * CHUNK_SECONDS / (ext_ms / 1e3):.1f} audio-s/s "
+          f"({ext_ms:.2f} ms/batch); train step B={RESNET_BATCH} bf16 "
+          + "; ".join(f"{k} {v[0]:.1f} audio-s/s ({v[1]:.1f} ms/step, peak "
+                      f"{v[2]:.1f} GiB)" for k, v in rates.items()))
+    return {"dw": res}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     # the plain versions are exact f32 where they run in f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1284,6 +1834,9 @@ def main():
                     train_bwd=train_launches["train_bwd"])
     timing = phase_timing(model, dev, smi)
     timing.update(phase_train_timing(model, dev, smi))
+    errs.update(phase_res2_kernels(model, dev))
+    launches["res2"] = phase_res2_slice(model, dev)["res2"]
+    timing.update(phase_res2_timing(model, dev, smi))
     del model
     cam = random_campplus(dev)
     errs.update(phase_cam_kernels(cam, dev))
@@ -1296,6 +1849,13 @@ def main():
     launches["gemini"] = phase_gemini_slice(gemini, dev)["gemini"]
     phase_gemini_serving(dev)
     timing.update(phase_gemini_timing(gemini, dev, smi))
+    del gemini
+    errs.update(phase_dw_kernels(dev))
+    phase_resnet_slice(dev)
+    phase_resnet_serving(dev)
+    phase_resnet_train(dev)
+    launches["dw"] = phase_resnet_trainer(dev)["dw"]
+    timing.update(phase_resnet_timing(dev, smi))
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),
@@ -1308,13 +1868,19 @@ def main():
             ("fused_cam_dense_block", "cam", csrc + "cam_block.cu",
              ops + "cam_block_pallas.py:204"),
             ("fused_inv_bottleneck_stage", "gemini",
-             csrc + "inv_bottleneck.cu", ops + "inv_bottleneck_pallas.py:167")]
+             csrc + "inv_bottleneck.cu", ops + "inv_bottleneck_pallas.py:167"),
+            ("fused_res2_chain", "res2", csrc + "se_block.cu",
+             ops + "res2_pallas.py:137"),
+            ("dw_pack", "dw", csrc + "conv_dw_pack.cu",
+             ops + "conv_dw_pack.py:119")]
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[k], "max_abs_err": errs[k],
          "ms": timing[k]["ms"], "plain_ms": timing[k]["plain_ms"],
          "bound_ms": timing[k]["bound_ms"],
-         "bound_by": timing[k]["bound_by"], "library_ms": None}
+         "bound_by": timing[k]["bound_by"],
+         "library_ms": timing[k].get("library_ms")}
         for name, k, src, rep in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from wespeaker_tpu_torch.ops import (cam_block, inv_bottleneck, mfa_astp,
-                                     mfa_astp_vjp, se_block)
+from wespeaker_tpu_torch.ops import (cam_block, conv_dw_pack, inv_bottleneck,
+                                     mfa_astp, mfa_astp_vjp, res2_chain,
+                                     se_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -407,3 +408,155 @@ def test_gemini_kernel_path_matches_plain_path(cuda):
         assert inv_bottleneck.fused_inv_bottleneck_stage.launches == before + 4
         want = model.set_fused(False)(x, mask)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---- the Res2 chain alone (ECAPA's fused_res2 route) ----
+
+RES2_CASES = [(torch.bfloat16, 200, 512, 2), (torch.float32, 198, 512, 3),
+              (torch.bfloat16, 98, 1024, 4), (torch.float32, 37, 1024, 2)]
+
+
+@pytest.mark.parametrize("dtype,t,c,dilation", RES2_CASES)
+def test_res2_chain_kernel_matches_plain(cuda, dtype, t, c, dilation):
+    args, _ = se_args(np.random.default_rng(14), 3, t, c, dtype, cuda, False)
+    chain = dict(kernels=args["cw"], biases=args["cb"], bn_scale=args["cs"],
+                 bn_shift=args["ch"])
+    before = res2_chain.fused_res2_chain.launches
+    got = res2_chain.fused_res2_chain(args["x"], **chain, dilation=dilation)
+    torch.cuda.synchronize()
+    assert res2_chain.fused_res2_chain.launches == before + 1
+    want = res2_chain.res2_chain_reference(args["x"], **chain,
+                                           dilation=dilation)
+    assert torch.equal(got[..., 7 * c // 8:], args["x"][..., 7 * c // 8:])
+    assert_matches(got, want, dtype)
+
+
+def test_res2_chain_raises_for_unsupported_shapes(cuda):
+    """A group width other than 64 or 128, or a type the kernel does not
+    take, raises on the card; nothing falls back to the plain version."""
+    args, _ = se_args(np.random.default_rng(15), 2, 16, 256, torch.float32,
+                      cuda, False)
+    chain = dict(kernels=args["cw"], biases=args["cb"], bn_scale=args["cs"],
+                 bn_shift=args["ch"])
+    before = res2_chain.fused_res2_chain.launches
+    with pytest.raises(ValueError, match="group widths"):
+        res2_chain.fused_res2_chain(args["x"], **chain, dilation=2)
+    args, _ = se_args(np.random.default_rng(15), 2, 16, 512, torch.float32,
+                      cuda, False)
+    chain = dict(kernels=args["cw"], biases=args["cb"], bn_scale=args["cs"],
+                 bn_shift=args["ch"])
+    with pytest.raises(TypeError):
+        res2_chain.fused_res2_chain(args["x"].half(), **chain, dilation=2)
+    assert res2_chain.fused_res2_chain.launches == before
+
+
+def test_ecapa_fused_res2_path_matches_layer_path(cuda):
+    """ECAPA_TDNN_GLOB_c512 in eval with fused=False, fused_res2=True: three
+    chain launches per forward, against the layer-by-layer path, f32."""
+    from wespeaker_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN_GLOB_c512
+
+    torch.manual_seed(0)
+    model = ECAPA_TDNN_GLOB_c512(80, 192, fused=False, fused_res2=True)
+    model = model.to(cuda).eval()
+    x = torch.as_tensor(np.random.default_rng(16).standard_normal(
+        (3, 150, 80)).astype(np.float32), device=cuda)
+    with torch.inference_mode():
+        before = res2_chain.fused_res2_chain.launches
+        got = model(x)
+        assert res2_chain.fused_res2_chain.launches == before + 3
+        want = model.set_fused(False, fused_res2=False)(x)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---- the tap-packed filter gradient ----
+
+# (dtype, B, H, W, Ci, Co): ResNet34's stem, layer1 and layer2 shapes at a
+# small batch, two w-chunks (W > 112), odd channel counts
+DW_CASES = [(torch.bfloat16, 2, 80, 200, 1, 32),
+            (torch.bfloat16, 2, 80, 200, 32, 32),
+            (torch.bfloat16, 3, 40, 100, 64, 64),
+            (torch.float32, 2, 80, 200, 1, 32),
+            (torch.float32, 2, 40, 100, 64, 64),
+            (torch.float32, 3, 7, 130, 5, 3),
+            (torch.bfloat16, 2, 9, 13, 24, 40)]
+
+
+@pytest.mark.parametrize("dtype,b,h,w,ci,co", DW_CASES)
+def test_dw_pack_kernel_matches_plain(cuda, dtype, b, h, w, ci, co):
+    """f32 within 1e-4 of the largest magnitude (sums over B*H*W in another
+    order), bf16 by cosine; two calls give the same bits."""
+    rng = np.random.default_rng(17)
+    x = torch.as_tensor(rng.standard_normal((b, h, w, ci)).astype(
+        np.float32), device=cuda).to(dtype)
+    dy = torch.as_tensor(rng.standard_normal((b, h, w, co)).astype(
+        np.float32), device=cuda).to(dtype)
+    before = conv_dw_pack.dw_pack.launches
+    got = conv_dw_pack.dw_pack(x, dy)
+    again = conv_dw_pack.dw_pack(x, dy)
+    torch.cuda.synchronize()
+    assert conv_dw_pack.dw_pack.launches == before + 2
+    assert torch.equal(got, again)
+    want = conv_dw_pack.dw_pack_reference(x, dy)
+    assert got.shape == (co, ci, 3, 3) and got.dtype == torch.float32
+    if dtype == torch.float32:
+        scale = want.abs().max()
+        torch.testing.assert_close(got / scale, want / scale, rtol=1e-4,
+                                   atol=1e-4)
+    else:
+        assert_matches(got, want, dtype)
+    half = conv_dw_pack.dw_pack(x, dy, out_dtype=torch.bfloat16)
+    assert torch.equal(half, got.to(torch.bfloat16))
+
+
+def test_dw_pack_raises_for_unsupported_shapes(cuda):
+    """No fallback on the card: more than 64 channels, a type or a layout
+    the kernel does not take raises, and nothing is launched."""
+    x = torch.zeros(2, 8, 10, 32, device=cuda)
+    before = conv_dw_pack.dw_pack.launches
+    with pytest.raises(ValueError, match="Ci and Co"):
+        conv_dw_pack.dw_pack(torch.zeros(2, 8, 10, 128, device=cuda), x)
+    with pytest.raises(TypeError):
+        conv_dw_pack.dw_pack(x.half(), x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_dw_pack.dw_pack(x.transpose(1, 2), x.transpose(1, 2))
+    assert conv_dw_pack.dw_pack.launches == before
+    strided = torch.nn.Conv2d(32, 32, 3, stride=2, padding=1)
+    assert not conv_dw_pack.eligible((2, 32, 8, 10), strided)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_resnet34_packed_grads_match_native(cuda, dtype):
+    """ResNet34 (feat 80, embed 256) in training at 2 x 200 frames: the
+    packed route launches dw_pack 14 times per backward (the stem, layer1's
+    six convs, layer2's seven stride-1 convs) and gives the native route's
+    gradients (f32 within 1e-3 of each tensor's norm; bf16 by cosine)."""
+    from wespeaker_tpu_torch.models.resnet import ResNet34
+
+    torch.manual_seed(0)
+    model = ResNet34(80, 256).to(cuda).train()
+    x = torch.as_tensor(np.random.default_rng(18).standard_normal(
+        (2, 200, 80)).astype(np.float32), device=cuda).to(dtype)
+    grads = {}
+    for mode in ("packed", "native"):
+        conv_dw_pack.set_conv_dw_mode(mode)
+        try:
+            model.zero_grad()
+            before = conv_dw_pack.dw_pack.launches
+            model(x).float().square().sum().backward()
+            torch.cuda.synchronize()
+            grads[mode] = {n: p.grad.clone()
+                           for n, p in model.named_parameters()}
+            assert conv_dw_pack.dw_pack.launches - before == (
+                14 if mode == "packed" else 0)
+        finally:
+            conv_dw_pack.set_conv_dw_mode("native")
+    for n, g in grads["packed"].items():
+        want = grads["native"][n].double()
+        if dtype == torch.float32:
+            err = (g.double() - want).norm() / want.norm()
+            assert err <= 1e-3, (n, err.item())
+        else:
+            cos = (g.double() @ want if g.dim() == 1 else
+                   (g.double() * want).sum()) / (g.double().norm()
+                                                 * want.norm())
+            assert cos >= 0.999, (n, cos.item())

@@ -41,7 +41,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "data/dataset.py", "utils/checkpoint.py",
             "utils/schedulers.py", "models/projections.py",
             "ops/cam_block.py", "models/campplus.py",
-            "ops/inv_bottleneck.py", "models/gemini_dfresnet.py"} <= names
+            "ops/inv_bottleneck.py", "models/gemini_dfresnet.py",
+            "ops/conv_dw_pack.py", "ops/res2_chain.py",
+            "models/resnet.py"} <= names
     bad = []
     for path in files:
         for name in _imported(ast.parse(path.read_text(), str(path))):
@@ -80,11 +82,13 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
 def test_wrappers_refuse_devices_without_a_kernel():
     """No wrapper drops to its plain version for anything but a CPU
     tensor."""
+    from wespeaker_tpu_torch.ops.conv_dw_pack import dw_pack
     from wespeaker_tpu_torch.ops.inv_bottleneck import (
         fused_inv_bottleneck_stage)
     from wespeaker_tpu_torch.ops.mfa_astp import fused_mfa_astp
     from wespeaker_tpu_torch.ops.mfa_astp_vjp import (mfa_astp_train_bwd,
                                                       mfa_astp_train_fwd)
+    from wespeaker_tpu_torch.ops.res2_chain import fused_res2_chain
     from wespeaker_tpu_torch.ops.se_block import fused_se_res2_block
 
     x = torch.empty(1, 8, 64, device="meta")
@@ -102,3 +106,11 @@ def test_wrappers_refuse_devices_without_a_kernel():
         (2, 128), (2, 128, 32), (2, 32), (2, 32))]
     with pytest.raises(ValueError, match="no kernel"):
         fused_inv_bottleneck_stage(m, *w)
+    c = torch.empty(1, 8, 512, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_res2_chain(c, torch.empty(7, 3, 64, 64, device="meta"),
+                         *([torch.empty(7, 64, device="meta")] * 3),
+                         dilation=2)
+    nhwc = torch.empty(1, 4, 8, 32, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        dw_pack(nhwc, nhwc)

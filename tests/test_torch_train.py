@@ -326,10 +326,13 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     raw, utt2spk = _corpus(str(tmp_path / "data"), n_spk=2, n_utt=1)
     conf = _tiny_config(tmp_path, raw, utt2spk)
     for ov in ("distributed_args={num_processes: 2}",
-               "parallel_args={model: 2}", "conv_dw_mode=packed",
-               "reverb_data=rirs", "dataloader_args={num_workers: 2}"):
+               "parallel_args={model: 2}", "reverb_data=rirs",
+               "dataloader_args={num_workers: 2}"):
         with pytest.raises(NotImplementedError, match="not ported"):
             train_cli.train(conf, [ov], device="cpu")
+    # conv_dw_mode is ported (packed or native); any other mode raises
+    with pytest.raises(ValueError, match="native|packed"):
+        train_cli.train(conf, ["conv_dw_mode=fast"], device="cpu")
     with pytest.raises(KeyError, match="not ported"):
         train_cli.train(conf, ["projection_args={project_type: softmax}"],
                         device="cpu")

@@ -1,6 +1,6 @@
 """Least time an H100 could take for each TPU kernel of the JAX package that
 the port has not ported yet, from its shapes at the configuration whose
-path runs it (PERF.md rows 3, 6, 7 and 10).
+path runs it (PERF.md rows 6 and 7).
 
     python -m wespeaker_tpu_torch.bin.kernel_bounds
 
@@ -14,9 +14,9 @@ f32 outputs 4 bytes. Products count a multiply-add as two operations and
 only the live work (a CAM layer's zero-padded input rows, a segment's
 repeated context, are not counted); the stats kernels count their f32
 operations per element. chip_smoke.py computes the ported kernels' bounds
-from its own inputs with the same `bound` (and, for the CAM++ dense block
-and the Gemini stage, ported, with `cam_dense_block` and
-`inv_bottleneck_stage`).
+from its own inputs with the same `bound` (and, for the ported Res2 chain,
+CAM++ dense block, Gemini stage and tap-packed dW, with `res2_chain`,
+`cam_dense_block`, `inv_bottleneck_stage` and `dw_pack`).
 """
 
 import math
@@ -96,10 +96,6 @@ def dw_pack(b, h, w, ci, co):
 
 # (PERF.md row, kernel, configuration, [(call, flops, bytes, peak)])
 ROWS = [
-    (3, "fused_res2_chain",
-     "ECAPA_TDNN_GLOB_c512 with fused_res2 (opt-in), extraction B=512 x "
-     "200 frames, one call per SE-Res2 block",
-     [("block", *res2_chain(512, 200, 512), PEAK_BF16_FLOPS)]),
     (6, "fused_softmax_stats",
      "ASTP of ECAPA_TDNN_GLOB_c512 (no model calls it), B=512 x 200 "
      "frames, D=1536",
@@ -108,10 +104,6 @@ ROWS = [
      "TSTP of ResNet34 (no model calls it), B=512 x 200 frames: T=25, "
      "D=32*8*10=2560",
      [("call", *masked_stats(512, 25, 2560), PEAK_F32_FLOPS)]),
-    (10, "dw_pack",
-     "ResNet34 training, the recipe's B=128 x 200 frames, a layer1 3x3 "
-     "conv (80 x 200, 32 -> 32), conv_dw_mode packed (opt-in)",
-     [("call", *dw_pack(128, 80, 200, 32, 32), PEAK_BF16_FLOPS)]),
 ]
 
 

@@ -1,11 +1,12 @@
 """Device-time breakdown of the extraction forward on the card.
 
     python -m wespeaker_tpu_torch.bin.profile_extract [--batch 512] [--plain]
-        [--model ECAPA_TDNN_GLOB_c512|CAMPPlus|Gemini_DF_ResNet114]
+        [--model ECAPA_TDNN_GLOB_c512|CAMPPlus|Gemini_DF_ResNet114|ResNet34]
 
 Builds the model (ECAPA_TDNN_GLOB_c512, embed 192, by default; CAMPPlus at
 campplus.yaml's width: feat 80, embed 512, TSTP; Gemini_DF_ResNet114 at
-gemini_dfresnet_adam.yaml's: feat 80, embed 256, TSTP) with random
+gemini_dfresnet_adam.yaml's: feat 80, embed 256, TSTP; ResNet34 at
+resnet.yaml's: feat 80, embed 256, TSTP) with random
 weights, runs make_eval_embed_fn in bf16 over 2 s chunks (32,240 samples)
 and prints, for one forward after warm-up, the device time of every CUDA
 kernel name (torch.profiler), its share of the total and its launch
@@ -13,7 +14,8 @@ count, then the forward's wall time from
 CUDA events and the share of it the device was busy, and the device
 time by kernel family (the port's kernels, cuDNN/cuBLAS, PyTorch's own,
 copies). --plain profiles the layer-by-layer path instead of the kernel
-path.
+path; ResNet34 has one path (no kernel in its extraction) and takes no
+--plain.
 """
 
 import argparse
@@ -31,7 +33,7 @@ CHUNK_SAMPLES = (200 - 1) * 160 + 400
 # feat_dim, embed_dim of each model profiled: bench.py's ECAPA,
 # examples/voxceleb/v2/conf/campplus.yaml and gemini_dfresnet_adam.yaml
 MODEL_ARGS = {"ECAPA_TDNN_GLOB_c512": (80, 192), "CAMPPlus": (80, 512),
-              "Gemini_DF_ResNet114": (80, 256)}
+              "Gemini_DF_ResNet114": (80, 256), "ResNet34": (80, 256)}
 
 
 def _device_us(evt) -> float:
@@ -104,7 +106,10 @@ def main(argv=None):
     dev = resolve_device("cuda")
     torch.manual_seed(0)
     model = get_speaker_model(args.model)(*MODEL_ARGS[args.model])
-    model.set_fused(not args.plain)
+    if hasattr(model, "set_fused"):
+        model.set_fused(not args.plain)
+    elif args.plain:
+        ap.error(f"{args.model} has no kernel path to leave out")
     embed = make_eval_embed_fn(model, FbankConfig(),
                                compute_dtype=torch.bfloat16,
                                fbank_conv_dtype=torch.bfloat16, device=dev)

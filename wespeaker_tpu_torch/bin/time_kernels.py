@@ -6,11 +6,14 @@ Each kernel runs at its main-path shape in bf16 on random operands made
 from a seed (the SE-Res2 block and the MFA+ASTP tail at B=512, T=200,
 C=512; the training tail's forward and backward at B=256; the three CAM++
 dense blocks of one CAMPPlus forward at B=512, T'=100; the four stages of
-one Gemini_DF_ResNet114 forward at B=512 x 200 frames), timed with CUDA
-events after warm-up. Prints the card and one JSON line {kernel: ms}. A
-kernel the package does not have is left out, so the same file times an
-older checkout: run it with that checkout first on PYTHONPATH to compare
-two trees in one call (old, new, new, old).
+one Gemini_DF_ResNet114 forward at B=512 x 200 frames; the Res2 chain of
+one ECAPA c512 block at B=512, T=200; the 14 tap-packed dW calls of one
+ResNet34 train step at B=128 x 200 frames: the stem, six layer1 and seven
+layer2 convs), timed with CUDA events after warm-up. Prints the card and
+one JSON line {kernel: ms}. A kernel the package does not have is left
+out, so the same file times an older checkout: run it with that checkout
+first on PYTHONPATH to compare two trees in one call (old, new, new,
+old).
 """
 
 import argparse
@@ -131,6 +134,25 @@ def main(argv=None):
                              args.iters)
             del x
         out["gemini"] = total
+    res2 = _ops("res2_chain")
+    if res2 is not None:
+        w = c // 8
+        x = r(b, t, c, dtype=io)
+        ws = (r(7, 3, w, w, scale=(3 * w) ** -0.5), r(7, w, scale=.1),
+              1 + r(7, w, scale=.1), r(7, w, scale=.1))
+        out["res2"] = cuda_ms(lambda: res2.fused_res2_chain(x, *ws,
+                                                            dilation=3),
+                              args.iters)
+        del x
+    dw = _ops("conv_dw_pack")
+    if dw is not None:
+        total = 0.0
+        for h, ww, ci, co, calls in ((80, 200, 1, 32, 1), (80, 200, 32, 32, 6),
+                                     (40, 100, 64, 64, 7)):
+            x, dy = r(128, h, ww, ci, dtype=io), r(128, h, ww, co, dtype=io)
+            total += calls * cuda_ms(lambda: dw.dw_pack(x, dy), args.iters)
+            del x, dy
+        out["dw"] = total
     print(torch.cuda.get_device_name(0))
     print(json.dumps(out))
 

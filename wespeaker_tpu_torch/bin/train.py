@@ -13,13 +13,15 @@ a log line every `log_batch_interval` steps, `models/model_<epoch>.pt`
 every `save_epoch_interval` epochs (and the last `num_avg`), the
 `final_model.pt` symlink, and on SIGTERM `preempt_model_<epoch>.pt` after
 the step in flight. A resumed run continues the schedules at
-start_epoch * epoch_iter, as upstream does.
+start_epoch * epoch_iter, as upstream does. `conv_dw_mode` (native, the
+default, or packed) sets the process-wide mode of `ops.conv_dw_pack`, as
+the JAX trainer does: packed computes the filter gradient of every
+eligible 3x3 conv (stride 1, Ci and Co <= 64) with the tap-packed kernel.
 
 Not ported yet, and refused rather than dropped: `distributed_args`
-(multi-process training), a model axis > 1, `conv_dw_mode: packed`,
-non-fbank frontends, `reverb_data` / `noise_data`, `profile_args`,
-`dataloader_args.num_workers` > 0, the `feat` data type and every head but
-arc_margin.
+(multi-process training), a model axis > 1, non-fbank frontends,
+`reverb_data` / `noise_data`, `profile_args`, `dataloader_args.num_workers`
+> 0, the `feat` data type and every head but arc_margin.
 """
 
 import argparse
@@ -37,6 +39,7 @@ from wespeaker_tpu_torch.data.pipeline import spk2id_from_utt2spk
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig
 from wespeaker_tpu_torch.models.projections import get_projection
+from wespeaker_tpu_torch.ops.conv_dw_pack import set_conv_dw_mode
 from wespeaker_tpu_torch.train.composite import build_model
 from wespeaker_tpu_torch.train.optim import lr_scale_ratio
 from wespeaker_tpu_torch.train.train_step import (AugConfig,
@@ -70,8 +73,6 @@ def _refuse_unported(configs):
         "distributed_args": bool(configs.get("distributed_args")),
         "parallel_args.model > 1":
             configs.get("parallel_args", {}).get("model", 1) > 1,
-        "conv_dw_mode: packed":
-            configs.get("conv_dw_mode", "native") != "native",
         "reverb_data / noise_data":
             bool(configs.get("reverb_data") or configs.get("noise_data")),
         "profile_args": bool(configs.get("profile_args")),
@@ -100,6 +101,7 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
     configs = parse_config_or_kwargs(config, overrides, **kwargs)
     _refuse_unported(configs)
     dev = resolve_device(device)
+    set_conv_dw_mode(configs.get("conv_dw_mode", "native"))
     exp_dir = configs["exp_dir"]
     model_dir = os.path.join(exp_dir, "models")
     os.makedirs(model_dir, exist_ok=True)

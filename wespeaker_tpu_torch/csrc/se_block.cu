@@ -6,7 +6,9 @@
 // C interface: ws_se_res2_block(...) issues, on the given stream,
 //   pointwise GEMM -> Res2 chain -> pointwise GEMM -> SE squeeze ->
 //   excitation GEMMs -> residual
-// and returns the first CUDA error (0 on success).
+// and returns the first CUDA error (0 on success). ws_res2_chain(...) issues
+// the Res2 chain alone (ops/res2_chain.py; the Pallas kernel
+// wespeaker_tpu/ops/res2_pallas.py::fused_res2_chain).
 
 #include "common.cuh"
 
@@ -120,6 +122,18 @@ cudaError_t res2_chain(const T* h1, T* y, const T* cw, const float* caff,
   return cudaGetLastError();
 }
 
+// The chain at a group width of 64 or 128 (the widths it is compiled for).
+template <typename T>
+cudaError_t res2_chain_any(const T* h1, T* y, const T* cw, const float* caff,
+                           int b, int t, int c, int width, int nums, int d,
+                           cudaStream_t stream) {
+  if (width == 64)
+    return res2_chain<T, 64>(h1, y, cw, caff, b, t, c, nums, d, stream);
+  if (width == 128)
+    return res2_chain<T, 128>(h1, y, cw, caff, b, t, c, nums, d, stream);
+  return cudaErrorInvalidValue;
+}
+
 template <typename T>
 __global__ void se_residual_kernel(const T* __restrict__ x,
                                    const T* __restrict__ h2,
@@ -150,17 +164,10 @@ cudaError_t se_block(const void* x, const float* mask, const void* w1,
   p.shift = aff1 + 2 * c;
   if ((err = gemm<T, T>(p, stream)) != cudaSuccess) return err;
   // 2. Res2 chain
-  if (width == 64)
-    err = res2_chain<T, 64>(static_cast<const T*>(h1), static_cast<T*>(y),
-                            static_cast<const T*>(cw), caff, b, t, c, nums, d,
-                            stream);
-  else if (width == 128)
-    err = res2_chain<T, 128>(static_cast<const T*>(h1), static_cast<T*>(y),
-                             static_cast<const T*>(cw), caff, b, t, c, nums,
-                             d, stream);
-  else
-    err = cudaErrorInvalidValue;
-  if (err != cudaSuccess) return err;
+  if ((err = res2_chain_any<T>(static_cast<const T*>(h1), static_cast<T*>(y),
+                               static_cast<const T*>(cw), caff, b, t, c,
+                               width, nums, d, stream)) != cudaSuccess)
+    return err;
   // 3. h2 = bn2(relu(y @ w2 + b2))
   p = gemm_args(y, nullptr, nullptr, 1, c, w2, h2, m, c, kRelu);
   p.bias = aff2;
@@ -208,4 +215,23 @@ extern "C" int ws_se_res2_block(
   return ws::se_block<float>(x, mask, w1, aff1, cw, caff, w2, aff2, sw1, sb1,
                              sw2, sb2, h1, y, h2, mean, z, g, out, b, t, c,
                              width, nums, cb, dilation, s);
+}
+
+// The Res2 chain alone (the JAX package's fused_res2_chain): y (b, t, c) =
+// the nums chain outputs of width `width` and the passthrough group of x.
+extern "C" int ws_res2_chain(const void* x, const void* cw, const float* caff,
+                             void* y, int b, int t, int c, int width,
+                             int nums, int dilation, int bf16, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (c != (nums + 1) * width) return cudaErrorInvalidValue;
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return ws::res2_chain_any<T>(static_cast<const T*>(x), static_cast<T*>(y),
+                                 static_cast<const T*>(cw), caff, b, t, c,
+                                 width, nums, dilation, s);
+  }
+  return ws::res2_chain_any<float>(static_cast<const float*>(x),
+                                   static_cast<float*>(y),
+                                   static_cast<const float*>(cw), caff, b, t,
+                                   c, width, nums, dilation, s);
 }

@@ -1,11 +1,12 @@
 """Speaker-model registry: `get_speaker_model(name)` returns a constructor
 `f(feat_dim=..., embed_dim=..., **kwargs) -> nn.Module`, as in
 wespeaker_tpu/models/__init__.py. Ported so far: the ECAPA family,
-CAMPPlus and the Gemini DF-ResNet family."""
+CAMPPlus, the Gemini DF-ResNet family and the ResNet family."""
 
-from wespeaker_tpu_torch.models import campplus, ecapa_tdnn, gemini_dfresnet
+from wespeaker_tpu_torch.models import (campplus, ecapa_tdnn,
+                                        gemini_dfresnet, resnet)
 
-_MODULES = [ecapa_tdnn, campplus, gemini_dfresnet]
+_MODULES = [ecapa_tdnn, campplus, gemini_dfresnet, resnet]
 
 
 def get_speaker_model(model_name: str):

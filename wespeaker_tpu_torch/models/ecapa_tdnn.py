@@ -16,6 +16,12 @@ of the differentiable `ops.mfa_astp_vjp.mfa_astp_train` (forward and
 backward kernels; the tail has no BatchNorm, so it is exact in training),
 and the SE blocks run layer by layer, as in the JAX package, whose block
 kernel is inference-only. `fused=False` runs every module layer by layer.
+
+`fused_res2=True` (the JAX package's opt-in Res2 kernel, inference only)
+acts where the whole block is not fused: in eval with `fused=False`, each
+block's Res2 chain is one call of `ops.res2_chain.fused_res2_chain` and the
+rest of the model runs layer by layer (the JAX package's
+`ECAPA_TDNN(fused_res2=True, fused_block=False, fused_tail=False)`).
 """
 
 from typing import Optional
@@ -29,6 +35,7 @@ from wespeaker_tpu_torch.models.pooling_layers import (get_pooling,
                                                        pooling_out_dim)
 from wespeaker_tpu_torch.ops.mfa_astp import fused_mfa_astp
 from wespeaker_tpu_torch.ops.mfa_astp_vjp import mfa_astp_train
+from wespeaker_tpu_torch.ops.res2_chain import fused_res2_chain
 from wespeaker_tpu_torch.ops.se_block import fused_se_res2_block
 
 _MFA_DIM = 512 * 3  # the MFA conv's output width for every ECAPA size
@@ -120,10 +127,12 @@ class SE_Connect(nn.Module):
 
 class SE_Res2Block(nn.Module):
     def __init__(self, channels: int, kernel_size: int, stride: int,
-                 padding: int, dilation: int, scale: int, fused: bool = True):
+                 padding: int, dilation: int, scale: int, fused: bool = True,
+                 fused_res2: bool = False):
         super().__init__()
         self.dilation = dilation
         self.fused = fused
+        self.fused_res2 = fused_res2
         self.se_res2block = nn.Sequential(
             Conv1dReluBn(channels, channels, kernel_size=1),
             Res2Conv1dReluBn(channels, kernel_size, stride, padding,
@@ -139,23 +148,27 @@ class SE_Res2Block(nn.Module):
             return fused_se_res2_block(
                 x, *pre.folded(), *res2.folded(), *post.folded(),
                 *se.folded(), dilation=self.dilation, mask=mask)
-        out = post(res2(pre(x)))
-        return x + se(out, mask)
+        out = pre(x)
+        if self.fused_res2 and not self.training:
+            out = fused_res2_chain(out, *res2.folded(), dilation=self.dilation)
+        else:
+            out = res2(out)
+        return x + se(post(out), mask)
 
 
 class ECAPA_TDNN(nn.Module):
     def __init__(self, channels: int = 512, feat_dim: int = 80,
                  embed_dim: int = 192, pooling_func: str = "ASTP",
                  global_context_att: bool = False, emb_bn: bool = False,
-                 fused: bool = True):
+                 fused: bool = True, fused_res2: bool = False):
         super().__init__()
         self.global_context_att = global_context_att
         self.fused = fused
         self.layer1 = Conv1dReluBn(feat_dim, channels, kernel_size=5,
                                    padding=2)
-        self.layer2 = SE_Res2Block(channels, 3, 1, 2, 2, 8, fused)
-        self.layer3 = SE_Res2Block(channels, 3, 1, 3, 3, 8, fused)
-        self.layer4 = SE_Res2Block(channels, 3, 1, 4, 4, 8, fused)
+        self.layer2 = SE_Res2Block(channels, 3, 1, 2, 2, 8, fused, fused_res2)
+        self.layer3 = SE_Res2Block(channels, 3, 1, 3, 3, 8, fused, fused_res2)
+        self.layer4 = SE_Res2Block(channels, 3, 1, 4, 4, 8, fused, fused_res2)
         self.conv = nn.Conv1d(channels * 3, _MFA_DIM, kernel_size=1)
         self.pool = get_pooling(pooling_func, _MFA_DIM,
                                 global_context_att=global_context_att)
@@ -163,12 +176,16 @@ class ECAPA_TDNN(nn.Module):
         self.linear = nn.Linear(self.bn.num_features, embed_dim)
         self.bn2 = nn.BatchNorm1d(embed_dim) if emb_bn else None
 
-    def set_fused(self, fused: bool) -> "ECAPA_TDNN":
+    def set_fused(self, fused: bool,
+                  fused_res2: Optional[bool] = None) -> "ECAPA_TDNN":
         """Route eval through the fused block/tail calls (True) or the
-        layer-by-layer modules (False)."""
+        layer-by-layer modules (False); `fused_res2`, when given, turns the
+        Res2 chain kernel of the unfused blocks on or off."""
         self.fused = fused
         for layer in (self.layer2, self.layer3, self.layer4):
             layer.fused = fused
+            if fused_res2 is not None:
+                layer.fused_res2 = fused_res2
         return self
 
     def _tail_weights(self):

@@ -11,6 +11,14 @@ flattens its map to the JAX package's layout. A grouped conv (JAX
 `ops/grouped_conv.py`) is `conv2d` of an `nn.Conv2d` with `groups=`.
 Parameters keep the upstream torch modules (`nn.Conv1d` weight (O, I, K),
 `nn.Conv2d` (O, I, kh, kw)), so upstream state_dicts load unchanged.
+
+Under `ops.conv_dw_pack.set_conv_dw_mode("packed")` (the trainer's
+`conv_dw_mode: packed`), a conv2d that `ops.conv_dw_pack.eligible` takes
+(3x3, stride 1, pad 1, Ci and Co <= 64) and whose weight gets a gradient
+runs as `Conv2dPackedDW`, whose backward computes the filter gradient with
+the tap-packed kernel; every 2-D family takes that route, as in the JAX
+package (its `_conv` and `PackedDWConv`). The route is chosen from the
+shape before the call.
 """
 
 from typing import Optional
@@ -18,6 +26,9 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from wespeaker_tpu_torch.ops.conv_dw_pack import (Conv2dPackedDW,
+                                                  conv_dw_mode, eligible)
 
 
 def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
@@ -37,6 +48,10 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
     (B, F, T, C)."""
     w = conv.weight.to(x.dtype)
     b = None if conv.bias is None else conv.bias.to(x.dtype)
+    if (conv_dw_mode() == "packed" and torch.is_grad_enabled()
+            and conv.weight.requires_grad and eligible(x.shape, conv)):
+        y = Conv2dPackedDW.apply(x, w)
+        return y if b is None else y + b[:, None, None]
     return F.conv2d(x, w, b, stride=conv.stride, padding=conv.padding,
                     dilation=conv.dilation, groups=conv.groups)
 

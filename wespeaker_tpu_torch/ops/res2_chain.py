@@ -1,0 +1,120 @@
+"""The ECAPA Res2 chain alone (inference, BN folded) as a CUDA kernel.
+
+Replaces the Pallas kernel wespeaker_tpu/ops/res2_pallas.py
+(`fused_res2_chain`, pallas_call at :137; `_chain_kernel_f32`,
+`_chain_kernel_bf16`). With x split into nums + 1 groups of width W,
+
+    sp = x[group 0]; then for i < nums:
+        sp = sp + x[group i]              (from i = 1, rounded to x's type)
+        sp = bn(relu(conv_k3_d(sp)))      taps [t-d, t, t+d], f32 accumulate
+        y[group i] = sp                   (x's type)
+    y[group nums] = x[group nums]         (the passthrough group)
+
+The kernel is csrc/se_block.cu's `res2_chain_kernel`, the chain step of the
+whole-block kernel (ops/se_block.py), reached through its own C entry
+point `ws_res2_chain`: one block per utterance walks the steps in order
+over T tiles with a halo of d frames, the step's (3, W, W) weights and the
+tile in shared memory, on CUDA-core FMA, so any T works. Bound on an H100
+at ECAPA_TDNN_GLOB_c512's extraction shape (B=512, T=200, C=512, bf16):
+18 GFLOP and 210 MB (x read, y written), about 0.063 ms at 3.35 TB/s
+against 0.018 at 989 TFLOP/s: bytes bound it. The TPU kernel kept an
+8-utterance tile in VMEM and ran each step as one MXU matmul; moving the
+chain's products onto the tensor cores is later work.
+"""
+
+import ctypes
+import functools
+
+import torch
+
+from wespeaker_tpu_torch.device import smem_budget_bytes
+from wespeaker_tpu_torch.ops import _build
+from wespeaker_tpu_torch.ops.se_block import _chain, _chain_smem_bytes
+
+_WIDTHS = (64, 128)
+
+
+def res2_chain_reference(x, kernels, biases, bn_scale, bn_shift,
+                         dilation: int):
+    """Plain PyTorch Res2 chain with the contract of fused_res2_chain,
+    rounding where the JAX kernels round."""
+    nums, _, width, _ = kernels.shape
+    io = x.dtype
+    return _chain(x, kernels.to(io), biases.float(), bn_scale.float(),
+                  bn_shift.float(), nums=nums, width=width,
+                  dilation=dilation, io_dtype=io)
+
+
+def _check_args(x, kernels, biases, bn_scale, bn_shift):
+    """The contract, on every device."""
+    if x.dim() != 3 or kernels.dim() != 4:
+        raise ValueError(f"fused_res2_chain takes x (B, T, C) and kernels "
+                         f"(nums, 3, W, W); got {tuple(x.shape)} and "
+                         f"{tuple(kernels.shape)}")
+    nums, k, width, width2 = kernels.shape
+    if k != 3 or width2 != width or nums * width + width != x.shape[-1]:
+        raise ValueError(f"kernels {tuple(kernels.shape)} do not split C = "
+                         f"{x.shape[-1]} into nums + 1 groups of a k=3 "
+                         "chain")
+    for name, v in (("biases", biases), ("bn_scale", bn_scale),
+                    ("bn_shift", bn_shift)):
+        if tuple(v.shape) != (nums, width):
+            raise ValueError(f"{name} {tuple(v.shape)} != {(nums, width)}")
+
+
+def _check_cuda_args(x, width, dilation):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_res2_chain takes f32 or bf16, not {x.dtype}")
+    if width not in _WIDTHS:
+        raise ValueError(f"fused_res2_chain takes group widths {_WIDTHS}; "
+                         f"got {width}")
+    need = _chain_smem_bytes(width, dilation)
+    if need > smem_budget_bytes(x.device):
+        raise ValueError(f"Res2 chain of width {width} at dilation "
+                         f"{dilation} needs {need} bytes of shared memory, "
+                         f"more than {smem_budget_bytes(x.device)}")
+
+
+def fused_res2_chain(x, kernels, biases, bn_scale, bn_shift, dilation: int):
+    """x: (B, T, C); kernels: (nums, 3, W, W) taps [t-d, t, t+d] (in, out),
+    C = (nums + 1) W; biases, bn_scale, bn_shift: (nums, W), the conv bias
+    and eval BN folded to an affine. Returns the chain outputs concatenated
+    with the passthrough group, (B, T, C) in x's dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel, or raises for a width or type it does not take."""
+    _check_args(x, kernels, biases, bn_scale, bn_shift)
+    if x.device.type == "cpu":
+        return res2_chain_reference(x, kernels, biases, bn_scale, bn_shift,
+                                    dilation)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_res2_chain: no kernel for {x.device}")
+    nums, _, width, _ = kernels.shape
+    _check_cuda_args(x, width, dilation)
+    b, t, c = x.shape
+    dev, io = x.device, x.dtype
+    x = x.contiguous()
+    cw = kernels.to(device=dev, dtype=io).contiguous()
+    caff = torch.stack([v.to(device=dev, dtype=torch.float32)
+                        for v in (biases, bn_scale, bn_shift)]).contiguous()
+    out = torch.empty_like(x)
+    lib = _lib()
+    ptr = _build.pointers([x, cw, caff, out])
+    rc = lib.ws_res2_chain(*ptr, b, t, c, width, nums, dilation,
+                           int(io == torch.bfloat16),
+                           torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "fused_res2_chain")
+    fused_res2_chain.launches += 1
+    return out
+
+
+fused_res2_chain.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("se_block")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ws_res2_chain.argtypes = [p] * 4 + [i] * 7 + [p]
+    lib.ws_res2_chain.restype = i
+    return lib

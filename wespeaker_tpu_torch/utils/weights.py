@@ -17,7 +17,9 @@ state_dict. It inverts the rules of wespeaker_tpu/utils/torch_compat.py:
     out_nonlinear_bn -> out_nonlinear.batchnorm, nonlinear<n>_bn ->
     nonlinear<n>.batchnorm; Gemini downsample_layers_<i>_<j> ->
     downsample_layers.<i>.<j>, stages_<i>_<j> -> stages.<i>.<j> (a
-    depthwise kernel (3, 3, 1, 4C) becomes the (4C, 1, 3, 3) weight)
+    depthwise kernel (3, 3, 1, 4C) becomes the (4C, 1, 3, 3) weight);
+    ResNet layer<n>_<m> -> layer<n>.<m>, shortcut_conv / shortcut_bn ->
+    shortcut.0 / shortcut.1
 
 `load_checkpoint` reads an upstream or port `.pt` state_dict into a model
 with `load_state_dict(strict=True)`; the keys the port has no use for are
@@ -56,6 +58,11 @@ MODEL_RULES = {
     "Gemini": (
         (r"\bdownsample_layers_(\d+)_(\d+)\b", r"downsample_layers.\1.\2"),
         (r"\bstages_(\d+)_(\d+)\b", r"stages.\1.\2"),
+    ),
+    "ResNet": (
+        (r"\blayer(\d)_(\d+)\b", r"layer\1.\2"),
+        (r"\bshortcut_conv\b", "shortcut.0"),
+        (r"\bshortcut_bn\b", "shortcut.1"),
     ),
 }
 
