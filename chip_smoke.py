@@ -63,8 +63,9 @@ Phases, each printing one line:
               embed 512, TSTP) with random weights and randomised BN
               statistics from a seed: make_eval_embed_fn in bf16 over 2 s
               chunks at B=64, the kernel path against the layer-by-layer
-              path (cosine >= 0.9999), exactly 3 kernel launches per
-              forward; then the same in f32 on a copy whose BN statistics
+              path with plain pooling (cosine >= 0.9999), exactly 3
+              dense-block launches and one masked-stats launch (its TSTP)
+              per forward; then the same in f32 on a copy whose BN statistics
               come from one train-mode forward over seeded synthetic
               voices, so that its embeddings depend on the input;
  12. campplus serving  an EmbeddingServer built from a CAM++ YAML and a .pt
@@ -75,7 +76,7 @@ Phases, each printing one line:
  13. campplus timing  CUDA events after warm-up at B=512, T=200 (T'=100),
               bf16: each block's kernel and plain version with its bound;
               CAMPPlus extraction audio-s/s on the kernel path and with
-              fused_blocks=False;
+              fused_blocks=False and plain pooling;
  14. gemini kernels  the Gemini stage kernel against its plain version at
               each of Gemini_DF_ResNet114's four full-width stage shapes
               ((F, C, blocks) = (40, 32, 3), (20, 64, 3), (10, 128, 27),
@@ -85,9 +86,10 @@ Phases, each printing one line:
               gemini_dfresnet_adam.yaml (feat 80, embed 256, TSTP), random
               weights and BN statistics from a seed: make_eval_embed_fn in
               bf16 over 2 s chunks at B=64, the kernel path against the
-              block-by-block path (cosine >= 0.9999), exactly 4 kernel
-              launches per forward; then f32 on a copy whose BN statistics
-              come from synthetic voices;
+              block-by-block path with plain pooling (cosine >= 0.9999),
+              exactly 4 stage launches and one masked-stats launch per
+              forward; then f32 on a copy whose BN statistics come from
+              synthetic voices;
  16. gemini serving  an EmbeddingServer from a Gemini YAML and a .pt of the
               calibrated copy: three waves of concurrent /embed requests in
               buckets of T' = 49, 99 and 149 frames; each reply against the
@@ -96,7 +98,7 @@ Phases, each printing one line:
  17. gemini timing  CUDA events after warm-up at B=512 x 200 frames, bf16:
               each stage's kernel and plain version with its bound;
               Gemini_DF_ResNet114 extraction audio-s/s on the kernel path
-              and with fused_stages=False;
+              and with fused_stages=False and plain pooling;
  18. res2 kernels  the Res2 chain kernel (ECAPA's fused_res2 route) against
               its plain version at ECAPA_TDNN_GLOB_c512's three chains (width
               64, dilation 2/3/4) and a c1024 chain (width 128), B=64: bf16
@@ -104,11 +106,12 @@ Phases, each printing one line:
               rtol/atol 1e-4);
  19. res2 slice  ECAPA_TDNN_GLOB_c512 in eval with fused=False,
               fused_res2=True, make_eval_embed_fn in bf16 over 2 s chunks at
-              B=64, against the layer-by-layer path (cosine >= 0.9999),
-              exactly 3 chain launches per forward and nothing else;
+              B=64, against the layer-by-layer path with plain pooling
+              (cosine >= 0.9999), exactly 3 chain launches and one launch
+              of each pooling kernel (its ASTP) per forward, nothing else;
  20. res2 timing  CUDA events at B=512, T=200, C=512, bf16: the chain kernel,
               its plain version and its bound; ECAPA extraction audio-s/s
-              with fused_res2 and layer by layer;
+              with fused_res2 and layer by layer (plain pooling in both);
  21. dw kernels  dw_pack (the tap-packed 3x3 filter gradient) against its
               plain version at ResNet34's three packed shapes at B=128 x
               200 frames (the stem 80 x 200, 1 -> 32; layer1 80 x 200,
@@ -120,7 +123,8 @@ Phases, each printing one line:
               TSTP), weights from the seed and BN statistics from synthetic
               voices: make_eval_embed_fn over 2 s chunks at B=64, f32 on the
               card (TF32 off) against the same weights on the CPU (cosine
-              >= 0.9999), bf16 against f32 recorded; no dw launch;
+              >= 0.9999), bf16 against f32 recorded; no dw launch, one
+              masked-stats launch (its TSTP) per forward;
  23. resnet serving  an EmbeddingServer from a ResNet34 YAML and a .pt:
               three waves of concurrent /embed requests in buckets of 1, 2
               and 3 s; each reply against the same request padded to its
@@ -139,6 +143,38 @@ Phases, each printing one line:
               ResNet34 extraction audio-s/s at B=512 x 2 s bf16; the
               ResNet34 train step's audio-s/s at B=128 bf16, packed and
               native.
+ 26. family train  CAMPPlus and Gemini_DF_ResNet114 at their YAMLs' widths
+              with ArcMargin over 17,982 classes: 3 bf16 AMP steps each at
+              B=32 x 2 s (dither, spec-aug, SGD); finite losses, no kernel
+              launch;
+ 27. pool kernels  the two statistics-pooling kernels (ASTP's softmax-
+              weighted mean and std; the masked mean and std) against their
+              plain versions: bf16 at ReDimNetB2's pooling shape (B=512,
+              T=200, D=1152) and ResNet34's TSTP shape (T'=25, D=2560)
+              (cosine >= 0.9999 per output), f32 at T=198, D=600, B=3 with
+              a ragged mask and an utterance with no valid frame (within
+              1e-4 of the largest magnitude), the masked stats at ddof 0
+              and 1; an input that requires grad, or of another type,
+              raises;
+ 28. redimnet slice  ReDimNetB2 at redimnet.yaml's width (feat 72 from a
+              72-bin fbank, embed 192, ASTP with global context), random
+              weights and BN statistics from the seed: make_eval_embed_fn in
+              bf16 over 2 s chunks at B=64, one launch of each pooling
+              kernel per forward, against fused=False pooling (cosine >=
+              0.9999); then f32 on the card against the CPU on a copy with
+              BN statistics from synthetic voices (cosine >= 0.9999);
+ 29. redimnet serving  an EmbeddingServer from a ReDimNetB2 YAML and a .pt
+              of the calibrated copy: three waves of concurrent /embed
+              requests in buckets of 1, 2 and 3 s, one launch of each
+              pooling kernel per batch; each reply against the same request
+              padded to its bucket and embedded directly (cosine >=
+              0.99999), against batch=1 recorded only;
+ 30. redimnet timing  CUDA events after warm-up at B=512 x 200 frames,
+              bf16: each pooling kernel at ReDimNetB2's shape (kernel,
+              plain, torch.std_mean for the masked stats, bound) and the
+              masked stats at ResNet34's TSTP shape; ReDimNetB2 and
+              ResNet34 extraction audio-s/s with the pooling kernels and
+              with fused=False pooling.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -163,7 +199,8 @@ from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import load_model_for_eval  # noqa: E402
 from wespeaker_tpu_torch.bin import kernel_bounds  # noqa: E402
 from wespeaker_tpu_torch.bin.kernel_bounds import (  # noqa: E402
-    bound, cam_dense_block, inv_bottleneck_stage)
+    PEAK_F32_FLOPS, bound, cam_dense_block, inv_bottleneck_stage,
+    masked_stats, softmax_stats)
 from wespeaker_tpu_torch.data.wav_io import write_wav  # noqa: E402
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
 from wespeaker_tpu_torch.models.campplus import CAMPPlus  # noqa: E402
@@ -171,12 +208,16 @@ from wespeaker_tpu_torch.models.ecapa_tdnn import (  # noqa: E402
     ECAPA_TDNN_GLOB_c512)
 from wespeaker_tpu_torch.models.gemini_dfresnet import (  # noqa: E402
     Gemini_DF_ResNet114, folded_stage)
+from wespeaker_tpu_torch.models.pooling_layers import (  # noqa: E402
+    set_pooling_fused)
 from wespeaker_tpu_torch.models.projections import (  # noqa: E402
     ArcMarginProduct)
+from wespeaker_tpu_torch.models.redimnet import ReDimNetB2  # noqa: E402
 from wespeaker_tpu_torch.models.resnet import ResNet34  # noqa: E402
 from wespeaker_tpu_torch.ops import (_build, cam_block,  # noqa: E402
                                      conv_dw_pack, inv_bottleneck, mfa_astp,
-                                     mfa_astp_vjp, res2_chain, se_block)
+                                     mfa_astp_vjp, pooling, res2_chain,
+                                     se_block)
 from wespeaker_tpu_torch.serving import EmbeddingServer  # noqa: E402
 from wespeaker_tpu_torch.train import (AugConfig,  # noqa: E402
                                        build_train_state, make_eval_embed_fn,
@@ -208,7 +249,9 @@ COUNTERS = {"se": se_block.fused_se_res2_block,
             "cam": cam_block.fused_cam_dense_block,
             "gemini": inv_bottleneck.fused_inv_bottleneck_stage,
             "res2": res2_chain.fused_res2_chain,
-            "dw": conv_dw_pack.dw_pack}
+            "dw": conv_dw_pack.dw_pack,
+            "softmax": pooling.fused_softmax_stats,
+            "masked": pooling.fused_masked_stats}
 NO_LAUNCH = dict.fromkeys(COUNTERS, 0)
 # CAMPPlus's dense blocks: (C0, layers, dilation); T' = 100 after the
 # stride-2 TDNN at 200 frames
@@ -238,6 +281,15 @@ RESNET_YAML = ("model: ResNet34\nmodel_args:\n  feat_dim: 80\n"
                "    num_mel_bins: 80\n")
 RESNET_SGD = {"optimizer": "SGD", "optimizer_args": {
     "momentum": 0.9, "nesterov": True, "weight_decay": 1e-4}}
+# ReDimNetB2 (redimnet.yaml: feat 72 from a 72-bin fbank, embed 192, ASTP
+# with global context over D = 16 * 72 = 1152)
+REDIM_FEAT, REDIM_EMBED, REDIM_D = 72, 192, 1152
+REDIM_FBANK = FbankConfig(num_mel_bins=REDIM_FEAT)
+REDIM_YAML = ("model: ReDimNetB2\nmodel_args:\n  feat_dim: 72\n"
+              f"  embed_dim: {REDIM_EMBED}\n  pooling_func: ASTP\n"
+              "  two_emb_layer: false\ndataset_args:\n  fbank_args:\n"
+              "    num_mel_bins: 72\n")
+RESNET_TSTP = (25, 2560)  # ResNet34's pooled (T', D) at 200 frames
 
 
 def zero_counts():
@@ -379,12 +431,13 @@ def phase_slice(model, dev):
         raise AssertionError(f"main path launches {launches}, want SE 3 "
                              "and tail 1 per forward, no train kernel")
     assert emb.shape == (SLICE_BATCH, 192) and torch.isfinite(emb).all()
-    plain = make_eval_embed_fn(model.set_fused(False), FbankConfig(),
+    plain = make_eval_embed_fn(set_pooling_fused(model.set_fused(False),
+                                                 False), FbankConfig(),
                                compute_dtype=torch.bfloat16,
                                fbank_conv_dtype=torch.bfloat16,
                                device=dev)({"wav": wav})
     f32 = make_eval_embed_fn(model, FbankConfig(), device=dev)({"wav": wav})
-    model.set_fused(True)
+    set_pooling_fused(model.set_fused(True), None)
     cos = row_cosines(emb, plain).min().item()
     cos32 = row_cosines(emb, f32).min().item()
     if cos < 0.9999:
@@ -501,12 +554,13 @@ def phase_timing(model, dev, smi):
         np.float32), device=dev)
     rates = {}
     for path, fused in (("kernel", True), ("plain", False)):
-        embed = make_eval_embed_fn(model.set_fused(fused), FbankConfig(),
+        embed = make_eval_embed_fn(set_pooling_fused(model.set_fused(fused),
+                                                     fused), FbankConfig(),
                                    compute_dtype=io, fbank_conv_dtype=io,
                                    device=dev)
         ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
         rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
-    model.set_fused(True)
+    set_pooling_fused(model.set_fused(True), None)
     fmt = "; ".join(
         f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound "
         f"{v['bound_ms']:.3f} by {v['bound_by']})" for k, v in res.items())
@@ -878,11 +932,11 @@ def random_campplus(dev, calibrate=False):
                          calibrate)
 
 
-def randomised_bn(model, dev, calibrate):
+def randomised_bn(model, dev, calibrate, fbank=FbankConfig()):
     """`model` on dev in eval mode, its BN statistics and affines
     randomised from a generator seeded with SEED; with `calibrate`, the
     statistics then replaced by those of one train-mode forward over 16
-    seeded synthetic voices."""
+    seeded synthetic voices (features by `fbank`)."""
     g = torch.Generator().manual_seed(SEED)
     bns = [m for m in model.modules()
            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
@@ -897,8 +951,8 @@ def randomised_bn(model, dev, calibrate):
     if calibrate:
         rng = np.random.default_rng(SEED + 20)
         wav = np.stack([voice(rng, CHUNK_SAMPLES) for _ in range(16)])
-        feat = features_from_batch({"wav": wav}, FbankConfig(), None, None,
-                                   False, dev)
+        feat = features_from_batch({"wav": wav}, fbank, None, None, False,
+                                   dev)
         for m in bns:
             m.momentum = 1.0  # running statistics := this batch's
         with torch.no_grad():
@@ -961,14 +1015,16 @@ def phase_campplus_slice(model, dev):
     emb = embed({"wav": wav})
     torch.cuda.synchronize()
     launches = counts()
-    if launches != dict(NO_LAUNCH, cam=3):
+    if launches != dict(NO_LAUNCH, cam=3, masked=1):
         raise AssertionError(f"CAM++ path launches {launches}, want the "
-                             "CAM block 3 times per forward and nothing else")
+                             "CAM block 3 times and the masked stats once "
+                             "per forward, nothing else")
     assert emb.shape == (SLICE_BATCH, CAM_EMBED) and torch.isfinite(emb).all()
-    plain = make_eval_embed_fn(model.set_fused(False), FbankConfig(),
+    plain = make_eval_embed_fn(set_pooling_fused(model.set_fused(False),
+                                                 False), FbankConfig(),
                                compute_dtype=io, fbank_conv_dtype=io,
                                device=dev)({"wav": wav})
-    model.set_fused(None)
+    set_pooling_fused(model.set_fused(None), None)
     cos = row_cosines(emb, plain).min().item()
     if cos < 0.9999:
         raise AssertionError(f"CAM++ kernel path vs plain path cosine {cos}")
@@ -979,9 +1035,10 @@ def phase_campplus_slice(model, dev):
     zero_counts()
     emb32 = fn({"wav": wav[:16]})
     torch.cuda.synchronize()
-    if counts() != dict(NO_LAUNCH, cam=3):
+    if counts() != dict(NO_LAUNCH, cam=3, masked=1):
         raise AssertionError(f"calibrated CAM++ launches {counts()}")
-    plain32 = make_eval_embed_fn(cal.set_fused(False), FbankConfig(),
+    plain32 = make_eval_embed_fn(set_pooling_fused(cal.set_fused(False),
+                                                   False), FbankConfig(),
                                  device=dev)({"wav": wav[:16]})
     cos32 = row_cosines(emb32, plain32).min().item()
     err32 = (emb32 - plain32).abs().max().item()
@@ -991,7 +1048,8 @@ def phase_campplus_slice(model, dev):
                              f"path cosine {cos32}")
     print(f"campplus slice: CAMPPlus feat 80 embed {CAM_EMBED} TSTP bf16 "
           f"B={SLICE_BATCH} x {CHUNK_SAMPLES} samples (T'={CAM_T}) -> "
-          f"{tuple(emb.shape)}; launches cam={launches['cam']}; min cosine "
+          f"{tuple(emb.shape)}; launches cam={launches['cam']} "
+          f"masked={launches['masked']}; min cosine "
           f"vs plain bf16 path {cos:.7f} (mean cosine between neighbouring "
           f"utterances {cross:.7f}); calibrated BN statistics, f32 B=16: "
           f"min cosine vs plain path {cos32:.7f}, max abs err {err32:.3g} "
@@ -1056,7 +1114,8 @@ def phase_campplus_serving(model, dev):
     for name, m in (("random", model),
                     ("calibrated", random_campplus(dev, calibrate=True))):
         embs, served, launches = serve_waves(m, dev, waves, CAM_YAML)
-        if launches["cam"] < 3 or launches["se"] or launches["tail"]:
+        if (launches["cam"] < 3 or launches["cam"] != 3 * launches["masked"]
+                or launches["se"] or launches["tail"]):
             raise AssertionError(f"CAM++ serving launches {launches}")
         frames = sorted({((n - 400) // 160 + 2) // 2 for _, n in served})
         if frames != [49, 99, 149]:
@@ -1078,7 +1137,8 @@ def phase_campplus_serving(model, dev):
                                  f"{vs_single}, vs bucket {vs_bucket}")
         parts.append(
             f"{name} BN statistics: batches {served} (T' {frames}), "
-            f"launches cam={launches['cam']}; min cosine vs batch=1 "
+            f"launches cam={launches['cam']} masked={launches['masked']}; "
+            f"min cosine vs batch=1 "
             f"{vs_single.min().item():.7f}, vs the bucket embedded directly "
             f"{vs_bucket.min().item():.7f}, between neighbouring replies "
             f"{row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
@@ -1089,7 +1149,7 @@ def phase_campplus_serving(model, dev):
 def phase_campplus_timing(model, dev, smi):
     """CUDA events after warm-up at B=512, T'=100, bf16: each block's
     kernel and plain version with its bound; CAMPPlus extraction audio-s/s
-    on the kernel path and with fused_blocks=False."""
+    on the kernel path and with fused_blocks=False and plain pooling."""
     rng = np.random.default_rng(SEED + 13)
     io = torch.bfloat16
     blocks, res = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
@@ -1116,12 +1176,13 @@ def phase_campplus_timing(model, dev, smi):
                                     for _ in range(B)]), device=dev)
     rates = {}
     for path, fused in (("kernel", None), ("plain", False)):
-        embed = make_eval_embed_fn(model.set_fused(fused), FbankConfig(),
+        embed = make_eval_embed_fn(set_pooling_fused(model.set_fused(fused),
+                                                     fused), FbankConfig(),
                                    compute_dtype=io, fbank_conv_dtype=io,
                                    device=dev)
         ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
         rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
-    model.set_fused(None)
+    set_pooling_fused(model.set_fused(None), None)
     fmt = "; ".join(f"block{i + 1} {ms:.3f} ms (plain {pm:.3f}, bound "
                     f"{bm:.3f} by {by})" for i, ms, pm, bm, by in blocks)
     print(f"campplus timing [{smi}] B={B} T'={CAM_T} bf16: {fmt}; three "
@@ -1195,16 +1256,17 @@ def phase_gemini_slice(model, dev):
     emb = embed({"wav": wav})
     torch.cuda.synchronize()
     launches = counts()
-    if launches != dict(NO_LAUNCH, gemini=4):
+    if launches != dict(NO_LAUNCH, gemini=4, masked=1):
         raise AssertionError(f"Gemini path launches {launches}, want the "
-                             "stage kernel 4 times per forward and nothing "
-                             "else")
+                             "stage kernel 4 times and the masked stats "
+                             "once per forward, nothing else")
     assert emb.shape == (SLICE_BATCH, GEMINI_EMBED)
     assert torch.isfinite(emb).all()
-    plain = make_eval_embed_fn(model.set_fused(False), FbankConfig(),
+    plain = make_eval_embed_fn(set_pooling_fused(model.set_fused(False),
+                                                 False), FbankConfig(),
                                compute_dtype=io, fbank_conv_dtype=io,
                                device=dev)({"wav": wav})
-    model.set_fused(None)
+    set_pooling_fused(model.set_fused(None), None)
     cos = row_cosines(emb, plain).min().item()
     cross = row_cosines(emb[:-1], emb[1:]).mean().item()
     if cos < 0.9999:
@@ -1215,9 +1277,10 @@ def phase_gemini_slice(model, dev):
     zero_counts()
     emb32 = fn({"wav": wav[:16]})
     torch.cuda.synchronize()
-    if counts() != dict(NO_LAUNCH, gemini=4):
+    if counts() != dict(NO_LAUNCH, gemini=4, masked=1):
         raise AssertionError(f"calibrated Gemini launches {counts()}")
-    plain32 = make_eval_embed_fn(cal.set_fused(False), FbankConfig(),
+    plain32 = make_eval_embed_fn(set_pooling_fused(cal.set_fused(False),
+                                                   False), FbankConfig(),
                                  device=dev)({"wav": wav[:16]})
     cos32 = row_cosines(emb32, plain32).min().item()
     err32 = (emb32 - plain32).abs().max().item()
@@ -1227,7 +1290,8 @@ def phase_gemini_slice(model, dev):
                              f"path cosine {cos32}")
     print(f"gemini slice: Gemini_DF_ResNet114 feat 80 embed {GEMINI_EMBED} "
           f"TSTP bf16 B={SLICE_BATCH} x {CHUNK_SAMPLES} samples -> "
-          f"{tuple(emb.shape)}; launches gemini={launches['gemini']}; min "
+          f"{tuple(emb.shape)}; launches gemini={launches['gemini']} "
+          f"masked={launches['masked']}; min "
           f"cosine vs plain bf16 path {cos:.7f} (mean cosine between "
           f"neighbouring utterances {cross:.7f}); calibrated BN statistics, "
           f"f32 B=16: min cosine vs plain path {cos32:.7f}, max abs err "
@@ -1249,8 +1313,9 @@ def phase_gemini_serving(dev):
     model = random_gemini(dev, calibrate=True)
     embs, served, launches = serve_waves(
         model, dev, [wavs[:2], wavs[2:5], wavs[5:]], GEMINI_YAML)
-    if launches["gemini"] < 12 or launches["gemini"] % 4 or any(
-            v for k, v in launches.items() if k != "gemini"):
+    if launches["gemini"] < 12 or launches["gemini"] != 4 * launches[
+            "masked"] or any(v for k, v in launches.items()
+                             if k not in ("gemini", "masked")):
         raise AssertionError(f"Gemini serving launches {launches}")
     frames = sorted({((n - 400) // 160 + 2) // 2 for _, n in served})
     if frames != [49, 99, 149]:
@@ -1271,7 +1336,8 @@ def phase_gemini_serving(dev):
     print(f"gemini serving: Gemini_DF_ResNet114 from a YAML + .pt "
           f"(calibrated BN statistics), {len(wavs)} /embed (0.75-3 s) in "
           f"three concurrent waves; batches {served} (T' {frames}), launches "
-          f"gemini={launches['gemini']}; min cosine vs the bucket embedded "
+          f"gemini={launches['gemini']} masked={launches['masked']}; min "
+          f"cosine vs the bucket embedded "
           f"directly {vs_bucket.min().item():.7f}, vs batch=1 (not gated) "
           f"{vs_single.min().item():.7f}, between neighbouring replies "
           f"{row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
@@ -1280,7 +1346,8 @@ def phase_gemini_serving(dev):
 def phase_gemini_timing(model, dev, smi):
     """CUDA events after warm-up at B=512 x 200 frames, bf16: each stage's
     kernel and plain version with its bound; Gemini_DF_ResNet114
-    extraction audio-s/s on the kernel path and with fused_stages=False."""
+    extraction audio-s/s on the kernel path and with fused_stages=False
+    and plain pooling."""
     rng = np.random.default_rng(SEED + 17)
     io = torch.bfloat16
     stages, res = [], {"ms": 0.0, "plain_ms": 0.0}
@@ -1308,12 +1375,13 @@ def phase_gemini_timing(model, dev, smi):
                                     for _ in range(B)]), device=dev)
     rates = {}
     for path, fused in (("kernel", None), ("plain", False)):
-        embed = make_eval_embed_fn(model.set_fused(fused), FbankConfig(),
+        embed = make_eval_embed_fn(set_pooling_fused(model.set_fused(fused),
+                                                     fused), FbankConfig(),
                                    compute_dtype=io, fbank_conv_dtype=io,
                                    device=dev)
         ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
         rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
-    model.set_fused(None)
+    set_pooling_fused(model.set_fused(None), None)
     fmt = "; ".join(f"stage{i} {ms:.3f} ms (plain {pm:.3f}, bound {bm:.3f} "
                     f"by {by})" for i, ms, pm, bm, by in stages)
     print(f"gemini timing [{smi}] B={B} T={T} bf16: {fmt}; four stages "
@@ -1385,20 +1453,23 @@ def phase_res2_slice(model, dev):
     emb = embed({"wav": wav})
     torch.cuda.synchronize()
     launches = counts()
-    if launches != dict(NO_LAUNCH, res2=3):
+    if launches != dict(NO_LAUNCH, res2=3, softmax=1, masked=1):
         raise AssertionError(f"fused_res2 path launches {launches}, want "
-                             "the chain 3 times per forward, nothing else")
+                             "the chain 3 times and each pooling kernel "
+                             "once per forward, nothing else")
     assert emb.shape == (SLICE_BATCH, 192) and torch.isfinite(emb).all()
-    plain = make_eval_embed_fn(model.set_fused(False, fused_res2=False),
-                               FbankConfig(), compute_dtype=io,
-                               fbank_conv_dtype=io, device=dev)({"wav": wav})
-    model.set_fused(True)
+    plain = make_eval_embed_fn(
+        set_pooling_fused(model.set_fused(False, fused_res2=False), False),
+        FbankConfig(), compute_dtype=io, fbank_conv_dtype=io,
+        device=dev)({"wav": wav})
+    set_pooling_fused(model.set_fused(True), None)
     cos = row_cosines(emb, plain).min().item()
     if cos < 0.9999:
         raise AssertionError(f"fused_res2 path vs layer path cosine {cos}")
     print(f"res2 slice: ECAPA_TDNN_GLOB_c512 fused=False fused_res2=True bf16 "
           f"B={SLICE_BATCH} x {CHUNK_SAMPLES} samples -> {tuple(emb.shape)}; "
-          f"launches res2={launches['res2']}; min cosine vs the layer path "
+          f"launches res2={launches['res2']} softmax={launches['softmax']} "
+          f"masked={launches['masked']}; min cosine vs the layer path "
           f"{cos:.7f}")
     return launches
 
@@ -1421,12 +1492,12 @@ def phase_res2_timing(model, dev, smi):
         np.float32), device=dev)
     rates = {}
     for path, flag in (("fused_res2", True), ("layer", False)):
-        embed = make_eval_embed_fn(model.set_fused(False, fused_res2=flag),
-                                   FbankConfig(), compute_dtype=io,
-                                   fbank_conv_dtype=io, device=dev)
+        embed = make_eval_embed_fn(
+            set_pooling_fused(model.set_fused(False, fused_res2=flag), False),
+            FbankConfig(), compute_dtype=io, fbank_conv_dtype=io, device=dev)
         ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
         rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
-    model.set_fused(True, fused_res2=False)
+    set_pooling_fused(model.set_fused(True, fused_res2=False), None)
     print(f"res2 timing [{smi}] B={B} T={T} C={C} d={dil} bf16: chain "
           f"{res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, bound "
           f"{res['bound_ms']:.3f} by {res['bound_by']}); ECAPA extraction "
@@ -1512,8 +1583,9 @@ def phase_resnet_slice(dev):
                                device=dev)({"wav": wav})
     torch.cuda.synchronize()
     launches = counts()
-    if launches != NO_LAUNCH:
-        raise AssertionError(f"ResNet34 extraction launched {launches}")
+    if launches != dict(NO_LAUNCH, masked=2):
+        raise AssertionError(f"ResNet34 extraction launched {launches}, "
+                             "want the masked stats once per forward")
     assert emb32.shape == (SLICE_BATCH, RESNET_EMBED)
     assert torch.isfinite(emb32).all() and torch.isfinite(emb16).all()
     cpu = make_eval_embed_fn(cpu_model, FbankConfig(), device="cpu")(
@@ -1527,7 +1599,8 @@ def phase_resnet_slice(dev):
     print(f"resnet slice: ResNet34 feat 80 embed {RESNET_EMBED} TSTP, BN "
           f"statistics from synthetic voices, B={SLICE_BATCH} x "
           f"{CHUNK_SAMPLES} samples -> {tuple(emb32.shape)}; launches "
-          f"dw={launches['dw']}; f32 card vs CPU min cosine {cos32:.7f} "
+          f"dw={launches['dw']} masked={launches['masked']} (two forwards); "
+          f"f32 card vs CPU min cosine {cos32:.7f} "
           f"(max abs err {err32:.3g}); bf16 vs f32 min cosine {cos16:.7f} "
           f"(not gated); between neighbouring utterances {cross:.4f}")
 
@@ -1543,8 +1616,9 @@ def phase_resnet_serving(dev):
     model = random_resnet(dev)
     embs, served, launches = serve_waves(
         model, dev, [wavs[:2], wavs[2:5], wavs[5:]], RESNET_YAML)
-    if launches != NO_LAUNCH:
-        raise AssertionError(f"ResNet34 serving launches {launches}")
+    if launches != dict(NO_LAUNCH, masked=len(served)):
+        raise AssertionError(f"ResNet34 serving launches {launches} for "
+                             f"{len(served)} batches")
     lengths = sorted({n for _, n in served})
     if lengths != [16000, 32000, 48000]:
         raise AssertionError(f"served buckets {served}")
@@ -1563,7 +1637,8 @@ def phase_resnet_serving(dev):
         raise AssertionError(f"ResNet34 served replies vs bucket {vs_bucket}")
     print(f"resnet serving: ResNet34 from a YAML + .pt (BN statistics from "
           f"synthetic voices), {len(wavs)} /embed (0.75-3 s) in three "
-          f"concurrent waves; batches {served}; min cosine vs the bucket "
+          f"concurrent waves; batches {served}, launches masked="
+          f"{launches['masked']}; min cosine vs the bucket "
           f"embedded directly {vs_bucket.min().item():.7f}, vs batch=1 (not "
           f"gated) {vs_single.min().item():.7f}, between neighbouring "
           f"replies {row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
@@ -1812,6 +1887,305 @@ def phase_resnet_timing(dev, smi):
     return {"dw": res}
 
 
+def phase_family_train(dev):
+    """CAMPPlus (campplus.yaml's width) and Gemini_DF_ResNet114
+    (gemini_dfresnet_adam.yaml's) with an ArcMargin head over NUM_CLASS
+    classes: 3 bf16 AMP train steps each at B=32 x 2 s, dither and
+    spec-aug on, SGD; every loss finite and no kernel launched (training
+    runs layer by layer)."""
+    rng = np.random.default_rng(SEED + 31)
+    batch = train_batch(rng, TRAINER_BATCH, dev)
+    parts = []
+    for name, make, embed in (
+            ("CAMPPlus", lambda: CAMPPlus(80, CAM_EMBED), CAM_EMBED),
+            ("Gemini_DF_ResNet114",
+             lambda: Gemini_DF_ResNet114(80, GEMINI_EMBED), GEMINI_EMBED)):
+        model, proj, opt, gen = build_train_state(
+            lambda: (make(), ArcMarginProduct(embed, NUM_CLASS)), SGD_CONF,
+            seed=SEED, device=dev)
+        step = make_train_step(model, proj, opt, lambda s: 0.1,
+                               lambda s: 0.2, FbankConfig(dither=1.0),
+                               AugConfig(), compute_dtype=torch.bfloat16,
+                               device=dev, generator=gen)
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = [float(step(batch)["loss"]) for _ in range(3)]
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        if not all(np.isfinite(losses)) or counts() != NO_LAUNCH:
+            raise AssertionError(f"{name} train steps: losses {losses}, "
+                                 f"launches {counts()}")
+        parts.append(f"{name} losses " + " ".join(f"{v:.4f}" for v in losses)
+                     + f" ({sec:.1f} s with warm-up)")
+        del model, proj, opt, step
+        torch.cuda.empty_cache()
+    print(f"family train: 3 bf16 steps at B={TRAINER_BATCH} x 2 s + ArcMargin "
+          f"{NUM_CLASS}: " + "; ".join(parts))
+
+
+def pool_inputs(rng, b, t, d, dtype, dev, masked=False):
+    """Random logits and x (B, T, D); with `masked` a ragged mask whose
+    last utterance has no valid frame."""
+    def r():
+        return torch.as_tensor(rng.standard_normal((b, t, d)).astype(
+            np.float32), device=dev).to(dtype)
+
+    mask = None
+    if masked:
+        mask = ragged_mask(rng, b, t, dev)
+        mask[-1] = 0
+    return r(), r(), mask
+
+
+def stats_compare(got, want, dtype):
+    """(mean, std), f32 whatever the input type, against the plain
+    version, each output by scaled_compare. Returns the max abs error and
+    the least cosine."""
+    assert all(g.dtype == torch.float32 for g in got)
+    errs, coss = zip(*(scaled_compare(g, w, dtype)
+                       for g, w in zip(got, want)))
+    return max(errs), min(coss)
+
+
+def phase_pool_kernels(dev):
+    """Rows 6 and 7 against their plain versions: at ReDimNetB2's pooling
+    shape (B=512, T=200, D=1152) and ResNet34's TSTP shape (T'=25,
+    D=2560) in bf16, and in f32 at T=198, D=600, B=3 with a ragged mask
+    whose last utterance has no valid frame; the masked stats at ddof 0
+    and 1. Inputs that need a backward or another type are refused."""
+    rng = np.random.default_rng(SEED + 32)
+    errs, parts = {}, []
+    cases = ((torch.bfloat16, B, T, REDIM_D, False),
+             (torch.bfloat16, B, *RESNET_TSTP, False),
+             (torch.float32, 3, 198, 600, True))
+    for dtype, b, t, d, masked in cases:
+        logits, x, mask = pool_inputs(rng, b, t, d, dtype, dev, masked)
+        got = pooling.fused_softmax_stats(logits, x, mask)
+        torch.cuda.synchronize()
+        err, cos = stats_compare(got, pooling.softmax_stats_reference(
+            logits, x, mask), dtype)
+        errs.setdefault("softmax", err)
+        where = (f"{str(dtype)[6:]} B={b} T={t} D={d}"
+                 f"{' masked' if masked else ''}")
+        parts.append(f"softmax_stats {where} max_abs_err={err:.3g} "
+                     f"cos={cos:.7f}")
+        for ddof in (1, 0):
+            got = pooling.fused_masked_stats(x, mask, ddof=ddof)
+            torch.cuda.synchronize()
+            err, cos = stats_compare(got, pooling.masked_stats_reference(
+                x, mask, ddof), dtype)
+            errs.setdefault("masked", err)
+            parts.append(f"masked_stats {where} ddof={ddof} "
+                         f"max_abs_err={err:.3g} cos={cos:.7f}")
+        del logits, x, got
+    x = torch.zeros(2, 8, 128, device=dev)
+    refused = []
+    for what, call in (
+            ("requires grad", lambda: pooling.fused_masked_stats(
+                x.clone().requires_grad_())),
+            ("requires grad", lambda: pooling.fused_softmax_stats(
+                x.clone().requires_grad_(), x)),
+            ("f16", lambda: pooling.fused_masked_stats(x.half())),
+            ("f64", lambda: pooling.fused_softmax_stats(x, x.double()))):
+        try:
+            call()
+        except (RuntimeError, TypeError) as e:
+            refused.append(f"{what}: {type(e).__name__}")
+        else:
+            raise AssertionError(f"a pooling kernel took an input that "
+                                 f"{what}")
+    print("pool kernels: " + "; ".join(parts) + "; refused "
+          + ", ".join(refused))
+    return errs
+
+
+def random_redimnet(dev, calibrate=False):
+    """ReDimNetB2 at redimnet.yaml's width with torch's default init from
+    SEED and randomised BN statistics; with `calibrate`, statistics from
+    synthetic voices (random_campplus's calibration, 72-bin fbank)."""
+    torch.manual_seed(SEED)
+    return randomised_bn(ReDimNetB2(REDIM_FEAT, REDIM_EMBED), dev,
+                         calibrate, fbank=REDIM_FBANK)
+
+
+def phase_redimnet_slice(model, dev):
+    """The ReDimNet extraction path: one launch of each pooling kernel per
+    forward; the kernel route against fused=False pooling in bf16; then
+    f32 on the card against the CPU on the calibrated copy."""
+    rng = np.random.default_rng(SEED + 33)
+    wav = torch.as_tensor(np.stack([voice(rng, CHUNK_SAMPLES)
+                                    for _ in range(SLICE_BATCH)]), device=dev)
+    io = torch.bfloat16
+    embed = make_eval_embed_fn(model, REDIM_FBANK, compute_dtype=io,
+                               fbank_conv_dtype=io, device=dev)
+    zero_counts()
+    emb = embed({"wav": wav})
+    torch.cuda.synchronize()
+    launches = counts()
+    if launches != dict(NO_LAUNCH, softmax=1, masked=1):
+        raise AssertionError(f"ReDimNet path launches {launches}, want each "
+                             "pooling kernel once per forward, nothing else")
+    assert emb.shape == (SLICE_BATCH, REDIM_EMBED)
+    assert torch.isfinite(emb).all()
+    plain = make_eval_embed_fn(set_pooling_fused(model, False), REDIM_FBANK,
+                               compute_dtype=io, fbank_conv_dtype=io,
+                               device=dev)({"wav": wav})
+    set_pooling_fused(model, None)
+    cos = row_cosines(emb, plain).min().item()
+    cross = row_cosines(emb[:-1], emb[1:]).mean().item()
+    if cos < 0.9999:
+        raise AssertionError(f"ReDimNet pooling kernels vs plain pooling "
+                             f"cosine {cos}")
+
+    cal = random_redimnet(dev, calibrate=True)
+    cpu_model = copy.deepcopy(cal).cpu()
+    zero_counts()
+    emb32 = make_eval_embed_fn(cal, REDIM_FBANK, device=dev)(
+        {"wav": wav[:16]})
+    torch.cuda.synchronize()
+    if counts() != dict(NO_LAUNCH, softmax=1, masked=1):
+        raise AssertionError(f"calibrated ReDimNet launches {counts()}")
+    cpu = make_eval_embed_fn(cpu_model, REDIM_FBANK, device="cpu")(
+        {"wav": wav[:16].cpu()})
+    cos32 = row_cosines(emb32.cpu(), cpu).min().item()
+    err32 = (emb32.cpu() - cpu).abs().max().item()
+    cross32 = row_cosines(emb32[:-1], emb32[1:]).mean().item()
+    if cos32 < 0.9999:
+        raise AssertionError(f"calibrated ReDimNet f32 card vs CPU cosine "
+                             f"{cos32}")
+    print(f"redimnet slice: ReDimNetB2 feat {REDIM_FEAT} embed {REDIM_EMBED} "
+          f"ASTP (global context, D={REDIM_D}) bf16 B={SLICE_BATCH} x "
+          f"{CHUNK_SAMPLES} samples -> {tuple(emb.shape)}; launches "
+          f"softmax={launches['softmax']} masked={launches['masked']}; min "
+          f"cosine vs fused=False pooling {cos:.7f} (between neighbouring "
+          f"utterances {cross:.7f}); calibrated BN statistics, f32 B=16 card "
+          f"vs CPU: min cosine {cos32:.7f}, max abs err {err32:.3g} (between "
+          f"utterances {cross32:.4f})")
+    return launches
+
+
+def phase_redimnet_serving(dev):
+    """A server from a ReDimNetB2 YAML (72-bin fbank) and a .pt of the
+    calibrated copy: three waves of concurrent /embed requests in buckets
+    of 1, 2 and 3 s; each reply against the same request padded and masked
+    to its bucket and embedded directly (cosine >= 0.99999), against
+    batch=1 recorded only (the convolutions see the padding)."""
+    rng = np.random.default_rng(SEED + 34)
+    wavs = [voice(rng, n) for n in (12000, 16000, 20800, 27200, 32000,
+                                    35200, 41600, 48000)]
+    model = random_redimnet(dev, calibrate=True)
+    embs, served, launches = serve_waves(
+        model, dev, [wavs[:2], wavs[2:5], wavs[5:]], REDIM_YAML)
+    if launches != dict(NO_LAUNCH, softmax=len(served), masked=len(served)):
+        raise AssertionError(f"ReDimNet serving launches {launches} for "
+                             f"{len(served)} batches")
+    lengths = sorted({n for _, n in served})
+    if lengths != [16000, 32000, 48000]:
+        raise AssertionError(f"served buckets {served}")
+    fn = make_eval_embed_fn(model, REDIM_FBANK, device=dev)
+    single = torch.cat([fn({"wav": w[None]}).cpu() for w in wavs])
+    bucket = []
+    for w in wavs:
+        n = -(-len(w) // 16000) * 16000
+        padded, mask = np.zeros((1, n), np.float32), np.zeros((1, n),
+                                                              np.float32)
+        padded[0, :len(w)], mask[0, :len(w)] = w, 1.0
+        bucket.append(fn({"wav": padded, "mask": mask}).cpu())
+    vs_single = row_cosines(embs, single)
+    vs_bucket = row_cosines(embs, torch.cat(bucket))
+    if vs_bucket.min().item() < 0.99999:
+        raise AssertionError(f"ReDimNet served replies vs bucket {vs_bucket}")
+    print(f"redimnet serving: ReDimNetB2 from a YAML + .pt (BN statistics "
+          f"from synthetic voices), {len(wavs)} /embed (0.75-3 s) in three "
+          f"concurrent waves; batches {served}, launches softmax="
+          f"{launches['softmax']} masked={launches['masked']}; min cosine vs "
+          f"the bucket embedded directly {vs_bucket.min().item():.7f}, vs "
+          f"batch=1 (not gated) {vs_single.min().item():.7f}, between "
+          f"neighbouring replies "
+          f"{row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
+
+
+def phase_redimnet_timing(model, dev, smi):
+    """CUDA events after warm-up at B=512 x 200 frames, bf16: rows 6 and 7
+    at ReDimNetB2's pooling shape (kernel, plain, library, bound; row 7's
+    library call is torch.std_mean, unmasked, which differs only by the
+    +1e-7; row 6 has none) and row 7 at ResNet34's TSTP shape; ReDimNetB2
+    extraction audio-s/s with the pooling kernels and with fused=False
+    pooling; ResNet34 extraction audio-s/s with and without row 7."""
+    rng = np.random.default_rng(SEED + 35)
+    io = torch.bfloat16
+    logits, x, _ = pool_inputs(rng, B, T, REDIM_D, io, dev)
+    res = {"softmax": {
+        "ms": cuda_ms(lambda: pooling.fused_softmax_stats(logits, x)),
+        "plain_ms": cuda_ms(lambda: pooling.softmax_stats_reference(
+            logits, x), iters=5),
+        "library_ms": None},
+        "masked": {
+        "ms": cuda_ms(lambda: pooling.fused_masked_stats(x)),
+        "plain_ms": cuda_ms(lambda: pooling.masked_stats_reference(x),
+                            iters=5),
+        "library_ms": cuda_ms(lambda: torch.std_mean(x, dim=1,
+                                                     correction=1))}}
+    res["softmax"]["bound_ms"], res["softmax"]["bound_by"] = bound(
+        *softmax_stats(B, T, REDIM_D, logit_bytes=logits.element_size(),
+                       x_bytes=x.element_size()), PEAK_F32_FLOPS)
+    res["masked"]["bound_ms"], res["masked"]["bound_by"] = bound(
+        *masked_stats(B, T, REDIM_D, x_bytes=x.element_size(),
+                      masked=False), PEAK_F32_FLOPS)
+    del logits, x
+    _, xt, _ = pool_inputs(rng, B, *RESNET_TSTP, io, dev)
+    tstp = {"ms": cuda_ms(lambda: pooling.fused_masked_stats(xt)),
+            "plain_ms": cuda_ms(lambda: pooling.masked_stats_reference(xt),
+                                iters=5),
+            "library_ms": cuda_ms(lambda: torch.std_mean(xt, dim=1,
+                                                         correction=1)),
+            "bound_ms": bound(*masked_stats(B, *RESNET_TSTP, masked=False),
+                              PEAK_F32_FLOPS)[0]}
+    del xt
+
+    def rates(m, fbank):
+        out = {}
+        wav = torch.as_tensor(np.stack([voice(rng, CHUNK_SAMPLES)
+                                        for _ in range(B)]), device=dev)
+        for path, fused in (("kernel", None), ("plain", False)):
+            embed = make_eval_embed_fn(set_pooling_fused(m, fused), fbank,
+                                       compute_dtype=io, fbank_conv_dtype=io,
+                                       device=dev)
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
+            out[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms,
+                         torch.cuda.max_memory_allocated() / 2**30)
+        set_pooling_fused(m, None)
+        return out
+
+    redim = rates(model, REDIM_FBANK)
+    resnet = random_resnet(dev, calibrate=False)
+    res34 = rates(resnet, FbankConfig())
+    del resnet
+    torch.cuda.empty_cache()
+
+    def fmt_kernel(name, v):
+        lib = ("" if v["library_ms"] is None
+               else f", torch.std_mean {v['library_ms']:.4f}")
+        return (f"{name} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}{lib}, "
+                f"bound {v['bound_ms']:.4f})")
+
+    def fmt_rates(r):
+        return ", ".join(f"{k} {v[0]:.1f} audio-s/s ({v[1]:.2f} ms/batch, "
+                         f"peak {v[2]:.1f} GiB)" for k, v in r.items())
+
+    print(f"redimnet timing [{smi}] B={B} T={T} bf16: "
+          f"{fmt_kernel(f'softmax_stats D={REDIM_D}', res['softmax'])} by "
+          f"{res['softmax']['bound_by']}; "
+          f"{fmt_kernel(f'masked_stats D={REDIM_D}', res['masked'])} by "
+          f"{res['masked']['bound_by']}; "
+          f"{fmt_kernel('masked_stats ResNet34 TSTP T=25 D=2560', tstp)}; "
+          f"ReDimNetB2 extraction (kernel = pooling kernels, plain = "
+          f"fused=False pooling) {fmt_rates(redim)}; ResNet34 extraction "
+          f"{fmt_rates(res34)}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -1856,6 +2230,15 @@ def main():
     phase_resnet_train(dev)
     launches["dw"] = phase_resnet_trainer(dev)["dw"]
     timing.update(phase_resnet_timing(dev, smi))
+    phase_family_train(dev)
+    errs.update(phase_pool_kernels(dev))
+    redim = random_redimnet(dev)
+    pool_launches = phase_redimnet_slice(redim, dev)
+    launches.update(softmax=pool_launches["softmax"],
+                    masked=pool_launches["masked"])
+    phase_redimnet_serving(dev)
+    timing.update(phase_redimnet_timing(redim, dev, smi))
+    del redim
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),
@@ -1872,7 +2255,11 @@ def main():
             ("fused_res2_chain", "res2", csrc + "se_block.cu",
              ops + "res2_pallas.py:137"),
             ("dw_pack", "dw", csrc + "conv_dw_pack.cu",
-             ops + "conv_dw_pack.py:119")]
+             ops + "conv_dw_pack.py:119"),
+            ("fused_softmax_stats", "softmax", csrc + "pooling.cu",
+             ops + "pooling_pallas.py:62"),
+            ("fused_masked_stats", "masked", csrc + "pooling.cu",
+             ops + "pooling_pallas.py:113")]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

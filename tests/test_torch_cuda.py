@@ -16,8 +16,8 @@ import pytest
 import torch
 
 from wespeaker_tpu_torch.ops import (cam_block, conv_dw_pack, inv_bottleneck,
-                                     mfa_astp, mfa_astp_vjp, res2_chain,
-                                     se_block)
+                                     mfa_astp, mfa_astp_vjp, pooling,
+                                     res2_chain, se_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -560,3 +560,106 @@ def test_resnet34_packed_grads_match_native(cuda, dtype):
                    (g.double() * want).sum()) / (g.double().norm()
                                                  * want.norm())
             assert cos >= 0.999, (n, cos.item())
+
+
+# ---- statistics pooling (ASTP's softmax tail, the masked mean and std) ----
+
+# (dtype, B, T, D, masked): ReDimNetB2's pooling width at a small batch,
+# ResNet34's TSTP width, ReDimNetB0's unaligned D = 600 with a ragged mask
+# and one utterance with no valid frame, a wide-B, narrow-D case
+POOL_CASES = [(torch.bfloat16, 4, 200, 1152, False),
+              (torch.bfloat16, 3, 25, 2560, True),
+              (torch.float32, 3, 198, 600, True),
+              (torch.float32, 70, 33, 40, False)]
+
+
+def pool_args(rng, b, t, d, dtype, device, masked):
+    def r(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=device).to(dtype)
+
+    mask = None
+    if masked:
+        lens = rng.integers(t // 2, t + 1, b)
+        lens[0], lens[-1] = t, 0  # the last utterance has no valid frame
+        mask = torch.as_tensor((np.arange(t)[None] < lens[:, None]).astype(
+            np.float32), device=device)
+    return r(b, t, d), r(b, t, d), mask
+
+
+def assert_stats_match(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert_matches(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype,b,t,d,masked", POOL_CASES)
+def test_softmax_stats_kernel_matches_plain(cuda, dtype, b, t, d, masked):
+    logits, x, mask = pool_args(np.random.default_rng(20), b, t, d, dtype,
+                                cuda, masked)
+    for lg in (logits, logits.float()):  # logits in x's type and in f32
+        before = pooling.fused_softmax_stats.launches
+        got = pooling.fused_softmax_stats(lg, x, mask)
+        torch.cuda.synchronize()
+        assert pooling.fused_softmax_stats.launches == before + 1
+        assert_stats_match(got, pooling.softmax_stats_reference(lg, x, mask),
+                           dtype)
+    pooled = pooling.fused_softmax_stats(logits, x, mask, concat=True)
+    assert torch.equal(pooled, torch.cat(got, -1))
+
+
+@pytest.mark.parametrize("ddof", [0, 1])
+@pytest.mark.parametrize("dtype,b,t,d,masked", POOL_CASES)
+def test_masked_stats_kernel_matches_plain(cuda, dtype, b, t, d, masked,
+                                           ddof):
+    _, x, mask = pool_args(np.random.default_rng(21), b, t, d, dtype, cuda,
+                           masked)
+    before = pooling.fused_masked_stats.launches
+    got = pooling.fused_masked_stats(x, mask, ddof=ddof)
+    torch.cuda.synchronize()
+    assert pooling.fused_masked_stats.launches == before + 1
+    assert_stats_match(got, pooling.masked_stats_reference(x, mask, ddof),
+                       dtype)
+
+
+def test_pooling_kernels_refuse(cuda):
+    """No fallback on the card: no backward, no other type, no strided
+    operand, no mask of another shape."""
+    logits, x, _ = pool_args(np.random.default_rng(22), 2, 16, 128,
+                             torch.float32, cuda, False)
+    with pytest.raises(RuntimeError, match="no backward"):
+        pooling.fused_masked_stats(x.clone().requires_grad_())
+    with pytest.raises(RuntimeError, match="no backward"):
+        pooling.fused_softmax_stats(logits.clone().requires_grad_(), x)
+    with pytest.raises(TypeError):
+        pooling.fused_masked_stats(x.half())
+    with pytest.raises(TypeError):
+        pooling.fused_softmax_stats(logits, x.double())
+    with pytest.raises(ValueError):
+        pooling.fused_masked_stats(x.transpose(0, 1))
+    with pytest.raises(ValueError):
+        pooling.fused_softmax_stats(logits, x,
+                                    torch.ones(2, 15, device=cuda))
+
+
+def test_redimnet_pooling_kernels_match_plain_pooling(cuda):
+    """ReDimNetB0 (D = 600, not a multiple of 128) in eval: one launch of
+    each pooling kernel per forward, against fused=False pooling on the
+    same card, f32 with a ragged mask."""
+    from wespeaker_tpu_torch.models.pooling_layers import set_pooling_fused
+    from wespeaker_tpu_torch.models.redimnet import ReDimNetB0
+
+    torch.manual_seed(0)
+    model = ReDimNetB0(60, 192).to(cuda).eval()
+    x = torch.as_tensor(np.random.default_rng(23).standard_normal(
+        (3, 150, 60)).astype(np.float32), device=cuda)
+    mask = torch.ones(3, 150, device=cuda)
+    mask[1, 110:] = 0
+    with torch.inference_mode():
+        s0 = pooling.fused_softmax_stats.launches
+        m0 = pooling.fused_masked_stats.launches
+        got = model(x, mask)
+        assert pooling.fused_softmax_stats.launches == s0 + 1
+        assert pooling.fused_masked_stats.launches == m0 + 1
+        want = set_pooling_fused(model, False)(x, mask)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -1,7 +1,7 @@
 """The bounds that PERF.md's kernel table gives the TPU kernels
-(wespeaker_tpu_torch/bin/kernel_bounds.py: the rows still to port, and the
-counts chip_smoke.py takes for the ported ones): the arithmetic on shapes
-whose counts are known by hand."""
+(wespeaker_tpu_torch/bin/kernel_bounds.py: the statistics-pooling rows at
+their paths' shapes, and the counts chip_smoke.py takes for every kernel):
+the arithmetic on shapes whose counts are known by hand."""
 
 import pytest
 
@@ -47,10 +47,32 @@ def test_cam_block_counts_by_hand():
 
 
 def test_every_unported_row_has_a_bound(capsys):
+    """No row is left to port: the tool prints the pooling rows (6, 7) at
+    the shapes of the paths that run them."""
     kb.main()
     lines = capsys.readouterr().out.splitlines()
-    assert [ln.split()[1] for ln in lines] == ["6", "7"]
+    assert [ln.split()[1] for ln in lines] == ["6", "6", "7", "7"]
     assert all(" ms (" in ln for ln in lines)
+
+
+def test_pooling_bounds_by_hand():
+    # ReDimNetB2's ASTP at B=512 x 200 frames, D = 16 * 72 = 1152: row 6
+    # reads bf16 logits and x once (f32 logits: 6 bytes an element), row 7
+    # x once; both write (B, 2D) f32; both bound by bytes
+    m = 512 * 200
+    flops, nbytes = kb.softmax_stats(512, 200, 1152)
+    assert nbytes == m * 1152 * 4 + 512 * 2 * 1152 * 4
+    ms, by = kb.bound(flops, nbytes, kb.PEAK_F32_FLOPS)
+    assert by == "bytes" and round(ms, 3) == 0.142
+    ms, _ = kb.bound(*kb.softmax_stats(512, 200, 1152, logit_bytes=4),
+                     kb.PEAK_F32_FLOPS)
+    assert round(ms, 3) == 0.213
+    flops, nbytes = kb.masked_stats(512, 200, 1152)
+    assert nbytes == m * (1152 * 2 + 4) + 512 * 2 * 1152 * 4
+    assert round(kb.bound(flops, nbytes, kb.PEAK_F32_FLOPS)[0], 3) == 0.072
+    # ResNet34's TSTP: T' = 25, D = 2560
+    assert round(kb.bound(*kb.masked_stats(512, 25, 2560),
+                          kb.PEAK_F32_FLOPS)[0], 3) == 0.023
 
 
 def test_inv_bottleneck_stage_counts_by_hand():

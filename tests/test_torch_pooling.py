@@ -1,0 +1,198 @@
+"""Port parity for the statistics-pooling kernels' plain versions and the
+pooling layers' kernel route, against the JAX package on the same numpy
+inputs, in f32 on the CPU.
+
+- softmax_stats_reference and masked_stats_reference against JAX's Pallas
+  kernels (wespeaker_tpu/ops/pooling_pallas.py) in interpret mode, as
+  tests/test_pallas_ops.py runs them: D = 128 and 256, B = 3 (the JAX
+  kernels pad B to 8), with and without a mask (JAX's softmax kernel takes
+  no mask: the masked logits go in at -1e30, as ASTP sets them), ddof 0
+  and 1; rtol/atol 1e-5 (f32 sums in another order over T <= 50).
+- At D = 600, which the JAX kernels do not take (D % 128 != 0), the plain
+  versions against JAX's jnp `pooling_layers._std` and ASTP tail, with an
+  utterance that has no valid frame (uniform softmax weights); 1e-5.
+- TSDP, TSTP and ASTP (with and without global context) in eval with
+  autograd off, which routes them through ops.pooling (the plain versions
+  on the CPU), against JAX's flax layers at 1e-5, with no kernel launch;
+  the same layers in training and under autograd take the plain path.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+pytest.importorskip("flax")  # the JAX package needs both
+import jax.numpy as jnp  # noqa: E402
+
+from wespeaker_tpu.models import pooling_layers as jpool  # noqa: E402
+from wespeaker_tpu.ops import pooling_pallas  # noqa: E402
+from wespeaker_tpu_torch.models import pooling_layers as tpool  # noqa: E402
+from wespeaker_tpu_torch.ops import pooling  # noqa: E402
+from wespeaker_tpu_torch.utils import weights  # noqa: E402
+
+torch.set_num_threads(2)
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _inputs(seed, b, t, d, masked, empty=False):
+    rng = np.random.default_rng(seed)
+    logits = (2 * rng.normal(size=(b, t, d))).astype(np.float32)
+    x = (rng.normal(size=(b, t, d)) + 0.5).astype(np.float32)
+    mask = None
+    if masked:
+        lens = rng.integers(t // 3, t, b)
+        lens[0] = t
+        if empty:
+            lens[-1] = 0
+        mask = (np.arange(t)[None] < lens[:, None]).astype(np.float32)
+    return logits, x, mask
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [128, 256])
+def test_softmax_stats_twin_matches_pallas(d, masked):
+    logits, x, mask = _inputs(d + masked, 3, 50, d, masked)
+    jlogits = jnp.asarray(logits)
+    if masked:
+        jlogits = jnp.where(jnp.asarray(mask)[..., None] > 0, jlogits, -1e30)
+    want = pooling_pallas.fused_softmax_stats(jlogits, jnp.asarray(x),
+                                              interpret=True)
+    got = pooling.softmax_stats_reference(_t(logits), _t(x), _t(mask))
+    _close(got, want)
+    # the wrapper on a CPU tensor takes the twin, without a launch
+    before = pooling.fused_softmax_stats.launches
+    _close(pooling.fused_softmax_stats(_t(logits), _t(x), _t(mask)), want)
+    assert pooling.fused_softmax_stats.launches == before
+
+
+@pytest.mark.parametrize("ddof", [0, 1])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("d", [128, 256])
+def test_masked_stats_twin_matches_pallas(d, masked, ddof):
+    _, x, mask = _inputs(d + 2 * masked + ddof, 3, 41, d, masked)
+    want = pooling_pallas.fused_masked_stats(
+        jnp.asarray(x), None if mask is None else jnp.asarray(mask),
+        ddof=ddof, interpret=True)
+    _close(pooling.masked_stats_reference(_t(x), _t(mask), ddof), want)
+    before = pooling.fused_masked_stats.launches
+    pooled = pooling.fused_masked_stats(_t(x), _t(mask), ddof, concat=True)
+    assert pooled.shape == (3, 2 * d)
+    _close((pooled[:, :d], pooled[:, d:]), want)
+    assert pooling.fused_masked_stats.launches == before
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_twins_take_unaligned_width(masked):
+    """D = 600 (ReDimNetB0's pooling width), which the TPU kernels refuse:
+    the twins against JAX's jnp _std and ASTP tail, an utterance with no
+    valid frame included."""
+    logits, x, mask = _inputs(600 + masked, 3, 47, 600, masked, empty=True)
+    jm = None if mask is None else jnp.asarray(mask)
+    _close(pooling.masked_stats_reference(_t(x), _t(mask)),
+           jpool._std(jnp.asarray(x), jm, ddof=1))
+    a = jnp.asarray(logits)
+    if masked:
+        a = jnp.where(jm[..., None] > 0, a, -1e30)
+    w = jax.nn.softmax(a, axis=1)
+    mean = jnp.sum(w * x, axis=1)
+    std = jnp.sqrt(jnp.clip(jnp.sum(w * x ** 2, axis=1) - mean ** 2,
+                            min=1e-7))
+    got = pooling.softmax_stats_reference(_t(logits), _t(x), _t(mask))
+    _close(got, (mean, std))
+    if masked:  # no valid frame: uniform weights over all T frames
+        np.testing.assert_allclose(got[0][-1].numpy(), x[-1].mean(0),
+                                   **TOL)
+
+
+def test_wrappers_check_shapes_on_every_device():
+    x = torch.zeros(2, 5, 8)
+    with pytest.raises(ValueError):
+        pooling.fused_masked_stats(x, torch.ones(2, 4))
+    with pytest.raises(ValueError):
+        pooling.fused_softmax_stats(torch.zeros(2, 5, 7), x)
+    with pytest.raises(ValueError):
+        pooling.fused_masked_stats(x[0])
+
+
+def _layer_pair(kind, d, rng):
+    """(flax module, numpy variables, port layer loaded from them)."""
+    if kind == "ASTP_glob":
+        jl = jpool.ASTP(d, bottleneck_dim=16, global_context_att=True)
+        tl = tpool.ASTP(d, bottleneck_dim=16, global_context_att=True)
+    elif kind == "ASTP":
+        jl = jpool.ASTP(d, bottleneck_dim=16)
+        tl = tpool.ASTP(d, bottleneck_dim=16)
+    else:
+        jl, tl = getattr(jpool, kind)(d), getattr(tpool, kind)(d)
+    variables = jax.device_get(jl.init(jax.random.PRNGKey(0),
+                                       jnp.zeros((1, 4, d))))
+    params = jax.tree_util.tree_map(
+        lambda v: np.asarray(v) + 0.1 * rng.normal(size=v.shape).astype(
+            np.float32), variables.get("params", {}))
+    tl.load_state_dict(weights.from_jax_variables({"params": params}, kind),
+                       strict=True)
+    return jl, {"params": params}, tl.eval()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("kind", ["TSDP", "TSTP", "ASTP", "ASTP_glob"])
+def test_pooling_layers_kernel_route_matches_jax(kind, masked):
+    rng = np.random.default_rng(len(kind) + masked)
+    d = 24
+    _, x, mask = _inputs(7, 3, 30, d, masked, empty=True)
+    jl, variables, tl = _layer_pair(kind, d, rng)
+    want = np.asarray(jl.apply(variables, jnp.asarray(x),
+                               None if mask is None else jnp.asarray(mask)))
+    calls = []
+    for name in ("fused_masked_stats", "fused_softmax_stats"):
+        fn = getattr(tpool, name)
+
+        def counting(*a, _fn=fn, _name=name, **k):
+            calls.append(_name)
+            return _fn(*a, **k)
+        setattr(tpool, name, counting)
+    before = (pooling.fused_masked_stats.launches,
+              pooling.fused_softmax_stats.launches)
+    try:
+        with torch.no_grad():
+            got = tl(_t(x), _t(mask))
+        route = list(calls)
+        with torch.enable_grad():  # autograd on: the plain path
+            plain = tl(_t(x), _t(mask)).detach()
+        tl.train()
+        with torch.no_grad():  # training: the plain path
+            plain_train = tl(_t(x), _t(mask))
+    finally:
+        tpool.fused_masked_stats = pooling.fused_masked_stats
+        tpool.fused_softmax_stats = pooling.fused_softmax_stats
+    assert route == {"TSDP": ["fused_masked_stats"],
+                     "TSTP": ["fused_masked_stats"],
+                     "ASTP": ["fused_softmax_stats"],
+                     "ASTP_glob": ["fused_masked_stats",
+                                   "fused_softmax_stats"]}[kind]
+    assert calls == route
+    assert (pooling.fused_masked_stats.launches,
+            pooling.fused_softmax_stats.launches) == before
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(plain.numpy(), want, **TOL)
+    np.testing.assert_allclose(plain_train.numpy(), want, **TOL)
+
+
+def test_set_pooling_fused_reaches_every_stats_layer():
+    model = torch.nn.ModuleDict({"a": tpool.TSTP(8), "b": tpool.ASTP(8),
+                                 "c": tpool.TSDP(8), "d": tpool.TAP(8)})
+    tpool.set_pooling_fused(model, False)
+    assert [getattr(m, "fused", "none") for m in model.values()] == [
+        False, False, False, "none"]

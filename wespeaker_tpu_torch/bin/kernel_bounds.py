@@ -1,6 +1,6 @@
-"""Least time an H100 could take for each TPU kernel of the JAX package that
-the port has not ported yet, from its shapes at the configuration whose
-path runs it (PERF.md rows 6 and 7).
+"""Least time an H100 could take for the statistics-pooling kernels (PERF.md
+rows 6 and 7), from their shapes on the paths that run them: ReDimNetB2's
+ASTP with global context, and ResNet34's TSTP.
 
     python -m wespeaker_tpu_torch.bin.kernel_bounds
 
@@ -13,10 +13,10 @@ TFLOP/s f32 outside them, 3.35 TB/s. Activations and matrices are bf16
 f32 outputs 4 bytes. Products count a multiply-add as two operations and
 only the live work (a CAM layer's zero-padded input rows, a segment's
 repeated context, are not counted); the stats kernels count their f32
-operations per element. chip_smoke.py computes the ported kernels' bounds
-from its own inputs with the same `bound` (and, for the ported Res2 chain,
-CAM++ dense block, Gemini stage and tap-packed dW, with `res2_chain`,
-`cam_dense_block`, `inv_bottleneck_stage` and `dw_pack`).
+operations per element. chip_smoke.py computes every kernel's bound from
+its own inputs with the same `bound` (with `res2_chain`,
+`cam_dense_block`, `inv_bottleneck_stage`, `dw_pack`, `softmax_stats` and
+`masked_stats` for the kernels they name).
 """
 
 import math
@@ -44,18 +44,21 @@ def res2_chain(b, t, c, scale=8):
     return flops, nbytes
 
 
-def softmax_stats(b, t, d):
-    """ops/pooling_pallas.py::fused_softmax_stats: f32 logits and bf16 x
-    (B, T, D) -> mean, std (B, D) f32; ~8 f32 operations per element (max,
-    exp, three products, three sums)."""
-    return 8 * b * t * d, b * t * d * (F32 + BF16) + 2 * b * d * F32
+def softmax_stats(b, t, d, logit_bytes=BF16, x_bytes=BF16, masked=False):
+    """ops/pooling_pallas.py::fused_softmax_stats: logits and x (B, T, D),
+    an optional (B, T) f32 mask -> mean, std (B, D) f32; ~8 f32 operations
+    per element (max, exp, three products, three sums)."""
+    return (8 * b * t * d, b * t * (d * (logit_bytes + x_bytes)
+                                     + (F32 if masked else 0))
+            + 2 * b * d * F32)
 
 
-def masked_stats(b, t, d):
-    """ops/pooling_pallas.py::fused_masked_stats: x (B, T, D) bf16 and a
-    (B, T) f32 mask -> mean, std (B, D) f32; ~6 f32 operations per
-    element."""
-    return 6 * b * t * d, b * t * (d * BF16 + F32) + 2 * b * d * F32
+def masked_stats(b, t, d, x_bytes=BF16, masked=True):
+    """ops/pooling_pallas.py::fused_masked_stats: x (B, T, D) and an
+    optional (B, T) f32 mask -> mean, std (B, D) f32; ~6 f32 operations
+    per element."""
+    return (6 * b * t * d,
+            b * t * (d * x_bytes + (F32 if masked else 0)) + 2 * b * d * F32)
 
 
 def cam_dense_block(b, t, c0, num_layers, seg_len=100, growth=32, bn=128):
@@ -97,12 +100,21 @@ def dw_pack(b, h, w, ci, co):
 # (PERF.md row, kernel, configuration, [(call, flops, bytes, peak)])
 ROWS = [
     (6, "fused_softmax_stats",
-     "ASTP of ECAPA_TDNN_GLOB_c512 (no model calls it), B=512 x 200 "
-     "frames, D=1536",
-     [("call", *softmax_stats(512, 200, 1536), PEAK_F32_FLOPS)]),
+     "ASTP of ReDimNetB2, B=512 x 200 frames, D=16*72=1152, bf16 logits "
+     "and x, with a mask",
+     [("call", *softmax_stats(512, 200, 1152, masked=True),
+       PEAK_F32_FLOPS)]),
+    (6, "fused_softmax_stats",
+     "the same with f32 logits",
+     [("call", *softmax_stats(512, 200, 1152, logit_bytes=F32, masked=True),
+       PEAK_F32_FLOPS)]),
     (7, "fused_masked_stats",
-     "TSTP of ResNet34 (no model calls it), B=512 x 200 frames: T=25, "
-     "D=32*8*10=2560",
+     "ASTP global context of ReDimNetB2, B=512 x 200 frames, D=1152, "
+     "with a mask",
+     [("call", *masked_stats(512, 200, 1152), PEAK_F32_FLOPS)]),
+    (7, "fused_masked_stats",
+     "TSTP of ResNet34, B=512 x 200 frames: T=25, D=32*8*10=2560, with a "
+     "mask",
      [("call", *masked_stats(512, 25, 2560), PEAK_F32_FLOPS)]),
 ]
 

@@ -1,21 +1,24 @@
 """Device-time breakdown of the extraction forward on the card.
 
     python -m wespeaker_tpu_torch.bin.profile_extract [--batch 512] [--plain]
-        [--model ECAPA_TDNN_GLOB_c512|CAMPPlus|Gemini_DF_ResNet114|ResNet34]
+        [--model ECAPA_TDNN_GLOB_c512|CAMPPlus|Gemini_DF_ResNet114|ResNet34|
+                 ReDimNetB2]
 
 Builds the model (ECAPA_TDNN_GLOB_c512, embed 192, by default; CAMPPlus at
 campplus.yaml's width: feat 80, embed 512, TSTP; Gemini_DF_ResNet114 at
 gemini_dfresnet_adam.yaml's: feat 80, embed 256, TSTP; ResNet34 at
-resnet.yaml's: feat 80, embed 256, TSTP) with random
+resnet.yaml's: feat 80, embed 256, TSTP; ReDimNetB2 at redimnet.yaml's:
+feat 72 (72-bin fbank), embed 192, ASTP) with random
 weights, runs make_eval_embed_fn in bf16 over 2 s chunks (32,240 samples)
 and prints, for one forward after warm-up, the device time of every CUDA
 kernel name (torch.profiler), its share of the total and its launch
 count, then the forward's wall time from
 CUDA events and the share of it the device was busy, and the device
 time by kernel family (the port's kernels, cuDNN/cuBLAS, PyTorch's own,
-copies). --plain profiles the layer-by-layer path instead of the kernel
-path; ResNet34 has one path (no kernel in its extraction) and takes no
---plain.
+copies). --plain profiles the plain path instead of the kernel path: the
+model's `set_fused(False)` where it has one, and plain statistics pooling
+(`set_pooling_fused(model, False)`) in every model; ResNet34's only kernel
+in extraction is its TSTP's masked stats.
 """
 
 import argparse
@@ -27,13 +30,16 @@ from torch.profiler import ProfilerActivity, profile
 from wespeaker_tpu_torch.device import resolve_device
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig
 from wespeaker_tpu_torch.models import get_speaker_model
+from wespeaker_tpu_torch.models.pooling_layers import set_pooling_fused
 from wespeaker_tpu_torch.train import make_eval_embed_fn
 
 CHUNK_SAMPLES = (200 - 1) * 160 + 400
-# feat_dim, embed_dim of each model profiled: bench.py's ECAPA,
-# examples/voxceleb/v2/conf/campplus.yaml and gemini_dfresnet_adam.yaml
+# feat_dim (the fbank's bins), embed_dim of each model profiled: bench.py's
+# ECAPA, examples/voxceleb/v2/conf/campplus.yaml, gemini_dfresnet_adam.yaml,
+# resnet.yaml and redimnet.yaml
 MODEL_ARGS = {"ECAPA_TDNN_GLOB_c512": (80, 192), "CAMPPlus": (80, 512),
-              "Gemini_DF_ResNet114": (80, 256), "ResNet34": (80, 256)}
+              "Gemini_DF_ResNet114": (80, 256), "ResNet34": (80, 256),
+              "ReDimNetB2": (72, 192)}
 
 
 def _device_us(evt) -> float:
@@ -105,12 +111,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     torch.manual_seed(0)
-    model = get_speaker_model(args.model)(*MODEL_ARGS[args.model])
+    feat_dim, embed_dim = MODEL_ARGS[args.model]
+    model = get_speaker_model(args.model)(feat_dim, embed_dim)
     if hasattr(model, "set_fused"):
         model.set_fused(not args.plain)
-    elif args.plain:
-        ap.error(f"{args.model} has no kernel path to leave out")
-    embed = make_eval_embed_fn(model, FbankConfig(),
+    set_pooling_fused(model, not args.plain)
+    embed = make_eval_embed_fn(model, FbankConfig(num_mel_bins=feat_dim),
                                compute_dtype=torch.bfloat16,
                                fbank_conv_dtype=torch.bfloat16, device=dev)
     wav = torch.as_tensor(np.random.default_rng(0).uniform(

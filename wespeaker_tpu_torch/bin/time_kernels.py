@@ -9,7 +9,10 @@ dense blocks of one CAMPPlus forward at B=512, T'=100; the four stages of
 one Gemini_DF_ResNet114 forward at B=512 x 200 frames; the Res2 chain of
 one ECAPA c512 block at B=512, T=200; the 14 tap-packed dW calls of one
 ResNet34 train step at B=128 x 200 frames: the stem, six layer1 and seven
-layer2 convs), timed with CUDA events after warm-up. Prints the card and
+layer2 convs; the two statistics-pooling kernels at ReDimNetB2's ASTP
+shape, B=512 x 200 frames, D=1152, and the masked stats also at
+ResNet34's TSTP shape, T'=25, D=2560), timed with CUDA events after
+warm-up. Prints the card and
 one JSON line {kernel: ms}. A kernel the package does not have is left
 out, so the same file times an older checkout: run it with that checkout
 first on PYTHONPATH to compare two trees in one call (old, new, new,
@@ -153,6 +156,18 @@ def main(argv=None):
             total += calls * cuda_ms(lambda: dw.dw_pack(x, dy), args.iters)
             del x, dy
         out["dw"] = total
+    pool = _ops("pooling")
+    if pool is not None:
+        logits, x = r(b, t, 1152, dtype=io), r(b, t, 1152, dtype=io)
+        out["softmax"] = cuda_ms(lambda: pool.fused_softmax_stats(logits, x),
+                                 args.iters)
+        out["masked"] = cuda_ms(lambda: pool.fused_masked_stats(x),
+                                args.iters)
+        del logits, x
+        x = r(b, 25, 2560, dtype=io)
+        out["masked_tstp"] = cuda_ms(lambda: pool.fused_masked_stats(x),
+                                     args.iters)
+        del x
     print(torch.cuda.get_device_name(0))
     print(json.dumps(out))
 

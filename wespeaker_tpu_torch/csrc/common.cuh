@@ -20,9 +20,11 @@
 //   (128, or 64 and 32 for narrow outputs) are template parameters, so no
 //   GEMM compiles another's branches. The grid is one-dimensional, column
 //   tiles fastest, so any m < 2^31 launches.
-// - col_stats: masked mean (and unbiased std + 1e-7) over T of (B, T, C),
-//   one thread per (utterance, channel).
-// - softmax_stats: ASTP's softmax over T and the weighted mean and std.
+// - col_stats: masked mean (and ddof-adjusted std + 1e-7) over T of
+//   (B, T, C), one thread per (utterance, channel), output in any type at
+//   any row stride.
+// - softmax_stats: ASTP's softmax over T and the weighted mean and std,
+//   logits in f32 or bf16.
 // - gemm_tn: C[M, N] = A^T B with A (K, M) and B (K, N) row-major, the
 //   weight-gradient product whose reduction runs over K = B*T rows. K is
 //   split across blocks (split-K); each split writes its f32 partial to a
@@ -381,16 +383,18 @@ inline GemmArgs gemm_args(const void* a0, const void* a1, const void* a2,
   return p;
 }
 
-// ---- masked mean / unbiased std over T ----
+// ---- masked mean / std over T ----
 
-// h: (b, t, c); mask: (b, t) f32 or null. mean_out/std_out: (b, c) in T.
+// h: (b, t, c); mask: (b, t) f32 or null. Utterance i's mean starts at
+// mean_out + i * ld and its std at std_out + i * ld (ld 0: c), in TO.
 // mean = sum(h * m) / max(sum(m), 1)   (plain mean over t when unmasked)
-// std  = sqrt(sum((h - mean)^2 * m) / max(count - 1, 1) + 1e-7)
-template <typename T>
+// std  = sqrt(sum((h - mean)^2 * m) / max(count - ddof, 1) + 1e-7)
+template <typename T, typename TO>
 __global__ void col_stats_kernel(const T* __restrict__ h,
                                  const float* __restrict__ mask,
-                                 T* __restrict__ mean_out,
-                                 T* __restrict__ std_out, int t, int c) {
+                                 TO* __restrict__ mean_out,
+                                 TO* __restrict__ std_out, int t, int c,
+                                 int ld, int ddof) {
   const int b = blockIdx.y;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= c) return;
@@ -402,9 +406,8 @@ __global__ void col_stats_kernel(const T* __restrict__ h,
     s += to_f(hb[(size_t)i * c]) * m;
     cnt += m;
   }
-  const float denom = mb ? fmaxf(cnt, 1.f) : (float)t;
-  const float mean = s / denom;
-  mean_out[(size_t)b * c + col] = from_f<T>(mean);
+  const float mean = s / (mb ? fmaxf(cnt, 1.f) : (float)t);
+  mean_out[(size_t)b * ld + col] = from_f<TO>(mean);
   if (!std_out) return;
   float q = 0.f;
   for (int i = 0; i < t; ++i) {
@@ -412,16 +415,24 @@ __global__ void col_stats_kernel(const T* __restrict__ h,
     const float dv = to_f(hb[(size_t)i * c]) - mean;
     q += dv * dv * m;
   }
-  std_out[(size_t)b * c + col] =
-      from_f<T>(sqrtf(q / fmaxf(denom - 1.f, 1.f) + 1e-7f));
+  const float count = mb ? cnt : (float)t;
+  std_out[(size_t)b * ld + col] =
+      from_f<TO>(sqrtf(q / fmaxf(count - (float)ddof, 1.f) + 1e-7f));
 }
 
-template <typename T>
-cudaError_t col_stats(const T* h, const float* mask, T* mean_out, T* std_out,
-                      int b, int t, int c, cudaStream_t stream) {
+// TO is deduced from mean_out alone, so std_out may be nullptr.
+template <typename X>
+struct non_deduced {
+  using type = X;
+};
+
+template <typename T, typename TO>
+cudaError_t col_stats(const T* h, const float* mask, TO* mean_out,
+                      typename non_deduced<TO>::type* std_out, int b, int t,
+                      int c, cudaStream_t stream, int ddof = 1, int ld = 0) {
   const dim3 grid((c + 127) / 128, b);
-  col_stats_kernel<T><<<grid, 128, 0, stream>>>(h, mask, mean_out, std_out,
-                                                t, c);
+  col_stats_kernel<T, TO><<<grid, 128, 0, stream>>>(
+      h, mask, mean_out, std_out, t, c, ld ? ld : c, ddof);
   return cudaGetLastError();
 }
 
@@ -429,28 +440,32 @@ cudaError_t col_stats(const T* h, const float* mask, T* mean_out, T* std_out,
 
 // Softmax over T per (utterance, channel) and the weighted mean and std of
 // h, one thread per channel, two passes over T: the max, then the sums of
-// e, e*h and e*h^2 with e = exp(logit - max). Masked frames (mask may be
-// null) take the logit -1e30, as in the JAX kernel. out: (b, 2d) f32
+// e, e*h and e*h^2 with e = exp(logit - max). Logits are read in TL (f32,
+// or bf16 where the caller computed them in bf16). Masked frames (mask may
+// be null) take the logit -1e30, as in the JAX kernel, so an utterance
+// with no valid frame gets uniform weights. out: (b, 2d) f32
 // [mean | sqrt(max(var, 1e-7))].
-template <typename T>
-__global__ void softmax_stats_kernel(const float* __restrict__ logits,
+template <typename T, typename TL>
+__global__ void softmax_stats_kernel(const TL* __restrict__ logits,
                                      const T* __restrict__ h,
                                      const float* __restrict__ mask,
                                      float* __restrict__ out, int t, int d) {
   const int b = blockIdx.y;
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= d) return;
-  const float* lb = logits + (size_t)b * t * d + col;
+  const TL* lb = logits + (size_t)b * t * d + col;
   const T* hb = h + (size_t)b * t * d + col;
   const float* mb = mask ? mask + (size_t)b * t : nullptr;
   float mx = -3.0e38f;  // below any logit, masked ones included
   for (int i = 0; i < t; ++i) {
-    const float a = (mb && !(mb[i] > 0.f)) ? -1e30f : lb[(size_t)i * d];
+    const float a =
+        (mb && !(mb[i] > 0.f)) ? -1e30f : to_f(lb[(size_t)i * d]);
     mx = fmaxf(mx, a);
   }
   float s = 0.f, s1 = 0.f, s2 = 0.f;
   for (int i = 0; i < t; ++i) {
-    const float a = (mb && !(mb[i] > 0.f)) ? -1e30f : lb[(size_t)i * d];
+    const float a =
+        (mb && !(mb[i] > 0.f)) ? -1e30f : to_f(lb[(size_t)i * d]);
     const float e = expf(a - mx);
     const float hv = to_f(hb[(size_t)i * d]);
     s += e;
@@ -463,13 +478,13 @@ __global__ void softmax_stats_kernel(const float* __restrict__ logits,
   out[(size_t)b * 2 * d + d + col] = sqrtf(fmaxf(var, 1e-7f));
 }
 
-template <typename T>
-cudaError_t softmax_stats(const float* logits, const T* h, const float* mask,
+template <typename T, typename TL>
+cudaError_t softmax_stats(const TL* logits, const T* h, const float* mask,
                           float* out, int b, int t, int d,
                           cudaStream_t stream) {
   const dim3 grid((d + 127) / 128, b);
-  softmax_stats_kernel<T><<<grid, 128, 0, stream>>>(logits, h, mask, out, t,
-                                                    d);
+  softmax_stats_kernel<T, TL><<<grid, 128, 0, stream>>>(logits, h, mask, out,
+                                                        t, d);
   return cudaGetLastError();
 }
 

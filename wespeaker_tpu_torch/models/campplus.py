@@ -29,7 +29,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from wespeaker_tpu_torch.models.layers import (batch_norm, conv1d, conv2d,
-                                               fold_bn, masked_mean)
+                                               fold_bn, masked_mean, wide)
 from wespeaker_tpu_torch.models.pooling_layers import (get_pooling,
                                                        pooling_out_dim)
 from wespeaker_tpu_torch.ops.cam_block import (BOTTLENECK, GROWTH,
@@ -282,4 +282,4 @@ class CAMPPlus(nn.Module):
             h = getattr(tv, f"block{i + 1}")(h, mask)
             h = getattr(tv, f"transit{i + 1}")(h)
         h = tv.out_nonlinear(h)
-        return tv.dense(tv.stats(h, mask).float()).to(x.dtype)
+        return tv.dense(wide(tv.stats(h, mask))).to(x.dtype)

@@ -29,7 +29,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from wespeaker_tpu_torch.models.layers import batch_norm, conv2d
+from wespeaker_tpu_torch.models.layers import batch_norm, conv2d, wide
 from wespeaker_tpu_torch.models.pooling_layers import (get_pooling,
                                                        pooling_out_dim)
 from wespeaker_tpu_torch.ops.inv_bottleneck import fused_inv_bottleneck_stage
@@ -155,7 +155,7 @@ class Gemini_DF_ResNet(nn.Module):
             return h.permute(0, 3, 2, 1).reshape(b, t, f * c)
         feat = h.permute(0, 3, 1, 2).reshape(b, t, c * f)
         fmask = None if mask is None else mask[:, ::2][:, :t]
-        out = self.seg_1(self.pool(feat, fmask).float())
+        out = self.seg_1(wide(self.pool(feat, fmask)))
         if self.two_emb_layer:
             out = self.seg_2(batch_norm(torch.relu(out), self.seg_bn_1))
         return out.to(x.dtype)

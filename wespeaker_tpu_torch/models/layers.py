@@ -56,16 +56,22 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
                     dilation=conv.dilation, groups=conv.groups)
 
 
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """x in f32, or as it is when it is wider (f64)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def batch_norm(x: torch.Tensor, bn: nn.Module) -> torch.Tensor:
     """`bn` on channels-last x (B, T, C) or (B, C), or on a 2-D map
-    (B, C, F, T). Statistics and affine in f32, result in x's dtype.
+    (B, C, F, T). Statistics and affine in f32 (f64 for an f64 x), result
+    in x's dtype.
 
     In training the batch statistics normalise x and update the running
     ones as flax's nn.BatchNorm (momentum 0.9) does, which the JAX package
     uses: running = (1 - m) running + m batch with torch's m = 0.1, and the
     batch variance is the biased one (mean of squared deviations). PyTorch's
     own update would store the unbiased variance, n / (n - 1) times it."""
-    y = x.float()
+    y = wide(x)
     if y.dim() == 3:
         y = y.transpose(1, 2)  # F.batch_norm takes channels second
     if bn.training:

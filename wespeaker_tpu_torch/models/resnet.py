@@ -23,7 +23,7 @@ from typing import Optional, Sequence, Type
 import torch
 import torch.nn as nn
 
-from wespeaker_tpu_torch.models.layers import batch_norm, conv2d
+from wespeaker_tpu_torch.models.layers import batch_norm, conv2d, wide
 from wespeaker_tpu_torch.models.pooling_layers import (get_pooling,
                                                        pooling_out_dim)
 
@@ -132,7 +132,7 @@ class ResNet(nn.Module):
         if mask is not None and mask.shape[1] >= t:
             # T was strided 8x by the three stride-2 stages
             fmask = mask[:, ::8][:, :t]
-        out = self.seg_1(self.pool(feat, fmask).float())
+        out = self.seg_1(wide(self.pool(feat, fmask)))
         if self.two_emb_layer:
             out = self.seg_2(batch_norm(torch.relu(out), self.seg_bn_1))
         return out.to(x.dtype)

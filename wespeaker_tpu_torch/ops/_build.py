@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 KERNELS = ("se_block", "mfa_astp", "mfa_astp_train", "cam_block",
-           "inv_bottleneck", "conv_dw_pack")
+           "inv_bottleneck", "conv_dw_pack", "pooling")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

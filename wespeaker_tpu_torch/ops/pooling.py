@@ -1,0 +1,207 @@
+"""Statistics pooling over T as CUDA kernels: ASTP's softmax-weighted mean
+and std, and the masked mean and std of TSTP, TSDP and ASTP's global
+context.
+
+Replaces the Pallas kernels wespeaker_tpu/ops/pooling_pallas.py
+(`fused_softmax_stats`, pallas_call at :62, `_softmax_stats_kernel`; and
+`fused_masked_stats`, pallas_call at :113, `_masked_stats_kernel`). With
+x (B, T, D), an optional (B, T) frame mask m, all math in f32:
+
+    fused_softmax_stats(logits, x, mask):
+        a = logits, -1e30 where m <= 0      (ASTP's torch.where, folded in)
+        w = softmax over T of a
+        mean = sum(w x);  std = sqrt(max(sum(w x^2) - mean^2, 1e-7))
+    fused_masked_stats(x, mask, ddof):
+        count = sum(m)                      (T when unmasked)
+        mean = sum(x m) / max(count, 1)
+        std = sqrt(sum((x - mean)^2 m) / max(count - ddof, 1) + 1e-7)
+
+Both return mean and std (B, D) f32 as views of one (B, 2D) buffer
+[mean | std], the concatenated layout of TSTP's and ASTP's output, or with
+`concat=True` the buffer itself, so the pooling layers need no concat. An
+utterance with no valid frame gets uniform softmax weights, as in JAX.
+
+The kernels are csrc/common.cuh's `softmax_stats_kernel` and
+`col_stats_kernel`, the ones the ECAPA tail and SE block kernels run
+inside, reached through their own C entry points in csrc/pooling.cu:
+one thread per (utterance, channel) walks T twice (the max, then the
+sums; the mean, then the squared deviations), so any B (up to 65,535) and
+any D work, where the TPU kernels asked for D % 128 == 0 and padded B to
+8. Neither has a backward (nor had the TPU kernels): a CUDA input that
+requires grad raises, and the layers take them only with autograd off.
+
+Bound on an H100 at ReDimNetB2's pooling shape (B=512, T=200, D=1152,
+bf16 logits and x): row 6 reads 472 MB and writes 4.7 MB, 0.142 ms at
+3.35 TB/s against 0.014 ms of f32 arithmetic (0.213 ms with f32 logits);
+row 7 reads 236 MB, 0.072 ms, and at ResNet34's TSTP shape (T' = 25,
+D = 2560) 0.023 ms. Both are bound by bytes; the second pass over T
+reads x again where L2 does not keep it, which a warp-per-channel design
+that holds T's sums in registers would avoid (later work).
+"""
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from wespeaker_tpu_torch.ops import _build
+
+_NEG_INF = -1e30
+_MAX_BATCH = 65535  # grid.y
+
+
+def softmax_stats_reference(logits, x, mask=None):
+    """Plain PyTorch fused_softmax_stats in the JAX kernel's order of
+    operations, in f32. -> (mean, std) (B, D) f32."""
+    a = logits.float()
+    if mask is not None:
+        a = torch.where(mask[..., None] > 0, a,
+                        torch.full_like(a, _NEG_INF))
+    xf = x.float()
+    e = torch.exp(a - a.amax(dim=1, keepdim=True))
+    w = e / e.sum(dim=1, keepdim=True)
+    mean = (w * xf).sum(dim=1)
+    var = (w * xf * xf).sum(dim=1) - mean * mean
+    return mean, torch.sqrt(torch.clamp(var, min=1e-7))
+
+
+def masked_stats_reference(x, mask=None, ddof: int = 1):
+    """Plain PyTorch fused_masked_stats in the JAX kernel's order of
+    operations, in f32. -> (mean, std) (B, D) f32."""
+    xf = x.float()
+    m = (torch.ones(x.shape[:2] + (1,), device=x.device) if mask is None
+         else mask[..., None].float())
+    count = m.sum(dim=1)
+    mean = (xf * m).sum(dim=1) / torch.clamp(count, min=1.0)
+    centered = (xf - mean[:, None, :]) * m
+    var = (centered * centered).sum(dim=1) / torch.clamp(count - ddof,
+                                                         min=1.0)
+    return mean, torch.sqrt(var + 1e-7)
+
+
+def _check_args(what, x, mask, logits=None):
+    """The contract, on every device."""
+    if x.dim() != 3:
+        raise ValueError(f"{what} takes x (B, T, D); got {tuple(x.shape)}")
+    if logits is not None and logits.shape != x.shape:
+        raise ValueError(f"{what}: logits {tuple(logits.shape)} != x "
+                         f"{tuple(x.shape)}")
+    if mask is not None and tuple(mask.shape) != tuple(x.shape[:2]):
+        raise ValueError(f"{what}: mask {tuple(mask.shape)} is not (B, T) "
+                         f"= {tuple(x.shape[:2])}")
+
+
+def _check_cuda_args(what, tensors, mask):
+    """x and logits as the kernel reads them; the (B, T) mask, small, is
+    taken in any type and layout on the card and copied to f32."""
+    if mask is not None and mask.device != tensors[0].device:
+        raise ValueError(f"{what}: mask on {mask.device}, x on "
+                         f"{tensors[0].device}")
+    for v in tensors:
+        if v.device.type != "cuda":
+            raise ValueError(f"{what}: operands on {v.device}, not the card")
+        if v.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"{what} takes f32 or bf16, not {v.dtype}")
+        if not v.is_contiguous():
+            raise ValueError(f"{what} takes contiguous operands")
+        if v.requires_grad:
+            raise RuntimeError(f"{what} has no backward: call it with "
+                               "autograd off (the pooling layers route "
+                               "training through the plain path)")
+    if tensors[0].shape[0] > _MAX_BATCH:
+        raise ValueError(f"{what} takes at most {_MAX_BATCH} utterances")
+
+
+def _split(out, d, concat):
+    return out if concat else (out[:, :d], out[:, d:])
+
+
+def _mask_arg(mask):
+    return None if mask is None else mask.to(torch.float32).contiguous()
+
+
+def fused_softmax_stats(logits: torch.Tensor, x: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None,
+                        concat: bool = False):
+    """Softmax over T of logits (B, T, D), masked frames at -1e30, then the
+    weighted mean and std of x (B, T, D). Returns (mean, std) (B, D) f32,
+    views of one (B, 2D) buffer, or with concat the buffer [mean | std].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel, or raises for a type other than f32/bf16, a non-contiguous
+    logits or x, a mask that is not (B, T) or an operand that requires
+    grad."""
+    what = "fused_softmax_stats"
+    _check_args(what, x, mask, logits)
+    d = x.shape[-1]
+    if x.device.type == "cpu":
+        return _split(torch.cat(softmax_stats_reference(logits, x, mask), -1),
+                      d, concat)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {x.device}")
+    _check_cuda_args(what, [x, logits], mask)
+    b, t, _ = x.shape
+    mask = _mask_arg(mask)
+    out = torch.empty(b, 2 * d, device=x.device, dtype=torch.float32)
+    lib = _lib()
+    ptr = _build.pointers([logits, x] + ([] if mask is None else [mask])
+                          + [out])
+    if mask is None:
+        ptr.insert(2, None)
+    rc = lib.ws_softmax_stats(*ptr, b, t, d,
+                              int(logits.dtype == torch.bfloat16),
+                              int(x.dtype == torch.bfloat16),
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, what)
+    fused_softmax_stats.launches += 1
+    return _split(out, d, concat)
+
+
+fused_softmax_stats.launches = 0
+
+
+def fused_masked_stats(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                       ddof: int = 1, concat: bool = False):
+    """Masked mean and ddof-adjusted std (+1e-7 inside the sqrt) over T of
+    x (B, T, D). Returns (mean, std) (B, D) f32, views of one (B, 2D)
+    buffer, or with concat the buffer [mean | std].
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel, or raises as fused_softmax_stats does."""
+    what = "fused_masked_stats"
+    _check_args(what, x, mask)
+    d = x.shape[-1]
+    if x.device.type == "cpu":
+        return _split(torch.cat(masked_stats_reference(x, mask, ddof), -1),
+                      d, concat)
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: no kernel for {x.device}")
+    _check_cuda_args(what, [x], mask)
+    b, t, _ = x.shape
+    mask = _mask_arg(mask)
+    out = torch.empty(b, 2 * d, device=x.device, dtype=torch.float32)
+    lib = _lib()
+    ptr = _build.pointers([x] + ([] if mask is None else [mask]) + [out])
+    if mask is None:
+        ptr.insert(1, None)
+    rc = lib.ws_masked_stats(*ptr, b, t, d, int(ddof),
+                             int(x.dtype == torch.bfloat16),
+                             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(lib, rc, what)
+    fused_masked_stats.launches += 1
+    return _split(out, d, concat)
+
+
+fused_masked_stats.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load("pooling")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ws_softmax_stats.argtypes = [p] * 4 + [i] * 5 + [p]
+    lib.ws_softmax_stats.restype = i
+    lib.ws_masked_stats.argtypes = [p] * 3 + [i] * 5 + [p]
+    lib.ws_masked_stats.restype = i
+    return lib

@@ -19,7 +19,12 @@ state_dict. It inverts the rules of wespeaker_tpu/utils/torch_compat.py:
     downsample_layers.<i>.<j>, stages_<i>_<j> -> stages.<i>.<j> (a
     depthwise kernel (3, 3, 1, 4C) becomes the (4C, 1, 3, 3) weight);
     ResNet layer<n>_<m> -> layer<n>.<m>, shortcut_conv / shortcut_bn ->
-    shortcut.0 / shortcut.1
+    shortcut.0 / shortcut.1; ReDimNet the inverse of torch_compat's
+    (stage<s>_<i>[_conv_block|_<j>] -> stage<s>.<i>[.conv_block|.<j>],
+    inputs_weights_<i> -> inputs_weights.<i>, stem_/mfa_/dwconvs_/
+    red_dim_conv_/tcm_<i> -> .<i>, feed_forward_* -> feed_forward.*,
+    downsample_conv / downsample_bn -> downsample.0 / .1), plus the frozen
+    all-ones backbone.inputs_weights.0 that the flax tree does not keep
 
 `load_checkpoint` reads an upstream or port `.pt` state_dict into a model
 with `load_state_dict(strict=True)`; the keys the port has no use for are
@@ -63,6 +68,22 @@ MODEL_RULES = {
         (r"\blayer(\d)_(\d+)\b", r"layer\1.\2"),
         (r"\bshortcut_conv\b", "shortcut.0"),
         (r"\bshortcut_bn\b", "shortcut.1"),
+    ),
+    "ReDimNet": (
+        (r"\binputs_weights_(\d+)\b", r"inputs_weights.\1"),
+        (r"\bstem_(\d+)\b", r"stem.\1"),
+        (r"\bmfa_(\d+)\b", r"mfa.\1"),
+        (r"\bstage(\d+)_(\d+)_conv_block\b", r"stage\1.\2.conv_block"),
+        (r"\bstage(\d+)_(\d+)_(\d+)\b", r"stage\1.\2.\3"),
+        (r"\bstage(\d+)_(\d+)\b", r"stage\1.\2"),
+        (r"\bdwconvs_(\d+)\b", r"dwconvs.\1"),
+        (r"\bred_dim_conv_(\d+)\b", r"red_dim_conv.\1"),
+        (r"\btcm_(\d+)\b", r"tcm.\1"),
+        (r"\bfeed_forward_intermediate_dense\b",
+         "feed_forward.intermediate_dense"),
+        (r"\bfeed_forward_output_dense\b", "feed_forward.output_dense"),
+        (r"\bdownsample_conv\b", "downsample.0"),
+        (r"\bdownsample_bn\b", "downsample.1"),
     ),
 }
 
@@ -118,6 +139,10 @@ def from_jax_variables(variables: Mapping[str, Any],
                 bn_prefixes.append(key[:-len("running_mean")])
     for prefix in bn_prefixes:
         sd[prefix + "num_batches_tracked"] = torch.tensor(0)
+    if rules is MODEL_RULES["ReDimNet"]:
+        # upstream's frozen all-ones stage-0 input weight, which the flax
+        # tree does not keep (torch_compat ignores it)
+        sd["backbone.inputs_weights.0"] = torch.ones(1, 1, 1, 1)
     return sd
 
 
