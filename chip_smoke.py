@@ -117,8 +117,10 @@ Phases, each printing one line:
               200 frames (the stem 80 x 200, 1 -> 32; layer1 80 x 200,
               32 -> 32; layer2 40 x 100, 64 -> 64): bf16 (cosine >= 0.9999)
               and f32 (TF32 off, error <= 1e-4 of the largest magnitude),
-              two calls bit-identical; an ineligible shape (Ci = 128, a
-              stride-2 conv's dy) raises;
+              two calls bit-identical; the same at eight edge shapes
+              (Ci -> Co 1 -> 32, 8 -> 24, 48 -> 48, 64 -> 64; W of 1, 17
+              and 250; H = 1; B*H below the SM count); an ineligible shape
+              (Ci = 128, a stride-2 conv's dy) raises;
  22. resnet slice  ResNet34 at resnet.yaml's width (feat 80, embed 256,
               TSTP), weights from the seed and BN statistics from synthetic
               voices: make_eval_embed_fn over 2 s chunks at B=64, f32 on the
@@ -139,7 +141,9 @@ Phases, each printing one line:
               for one epoch of 3 steps on the synthetic corpus (batch 32):
               42 dw launches, final_model.pt, reloaded by the extractor;
  25. resnet timing  CUDA events after warm-up: dw_pack at each of the three
-              shapes (kernel, plain, cuDNN's weight gradient, bound);
+              shapes (kernel and cuDNN's weight gradient timed 3 times in
+              turns by CUDA-graph replay, median and spread; plain;
+              bound);
               ResNet34 extraction audio-s/s at B=512 x 2 s bf16; the
               ResNet34 train step's audio-s/s at B=128 bf16, packed and
               native.
@@ -154,8 +158,12 @@ Phases, each printing one line:
               (cosine >= 0.9999 per output), f32 at T=198, D=600, B=3 with
               a ragged mask and an utterance with no valid frame (within
               1e-4 of the largest magnitude), the masked stats at ddof 0
-              and 1; an input that requires grad, or of another type,
-              raises;
+              and 1; the masked stats at its edges: T = 1, one valid frame
+              (count <= ddof), D = 7 and 600, f32 with mean 1e3 and std
+              1e-2 (also the std within 1e-4 of its magnitude of the
+              contract in f64) and B = 65,536,
+              T = 2, D = 8; an input that requires grad, or of another
+              type, raises;
  28. redimnet slice  ReDimNetB2 at redimnet.yaml's width (feat 72 from a
               72-bin fbank, embed 192, ASTP with global context), random
               weights and BN statistics from the seed: make_eval_embed_fn in
@@ -172,7 +180,9 @@ Phases, each printing one line:
  30. redimnet timing  CUDA events after warm-up at B=512 x 200 frames,
               bf16: each pooling kernel at ReDimNetB2's shape (kernel,
               plain, torch.std_mean for the masked stats, bound) and the
-              masked stats at ResNet34's TSTP shape; ReDimNetB2 and
+              masked stats at ResNet34's TSTP shape, the masked stats and
+              torch.std_mean timed 3 times in turns by CUDA-graph replay
+              (median and spread); ReDimNetB2 and
               ResNet34 extraction audio-s/s with the pooling kernels and
               with fused=False pooling.
 Then the script's total seconds, one JSON line of per-kernel results and,
@@ -201,6 +211,7 @@ from wespeaker_tpu_torch.bin import kernel_bounds  # noqa: E402
 from wespeaker_tpu_torch.bin.kernel_bounds import (  # noqa: E402
     PEAK_F32_FLOPS, bound, cam_dense_block, inv_bottleneck_stage,
     masked_stats, softmax_stats)
+from wespeaker_tpu_torch.bin.time_kernels import graph_ms  # noqa: E402
 from wespeaker_tpu_torch.data.wav_io import write_wav  # noqa: E402
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
 from wespeaker_tpu_torch.models.campplus import CAMPPlus  # noqa: E402
@@ -274,6 +285,12 @@ GEMINI_YAML = ("model: Gemini_DF_ResNet114\nmodel_args:\n  feat_dim: 80\n"
 RESNET_EMBED = 256
 RESNET_BATCH = 128
 RESNET_DW = ((80, 200, 1, 32, 1), (80, 200, 32, 32, 6), (40, 100, 64, 64, 7))
+# (B, H, W, Ci, Co) at the edges of dw_pack's kernels: a position chunk of
+# one, of 17 and wider than one chunk (250); H = 1; B*H below the SM count
+DW_EDGES = ((2, 9, 1, 1, 32), (2, 9, 17, 8, 24), (2, 9, 250, 48, 48),
+            (1, 1, 250, 64, 64), (3, 5, 17, 64, 64), (2, 1, 17, 1, 32),
+            (4, 7, 250, 8, 24), (2, 3, 1, 48, 48))
+TIMING_REPS = 3  # kernel and library timed in turns; median and spread
 DW_PER_STEP = sum(n for *_, n in RESNET_DW)
 RESNET_YAML = ("model: ResNet34\nmodel_args:\n  feat_dim: 80\n"
                f"  embed_dim: {RESNET_EMBED}\n  pooling_func: TSTP\n"
@@ -514,6 +531,17 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(kernel, library, reps=TIMING_REPS):
+    """kernel and library timed `reps` times each in turns (kernel,
+    library, kernel, ...) with graph_ms; -> ((median, spread) of the
+    kernel's, (median, spread) of the library's), spread = max - min."""
+    ks, ls = [], []
+    for _ in range(reps):
+        ks.append(graph_ms(kernel))
+        ls.append(graph_ms(library))
+    return tuple((float(np.median(v)), max(v) - min(v)) for v in (ks, ls))
 
 
 def _nbytes(tensors, io):
@@ -1517,8 +1545,9 @@ def dw_inputs(rng, b, h, w, ci, co, dtype, dev):
 
 def phase_dw_kernels(dev):
     """dw_pack against its plain version at ResNet34's three packed shapes,
-    B=128 x 200 frames: bf16 by cosine, f32 within 1e-4 of the largest
-    magnitude; two calls bit-identical; ineligible shapes raise."""
+    B=128 x 200 frames, and at DW_EDGES: bf16 by cosine, f32 within 1e-4
+    of the largest magnitude; two calls bit-identical; ineligible shapes
+    raise."""
     rng = np.random.default_rng(SEED + 24)
     errs, parts = [], []
     for dtype in (torch.bfloat16, torch.float32):
@@ -1543,6 +1572,28 @@ def phase_dw_kernels(dev):
                          f"max_abs_err={err:.3g} ({rel:.2g} of max) "
                          f"cos={cos:.7f} bit-identical")
             del x, dy, got, again, want
+    edges = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, w, ci, co in DW_EDGES:
+            x, dy = dw_inputs(rng, b, h, w, ci, co, dtype, dev)
+            got = conv_dw_pack.dw_pack(x, dy)
+            again = conv_dw_pack.dw_pack(x, dy)
+            torch.cuda.synchronize()
+            want = conv_dw_pack.dw_pack_reference(x, dy)
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            cos = cosine(got, want)
+            if (not torch.equal(got, again) or got.shape != (co, ci, 3, 3)
+                    or (rel > 1e-4 if dtype == torch.float32
+                        else cos < 0.9999)):
+                raise AssertionError(
+                    f"dw_pack B={b} {h}x{w} {ci}->{co} {dtype}: error "
+                    f"{rel:.3g} of the largest magnitude, cosine {cos}, "
+                    f"bit-identical {torch.equal(got, again)}")
+            edges.append(rel)
+    parts.append(f"{len(edges)} edge shapes (Ci->Co 1->32, 8->24, 48->48, "
+                 f"64->64; W 1, 17, 250; H=1; B*H below the SM count; bf16 "
+                 f"and f32) bit-identical, at most {max(edges):.2g} of the "
+                 f"largest magnitude")
     x = torch.zeros(2, 8, 10, 32, device=dev, dtype=torch.bfloat16)
     wide = torch.zeros(2, 8, 10, 128, device=dev, dtype=torch.bfloat16)
     refused = 0
@@ -1810,8 +1861,9 @@ def phase_resnet_trainer(dev):
 
 
 def phase_resnet_timing(dev, smi):
-    """CUDA events after warm-up: dw_pack at the three shapes (kernel,
-    plain, cuDNN's weight gradient, bound), summed over the 14 calls of a
+    """CUDA events after warm-up: dw_pack at the three shapes (kernel and
+    cuDNN's weight gradient timed TIMING_REPS times in turns by graph
+    replay, median and spread; plain; bound), summed over the 14 calls of a
     step; ResNet34 extraction at B=512 x 2 s bf16; the ResNet34 train step
     at B=128 bf16, packed and native (host clock around 5 steps that end in
     a synchronize, after 2 warm-up steps)."""
@@ -1823,15 +1875,17 @@ def phase_resnet_timing(dev, smi):
         x, dy = dw_inputs(rng, RESNET_BATCH, h, w, ci, co, io, dev)
         weight = torch.zeros(co, ci, 3, 3, device=dev, dtype=io)
         xm, dym = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-        ms = cuda_ms(lambda: conv_dw_pack.dw_pack(x, dy))
+        (ms, ms_sp), (lib_ms, lib_sp) = in_turns(
+            lambda: conv_dw_pack.dw_pack(x, dy),
+            lambda: torch.ops.aten.convolution_backward(
+                dym, xm, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0],
+                1, [False, True, False]))
         plain_ms = cuda_ms(lambda: conv_dw_pack.dw_pack_reference(x, dy),
                            iters=3, warmup=1)
-        lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
-            dym, xm, weight, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
-            [False, True, False]))
         flops, nbytes = kernel_bounds.dw_pack(RESNET_BATCH, h, w, ci, co)
         bms, by = bound(flops, nbytes)
-        shapes.append((h, w, ci, co, calls, ms, plain_ms, lib_ms, bms, by))
+        shapes.append((h, w, ci, co, calls, ms, ms_sp, plain_ms, lib_ms,
+                       lib_sp, bms, by))
         res["ms"] += calls * ms
         res["plain_ms"] += calls * plain_ms
         res["library_ms"] += calls * lib_ms
@@ -1873,10 +1927,12 @@ def phase_resnet_timing(dev, smi):
                        torch.cuda.max_memory_allocated() / 2**30)
         del tm, tp, opt, step
     fmt = "; ".join(
-        f"{h}x{w} {ci}->{co} x{n}: {ms:.3f} ms (plain {pm:.3f}, cuDNN "
-        f"{lm:.3f}, bound {bm:.3f} by {by})"
-        for h, w, ci, co, n, ms, pm, lm, bm, by in shapes)
-    print(f"resnet timing [{smi}] dw_pack B={RESNET_BATCH} bf16: {fmt}; the "
+        f"{h}x{w} {ci}->{co} x{n}: {ms:.4f} ms (spread {sp:.4f}; plain "
+        f"{pm:.3f}, cuDNN {lm:.4f} spread {lsp:.4f}, bound {bm:.4f} by {by})"
+        for h, w, ci, co, n, ms, sp, pm, lm, lsp, bm, by in shapes)
+    print(f"resnet timing [{smi}] dw_pack B={RESNET_BATCH} bf16, medians "
+          f"of {TIMING_REPS} graph-replay timings in turns with cuDNN's: "
+          f"{fmt}; the "
           f"{DW_PER_STEP} calls of a step {res['ms']:.3f} ms (plain "
           f"{res['plain_ms']:.3f}, cuDNN {res['library_ms']:.3f}, bound "
           f"{res['bound_ms']:.3f}); ResNet34 extraction B={B} x 2 s bf16 "
@@ -1937,6 +1993,19 @@ def pool_inputs(rng, b, t, d, dtype, dev, masked=False):
     return r(), r(), mask
 
 
+def masked_stats_f64(x, mask, ddof):
+    """fused_masked_stats' contract evaluated in f64 (the f32 plain version
+    carries its own rounding where |mean| >> std)."""
+    xd = x.double()
+    m = (torch.ones(x.shape[:2] + (1,), device=x.device, dtype=torch.float64)
+         if mask is None else mask[..., None].double())
+    count = m.sum(1)
+    mean = (xd * m).sum(1) / count.clamp(min=1)
+    var = (((xd - mean[:, None]) * m) ** 2).sum(1) / (count - ddof).clamp(
+        min=1)
+    return mean, torch.sqrt(var + 1e-7)
+
+
 def stats_compare(got, want, dtype):
     """(mean, std), f32 whatever the input type, against the plain
     version, each output by scaled_compare. Returns the max abs error and
@@ -1952,7 +2021,9 @@ def phase_pool_kernels(dev):
     shape (B=512, T=200, D=1152) and ResNet34's TSTP shape (T'=25,
     D=2560) in bf16, and in f32 at T=198, D=600, B=3 with a ragged mask
     whose last utterance has no valid frame; the masked stats at ddof 0
-    and 1. Inputs that need a backward or another type are refused."""
+    and 1; and the masked stats' edges (T = 1, count <= ddof, D = 7 and
+    600, f32 with mean 1e3 and std 1e-2, 65,536 utterances). Inputs that
+    need a backward or another type are refused."""
     rng = np.random.default_rng(SEED + 32)
     errs, parts = {}, []
     cases = ((torch.bfloat16, B, T, REDIM_D, False),
@@ -1978,6 +2049,45 @@ def phase_pool_kernels(dev):
             parts.append(f"masked_stats {where} ddof={ddof} "
                          f"max_abs_err={err:.3g} cos={cos:.7f}")
         del logits, x, got
+    # edges of the one-pass masked stats: T = 1 and a mask with one valid
+    # frame (count <= ddof), D = 7 (no vector path) and an unmasked D=600,
+    # f32 with mean 1e3 and std 1e-2 (the std within 1e-4 of its
+    # magnitude: raw sums of x and x^2 would lose it), and 65,536
+    # utterances, which the two-pass kernel's grid refused
+    one = torch.zeros(4, 9, device=dev)
+    one[:, 3] = 1
+    edge_cases = (
+        ("T=1", torch.bfloat16, 4, 1, 64, None, 0.0, 1.0),
+        ("T=1", torch.float32, 4, 1, 64, None, 0.0, 1.0),
+        ("one valid frame", torch.float32, 4, 9, 64, one, 0.0, 1.0),
+        ("D=7", torch.float32, 5, 9, 7, "ragged", 0.0, 1.0),
+        ("D=7", torch.bfloat16, 5, 9, 7, None, 0.0, 1.0),
+        ("D=600", torch.bfloat16, 3, 30, 600, None, 0.0, 1.0),
+        ("mean 1e3 std 1e-2", torch.float32, 4, 200, 256, "ragged", 1e3,
+         1e-2),
+        ("B=65536", torch.bfloat16, 65536, 2, 8, None, 0.0, 1.0))
+    edge_errs = []
+    for what, dtype, b, t, d, mask, offset, scale in edge_cases:
+        x = torch.as_tensor((rng.standard_normal((b, t, d)) * scale
+                             + offset).astype(np.float32), device=dev)
+        x = x.to(dtype)
+        if isinstance(mask, str):
+            mask = ragged_mask(rng, b, t, dev)
+        for ddof in (1, 0):
+            got = pooling.fused_masked_stats(x, mask, ddof=ddof)
+            torch.cuda.synchronize()
+            err, _ = stats_compare(got, pooling.masked_stats_reference(
+                x, mask, ddof), dtype)
+            edge_errs.append(err)
+            if offset:  # the std against the contract in f64
+                truth = masked_stats_f64(x, mask, ddof)[1]
+                off = (got[1].double() - truth).abs().max().item()
+                if off > 1e-4 * truth.abs().max().item():
+                    raise AssertionError(f"masked_stats at mean 1e3, std "
+                                         f"1e-2: std off by {off:.3g}")
+        del x
+    parts.append(f"masked_stats edges ({', '.join(c[0] for c in edge_cases)};"
+                 f" ddof 0 and 1) max_abs_err={max(edge_errs):.3g}")
     x = torch.zeros(2, 8, 128, device=dev)
     refused = []
     for what, call in (
@@ -2109,9 +2219,11 @@ def phase_redimnet_timing(model, dev, smi):
     """CUDA events after warm-up at B=512 x 200 frames, bf16: rows 6 and 7
     at ReDimNetB2's pooling shape (kernel, plain, library, bound; row 7's
     library call is torch.std_mean, unmasked, which differs only by the
-    +1e-7; row 6 has none) and row 7 at ResNet34's TSTP shape; ReDimNetB2
-    extraction audio-s/s with the pooling kernels and with fused=False
-    pooling; ResNet34 extraction audio-s/s with and without row 7."""
+    +1e-7, timed TIMING_REPS times in turns with the kernel by graph
+    replay, medians and spreads; row 6 has none) and row 7 at ResNet34's
+    TSTP shape likewise; ReDimNetB2 extraction audio-s/s with the pooling
+    kernels and with fused=False pooling; ResNet34 extraction audio-s/s
+    with and without row 7."""
     rng = np.random.default_rng(SEED + 35)
     io = torch.bfloat16
     logits, x, _ = pool_inputs(rng, B, T, REDIM_D, io, dev)
@@ -2121,11 +2233,12 @@ def phase_redimnet_timing(model, dev, smi):
             logits, x), iters=5),
         "library_ms": None},
         "masked": {
-        "ms": cuda_ms(lambda: pooling.fused_masked_stats(x)),
         "plain_ms": cuda_ms(lambda: pooling.masked_stats_reference(x),
-                            iters=5),
-        "library_ms": cuda_ms(lambda: torch.std_mean(x, dim=1,
-                                                     correction=1))}}
+                            iters=5)}}
+    (res["masked"]["ms"], res["masked"]["spread"]), (
+        res["masked"]["library_ms"], res["masked"]["library_spread"]) = (
+        in_turns(lambda: pooling.fused_masked_stats(x),
+                 lambda: torch.std_mean(x, dim=1, correction=1)))
     res["softmax"]["bound_ms"], res["softmax"]["bound_by"] = bound(
         *softmax_stats(B, T, REDIM_D, logit_bytes=logits.element_size(),
                        x_bytes=x.element_size()), PEAK_F32_FLOPS)
@@ -2134,13 +2247,14 @@ def phase_redimnet_timing(model, dev, smi):
                       masked=False), PEAK_F32_FLOPS)
     del logits, x
     _, xt, _ = pool_inputs(rng, B, *RESNET_TSTP, io, dev)
-    tstp = {"ms": cuda_ms(lambda: pooling.fused_masked_stats(xt)),
-            "plain_ms": cuda_ms(lambda: pooling.masked_stats_reference(xt),
+    tstp = {"plain_ms": cuda_ms(lambda: pooling.masked_stats_reference(xt),
                                 iters=5),
-            "library_ms": cuda_ms(lambda: torch.std_mean(xt, dim=1,
-                                                         correction=1)),
             "bound_ms": bound(*masked_stats(B, *RESNET_TSTP, masked=False),
                               PEAK_F32_FLOPS)[0]}
+    (tstp["ms"], tstp["spread"]), (tstp["library_ms"],
+                                   tstp["library_spread"]) = in_turns(
+        lambda: pooling.fused_masked_stats(xt),
+        lambda: torch.std_mean(xt, dim=1, correction=1))
     del xt
 
     def rates(m, fbank):
@@ -2165,10 +2279,14 @@ def phase_redimnet_timing(model, dev, smi):
     torch.cuda.empty_cache()
 
     def fmt_kernel(name, v):
-        lib = ("" if v["library_ms"] is None
-               else f", torch.std_mean {v['library_ms']:.4f}")
-        return (f"{name} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}{lib}, "
-                f"bound {v['bound_ms']:.4f})")
+        lib = spread = ""
+        if v["library_ms"] is not None:
+            lib = (f", torch.std_mean {v['library_ms']:.4f} spread "
+                   f"{v['library_spread']:.4f}")
+            spread = (f" (median of {TIMING_REPS} graph replays in turns "
+                      f"with torch.std_mean, spread {v['spread']:.4f})")
+        return (f"{name} {v['ms']:.4f} ms{spread} (plain "
+                f"{v['plain_ms']:.4f}{lib}, bound {v['bound_ms']:.4f})")
 
     def fmt_rates(r):
         return ", ".join(f"{k} {v[0]:.1f} audio-s/s ({v[1]:.2f} ms/batch, "

@@ -31,6 +31,8 @@ torch.set_num_threads(2)
     (2, 9, 13, 8, 16),     # odd H/W, cin != cout
     (3, 8, 8, 16, 8),      # cout < cin
     (2, 10, 12, 1, 8),     # one input channel (the ResNet stem)
+    (2, 6, 1, 8, 24),      # W = 1: every kw != 1 tap reads the zero edge
+    (2, 5, 9, 8, 24),      # Co = 3 Ci, the card's 8 -> 24 edge shape
 ])
 def test_dw_pack_plain_matches_jax_kernel(shape):
     b, h, w, ci, co = shape

@@ -471,14 +471,25 @@ def test_ecapa_fused_res2_path_matches_layer_path(cuda):
 # ---- the tap-packed filter gradient ----
 
 # (dtype, B, H, W, Ci, Co): ResNet34's stem, layer1 and layer2 shapes at a
-# small batch, two w-chunks (W > 112), odd channel counts
+# small batch, two w-chunks (W > 112), odd channel counts, edge shapes
 DW_CASES = [(torch.bfloat16, 2, 80, 200, 1, 32),
             (torch.bfloat16, 2, 80, 200, 32, 32),
             (torch.bfloat16, 3, 40, 100, 64, 64),
             (torch.float32, 2, 80, 200, 1, 32),
             (torch.float32, 2, 40, 100, 64, 64),
             (torch.float32, 3, 7, 130, 5, 3),
-            (torch.bfloat16, 2, 9, 13, 24, 40)]
+            (torch.bfloat16, 2, 9, 13, 24, 40),
+            # the redesigned kernels' edges: Ci -> Co 1 -> 32, 8 -> 24,
+            # 48 -> 48, 64 -> 64; W of 1, 17 and 250 (wider than a
+            # position chunk); H = 1; B*H below the SM count
+            (torch.bfloat16, 2, 9, 1, 1, 32),
+            (torch.bfloat16, 2, 9, 17, 8, 24),
+            (torch.bfloat16, 2, 9, 250, 48, 48),
+            (torch.bfloat16, 1, 1, 250, 64, 64),
+            (torch.bfloat16, 3, 5, 17, 64, 64),
+            (torch.bfloat16, 2, 1, 17, 1, 32),
+            (torch.float32, 2, 9, 17, 8, 24),
+            (torch.float32, 1, 1, 250, 64, 64)]
 
 
 @pytest.mark.parametrize("dtype,b,h,w,ci,co", DW_CASES)
@@ -573,18 +584,27 @@ POOL_CASES = [(torch.bfloat16, 4, 200, 1152, False),
               (torch.float32, 70, 33, 40, False)]
 
 
-def pool_args(rng, b, t, d, dtype, device, masked):
-    def r(*shape):
-        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+def pool_args(rng, b, t, d, dtype, device, masked, offset=0.0):
+    """Random logits and x (B, T, D); masked: a ragged mask whose last
+    utterance has no valid frame, or "one": one valid frame each. With an
+    offset, x = offset + 1e-2 z."""
+    def r(*shape, scale=1.0, shift=0.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale
+                                + shift).astype(np.float32),
                                device=device).to(dtype)
 
     mask = None
-    if masked:
+    if masked == "one":
+        mask = torch.zeros(b, t, device=device)
+        mask[:, t // 2] = 1
+    elif masked:
         lens = rng.integers(t // 2, t + 1, b)
         lens[0], lens[-1] = t, 0  # the last utterance has no valid frame
         mask = torch.as_tensor((np.arange(t)[None] < lens[:, None]).astype(
             np.float32), device=device)
-    return r(b, t, d), r(b, t, d), mask
+    x = (r(b, t, d, scale=1e-2, shift=offset) if offset
+         else r(b, t, d))
+    return r(b, t, d), x, mask
 
 
 def assert_stats_match(got, want, dtype):
@@ -608,18 +628,48 @@ def test_softmax_stats_kernel_matches_plain(cuda, dtype, b, t, d, masked):
     assert torch.equal(pooled, torch.cat(got, -1))
 
 
+# POOL_CASES without an offset, and the one-pass kernel's edges: T = 1, one
+# valid frame (count <= ddof when ddof = 1), D = 7 (no vector path) and an
+# unmasked D = 600, f32 x with mean 1e3 and std 1e-2, and 65,536 utterances
+# (past the two-pass kernel's grid.y); (dtype, B, T, D, masked, offset)
+MASKED_CASES = [c + (0.0,) for c in POOL_CASES] + [
+    (torch.bfloat16, 4, 1, 64, False, 0.0),
+    (torch.float32, 4, 1, 64, False, 0.0),
+    (torch.float32, 4, 9, 64, "one", 0.0),
+    (torch.float32, 5, 9, 7, True, 0.0),
+    (torch.bfloat16, 5, 9, 7, False, 0.0),
+    (torch.bfloat16, 3, 30, 600, False, 0.0),
+    (torch.float32, 4, 200, 256, True, 1e3),
+    (torch.bfloat16, 65536, 2, 8, False, 0.0)]
+
+
 @pytest.mark.parametrize("ddof", [0, 1])
-@pytest.mark.parametrize("dtype,b,t,d,masked", POOL_CASES)
+@pytest.mark.parametrize("dtype,b,t,d,masked,offset", MASKED_CASES)
 def test_masked_stats_kernel_matches_plain(cuda, dtype, b, t, d, masked,
-                                           ddof):
+                                           offset, ddof):
+    """As assert_matches; at the offset input the std also within 1e-4 of
+    its largest magnitude (about 1e-2) of the contract computed in f64."""
     _, x, mask = pool_args(np.random.default_rng(21), b, t, d, dtype, cuda,
-                           masked)
+                           masked, offset)
     before = pooling.fused_masked_stats.launches
     got = pooling.fused_masked_stats(x, mask, ddof=ddof)
     torch.cuda.synchronize()
     assert pooling.fused_masked_stats.launches == before + 1
-    assert_stats_match(got, pooling.masked_stats_reference(x, mask, ddof),
-                       dtype)
+    want = pooling.masked_stats_reference(x, mask, ddof)
+    assert_stats_match(got, want, dtype)
+    if offset:
+        # the f32 plain version is itself ~1e-4 of the std away from the
+        # truth here (its mean carries a few ulps of 1e3): the kernel's std
+        # is held to the contract evaluated in f64
+        xd = x.double()
+        m = mask[..., None].double()
+        count = m.sum(1)
+        mean = (xd * m).sum(1) / count.clamp(min=1)
+        var = (((xd - mean[:, None]) * m) ** 2).sum(1) / (count - ddof).clamp(
+            min=1)
+        truth = torch.sqrt(var + 1e-7)
+        torch.testing.assert_close(got[1].double(), truth, rtol=0,
+                                   atol=1e-4 * truth.abs().max().item())
 
 
 def test_pooling_kernels_refuse(cuda):

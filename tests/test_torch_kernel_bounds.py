@@ -109,3 +109,19 @@ def test_dw_pack_counts_by_hand():
         assert nbytes == k * (ci + co) * 2 + 9 * ci * co * 4
         assert kb.bound(flops, nbytes)[1] == "bytes", name
     assert round(kb.bound(*kb.dw_pack(128, 80, 200, 32, 32))[0], 3) == 0.078
+
+
+@pytest.mark.parametrize("name,shape,bytes_by_hand,want_ms", [
+    # the stem reads x (1 channel) and dy (32): 128*80*200 positions
+    ("stem", (80, 200, 1, 32), 2_048_000 * 33 * 2 + 288 * 4, 0.040),
+    ("layer1", (80, 200, 32, 32), 2_048_000 * 64 * 2 + 9216 * 4, 0.078),
+    # layer2 is 40 x 100 after the stride-2 conv: a quarter of the positions
+    ("layer2", (40, 100, 64, 64), 512_000 * 128 * 2 + 36864 * 4, 0.039),
+])
+def test_dw_pack_bound_per_shape(name, shape, bytes_by_hand, want_ms):
+    """The per-call bounds PERF.md's row 10 gives each ResNet34 shape at
+    B=128: bytes over 3.35 TB/s, rounded to the microsecond."""
+    flops, nbytes = kb.dw_pack(128, *shape)
+    assert nbytes == bytes_by_hand
+    ms, by = kb.bound(flops, nbytes)
+    assert by == "bytes" and round(ms, 3) == want_ms

@@ -92,6 +92,36 @@ def test_masked_stats_twin_matches_pallas(d, masked, ddof):
     assert pooling.fused_masked_stats.launches == before
 
 
+@pytest.mark.parametrize("case", ["offset", "one_frame"])
+def test_masked_stats_twin_matches_pallas_at_edges(case):
+    """The plain masked stats against JAX's Pallas kernel (interpret) where
+    a one-pass kernel could go wrong: |mean| >> std (x = 1e3 + 1e-2 z, a
+    ragged mask; the std within 1e-4 of its largest magnitude: both sum in
+    f32 in their own order, and their means, a few ulps of 1e3 apart, move
+    a 1e-2 std by ~2e-6, where raw sums of x and x^2 would lose every
+    digit) and T = 1 with ddof 1 (count - ddof = 0, so the std is
+    sqrt(1e-7))."""
+    rng = np.random.default_rng(31)
+    if case == "offset":
+        b, t = 3, 41
+        x = (1e3 + 1e-2 * rng.normal(size=(b, t, 128))).astype(np.float32)
+        lens = np.array([t, 17, 2])
+    else:
+        b, t = 3, 1
+        x = rng.normal(size=(b, t, 128)).astype(np.float32)
+        lens = np.array([1, 1, 0])
+    mask = (np.arange(t)[None] < lens[:, None]).astype(np.float32)
+    want = pooling_pallas.fused_masked_stats(
+        jnp.asarray(x), jnp.asarray(mask), ddof=1, interpret=True)
+    mean, std = pooling.masked_stats_reference(_t(x), _t(mask), 1)
+    np.testing.assert_allclose(mean.numpy(), np.asarray(want[0]),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(std.numpy(), np.asarray(want[1]), rtol=0,
+                               atol=1e-4 * np.abs(np.asarray(want[1])).max())
+    if case == "one_frame":
+        np.testing.assert_allclose(std.numpy(), np.sqrt(1e-7), rtol=1e-6)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 def test_twins_take_unaligned_width(masked):
     """D = 600 (ReDimNetB0's pooling width), which the TPU kernels refuse:

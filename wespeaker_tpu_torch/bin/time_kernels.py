@@ -9,10 +9,13 @@ dense blocks of one CAMPPlus forward at B=512, T'=100; the four stages of
 one Gemini_DF_ResNet114 forward at B=512 x 200 frames; the Res2 chain of
 one ECAPA c512 block at B=512, T=200; the 14 tap-packed dW calls of one
 ResNet34 train step at B=128 x 200 frames: the stem, six layer1 and seven
-layer2 convs; the two statistics-pooling kernels at ReDimNetB2's ASTP
+layer2 convs, as `dw` and per call as `dw_stem`, `dw_32` and `dw_64`; the
+two statistics-pooling kernels at ReDimNetB2's ASTP
 shape, B=512 x 200 frames, D=1152, and the masked stats also at
 ResNet34's TSTP shape, T'=25, D=2560), timed with CUDA events after
-warm-up. Prints the card and
+warm-up; the dw_pack and masked-stats keys by replaying a CUDA graph of
+the calls, so that the wrapper's host time (about as long as the
+masked stats at T'=25) does not hide the kernel. Prints the card and
 one JSON line {kernel: ms}. A kernel the package does not have is left
 out, so the same file times an older checkout: run it with that checkout
 first on PYTHONPATH to compare two trees in one call (old, new, new,
@@ -38,6 +41,31 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device ms per call: `iters` calls captured in a CUDA graph and its
+    replay timed with CUDA events, so a wrapper's host time (tens of
+    microseconds, as long as a short kernel) cannot hide the kernel."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -150,10 +178,12 @@ def main(argv=None):
     dw = _ops("conv_dw_pack")
     if dw is not None:
         total = 0.0
-        for h, ww, ci, co, calls in ((80, 200, 1, 32, 1), (80, 200, 32, 32, 6),
-                                     (40, 100, 64, 64, 7)):
+        for key, h, ww, ci, co, calls in (
+                ("dw_stem", 80, 200, 1, 32, 1), ("dw_32", 80, 200, 32, 32, 6),
+                ("dw_64", 40, 100, 64, 64, 7)):
             x, dy = r(128, h, ww, ci, dtype=io), r(128, h, ww, co, dtype=io)
-            total += calls * cuda_ms(lambda: dw.dw_pack(x, dy), args.iters)
+            out[key] = graph_ms(lambda: dw.dw_pack(x, dy), args.iters)
+            total += calls * out[key]
             del x, dy
         out["dw"] = total
     pool = _ops("pooling")
@@ -161,12 +191,12 @@ def main(argv=None):
         logits, x = r(b, t, 1152, dtype=io), r(b, t, 1152, dtype=io)
         out["softmax"] = cuda_ms(lambda: pool.fused_softmax_stats(logits, x),
                                  args.iters)
-        out["masked"] = cuda_ms(lambda: pool.fused_masked_stats(x),
-                                args.iters)
+        out["masked"] = graph_ms(lambda: pool.fused_masked_stats(x),
+                                 args.iters)
         del logits, x
         x = r(b, 25, 2560, dtype=io)
-        out["masked_tstp"] = cuda_ms(lambda: pool.fused_masked_stats(x),
-                                     args.iters)
+        out["masked_tstp"] = graph_ms(lambda: pool.fused_masked_stats(x),
+                                      args.iters)
         del x
     print(torch.cuda.get_device_name(0))
     print(json.dumps(out))

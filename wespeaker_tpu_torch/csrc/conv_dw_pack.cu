@@ -9,8 +9,18 @@
 // all nine taps are one product P = A^T B of (3 Co, 3 Ci), and
 // dW[o, i, kh, kw] = P[kh*Co + o, kw*Ci + i].
 //
+// Three kernels compute P, each split over the rows (b, h') into a fixed
+// number of blocks per shape whose partials a fixed-order pass sums:
+// - bf16 with Ci and Co multiples of 8: dw_wgmma_kernel, a TMA ring on
+//   mbarriers feeding wgmma from swizzled shared memory;
+// - bf16 with Ci = 1 (a network's stem) and Co a multiple of 8:
+//   dw_stem_kernel, CUDA-core FMA over 16-byte loads of dy;
+// - f32 (exact, no TF32) and any other width: dw_pack_kernel, one staged
+//   row at a time, WMMA in bf16 and FMA in f32.
+//
 // C interface:
-//   ws_dw_pack_workspace(b, h, w, ci, co): f32 elements of workspace needed;
+//   ws_dw_pack_workspace(b, h, w, ci, co, bf16): f32 elements of workspace
+//                                                needed;
 //   ws_dw_pack(x, dy, work, work_elems, out, b, h, w, ci, co, bf16, out_bf16,
 //              stream): issues the packed product and the fixed-order sum of
 //              its splits on the stream; returns the first CUDA error.
@@ -18,11 +28,12 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace ws {
 
-constexpr int kDwMaxC = 64;    // Ci and Co the kernel takes
-constexpr int kDwMaxWc = 112;  // positions of a row per w-chunk
+constexpr int kDwMaxC = 64;    // Ci and Co the kernels take
+constexpr int kDwMaxWc = 112;  // dw_pack_kernel: positions of a row per chunk
 constexpr int kDwSms = 132;    // H100 SXM; fixes the split count per shape
 
 struct DwPackArgs {
@@ -295,6 +306,437 @@ size_t dw_pack_smem(int wc, int ci, int co) {
          sizeof(T);
 }
 
+// ---- bf16, Ci and Co multiples of 8: a TMA ring feeding wgmma ----
+//
+// Work units are (w-chunk, row g = b*h + h') pairs, chunk-major; block z
+// owns units [z ups, (z + 1) ups). It walks them as a sequence of stages,
+// each of which stages one dy row-chunk (and, for a unit's main stage, one
+// x row-chunk): a run of consecutive rows of one utterance and chunk
+// starts with two stages that stage dy rows h'-1 and h' alone, then each
+// main stage stages dy row h'+1 and x row h' and computes row h'.
+//
+// One producer thread issues every stage's copies as TMA boxes of
+// Cp = 16, 32 or 64 >= C channels (channels, rows and positions outside
+// the map arrive as zeros), up to `stages` stages ahead, each stage
+// completing on its `full` mbarrier; the consumer warpgroups wait on it,
+// run the stage's wgmmas and arrive on its `empty` mbarrier one stage
+// later, when those wgmmas have retired; the producer waits on it before it
+// reuses the stage's buffers. A box's 2 Cp-byte rows (one position each)
+// are contiguous in device memory and land under the swizzle of that
+// width, which is wgmma's MN-major layout of the same width (an atom of 8
+// positions x Cp channels; SBO = 8 rows), so the tensor cores read shared
+// memory without bank conflicts, and the swizzle follows the address, so
+// an operand may start any whole number of rows into a box.
+// The product is computed transposed, D = B^T A of (3 Cip, 3 Cop):
+// - M (warpgroup mb's 64 rows) is (kw, i): x's row-chunk is one box of
+//   kKS * 16 + 2 positions from w0 - 1, and the kw tap is the operand
+//   starting kw rows in, so the three shifted copies are one box read at
+//   three offsets (LBO = one row between the 64 / Cip taps of an M-block;
+//   rows past 3 Cip read whatever follows and are never stored);
+// - N is (kh, o): dy's rows sit in a ring of stages + 2 slots (one box
+//   each), stage s in slot ns - 1 - s % ns, so rows h'+1, h', h'-1 (stages
+//   s, s-1, s-2) are consecutive slots, three atoms one LBO apart; slots 0
+//   and 1 are mirrored after the ring so a window never wraps. Slot
+//   ns - 1 - s % ns is rewritten by stage s + ns, after compute stage
+//   s + 2 = (s + ns) - stages, the last to read it, has been released.
+// Per 16 positions each warpgroup issues one wgmma m64 n(3 Cop) k16.
+constexpr int kDwMaxStages = 6;
+
+__host__ __device__ constexpr int dw_cpad(int c) {
+  return c <= 16 ? 16 : c <= 32 ? 32 : 64;
+}
+// wgmma layout type of an atom of rows of `bytes`
+__host__ __device__ constexpr uint32_t dw_layout(int bytes) {
+  return bytes == 128 ? 1u : bytes == 64 ? 2u : 3u;
+}
+
+struct DwWgmmaArgs {
+  float* work;  // (splits, 3 cop, 3 cip)
+  int b, h, w, ci, co;
+  int cip, cop;  // channels as staged: 16, 32 or 64
+  int stages;    // ring depth
+  int ups;       // work units per block
+  int nchunks;
+  int x_rows;    // rows of an x buffer (the box, and rows past it)
+};
+
+struct DwWalk {  // one block's stages, in order
+  int u, u1, k;  // unit, end, and 0/1 (pre-stages) or 2 (main stage)
+  __device__ bool valid() const { return u < u1; }
+  __device__ void next(int rows, int h) {
+    if (k < 2) {
+      ++k;
+      return;
+    }
+    ++u;
+    k = (u % rows) % h == 0 ? 0 : 2;
+  }
+};
+
+// kN = 3 Cop; kKS = 16-position steps per chunk; kMB = M-blocks (consumer
+// warpgroups) = ceil(3 Cip / 64). Two blocks an SM where one has at most
+// two warpgroups of at most 48 accumulators.
+__host__ __device__ constexpr int dw_blocks_per_sm(int n, int mb) {
+  return mb <= 2 && n <= 96 ? 2 : 1;
+}
+
+template <int kN, int kKS, int kMB>
+__global__ void __launch_bounds__(128 * kMB + 32, dw_blocks_per_sm(kN, kMB))
+    dw_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                    const __grid_constant__ CUtensorMap tm_dy,
+                    DwWgmmaArgs p) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr int kR = kN / 2;  // accumulators a thread
+  constexpr int kWc = kKS * 16;
+  const int rbo = 2 * p.cop, rbi = 2 * p.cip;  // bytes per staged position
+  const int slot_b = kWc * rbo;
+  const int x_buf = (p.x_rows * rbi + 1023) / 1024 * 1024;
+  const int ns = p.stages + 2;  // dy ring slots
+  constexpr int nmb = kMB;
+  const int taps_mb = 64 / p.cip;  // kw taps an M-block spans
+  const uint32_t raw_s = smem_u32(smem_raw);
+  const uint32_t x_s = (raw_s + 1023u) & ~1023u;  // swizzle atoms aligned
+  const uint32_t dy_s = x_s + p.stages * x_buf;
+  const uint32_t bar_s = dy_s + (ns + 2) * slot_b;  // full[], then empty[]
+  const int tid = threadIdx.x;
+  const int rows = p.b * p.h;
+  const int units = p.nchunks * rows;
+  const int u0 = blockIdx.x * p.ups;
+  const int u1 = min(u0 + p.ups, units);
+
+  if (tid == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(bar_s + 8 * i, 1);
+      mbar_init(bar_s + 8 * (p.stages + i), 4 * nmb);  // a lane a warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  // the warpgroup index, shuffled so the compiler knows it is warp-uniform:
+  // a branch it cannot prove uniform makes it serialise the wgmmas
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (wg == nmb) {  // the producer warp: one thread issues
+    if (tid != 128 * nmb) return;
+    DwWalk st{u0, u1, 0};
+    for (int s = 0; st.valid(); ++s) {
+      const int buf = s % p.stages;
+      if (s >= p.stages)
+        mbar_wait(bar_s + 8 * (p.stages + buf), ((s / p.stages) - 1) & 1);
+      const int c = st.u / rows, g = st.u % rows;
+      const int bi = g / p.h, r = g % p.h;
+      const int w0 = c * kWc;
+      const int slot = ns - 1 - s % ns;
+      const bool main = st.k == 2;
+      const uint32_t full = bar_s + 8 * buf;
+      mbar_expect_tx(full, slot_b * (slot < 2 ? 2 : 1) +
+                               (main ? (kWc + 2) * rbi : 0));
+      const uint32_t dst = dy_s + slot * slot_b;
+      tma_load_4d(dst, &tm_dy, 0, w0, r - 1 + st.k, bi, full);
+      if (slot < 2)
+        tma_load_4d(dst + ns * slot_b, &tm_dy, 0, w0, r - 1 + st.k, bi,
+                    full);
+      if (main)
+        tma_load_4d(x_s + buf * x_buf, &tm_x, 0, w0 - 1, r, bi, full);
+      st.next(rows, p.h);
+    }
+    return;
+  }
+
+  float acc[kR];
+#pragma unroll
+  for (int i = 0; i < kR; ++i) acc[i] = 0.f;
+  const int mb = wg;
+  const uint32_t lay_a = dw_layout(rbi), lay_b = dw_layout(rbo);
+  auto release = [&](int s) {
+    mbar_arrive_if(bar_s + 8 * (p.stages + s % p.stages), tid % 32 == 0);
+  };
+  int pending = -1;  // a stage whose wgmmas may still read its buffers
+  DwWalk st{u0, u1, 0};
+  for (int s = 0; st.valid(); ++s) {
+    const int buf = s % p.stages;
+    mbar_wait(bar_s + 8 * buf, (s / p.stages) & 1);
+    if (st.k == 2) {
+      const uint32_t a0 = x_s + buf * x_buf + mb * taps_mb * rbi;
+      const uint32_t b0 = dy_s + (ns - 1 - s % ns) * slot_b;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kKS; ++ks) {
+        const uint64_t da = wgmma_desc(a0 + ks * 16 * rbi, rbi, 8 * rbi, lay_a);
+        const uint64_t db =
+            wgmma_desc(b0 + ks * 16 * rbo, slot_b, 8 * rbo, lay_b);
+        if constexpr (kN == 48)
+          wgmma_m64n48k16_tt(acc, da, db);
+        else if constexpr (kN == 96)
+          wgmma_m64n96k16_tt(acc, da, db);
+        else
+          wgmma_m64n192k16_tt(acc, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's wgmmas have retired
+      fence_regs(acc);
+      if (pending >= 0) release(pending);
+      pending = s;
+    } else {
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (pending >= 0) release(pending);
+      pending = -1;
+      release(s);
+    }
+    st.next(rows, p.h);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // D[(kw, i)][(kh, o)] is P[kh cop + o][kw cip + i]; rows past 3 cip are
+  // not P's
+  const int np = 3 * p.cip, mp = 3 * p.cop;
+  float* out = p.work + (size_t)blockIdx.x * mp * np;
+  const int wi = (tid % 128) / 32, lane = tid % 32;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int m = mb * 64 + wi * 16 + lane / 4 + 8 * hh;
+    if (m >= np) continue;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j) {
+      const int n = 8 * j + 2 * (lane % 4);
+      out[(size_t)n * np + m] = acc[4 * j + 2 * hh];
+      out[(size_t)(n + 1) * np + m] = acc[4 * j + 2 * hh + 1];
+    }
+  }
+}
+
+// ---- bf16, Ci = 1: CUDA-core FMA over 16-byte loads of dy ----
+//
+// dW[o, 0, kh, kw] = sum x[b, h + kh - 1, w + kw - 1] dy[b, h, w, o]: 9 Co
+// outputs and a bound set by dy's bytes (x is 1/Co of them). Thread
+// (position pl, channel group g) of a block owns x-chunk column
+// w = c pw + pl and dy channels 8 g .. 8 g + 7, and walks rows h of its
+// units (w-chunk, row) in groups of kStemU consecutive rows of one
+// utterance, loading their dy vectors (streamed past L1) and the kStemU + 2
+// x rows around them (through L1, which its neighbours share) before it
+// uses any; 72 f32 accumulators. The block then sums its threads'
+// accumulators in a fixed order through shared memory. (A TMA ring of dy
+// rows feeding the same FMA loop timed slower on the H100 at ResNet34's
+// stem while this was built.)
+constexpr int kStemThreads = 256;
+constexpr int kStemU = 4;
+
+struct DwStemArgs {
+  const __nv_bfloat16* x;   // (b, h, w, 1)
+  const __nv_bfloat16* dy;  // (b, h, w, co)
+  float* work;              // (splits, 3 co, 3)
+  int b, h, w, co;
+  int pw;  // positions per w-chunk
+  int nchunks, ups;
+};
+
+__global__ void __launch_bounds__(kStemThreads, 2)
+    dw_stem_kernel(DwStemArgs p) {
+  __shared__ float red[kStemThreads][9];
+  const int gp = p.co / 8, tid = threadIdx.x;
+  const int g = tid % gp, pl = tid / gp;
+  const int rows = p.b * p.h, units = p.nchunks * rows;
+  const int u0 = blockIdx.x * p.ups, u1 = min(u0 + p.ups, units);
+  float acc[3][3][8];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[i][j][c] = 0.f;
+
+  for (int u = u0; u < u1;) {
+    const int c = u / rows, gr = u % rows;
+    const int bi = gr / p.h, r = gr % p.h;
+    const int n = min(kStemU, min(u1 - u, p.h - r));
+    const int wpos = c * p.pw + pl;
+    const bool live = pl < p.pw && wpos < p.w;
+    const size_t row0 = (size_t)bi * p.h;
+    uint4 dv[kStemU];
+#pragma unroll
+    for (int k = 0; k < kStemU; ++k) {
+      dv[k] = make_uint4(0u, 0u, 0u, 0u);
+      if (live && k < n)
+        dv[k] = ld_stream16(p.dy + ((row0 + r + k) * p.w + wpos) * p.co +
+                            8 * g);
+    }
+    float xv[kStemU + 2][3];
+#pragma unroll
+    for (int k = 0; k < kStemU + 2; ++k) {
+      const int rr = r - 1 + k;
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const int ww = wpos + kw - 1;
+        xv[k][kw] = (live && k < n + 2 && rr >= 0 && rr < p.h && ww >= 0 &&
+                     ww < p.w)
+                        ? __bfloat162float(p.x[(row0 + rr) * p.w + ww])
+                        : 0.f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kStemU; ++k) {
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&dv[k]);
+#pragma unroll
+      for (int cc = 0; cc < 8; ++cc) {
+        const float d = __bfloat162float(e[cc]);
+#pragma unroll
+        for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+          for (int kw = 0; kw < 3; ++kw)
+            acc[kh][kw][cc] = fmaf(xv[k + kh][kw], d, acc[kh][kw][cc]);
+      }
+    }
+    u += n;
+  }
+
+  // channel o = 8 g + cc: the sum over the block's positions, in order
+  const int npos = kStemThreads / gp;
+  float* out = p.work + (size_t)blockIdx.x * 9 * p.co;
+#pragma unroll
+  for (int cc = 0; cc < 8; ++cc) {
+#pragma unroll
+    for (int kh = 0; kh < 3; ++kh)
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) red[tid][kh * 3 + kw] = acc[kh][kw][cc];
+    __syncthreads();
+    if (tid < 9 * gp) {
+      const int gg = tid % gp, tap = tid / gp;
+      float s = 0.f;
+      for (int q = 0; q < npos; ++q) s += red[q * gp + gg][tap];
+      // P[kh co + o][kw] with o = 8 gg + cc
+      out[((tap / 3) * p.co + 8 * gg + cc) * 3 + tap % 3] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// ---- which kernel, and its launch shape ----
+
+enum DwPath { kDwOld = 0, kDwWgmma = 1, kDwStem = 2 };
+
+struct DwPlan {
+  int path;
+  int splits;
+  int cop, cip;  // P is (3 cop, 3 cip) per split
+  // dw_pack_kernel
+  int wc, rps;
+  // dw_wgmma_kernel / dw_stem_kernel
+  int stages, ups, nchunks, threads, pw, ks;
+  size_t smem;
+};
+
+// 16-position steps per w-chunk, from those the kernel is built for: the
+// fewest steps plus one a chunk (a stage's own cost)
+constexpr int kDwSteps[] = {2, 7};
+
+inline int dw_steps(int w) {
+  const int need = (w + 15) / 16;
+  int best = 0, cost = 1 << 30;
+  for (int k : kDwSteps) {
+    const int nch = (need + k - 1) / k;
+    if (nch * (k + 1) <= cost) {
+      cost = nch * (k + 1);
+      best = k;
+    }
+  }
+  return best;
+}
+
+// x buffers, the dy ring, the 1 KB alignment slack and 2 stages mbarriers
+inline size_t dw_wgmma_smem(int ci, int co, int ks, int stages) {
+  const int cop = dw_cpad(co), cip = dw_cpad(ci);
+  const int x_buf = ((16 * ks + 4) * 2 * cip + 1023) / 1024 * 1024;
+  return (size_t)stages * x_buf + (size_t)(stages + 4) * 16 * ks * 2 * cop +
+         1024 + 16 * stages;
+}
+
+inline DwPlan dw_plan(int bf16, int b, int h, int w, int ci, int co) {
+  DwPlan q{};
+  const int rows = b * h;
+  if (bf16 && ci % 8 == 0 && co % 8 == 0) {
+    q.path = kDwWgmma;
+    q.cop = dw_cpad(co);
+    q.cip = dw_cpad(ci);
+    q.ks = dw_steps(w);
+    const int nmb = (3 * q.cip + 63) / 64;
+    q.threads = 128 * nmb + 32;  // consumer warpgroups, a producer warp
+    const int per_sm = dw_blocks_per_sm(3 * q.cop, nmb);
+    const size_t budget = per_sm == 1 ? 232448 : 115712;
+    q.stages = 2;
+    while (q.stages < kDwMaxStages &&
+           dw_wgmma_smem(ci, co, q.ks, q.stages + 1) <= budget)
+      ++q.stages;
+    q.smem = dw_wgmma_smem(ci, co, q.ks, q.stages);
+    q.nchunks = (w + 16 * q.ks - 1) / (16 * q.ks);
+    const long long units = (long long)q.nchunks * rows;
+    const long long target = std::min(units, (long long)kDwSms * per_sm);
+    q.ups = (int)((units + target - 1) / target);
+    q.splits = (int)((units + q.ups - 1) / q.ups);
+  } else if (bf16 && ci == 1 && co % 8 == 0) {
+    q.path = kDwStem;
+    q.cop = co;
+    q.cip = 1;
+    const int per_block = kStemThreads / (co / 8);
+    q.nchunks = (w + per_block - 1) / per_block;
+    q.pw = (w + q.nchunks - 1) / q.nchunks;
+    const long long units = (long long)q.nchunks * rows;
+    const long long target = std::min(units, (long long)kDwSms * 2);
+    q.ups = (int)((units + target - 1) / target);
+    q.splits = (int)((units + q.ups - 1) / q.ups);
+  } else {
+    q.path = kDwOld;
+    q.cop = round16(co);
+    q.cip = round16(ci);
+    dw_pack_shape(b, h, w, ci, co, &q.wc, &q.rps, &q.splits);
+  }
+  return q;
+}
+
+template <int kN, int kKS, int kMB>
+cudaError_t dw_wgmma_launch_one(const DwPlan& q, const CUtensorMap& tm_x,
+                                const CUtensorMap& tm_dy,
+                                const DwWgmmaArgs& a, cudaStream_t stream) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      dw_wgmma_kernel<kN, kKS, kMB>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)q.smem);
+  if (e != cudaSuccess) return e;
+  dw_wgmma_kernel<kN, kKS, kMB><<<q.splits, q.threads, q.smem, stream>>>(
+      tm_x, tm_dy, a);
+  return cudaSuccess;
+}
+
+template <int kN, int kKS>
+cudaError_t dw_wgmma_launch_ks(const DwPlan& q, const CUtensorMap& tm_x,
+                               const CUtensorMap& tm_dy, const DwWgmmaArgs& a,
+                               cudaStream_t stream) {
+  switch (q.cip) {
+    case 16: return dw_wgmma_launch_one<kN, kKS, 1>(q, tm_x, tm_dy, a, stream);
+    case 32: return dw_wgmma_launch_one<kN, kKS, 2>(q, tm_x, tm_dy, a, stream);
+    default: return dw_wgmma_launch_one<kN, kKS, 3>(q, tm_x, tm_dy, a, stream);
+  }
+}
+
+template <int kN>
+cudaError_t dw_wgmma_launch_n(const DwPlan& q, const CUtensorMap& tm_x,
+                              const CUtensorMap& tm_dy, const DwWgmmaArgs& a,
+                              cudaStream_t stream) {
+  return q.ks == 2 ? dw_wgmma_launch_ks<kN, 2>(q, tm_x, tm_dy, a, stream)
+                   : dw_wgmma_launch_ks<kN, 7>(q, tm_x, tm_dy, a, stream);
+}
+
+inline cudaError_t dw_wgmma_launch(const DwPlan& q, const CUtensorMap& tm_x,
+                                   const CUtensorMap& tm_dy,
+                                   const DwWgmmaArgs& a, cudaStream_t stream) {
+  switch (q.cop) {
+    case 16: return dw_wgmma_launch_n<48>(q, tm_x, tm_dy, a, stream);
+    case 32: return dw_wgmma_launch_n<96>(q, tm_x, tm_dy, a, stream);
+    default: return dw_wgmma_launch_n<192>(q, tm_x, tm_dy, a, stream);
+  }
+}
+
 template <typename T>
 cudaError_t dw_pack(const void* x, const void* dy, float* work,
                     size_t work_elems, void* out, int out_bf16, int b, int h,
@@ -302,36 +744,59 @@ cudaError_t dw_pack(const void* x, const void* dy, float* work,
   if (b <= 0 || h <= 0 || w <= 0 || ci <= 0 || co <= 0 || ci > kDwMaxC ||
       co > kDwMaxC || (long long)b * h * w >= (1LL << 31))
     return cudaErrorInvalidValue;
-  DwPackArgs p{x, dy, work, b, h, w, ci, co, round16(ci), round16(co), 0, 0};
-  int splits;
-  dw_pack_shape(b, h, w, ci, co, &p.wc, &p.rps, &splits);
-  const size_t mpnp = (size_t)9 * p.cop * p.cip;
-  if ((size_t)splits * mpnp > work_elems) return cudaErrorInvalidValue;
-  const size_t smem = dw_pack_smem<T>(p.wc, ci, co);
-  cudaError_t err = cudaFuncSetAttribute(
-      dw_pack_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const int threads = 32 * (p.cop / 16) * (p.cip / 16);
-  dw_pack_kernel<T><<<splits, threads, smem, stream>>>(p);
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  const DwPlan q = dw_plan(kBf16, b, h, w, ci, co);
+  const size_t mpnp = (size_t)9 * q.cop * q.cip;
+  if ((size_t)q.splits * mpnp > work_elems) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if constexpr (kBf16) {
+    if (q.path == kDwWgmma) {
+      CUtensorMap tm_x, tm_dy;
+      if (!tensor_map_4d_bf16(&tm_x, x, ci, w, h, b, q.cip, 16 * q.ks + 2,
+                              2 * q.cip) ||
+          !tensor_map_4d_bf16(&tm_dy, dy, co, w, h, b, q.cop, 16 * q.ks,
+                              2 * q.cop))
+        return cudaErrorInvalidValue;
+      const DwWgmmaArgs a{work,     b,     h,         w,
+                          ci,       co,    q.cip,     q.cop,
+                          q.stages, q.ups, q.nchunks, 16 * q.ks + 4};
+      err = dw_wgmma_launch(q, tm_x, tm_dy, a, stream);
+      if (err != cudaSuccess) return err;
+    } else if (q.path == kDwStem) {
+      const DwStemArgs a{static_cast<const __nv_bfloat16*>(x),
+                         static_cast<const __nv_bfloat16*>(dy),
+                         work, b, h, w, co, q.pw, q.nchunks, q.ups};
+      dw_stem_kernel<<<q.splits, kStemThreads, 0, stream>>>(a);
+    }
+  }
+  if (q.path == kDwOld) {
+    DwPackArgs a{x, dy, work, b, h, w, ci, co, q.cip, q.cop, q.wc, q.rps};
+    const size_t smem = dw_pack_smem<T>(q.wc, ci, co);
+    err = cudaFuncSetAttribute(dw_pack_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    const int threads = 32 * (q.cop / 16) * (q.cip / 16);
+    dw_pack_kernel<T><<<q.splits, threads, smem, stream>>>(a);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const unsigned blocks = (unsigned)((mpnp + 31) / 32);
   if (out_bf16)
     dw_reduce_kernel<__nv_bfloat16><<<blocks, 32 * kRedZ, 0, stream>>>(
-        work, static_cast<__nv_bfloat16*>(out), splits, p.cop, p.cip, co, ci);
+        work, static_cast<__nv_bfloat16*>(out), q.splits, q.cop, q.cip, co,
+        ci);
   else
     dw_reduce_kernel<float><<<blocks, 32 * kRedZ, 0, stream>>>(
-        work, static_cast<float*>(out), splits, p.cop, p.cip, co, ci);
+        work, static_cast<float*>(out), q.splits, q.cop, q.cip, co, ci);
   return cudaGetLastError();
 }
 
 }  // namespace ws
 
 extern "C" long long ws_dw_pack_workspace(int b, int h, int w, int ci,
-                                          int co) {
-  int wc, rps, splits;
-  ws::dw_pack_shape(b, h, w, ci, co, &wc, &rps, &splits);
-  return (long long)splits * 9 * ws::round16(ci) * ws::round16(co);
+                                          int co, int bf16) {
+  const ws::DwPlan q = ws::dw_plan(bf16, b, h, w, ci, co);
+  return (long long)q.splits * 9 * q.cop * q.cip;
 }
 
 extern "C" int ws_dw_pack(const void* x, const void* dy, float* work,

@@ -1,0 +1,269 @@
+// Hopper (sm_90a) building blocks written out in PTX: streaming loads, TMA
+// tensor loads completing on an mbarrier, and wgmma.mma_async on operands
+// in shared memory; and the host-side encoding of a TMA tensor map through
+// the driver entry point (no -lcuda).
+//
+// Operand layouts in shared memory, for an MN-major operand (the M or N
+// index runs along a row of bytes, the K index across rows):
+// - no swizzle: a core matrix is 8 K rows of 16 bytes (8 bf16), 128
+//   contiguous bytes; the leading byte offset (LBO) steps 8 K indices, the
+//   stride byte offset (SBO) 8 M or N indices;
+// - a 32/64/128-byte swizzle: an atom is 8 K rows of S bytes (S / 2 M or N
+//   indices), the 16-byte chunks of row r XORed with r's low bits, as a TMA
+//   box of S-byte rows lands under the same swizzle; LBO steps one atom
+//   along M or N, SBO 8 K rows (8 S bytes).
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace ws {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 8 and 16 bytes from global memory through the non-coherent path, not
+// kept in L1, with a 256-byte L2 prefetch: for streams each byte of which is
+// read once
+__device__ __forceinline__ uint2 ld_stream8(const void* p) {
+  uint2 v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ uint4 ld_stream16(const void* p) {
+  uint4 v;
+  asm volatile(
+      "ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// ---- mbarriers and TMA ----
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the producer's arrival, announcing `bytes` of TMA traffic to come
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// arrives only where pred is set, as a predicated instruction rather than a
+// branch (a branch around it would make wgmma code divergent)
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
+// spins until the phase with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@!P1 bra LAB_WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// box at integer coordinates (c0 innermost; out-of-range elements read as
+// zero) of a 4-D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// A 4-D bf16 tensor map over a row-major (d3, d2, d1, d0) array with boxes
+// of (1, 1, b1, b0), whose b0 * 2 bytes rows land in shared memory under the
+// swizzle of that width (32, 64 or 128 bytes; 0: none). The encoder is the driver's
+// cuTensorMapEncodeTiled, reached through the runtime, so the library does
+// not link libcuda. Returns false where the driver refuses the map (a
+// stride that is not a multiple of 16 bytes, for one).
+inline bool tensor_map_4d_bf16(CUtensorMap* map, const void* base,
+                               unsigned long long d0, unsigned long long d1,
+                               unsigned long long d2, unsigned long long d3,
+                               unsigned b0, unsigned b1, int swizzle) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                              void*, const cuuint64_t*, const cuuint64_t*,
+                              const cuuint32_t*, const cuuint32_t*,
+                              CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = [] {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      fn = nullptr;
+    return reinterpret_cast<Encode>(fn);
+  }();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {d0, d1, d2, d3};
+  const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
+  const cuuint32_t box[4] = {b0, b1, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+      : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+      : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// shared-memory matrix descriptor; layout 0 no swizzle, 1 the 128-byte,
+// 2 the 64-byte, 3 the 32-byte swizzle (operands 1 KB aligned: base offset
+// 0)
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo,
+                                               uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma that owns the registers
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x N, f32, registers) += A (64 x 16) B (16 x N), bf16 operands in
+// shared memory, both MN-major (imm-trans-a = imm-trans-b = 1). Thread t of
+// the warpgroup holds D[16 (t / 32) + (t % 32) / 4 + 8 h][8 j + 2 (t % 4) + e]
+// in d[4 j + 2 h + e].
+__device__ __forceinline__ void wgmma_m64n48k16_tt(float (&d)[24],
+                                                    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23},"
+      " %24, %25, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n96k16_tt(float (&d)[48],
+                                                    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47},"
+      " %48, %49, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n192k16_tt(float (&d)[96],
+                                                    uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71,"
+      " %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87,"
+      " %88, %89, %90, %91, %92, %93, %94, %95},"
+      " %96, %97, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+}  // namespace ws

@@ -16,20 +16,28 @@ Bound on an H100 at ResNet34's train shapes (B=128 x 200 frames, feat 80,
 bf16): a layer1 conv (80 x 200, 32 -> 32) reads 262 MB of x and dy for
 37.7 GFLOP, about 0.078 ms at 3.35 TB/s against 0.038 at 989 TFLOP/s, so
 bytes bound it (`bin/kernel_bounds.py`); layer2's (40 x 100, 64 -> 64)
-likewise. The TPU kernel carried one (3 Co, 3 Ci) f32 accumulator across a
-sequential batch grid, and the JAX docstring's finding is that the shifted
-copies lose when they are materialised. Here K is split across blocks that
-run in parallel: a block owns a slab of (b, h') rows, all of W in chunks of
-at most 112 positions, and builds the shifted A and B tiles in shared
-memory only: dy's rows h'+1, h', h'-1 as a ring of three staged rows (a
-one-row halo at each end of the slab), x's row with a zero column at each
-edge, the kw shift a row offset into it. bf16 runs on the tensor cores
-(WMMA 16x16x16, f32 accumulation; Ci and Co padded to 16 with zeros in
-shared memory, which is how the one-channel stem, Ci = 1, is taken), f32
-on CUDA-core FMA (exact f32, no TF32). Each block writes its partial
-product to a workspace and a second pass sums the partials in a fixed
-order, so the same inputs give the same bits (no atomics). wgmma, TMA and
-a pipelined staging are later work.
+reads 131 MB for the same 37.7 GFLOP, 0.039 ms against 0.038: it sits on
+the ridge, where only wgmma's rate keeps the tensor cores off the
+critical path. The TPU kernel carried one (3 Co, 3 Ci) f32 accumulator
+across a sequential batch grid. Here K is split across a fixed number of
+blocks per shape, each of which walks a contiguous range of (w-chunk,
+row) units, and a second pass sums the blocks' partials in a fixed order,
+so the same inputs give the same bits (no atomics). Three kernels
+(csrc/conv_dw_pack.cu):
+
+- bf16 with Ci and Co multiples of 8 (ResNet34's layer1 and layer2): one
+  producer thread streams the rows as TMA boxes (Cp = 16/32/64 channels,
+  out-of-range rows, positions and channels arriving as zeros) into a ring
+  of stages under the 32/64/128-byte swizzle, completing on mbarriers;
+  consumer warpgroups run wgmma on them: M is (kw, Ci) and each kw tap is
+  the x box read one row further on (the kw shift costs no copy), N is
+  (kh, Co), dy's rows h'+1, h', h'-1 lying in consecutive slots of a ring
+  of row buffers (the kh shift costs no copy either);
+- bf16 with Ci = 1 (the stem): CUDA-core FMA over 16-byte loads of dy,
+  four rows' loads in flight a thread, 72 f32 accumulators;
+- f32 (exact, no TF32), and bf16 at widths that are not multiples of 8:
+  the first design, one row staged at a time into shared memory, WMMA in
+  bf16 and CUDA-core FMA in f32.
 
 The map is the models' logical (B, C, H, W) tensor in `torch.channels_last`
 memory format, whose storage is the (B, H, W, C) the kernel reads.
@@ -127,13 +135,13 @@ def dw_pack(x: torch.Tensor, dy: torch.Tensor,
     if b * h * w >= 2 ** 31 or x.numel() == 0:
         raise ValueError(f"dw_pack: B*H*W = {b * h * w} positions")
     lib = _lib()
-    elems = lib.ws_dw_pack_workspace(b, h, w, ci, co)
+    bf16 = int(x.dtype == torch.bfloat16)
+    elems = lib.ws_dw_pack_workspace(b, h, w, ci, co, bf16)
     work = torch.empty(elems, device=x.device, dtype=torch.float32)
     out = torch.empty((co, ci, 3, 3), device=x.device, dtype=out_dtype)
     ptr = _build.pointers([x, dy, work, out])
     rc = lib.ws_dw_pack(ptr[0], ptr[1], ptr[2], elems, ptr[3], b, h, w, ci,
-                        co, int(x.dtype == torch.bfloat16),
-                        int(out_dtype == torch.bfloat16),
+                        co, bf16, int(out_dtype == torch.bfloat16),
                         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, "dw_pack")
     dw_pack.launches += 1
@@ -147,7 +155,7 @@ dw_pack.launches = 0
 def _lib():
     lib = _build.load("conv_dw_pack")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ws_dw_pack_workspace.argtypes = [i] * 5
+    lib.ws_dw_pack_workspace.argtypes = [i] * 6
     lib.ws_dw_pack_workspace.restype = ll
     lib.ws_dw_pack.argtypes = [p, p, p, ll, p] + [i] * 7 + [p]
     lib.ws_dw_pack.restype = i

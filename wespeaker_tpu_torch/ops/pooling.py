@@ -21,22 +21,28 @@ Both return mean and std (B, D) f32 as views of one (B, 2D) buffer
 `concat=True` the buffer itself, so the pooling layers need no concat. An
 utterance with no valid frame gets uniform softmax weights, as in JAX.
 
-The kernels are csrc/common.cuh's `softmax_stats_kernel` and
-`col_stats_kernel`, the ones the ECAPA tail and SE block kernels run
-inside, reached through their own C entry points in csrc/pooling.cu:
-one thread per (utterance, channel) walks T twice (the max, then the
-sums; the mean, then the squared deviations), so any B (up to 65,535) and
-any D work, where the TPU kernels asked for D % 128 == 0 and padded B to
-8. Neither has a backward (nor had the TPU kernels): a CUDA input that
-requires grad raises, and the layers take them only with autograd off.
+Row 6 is csrc/common.cuh's `softmax_stats_kernel`, the one the ECAPA tail
+kernels run inside, reached through its own C entry point in
+csrc/pooling.cu: one thread per (utterance, channel) walks T twice (the
+max, then the sums), so any D and up to 65,535 utterances (grid.y) work,
+where the TPU kernel asked for D % 128 == 0 and padded B to 8. Row 7 is
+csrc/pooling.cu's `masked_stats_kernel`, which reads x once: a thread owns
+4 bf16 (2 f32) channels of one utterance and reads them with 8-byte loads
+streamed past L1, 16 frames in flight; T is split across warps only where
+the (utterance, 128-channel) items alone do not fill the card; each part
+keeps shifted sums of m (x - K) and m (x - K)^2 about K = x at the first
+valid frame, and the parts combine by Chan's formula in a fixed order (raw
+sums of x and x^2 would cancel where |mean| >> std). Its grid is 1-D, so
+any B with B * ceil(D / 128) < 2^31 (bf16) launches. Neither has a
+backward (nor had the TPU kernels): a CUDA input that requires grad
+raises, and the layers take them only with autograd off.
 
 Bound on an H100 at ReDimNetB2's pooling shape (B=512, T=200, D=1152,
 bf16 logits and x): row 6 reads 472 MB and writes 4.7 MB, 0.142 ms at
 3.35 TB/s against 0.014 ms of f32 arithmetic (0.213 ms with f32 logits);
 row 7 reads 236 MB, 0.072 ms, and at ResNet34's TSTP shape (T' = 25,
-D = 2560) 0.023 ms. Both are bound by bytes; the second pass over T
-reads x again where L2 does not keep it, which a warp-per-channel design
-that holds T's sums in registers would avoid (later work).
+D = 2560) 0.023 ms. Both are bound by bytes; row 6's second pass over T
+reads the logits again where L2 does not keep them (later work).
 """
 
 import ctypes
@@ -48,7 +54,7 @@ import torch
 from wespeaker_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-_MAX_BATCH = 65535  # grid.y
+_MAX_SOFTMAX_BATCH = 65535  # row 6's grid.y
 
 
 def softmax_stats_reference(logits, x, mask=None):
@@ -109,8 +115,6 @@ def _check_cuda_args(what, tensors, mask):
             raise RuntimeError(f"{what} has no backward: call it with "
                                "autograd off (the pooling layers route "
                                "training through the plain path)")
-    if tensors[0].shape[0] > _MAX_BATCH:
-        raise ValueError(f"{what} takes at most {_MAX_BATCH} utterances")
 
 
 def _split(out, d, concat):
@@ -142,6 +146,9 @@ def fused_softmax_stats(logits: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{what}: no kernel for {x.device}")
     _check_cuda_args(what, [x, logits], mask)
     b, t, _ = x.shape
+    if b > _MAX_SOFTMAX_BATCH:
+        raise ValueError(f"{what} takes at most {_MAX_SOFTMAX_BATCH} "
+                         "utterances")
     mask = _mask_arg(mask)
     out = torch.empty(b, 2 * d, device=x.device, dtype=torch.float32)
     lib = _lib()
