@@ -82,6 +82,10 @@ Phases, each printing one line:
               ((F, C, blocks) = (40, 32, 3), (20, 64, 3), (10, 128, 27),
               (5, 256, 3)), B=64: bf16 at 200 frames (cosine >= 0.9999)
               and f32 at a ragged 198 frames (TF32 off, rtol/atol 1e-4);
+              then at the edges of the bf16 kernel's tile plan
+              (GEMINI_EDGES: B = 1, F = 1, T' = 1, T' = 49, T' not a
+              multiple of the tile, F = 3 at C = 32, C = 256 at F = 5 and
+              T' = 7) in bf16 and f32 at the same bars;
  15. gemini slice  Gemini_DF_ResNet114 at the width of
               gemini_dfresnet_adam.yaml (feat 80, embed 256, TSTP), random
               weights and BN statistics from a seed: make_eval_embed_fn in
@@ -96,9 +100,13 @@ Phases, each printing one line:
               same request padded to its bucket (cosine >= 0.9999), and
               against batch=1, recorded only;
  17. gemini timing  CUDA events after warm-up at B=512 x 200 frames, bf16:
-              each stage's kernel and plain version with its bound;
-              Gemini_DF_ResNet114 extraction audio-s/s on the kernel path
-              and with fused_stages=False and plain pooling;
+              each stage's kernel and plain version with its bound, its
+              kernel launches a call (torch.profiler; one a block, 36 in
+              all) and the device memory the call takes beyond its input
+              beside the h and g the parent design allocated;
+              Gemini_DF_ResNet114 extraction audio-s/s and peak device
+              memory on the kernel path and with fused_stages=False and
+              plain pooling;
  18. res2 kernels  the Res2 chain kernel (ECAPA's fused_res2 route) against
               its plain version at ECAPA_TDNN_GLOB_c512's three chains (width
               64, dilation 2/3/4) and a c1024 chain (width 128), B=64: bf16
@@ -208,6 +216,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import load_model_for_eval  # noqa: E402
 from wespeaker_tpu_torch.bin import kernel_bounds  # noqa: E402
+from wespeaker_tpu_torch.bin import profile_extract  # noqa: E402
 from wespeaker_tpu_torch.bin.kernel_bounds import (  # noqa: E402
     PEAK_F32_FLOPS, bound, cam_dense_block, inv_bottleneck_stage,
     masked_stats, softmax_stats)
@@ -274,6 +283,13 @@ CAM_EMBED = 512
 GEMINI_EMBED = 256
 GEMINI_STAGES = ((40, 200, 32, 3), (20, 100, 64, 3), (10, 100, 128, 27),
                  (5, 100, 256, 3))
+# (B, F, T', C) at the edges of the bf16 stage kernel's tile plan: B = 1;
+# F = 1; T' = 1; the served T' = 49; T' not a multiple of the tile and over
+# two tiles (12-frame tiles: 61 frames at C = 32, 37 at C = 128); F = 3 at
+# C = 32; C = 256 at F = 5 and T' = 7
+GEMINI_EDGES = ((1, 10, 100, 128), (2, 1, 37, 32), (2, 20, 1, 64),
+                (2, 10, 49, 128), (2, 5, 49, 256), (2, 10, 37, 128),
+                (2, 40, 61, 32), (2, 3, 50, 32), (2, 5, 7, 256))
 GEMINI_YAML = ("model: Gemini_DF_ResNet114\nmodel_args:\n  feat_dim: 80\n"
                f"  embed_dim: {GEMINI_EMBED}\n  pooling_func: TSTP\n"
                "  two_emb_layer: false\ndataset_args:\n  fbank_args:\n"
@@ -1249,12 +1265,16 @@ def gemini_inputs(model, i, rng, b, t, dtype, dev):
 def phase_gemini_kernels(model, dev):
     """The stage kernel against its plain version at each of the four
     Gemini_DF_ResNet114 stage shapes, B=64: bf16 at 200 frames (T' = 200,
-    100, 100, 100) and f32 at 198 (T' = 198, 99, 99, 99)."""
+    100, 100, 100) and f32 at 198 (T' = 198, 99, 99, 99); then at each of
+    GEMINI_EDGES in bf16 and f32, with the stage's weights of that width
+    (its first 3 blocks)."""
     rng = np.random.default_rng(SEED + 14)
     errs, parts = [], []
+    widths = {}
     for dtype, t in ((torch.bfloat16, T), (torch.float32, 198)):
         for i, (f, _, c, blocks) in enumerate(GEMINI_STAGES):
             x, w = gemini_inputs(model, i, rng, SLICE_BATCH, t, dtype, dev)
+            widths[c] = [v[:3] for v in w]
             got = inv_bottleneck.fused_inv_bottleneck_stage(x, *w)
             torch.cuda.synchronize()
             want = inv_bottleneck.inv_bottleneck_stage_reference(x, *w)
@@ -1266,7 +1286,21 @@ def phase_gemini_kernels(model, dev):
                          f"L={blocks}) {str(dtype)[6:]} max_abs_err="
                          f"{err:.3g} cos={cos:.7f}")
             del x, w, got, want
-    print("gemini kernels: " + "; ".join(parts))
+    edges = []
+    for b, f, t, c in GEMINI_EDGES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.as_tensor(rng.standard_normal((b, f, t, c)).astype(
+                np.float32), device=dev).to(dtype).permute(0, 3, 1, 2)
+            got = inv_bottleneck.fused_inv_bottleneck_stage(x, *widths[c])
+            torch.cuda.synchronize()
+            want = inv_bottleneck.inv_bottleneck_stage_reference(
+                x, *widths[c])
+            err, cos = compare(got, want, dtype)
+            errs.append(err)
+            edges.append(f"({b}, {f}, {t}, {c}) {str(dtype)[6:]} "
+                         f"cos={cos:.7f}")
+    print("gemini kernels: " + "; ".join(parts) + "; edges (B, F, T', C): "
+          + ", ".join(edges))
     return {"gemini": max(errs)}
 
 
@@ -1371,11 +1405,27 @@ def phase_gemini_serving(dev):
           f"{row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
 
 
+def stage_launches(fn):
+    """Device kernels one call of fn launches, by torch.profiler: (the
+    bf16 stage kernel's launches, all kernels')."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.count, e.key) for e in prof.key_averages()
+            if profile_extract._device_us(e) > 0]
+    return (sum(n for n, k in rows if "inv_block_kernel" in k),
+            sum(n for n, k in rows if "Memcpy" not in k and "Memset" not in k))
+
+
 def phase_gemini_timing(model, dev, smi):
     """CUDA events after warm-up at B=512 x 200 frames, bf16: each stage's
-    kernel and plain version with its bound; Gemini_DF_ResNet114
-    extraction audio-s/s on the kernel path and with fused_stages=False
-    and plain pooling."""
+    kernel and plain version with its bound, its kernel launches a call
+    (torch.profiler) and the device memory the call takes beyond its input
+    (torch.cuda.max_memory_allocated after a reset); Gemini_DF_ResNet114
+    extraction audio-s/s and peak device memory on the kernel path and
+    with fused_stages=False and plain pooling."""
     rng = np.random.default_rng(SEED + 17)
     io = torch.bfloat16
     stages, res = [], {"ms": 0.0, "plain_ms": 0.0}
@@ -1387,11 +1437,22 @@ def phase_gemini_timing(model, dev, smi):
         flops, nbytes = inv_bottleneck_stage(B, f, x.shape[-1], c, blocks)
         ms = cuda_ms(lambda: inv_bottleneck.fused_inv_bottleneck_stage(
             x, *w))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        inv_bottleneck.fused_inv_bottleneck_stage(x, *w)
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        launched = stage_launches(
+            lambda: inv_bottleneck.fused_inv_bottleneck_stage(x, *w))
+        # the parent's three-launch design allocated h and g, (B, F, T, 4C)
+        # each
+        hg = 2 * x.numel() * 4 * x.element_size() / 2 ** 30
         plain_ms = cuda_ms(
             lambda: inv_bottleneck.inv_bottleneck_stage_reference(x, *w),
             iters=3, warmup=1)
         bms, by = bound(flops, nbytes)
-        stages.append((i, ms, plain_ms, bms, by))
+        stages.append((i, ms, plain_ms, bms, by, launched, extra, hg))
         res["ms"] += ms
         res["plain_ms"] += plain_ms
         flops_all += flops
@@ -1408,16 +1469,31 @@ def phase_gemini_timing(model, dev, smi):
                                    compute_dtype=io, fbank_conv_dtype=io,
                                    device=dev)
         ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
-        rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        embed({"wav": wav})
+        torch.cuda.synchronize()
+        rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms,
+                       torch.cuda.max_memory_allocated() / 2 ** 30)
     set_pooling_fused(model.set_fused(None), None)
-    fmt = "; ".join(f"stage{i} {ms:.3f} ms (plain {pm:.3f}, bound {bm:.3f} "
-                    f"by {by})" for i, ms, pm, bm, by in stages)
+    kernel_launches = sum(v[5][0] for v in stages)
+    if kernel_launches != sum(n for *_, n in GEMINI_STAGES):
+        raise AssertionError(f"bf16 stage kernel launches {kernel_launches}"
+                             ", want one a block")
+    fmt = "; ".join(
+        f"stage{i} {ms:.3f} ms (plain {pm:.3f}, bound {bm:.3f} by {by}; "
+        f"{ln[0]} stage-kernel launches, {ln[1]} kernels in all; "
+        f"{ex:.3f} GiB beyond x, where the parent design's h and g took "
+        f"{hg:.3f})" for i, ms, pm, bm, by, ln, ex, hg in stages)
     print(f"gemini timing [{smi}] B={B} T={T} bf16: {fmt}; four stages "
           f"{res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, bound "
-          f"{res['bound_ms']:.3f}); Gemini_DF_ResNet114 extraction kernel "
-          f"path {rates['kernel'][0]:.1f} audio-s/s ({rates['kernel'][1]:.2f} "
-          f"ms/batch), fused_stages=False {rates['plain'][0]:.1f} audio-s/s "
-          f"({rates['plain'][1]:.2f} ms/batch)")
+          f"{res['bound_ms']:.3f}), {kernel_launches} stage-kernel launches; "
+          f"Gemini_DF_ResNet114 extraction kernel path "
+          f"{rates['kernel'][0]:.1f} audio-s/s ({rates['kernel'][1]:.2f} "
+          f"ms/batch, peak {rates['kernel'][2]:.3f} GiB), fused_stages=False "
+          f"{rates['plain'][0]:.1f} audio-s/s ({rates['plain'][1]:.2f} "
+          f"ms/batch, peak {rates['plain'][2]:.3f} GiB)")
     return {"gemini": res}
 
 

@@ -352,17 +352,27 @@ def stage_args(rng, num_blocks, c, device):
 
 
 # Gemini_DF_ResNet114's four stage widths at 2 s (T'=100 after stage 0),
-# in both types, ragged T in f32
-STAGE_CASES = [(torch.bfloat16, 40, 200, 32), (torch.float32, 20, 99, 64),
-               (torch.bfloat16, 10, 100, 128), (torch.float32, 5, 37, 256),
-               (torch.float32, 40, 198, 32), (torch.bfloat16, 5, 99, 256)]
+# in both types, ragged T in f32; then, in both types, the edges of the
+# bf16 kernel's tile plan: B = 1; F = 1; T = 1; the served T' = 49; T not
+# a multiple of the tile and over two tiles (To = 10 at C = 128, 11 for
+# T = 61 at C = 32); F = 3 at C = 32; C = 256 at F = 5, T = 7
+STAGE_EDGES = [(1, 10, 100, 128), (2, 1, 37, 32), (2, 20, 1, 64),
+               (2, 10, 49, 128), (2, 5, 49, 256), (2, 10, 37, 128),
+               (2, 40, 61, 32), (2, 3, 50, 32), (2, 5, 7, 256)]
+STAGE_CASES = ([(torch.bfloat16, 3, 40, 200, 32), (torch.float32, 3, 20, 99, 64),
+                (torch.bfloat16, 3, 10, 100, 128),
+                (torch.float32, 3, 5, 37, 256),
+                (torch.float32, 3, 40, 198, 32),
+                (torch.bfloat16, 3, 5, 99, 256)]
+               + [(dtype, *shape) for dtype in (torch.bfloat16, torch.float32)
+                  for shape in STAGE_EDGES])
 
 
-@pytest.mark.parametrize("dtype,f,t,c", STAGE_CASES)
-def test_inv_bottleneck_kernel_matches_plain(cuda, dtype, f, t, c):
+@pytest.mark.parametrize("dtype,b,f,t,c", STAGE_CASES)
+def test_inv_bottleneck_kernel_matches_plain(cuda, dtype, b, f, t, c):
     rng = np.random.default_rng(11)
     args = stage_args(rng, 3, c, cuda)
-    x = torch.as_tensor(rng.standard_normal((3, f, t, c)).astype(np.float32),
+    x = torch.as_tensor(rng.standard_normal((b, f, t, c)).astype(np.float32),
                         device=cuda).to(dtype).permute(0, 3, 1, 2)
     before = inv_bottleneck.fused_inv_bottleneck_stage.launches
     got = inv_bottleneck.fused_inv_bottleneck_stage(x, **args)
@@ -371,6 +381,26 @@ def test_inv_bottleneck_kernel_matches_plain(cuda, dtype, f, t, c):
     want = inv_bottleneck.inv_bottleneck_stage_reference(x, **args)
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert_matches(got, want, dtype)
+
+
+def test_inv_bottleneck_bf16_keeps_h_and_g_on_chip(cuda):
+    """A bf16 stage call at (B=64, F=40, T=200, C=32), three blocks: the
+    device memory it takes beyond x, the output and the weights stays
+    under 4 x's bytes, the size of an h workspace alone (the ping-pong
+    buffer is one x)."""
+    rng = np.random.default_rng(14)
+    args = stage_args(rng, 3, 32, cuda)
+    x = torch.as_tensor(rng.standard_normal((64, 40, 200, 32)).astype(
+        np.float32), device=cuda).to(torch.bfloat16).permute(0, 3, 1, 2)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = inv_bottleneck.fused_inv_bottleneck_stage(x, **args)
+    torch.cuda.synchronize()
+    x_bytes = x.numel() * x.element_size()
+    extra = torch.cuda.max_memory_allocated() - base - x_bytes  # the output
+    assert extra < 4 * x_bytes, (extra, x_bytes)
+    assert torch.isfinite(out.float()).all()
 
 
 def test_inv_bottleneck_raises_for_unsupported_shapes(cuda):
@@ -386,6 +416,14 @@ def test_inv_bottleneck_raises_for_unsupported_shapes(cuda):
         inv_bottleneck.fused_inv_bottleneck_stage(x.half(), **args)
     with pytest.raises(ValueError, match="channels-last"):
         inv_bottleneck.fused_inv_bottleneck_stage(x.contiguous(), **args)
+    # bf16 takes the widths of the Gemini models only; f32 any multiple
+    # of 32
+    args = stage_args(np.random.default_rng(12), 2, 96, cuda)
+    x = torch.zeros(2, 4, 8, 96, device=cuda).permute(0, 3, 1, 2)
+    with pytest.raises(ValueError, match="C in"):
+        inv_bottleneck.fused_inv_bottleneck_stage(x.bfloat16(), **args)
+    assert inv_bottleneck.fused_inv_bottleneck_stage(x, **args).shape == (
+        x.shape)
 
 
 def test_gemini_kernel_path_matches_plain_path(cuda):

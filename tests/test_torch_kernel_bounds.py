@@ -1,7 +1,8 @@
 """The bounds that PERF.md's kernel table gives the TPU kernels
 (wespeaker_tpu_torch/bin/kernel_bounds.py: the statistics-pooling rows at
-their paths' shapes, and the counts chip_smoke.py takes for every kernel):
-the arithmetic on shapes whose counts are known by hand."""
+their paths' shapes, the Gemini stage per stage, and the counts
+chip_smoke.py takes for every kernel): the arithmetic on shapes whose
+counts are known by hand."""
 
 import pytest
 
@@ -48,11 +49,36 @@ def test_cam_block_counts_by_hand():
 
 def test_every_unported_row_has_a_bound(capsys):
     """No row is left to port: the tool prints the pooling rows (6, 7) at
-    the shapes of the paths that run them."""
+    the shapes of the paths that run them, and row 9 once a Gemini
+    stage."""
     kb.main()
     lines = capsys.readouterr().out.splitlines()
-    assert [ln.split()[1] for ln in lines] == ["6", "6", "7", "7"]
+    assert [ln.split()[1] for ln in lines] == ["6", "6", "7", "7", "9", "9",
+                                              "9", "9"]
     assert all(" ms (" in ln for ln in lines)
+
+
+@pytest.mark.parametrize("stage,shape,want_ms", [
+    # (F, T, C, blocks) at B=512 x 200 frames; per block 2 * 2 * P * C * 4C
+    # for the two 1x1 products and 2 * P * 9 * 4C for the depthwise, P =
+    # 512 F T positions: 3 * (2 * 2 * 4.096e6 * 32 * 128 + 2 * 4.096e6 *
+    # 9 * 128) = 229.6 GFLOP at stage 0, 0.232 ms at 989 TFLOP/s
+    (0, (40, 200, 32, 3), 0.232),
+    (1, (20, 100, 64, 3), 0.218),
+    (2, (10, 100, 128, 27), 3.793),
+    (3, (5, 100, 256, 3), 0.829),
+])
+def test_gemini_stage_bounds_by_hand(stage, shape, want_ms):
+    f, t, c, depth = shape
+    p = 512 * f * t
+    flops = depth * (2 * 2 * p * c * 4 * c + 2 * p * 9 * 4 * c)
+    assert kb.inv_bottleneck_stage(512, *shape)[0] == flops
+    assert kb.ROWS[4 + stage][0] == 9 and f"({f}, {t}, {c})" in kb.ROWS[
+        4 + stage][2]
+    _, row_flops, row_bytes, peak = kb.ROWS[4 + stage][3][0]
+    ms, by = kb.bound(row_flops, row_bytes, peak)
+    assert by == "operations" and round(ms, 3) == want_ms
+    assert round(flops / 989e12 * 1e3, 3) == want_ms
 
 
 def test_pooling_bounds_by_hand():

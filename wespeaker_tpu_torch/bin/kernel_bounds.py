@@ -1,6 +1,7 @@
 """Least time an H100 could take for the statistics-pooling kernels (PERF.md
-rows 6 and 7), from their shapes on the paths that run them: ReDimNetB2's
-ASTP with global context, and ResNet34's TSTP.
+rows 6 and 7), from their shapes on the paths that run them (ReDimNetB2's
+ASTP with global context, and ResNet34's TSTP), and for the Gemini stage
+kernel (row 9) at each of Gemini_DF_ResNet114's four stages.
 
     python -m wespeaker_tpu_torch.bin.kernel_bounds
 
@@ -116,6 +117,14 @@ ROWS = [
      "TSTP of ResNet34, B=512 x 200 frames: T=25, D=32*8*10=2560, with a "
      "mask",
      [("call", *masked_stats(512, 25, 2560), PEAK_F32_FLOPS)]),
+] + [
+    (9, "fused_inv_bottleneck_stage",
+     f"Gemini_DF_ResNet114 stage {i}, B=512 x 200 frames: (F, T, C) = "
+     f"({f}, {t}, {c}), {depth} blocks",
+     [("call", *inv_bottleneck_stage(512, f, t, c, depth), PEAK_BF16_FLOPS)])
+    for i, (f, t, c, depth) in enumerate(
+        ((40, 200, 32, 3), (20, 100, 64, 3), (10, 100, 128, 27),
+         (5, 100, 256, 3)))
 ]
 
 

@@ -6,7 +6,12 @@ Each kernel runs at its main-path shape in bf16 on random operands made
 from a seed (the SE-Res2 block and the MFA+ASTP tail at B=512, T=200,
 C=512; the training tail's forward and backward at B=256; the three CAM++
 dense blocks of one CAMPPlus forward at B=512, T'=100; the four stages of
-one Gemini_DF_ResNet114 forward at B=512 x 200 frames; the Res2 chain of
+one Gemini_DF_ResNet114 forward at B=512 x 200 frames, as `gemini` and per
+stage as `gemini_s0` to `gemini_s3`, with the most device memory a stage
+call takes beyond its input (its output and any workspace) as
+`gemini_stage_extra_gib` and the peak device memory of one bf16 B=512 x
+2 s Gemini_DF_ResNet114 forward as `gemini_forward_peak_gib`;
+the Res2 chain of
 one ECAPA c512 block at B=512, T=200; the 14 tap-packed dW calls of one
 ResNet34 train step at B=128 x 200 frames: the stem, six layer1 and seven
 layer2 convs, as `dw` and per call as `dw_stem`, `dw_32` and `dw_64`; the
@@ -16,8 +21,8 @@ ResNet34's TSTP shape, T'=25, D=2560), timed with CUDA events after
 warm-up; the dw_pack and masked-stats keys by replaying a CUDA graph of
 the calls, so that the wrapper's host time (about as long as the
 masked stats at T'=25) does not hide the kernel. Prints the card and
-one JSON line {kernel: ms}. A kernel the package does not have is left
-out, so the same file times an older checkout: run it with that checkout
+one JSON line {kernel: ms} (`--only` limits it to the named ops
+modules). A kernel the package does not have is left out, so the same file times an older checkout: run it with that checkout
 first on PYTHONPATH to compare two trees in one call (old, new, new,
 old).
 """
@@ -71,7 +76,44 @@ def graph_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+# Gemini_DF_ResNet114's stages at 200 frames, (F, T, C, blocks)
+GEMINI_STAGES = ((40, 200, 32, 3), (20, 100, 64, 3), (10, 100, 128, 27),
+                 (5, 100, 256, 3))
+
+
+def gemini_forward_peak_gib(dev) -> float:
+    """Peak device memory (GiB, torch.cuda.max_memory_allocated after a
+    reset) of one B=512 x 2 s bf16 Gemini_DF_ResNet114 extraction forward
+    (feat 80, embed 256, random weights from a seed)."""
+    from wespeaker_tpu_torch.frontend.fbank import FbankConfig
+    from wespeaker_tpu_torch.models.gemini_dfresnet import (
+        Gemini_DF_ResNet114)
+    from wespeaker_tpu_torch.train import make_eval_embed_fn
+
+    torch.manual_seed(0)
+    model = Gemini_DF_ResNet114(80, 256).to(dev).eval()
+    embed = make_eval_embed_fn(model, FbankConfig(),
+                               compute_dtype=torch.bfloat16,
+                               fbank_conv_dtype=torch.bfloat16, device=dev)
+    wav = torch.rand(512, (200 - 1) * 160 + 400, device=dev) - 0.5
+    embed({"wav": wav})
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    embed({"wav": wav})
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, embed, wav
+    torch.cuda.empty_cache()
+    return peak
+
+
+ONLY = None  # ops module names to time (--only), None for all
+
+
 def _ops(name):
+    if ONLY is not None and name not in ONLY:
+        return None
     try:
         return importlib.import_module(f"wespeaker_tpu_torch.ops.{name}")
     except ModuleNotFoundError:
@@ -81,7 +123,12 @@ def _ops(name):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--only", default=None,
+                    help="comma-separated ops modules to time (e.g. "
+                         "inv_bottleneck,pooling); default all")
     args = ap.parse_args(argv)
+    global ONLY
+    ONLY = None if args.only is None else set(args.only.split(","))
     dev = resolve_device("cuda")
     rng = np.random.default_rng(0)
     io = torch.bfloat16
@@ -150,9 +197,8 @@ def main(argv=None):
         out["cam"] = total
     inv = _ops("inv_bottleneck")
     if inv is not None:
-        total = 0.0
-        for f, tt, ch, blocks in ((40, 200, 32, 3), (20, 100, 64, 3),
-                                  (10, 100, 128, 27), (5, 100, 256, 3)):
+        total = extra = 0.0
+        for i, (f, tt, ch, blocks) in enumerate(GEMINI_STAGES):
             dd = 4 * ch
             ws = (r(blocks, ch, dd, scale=ch ** -0.5),
                   1 + r(blocks, dd, scale=.1), r(blocks, dd, scale=.1),
@@ -161,10 +207,20 @@ def main(argv=None):
                   r(blocks, dd, ch, scale=dd ** -0.5),
                   1 + r(blocks, ch, scale=.1), r(blocks, ch, scale=.1))
             x = r(b, f, tt, ch, dtype=io).permute(0, 3, 1, 2)
-            total += cuda_ms(lambda: inv.fused_inv_bottleneck_stage(x, *ws),
-                             args.iters)
+            out[f"gemini_s{i}"] = cuda_ms(
+                lambda: inv.fused_inv_bottleneck_stage(x, *ws), args.iters)
+            total += out[f"gemini_s{i}"]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            inv.fused_inv_bottleneck_stage(x, *ws)
+            torch.cuda.synchronize()
+            extra = max(extra, (torch.cuda.max_memory_allocated() - base)
+                        / 2 ** 30)
             del x
         out["gemini"] = total
+        out["gemini_stage_extra_gib"] = extra
+        out["gemini_forward_peak_gib"] = gemini_forward_peak_gib(dev)
     res2 = _ops("res2_chain")
     if res2 is not None:
         w = c // 8

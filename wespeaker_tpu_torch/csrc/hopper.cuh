@@ -12,6 +12,11 @@
 //   indices), the 16-byte chunks of row r XORed with r's low bits, as a TMA
 //   box of S-byte rows lands under the same swizzle; LBO steps one atom
 //   along M or N, SBO 8 K rows (8 S bytes).
+// For a K-major operand (the K index runs along a row of bytes, M or N
+// across rows), with an S-byte swizzle: an atom is 8 M or N rows of S bytes
+// (S / 2 K indices), laid as a TMA box of S-byte rows lands; SBO steps 8
+// rows (8 S bytes), LBO is unused, and the k-th 16-index step of a row
+// starts 32 k bytes into it (the swizzle follows the address).
 
 #pragma once
 
@@ -99,16 +104,35 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global to shared memory, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands written by threads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // A 4-D bf16 tensor map over a row-major (d3, d2, d1, d0) array with boxes
-// of (1, 1, b1, b0), whose b0 * 2 bytes rows land in shared memory under the
-// swizzle of that width (32, 64 or 128 bytes; 0: none). The encoder is the driver's
-// cuTensorMapEncodeTiled, reached through the runtime, so the library does
-// not link libcuda. Returns false where the driver refuses the map (a
-// stride that is not a multiple of 16 bytes, for one).
+// of (1, b2, b1, b0), whose b0 * 2 bytes rows land in shared memory, d1
+// then d2 outer, under the swizzle of that width (32, 64 or 128 bytes; 0:
+// none). The encoder is CUDA's cuTensorMapEncodeTiled, reached through
+// the runtime, so the library does not link libcuda. Returns false where
+// the encoder refuses the map (a stride that is not a multiple of 16
+// bytes, for one).
 inline bool tensor_map_4d_bf16(CUtensorMap* map, const void* base,
                                unsigned long long d0, unsigned long long d1,
                                unsigned long long d2, unsigned long long d3,
-                               unsigned b0, unsigned b1, int swizzle) {
+                               unsigned b0, unsigned b1, int swizzle,
+                               unsigned b2 = 1) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -126,7 +150,7 @@ inline bool tensor_map_4d_bf16(CUtensorMap* map, const void* base,
   if (!encode) return false;
   const cuuint64_t dims[4] = {d0, d1, d2, d3};
   const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
-  const cuuint32_t box[4] = {b0, b1, 1, 1};
+  const cuuint32_t box[4] = {b0, b1, b2, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUtensorMapSwizzle sw =
       swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -160,6 +184,17 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// hands registers between warpgroups: a warpgroup raises (or lowers) its
+// threads' register count to N, all its threads together
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // keeps the compiler from moving accumulator reads or writes across the
@@ -264,6 +299,84 @@ __device__ __forceinline__ void wgmma_m64n192k16_tt(float (&d)[96],
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
         "+f"(d[95])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x N, f32, registers) = A (64 x 16) B (16 x N) + (scale_d ? D : 0),
+// bf16 operands in shared memory, both K-major (imm-trans-a = imm-trans-b =
+// 0); N = 32, 64 or 128 from the accumulator's length (N / 2 a thread),
+// laid out as for the MN-major forms above.
+__device__ __forceinline__ void wgmma_m64k16_kk(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64k16_kk(float (&d)[32], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64k16_kk(float (&d)[64], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 }  // namespace ws
