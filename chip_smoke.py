@@ -10,8 +10,9 @@ Phases, each printing one line:
               build the CUDA kernels from csrc/ into build/;
   2. kernels  each inference kernel against its plain PyTorch version on
               the card at the flagship width (C=512): bf16 unmasked at
-              T=200 (cosine >= 0.9999) and f32 masked at T=198 (TF32 off,
-              rtol/atol 1e-4);
+              T=200 (cosine >= 0.9999), f32 masked at T=198 (TF32 off,
+              rtol/atol 1e-4) and bf16 masked at the edge B=3, T=37 (B*T
+              = 111, no multiple of the GEMM's 128-row tile);
   3. train kernels  the training tail's forward kernel against its plain
               version on all four outputs (pooled, h, att, cstats), and
               its backward kernel against the plain backward and against
@@ -46,8 +47,8 @@ Phases, each printing one line:
   8. timing   CUDA events after warm-up at B=512, T=200, C=512, bf16: each
               inference kernel and its plain version, with the bound from
               the shapes (bin/kernel_bounds.py: 989 TFLOP/s bf16, 3.35
-              TB/s); extraction
-              audio-s/s at B=512;
+              TB/s), the SE block's kernel launches a call and a forward
+              (torch.profiler); extraction audio-s/s at B=512;
   9. train timing  the train kernels and their plain versions at B=256,
               T=200, C=512, bf16, with bounds; train-step audio-s/s at
               bench.py's train config (B=256, 2 s chunks, bf16, dither,
@@ -57,8 +58,8 @@ Phases, each printing one line:
               at each of CAMPPlus's three full-width block shapes (C0 128,
               256, 512; 12, 24, 16 layers; dilation 1, 2, 2): bf16
               unmasked at T'=100, B=64 (cosine >= 0.9999 on the new
-              channels) and f32 with a ragged mask at T'=249 (TF32 off,
-              rtol/atol 1e-4);
+              channels), f32 with a ragged mask at T'=249 (TF32 off,
+              rtol/atol 1e-4) and bf16 masked at the edge B=3, T'=37;
  11. campplus slice  CAMPPlus at the width of campplus.yaml (feat 80,
               embed 512, TSTP) with random weights and randomised BN
               statistics from a seed: make_eval_embed_fn in bf16 over 2 s
@@ -74,9 +75,12 @@ Phases, each printing one line:
               reply against batch=1 (cosine >= 0.9999); the kernel must
               have launched;
  13. campplus timing  CUDA events after warm-up at B=512, T=200 (T'=100),
-              bf16: each block's kernel and plain version with its bound;
-              CAMPPlus extraction audio-s/s on the kernel path and with
-              fused_blocks=False and plain pooling;
+              bf16: each block's kernel and plain version with its bound
+              and its kernel launches and copies (torch.profiler), the
+              three blocks against the design's floor (each layer reads
+              its live channels from device memory); CAMPPlus extraction
+              audio-s/s on the kernel path and with fused_blocks=False
+              and plain pooling;
  14. gemini kernels  the Gemini stage kernel against its plain version at
               each of Gemini_DF_ResNet114's four full-width stage shapes
               ((F, C, blocks) = (40, 32, 3), (20, 64, 3), (10, 128, 27),
@@ -111,14 +115,15 @@ Phases, each printing one line:
               its plain version at ECAPA_TDNN_GLOB_c512's three chains (width
               64, dilation 2/3/4) and a c1024 chain (width 128), B=64: bf16
               at T=200 (cosine >= 0.9999) and f32 at T=198 (TF32 off,
-              rtol/atol 1e-4);
+              rtol/atol 1e-4); bf16 at the edge B=3, T=37;
  19. res2 slice  ECAPA_TDNN_GLOB_c512 in eval with fused=False,
               fused_res2=True, make_eval_embed_fn in bf16 over 2 s chunks at
               B=64, against the layer-by-layer path with plain pooling
               (cosine >= 0.9999), exactly 3 chain launches and one launch
               of each pooling kernel (its ASTP) per forward, nothing else;
  20. res2 timing  CUDA events at B=512, T=200, C=512, bf16: the chain kernel,
-              its plain version and its bound; ECAPA extraction audio-s/s
+              its plain version, its bound and its launches a call and a
+              forward (torch.profiler); ECAPA extraction audio-s/s
               with fused_res2 and layer by layer (plain pooling in both);
  21. dw kernels  dw_pack (the tap-packed 3x3 filter gradient) against its
               plain version at ResNet34's three packed shapes at B=128 x
@@ -423,26 +428,28 @@ def phase_device():
 def phase_kernels(model, dev):
     rng = np.random.default_rng(SEED)
     errs, parts = {}, []
-    for dtype, t, masked in ((torch.bfloat16, T, False),
-                             (torch.float32, 198, True)):
-        mask = ragged_mask(rng, SLICE_BATCH, t, dev) if masked else None
-        x, w, dil = se_inputs(model, rng, SLICE_BATCH, t, dtype, dev)
+    # the edge: B*T = 111, no multiple of the GEMM's 128-row tile, masked
+    for dtype, t, masked, b in ((torch.bfloat16, T, False, SLICE_BATCH),
+                                (torch.float32, 198, True, SLICE_BATCH),
+                                (torch.bfloat16, 37, True, 3)):
+        mask = ragged_mask(rng, b, t, dev) if masked else None
+        x, w, dil = se_inputs(model, rng, b, t, dtype, dev)
         got = se_block.fused_se_res2_block(x, *w, dilation=dil, mask=mask)
         torch.cuda.synchronize()
         want = se_block.se_res2_block_reference(x, *w, dilation=dil,
                                                 mask=mask)
         err, cos = compare(got, want, dtype)
         errs.setdefault("se", err)
-        parts.append(f"se_res2_block {str(dtype)[6:]} T={t} "
+        parts.append(f"se_res2_block {str(dtype)[6:]} B={b} T={t} "
                      f"{'masked' if masked else 'unmasked'} "
                      f"max_abs_err={err:.3g} cos={cos:.7f}")
-        xs, tw = tail_inputs(model, rng, SLICE_BATCH, t, dtype, dev)
+        xs, tw = tail_inputs(model, rng, b, t, dtype, dev)
         got = mfa_astp.fused_mfa_astp(*xs, *tw, mask=mask, glob=True)
         torch.cuda.synchronize()
         want = mfa_astp.mfa_astp_reference(*xs, *tw, mask=mask, glob=True)
         err, cos = compare(got, want, dtype)
         errs.setdefault("tail", err)
-        parts.append(f"mfa_astp {str(dtype)[6:]} T={t} "
+        parts.append(f"mfa_astp {str(dtype)[6:]} B={b} T={t} "
                      f"{'masked' if masked else 'unmasked'} "
                      f"max_abs_err={err:.3g} cos={cos:.7f}")
     print("kernels: " + "; ".join(parts))
@@ -581,6 +588,9 @@ def phase_timing(model, dev, smi):
         "plain_ms": cuda_ms(lambda: se_block.se_res2_block_reference(
             x, *w, dilation=dil), iters=5)}}
     res["se"]["bound_ms"], res["se"]["bound_by"] = bound(se_flops, se_bytes)
+    # the port's kernels one call launches (torch.profiler): 7 in both types
+    se_launches = count_launches(lambda: se_block.fused_se_res2_block(
+        x, *w, dilation=dil), "ws::")[0]
     del x
     xs, tw = tail_inputs(model, rng, B, T, io, dev)
     d, a = 1536, 128
@@ -608,7 +618,9 @@ def phase_timing(model, dev, smi):
     fmt = "; ".join(
         f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound "
         f"{v['bound_ms']:.3f} by {v['bound_by']})" for k, v in res.items())
-    print(f"timing [{smi}] B={B} T={T} C={C} bf16: {fmt}; extraction "
+    print(f"timing [{smi}] B={B} T={T} C={C} bf16: {fmt}; se_res2_block "
+          f"{se_launches} kernel launches a call, {3 * se_launches} a "
+          f"forward (3 calls); extraction "
           f"kernel path {rates['kernel'][0]:.1f} audio-s/s "
           f"({rates['kernel'][1]:.2f} ms/batch), plain path "
           f"{rates['plain'][0]:.1f} audio-s/s ({rates['plain'][1]:.2f} "
@@ -1022,11 +1034,13 @@ def cam_inputs(model, i, rng, b, t, dtype, dev):
 def phase_cam_kernels(model, dev):
     rng = np.random.default_rng(SEED + 10)
     errs, parts = [], []
-    for dtype, t, masked in ((torch.bfloat16, CAM_T, False),
-                             (torch.float32, 249, True)):
-        mask = ragged_mask(rng, SLICE_BATCH, t, dev) if masked else None
+    # the edge: T' = 37 and B*T' = 111, masked
+    for dtype, t, masked, b in ((torch.bfloat16, CAM_T, False, SLICE_BATCH),
+                                (torch.float32, 249, True, SLICE_BATCH),
+                                (torch.bfloat16, 37, True, 3)):
+        mask = ragged_mask(rng, b, t, dev) if masked else None
         for i, (c0, layers, _) in enumerate(CAM_BLOCKS):
-            x, w, dil = cam_inputs(model, i, rng, SLICE_BATCH, t, dtype, dev)
+            x, w, dil = cam_inputs(model, i, rng, b, t, dtype, dev)
             got = cam_block.fused_cam_dense_block(x, *w, dilation=dil,
                                                   mask=mask)
             torch.cuda.synchronize()
@@ -1037,7 +1051,7 @@ def phase_cam_kernels(model, dev):
             err, cos = compare(got[..., c0:], want[..., c0:], dtype)
             errs.append(err)
             parts.append(f"block{i + 1} (C0={c0}, L={layers}, d={dil}) "
-                         f"{str(dtype)[6:]} T'={t} "
+                         f"{str(dtype)[6:]} B={b} T'={t} "
                          f"{'masked' if masked else 'unmasked'} "
                          f"max_abs_err={err:.3g} cos={cos:.7f}")
             del x, w, got, want
@@ -1209,13 +1223,20 @@ def phase_campplus_timing(model, dev, smi):
         plain_ms = cuda_ms(lambda: cam_block.cam_dense_block_reference(
             x, *w, dilation=dil), iters=3, warmup=1)
         bms, by = bound(flops, nbytes)
-        blocks.append((i, ms, plain_ms, bms, by))
+        # the port's kernels and copies one call launches (torch.profiler)
+        kl, _, copies = count_launches(
+            lambda: cam_block.fused_cam_dense_block(x, *w, dilation=dil),
+            "ws::")
+        blocks.append((i, ms, plain_ms, bms, by, kl, copies))
         res["ms"] += ms
         res["plain_ms"] += plain_ms
         flops_all += flops
         bytes_all += nbytes
         del x, w
     res["bound_ms"], res["bound_by"] = bound(flops_all, bytes_all)
+    # every layer reads its live channels from device memory
+    floor_ms = sum(kernel_bounds.cam_dense_block_floor(B, CAM_T, c0, n)
+                   for c0, n, _ in CAM_BLOCKS) / kernel_bounds.PEAK_BYTES * 1e3
     wav = torch.as_tensor(np.stack([voice(rng, CHUNK_SAMPLES)
                                     for _ in range(B)]), device=dev)
     rates = {}
@@ -1228,10 +1249,14 @@ def phase_campplus_timing(model, dev, smi):
         rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
     set_pooling_fused(model.set_fused(None), None)
     fmt = "; ".join(f"block{i + 1} {ms:.3f} ms (plain {pm:.3f}, bound "
-                    f"{bm:.3f} by {by})" for i, ms, pm, bm, by in blocks)
+                    f"{bm:.3f} by {by}; {kl} kernel launches, {cp} copy)"
+                    for i, ms, pm, bm, by, kl, cp in blocks)
     print(f"campplus timing [{smi}] B={B} T'={CAM_T} bf16: {fmt}; three "
           f"blocks {res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, bound "
-          f"{res['bound_ms']:.3f}); CAMPPlus extraction kernel path "
+          f"{res['bound_ms']:.3f}, the design's floor "
+          f"{floor_ms:.3f}; {sum(b[5] for b in blocks)} kernel launches and "
+          f"{sum(b[6] for b in blocks)} copies a forward); CAMPPlus "
+          "extraction kernel path "
           f"{rates['kernel'][0]:.1f} audio-s/s ({rates['kernel'][1]:.2f} "
           f"ms/batch), fused_blocks=False {rates['plain'][0]:.1f} audio-s/s "
           f"({rates['plain'][1]:.2f} ms/batch)")
@@ -1405,9 +1430,9 @@ def phase_gemini_serving(dev):
           f"{row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
 
 
-def stage_launches(fn):
+def count_launches(fn, mark="inv_block_kernel"):
     """Device kernels one call of fn launches, by torch.profiler: (the
-    bf16 stage kernel's launches, all kernels')."""
+    launches of kernels whose name holds `mark`, all kernels', copies)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -1415,8 +1440,9 @@ def stage_launches(fn):
         torch.cuda.synchronize()
     rows = [(e.count, e.key) for e in prof.key_averages()
             if profile_extract._device_us(e) > 0]
-    return (sum(n for n, k in rows if "inv_block_kernel" in k),
-            sum(n for n, k in rows if "Memcpy" not in k and "Memset" not in k))
+    copies = sum(n for n, k in rows if "Memcpy" in k or "Memset" in k)
+    return (sum(n for n, k in rows if mark in k),
+            sum(n for n, _ in rows) - copies, copies)
 
 
 def phase_gemini_timing(model, dev, smi):
@@ -1443,8 +1469,8 @@ def phase_gemini_timing(model, dev, smi):
         inv_bottleneck.fused_inv_bottleneck_stage(x, *w)
         torch.cuda.synchronize()
         extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-        launched = stage_launches(
-            lambda: inv_bottleneck.fused_inv_bottleneck_stage(x, *w))
+        launched = count_launches(
+            lambda: inv_bottleneck.fused_inv_bottleneck_stage(x, *w))[:2]
         # the parent's three-launch design allocated h and g, (B, F, T, 4C)
         # each
         hg = 2 * x.numel() * 4 * x.element_size() / 2 ** 30
@@ -1524,18 +1550,21 @@ def phase_res2_kernels(model, dev):
     and a c1024 chain, B=64: bf16 at T=200, f32 at T=198."""
     rng = np.random.default_rng(SEED + 21)
     errs, parts = [], []
-    for dtype, t in ((torch.bfloat16, T), (torch.float32, 198)):
+    for dtype, t, b in ((torch.bfloat16, T, SLICE_BATCH),
+                        (torch.float32, 198, SLICE_BATCH),
+                        (torch.bfloat16, 37, 3)):
         for name, block in (("layer2", model.layer2),
                             ("layer3", model.layer3),
                             ("layer4", model.layer4), ("c1024", None)):
-            x, w, dil = chain_inputs(block, rng, SLICE_BATCH, t, dtype, dev)
+            x, w, dil = chain_inputs(block, rng, b, t, dtype, dev)
             got = res2_chain.fused_res2_chain(x, *w, dilation=dil)
             torch.cuda.synchronize()
             want = res2_chain.res2_chain_reference(x, *w, dilation=dil)
             err, cos = compare(got, want, dtype)
             errs.append(err)
             parts.append(f"{name} (C={x.shape[-1]}, d={dil}) "
-                         f"{str(dtype)[6:]} T={t} max_abs_err={err:.3g} "
+                         f"{str(dtype)[6:]} B={b} T={t} "
+                         f"max_abs_err={err:.3g} "
                          f"cos={cos:.7f}")
             del x, w, got, want
     print("res2 kernels: " + "; ".join(parts))
@@ -1591,6 +1620,8 @@ def phase_res2_timing(model, dev, smi):
             x, *w, dilation=dil), iters=5), "library_ms": None}
     res["bound_ms"], res["bound_by"] = bound(
         *kernel_bounds.res2_chain(B, T, C))
+    chain_launches = count_launches(lambda: res2_chain.fused_res2_chain(
+        x, *w, dilation=dil), "ws::")[0]
     del x
     wav = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, CHUNK_SAMPLES)).astype(
         np.float32), device=dev)
@@ -1604,7 +1635,9 @@ def phase_res2_timing(model, dev, smi):
     set_pooling_fused(model.set_fused(True, fused_res2=False), None)
     print(f"res2 timing [{smi}] B={B} T={T} C={C} d={dil} bf16: chain "
           f"{res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, bound "
-          f"{res['bound_ms']:.3f} by {res['bound_by']}); ECAPA extraction "
+          f"{res['bound_ms']:.3f} by {res['bound_by']}; {chain_launches} "
+          f"kernel launch a call, {3 * chain_launches} a forward); ECAPA "
+          "extraction "
           "fused=False: fused_res2 " + ", layer path ".join(
               f"{v[0]:.1f} audio-s/s ({v[1]:.2f} ms/batch)"
               for v in rates.values()))

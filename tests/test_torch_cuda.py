@@ -15,9 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from wespeaker_tpu_torch.ops import (cam_block, conv_dw_pack, inv_bottleneck,
-                                     mfa_astp, mfa_astp_vjp, pooling,
-                                     res2_chain, se_block)
+from wespeaker_tpu_torch.ops import (cam_block, conv_dw_pack, gemm_sm90,
+                                     inv_bottleneck, mfa_astp, mfa_astp_vjp,
+                                     pooling, res2_chain, se_block)
 
 pytestmark = pytest.mark.cuda
 
@@ -751,3 +751,130 @@ def test_redimnet_pooling_kernels_match_plain_pooling(cuda):
         assert pooling.fused_masked_stats.launches == m0 + 1
         want = set_pooling_fused(model, False)(x, mask)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---- the Hopper GEMM of rows 1 and 8 (`csrc/gemm_sm90.cuh`), and the
+#      redesigned rows' edges ----
+
+# (form, B, T, K, lda, N, seg_len, masked): M = B T rows, utterance-major.
+# M tails (333, 259, 498, 5 are no multiple of 128), K = 32 (half a K
+# stage) and 992 (CAMPPlus's widest layer), lda > K (the dense map's
+# unwritten channels, filled with NaN here), N = 128 and 512; the partial
+# sums at T' = 37, 100, 249 and 1 and the SE squeeze's one segment an
+# utterance.
+GEMM_CASES = [("post", 3, 111, 512, 512, 512, None, False),
+              ("post", 1, 64, 992, 992, 128, None, False),
+              ("post", 2, 200, 512, 512, 512, 200, True),
+              ("bn_relu", 7, 37, 32, 1024, 128, 100, True),
+              ("bn_relu", 3, 100, 992, 1024, 128, 100, False),
+              ("bn_relu", 2, 249, 288, 512, 128, 100, True),
+              ("bn_relu", 5, 1, 128, 160, 128, 100, False)]
+
+
+@pytest.mark.parametrize("form,b,t,k,lda,n,seg_len,masked", GEMM_CASES)
+def test_gemm_sm90_matches_plain(cuda, form, b, t, k, lda, n, seg_len,
+                                 masked):
+    rng = np.random.default_rng(20)
+
+    def r(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                               * scale, device=cuda)
+
+    m = b * t
+    a = r(m, lda).to(torch.bfloat16)
+    a[:, k:] = float("nan")  # never read: the K extent is k
+    wt = r(n, k, scale=k ** -0.5).to(torch.bfloat16)
+    vecs = dict(scale=1 + r(n, scale=.1), shift=r(n, scale=.1))
+    if form == "post":
+        vecs["bias"] = r(n, scale=.1)
+    else:
+        vecs.update(a_scale=1 + r(k, scale=.1), a_shift=r(k, scale=.1))
+    mask = None
+    if masked:
+        mask = torch.ones(b, t, device=cuda)
+        mask[-1, t // 3:] = 0
+    before = gemm_sm90.gemm_sm90.launches
+    got = gemm_sm90.gemm_sm90(a, k, wt, **vecs, t=t if seg_len else None,
+                              seg_len=seg_len, mask=mask)
+    torch.cuda.synchronize()
+    assert gemm_sm90.gemm_sm90.launches == before + 1
+    part = None
+    if seg_len:
+        got, part = got
+    want = gemm_sm90.gemm_sm90_reference(a, k, wt, **vecs)
+    assert_matches(got, want, torch.bfloat16)
+    if part is not None:
+        # the partials are sums of the stored (rounded) rows: against the
+        # same sums of the kernel's own output, slot by slot
+        ref = gemm_sm90.partial_sums_reference(got, t, seg_len, mask)
+        for g, (_, _, _, units) in enumerate(
+                cam_block.segment_units(b, t, seg_len)):
+            torch.testing.assert_close(part[g, :units], ref[g, :units],
+                                       rtol=1e-5, atol=1e-4)
+
+
+def test_gemm_sm90_refuses(cuda):
+    a = torch.zeros(64, 96, device=cuda, dtype=torch.bfloat16)
+    wt = torch.zeros(96, 96, device=cuda, dtype=torch.bfloat16)
+    v = torch.ones(96, device=cuda)
+    with pytest.raises(ValueError, match="N % 128"):
+        gemm_sm90.gemm_sm90(a, 96, wt, v, v, bias=v)
+    with pytest.raises(TypeError):
+        gemm_sm90.gemm_sm90(a.float(), 96, wt, v, v, bias=v)
+
+
+@pytest.mark.parametrize("dtype,t,masked,dilation", [
+    (torch.bfloat16, 37, True, 2), (torch.bfloat16, 100, False, 1),
+    (torch.float32, 37, True, 2)])
+def test_cam_block_never_reads_unwritten_channels(cuda, dtype, t, masked,
+                                                  dilation):
+    """Row 8 through its C entry into a dense map whose every channel past
+    x is NaN before the call: each layer reads only its live ci channels,
+    so the result is finite and equals the plain version."""
+    rng = np.random.default_rng(21)
+    b, c0, num_layers = 3, 128, 4
+    args = cam_args(rng, num_layers, c0, cuda)
+    x = torch.as_tensor(rng.standard_normal((b, t, c0)).astype(np.float32),
+                        device=cuda).to(dtype)
+    mask = None
+    if masked:
+        mask = torch.ones(b, t, device=cuda)
+        mask[2, t // 2:] = 0
+    out = torch.full((b, t, c0 + 32 * num_layers), float("nan"),
+                     device=cuda, dtype=dtype)
+    cam_block._launch(x, **args, dilation=dilation, seg_len=100, mask=mask,
+                      out=out)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    want = cam_block.cam_dense_block_reference(x, **args, dilation=dilation,
+                                               mask=mask)
+    assert torch.equal(out[..., :c0], x)
+    assert_matches(out[..., c0:].contiguous(), want[..., c0:].contiguous(),
+                   dtype)
+
+
+def _redesigned_calls(rng, dev):
+    """One bf16 call of rows 1, 3 and 8 each, on seeded inputs with a
+    ragged mask where the row takes one."""
+    args, mask = se_args(rng, 3, 149, 512, torch.bfloat16, dev, True)
+    chain = dict(kernels=args["cw"], biases=args["cb"], bn_scale=args["cs"],
+                 bn_shift=args["ch"])
+    cargs = cam_args(rng, 6, 128, dev)
+    cx = torch.as_tensor(rng.standard_normal((3, 149, 128)).astype(
+        np.float32), device=dev).to(torch.bfloat16)
+    return {"se": lambda: se_block.fused_se_res2_block(**args, dilation=3,
+                                                       mask=mask),
+            "res2": lambda: res2_chain.fused_res2_chain(args["x"], **chain,
+                                                        dilation=4),
+            "cam": lambda: cam_block.fused_cam_dense_block(
+                cx, **cargs, dilation=2, mask=mask)}
+
+
+@pytest.mark.parametrize("row", ["se", "res2", "cam"])
+def test_redesigned_kernels_give_the_same_bits_twice(cuda, row):
+    """No float atomics: two calls on the same input give the same bits."""
+    fn = _redesigned_calls(np.random.default_rng(22), cuda)[row]
+    first = fn()
+    second = fn()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)

@@ -1,8 +1,9 @@
 """The bounds that PERF.md's kernel table gives the TPU kernels
-(wespeaker_tpu_torch/bin/kernel_bounds.py: the statistics-pooling rows at
-their paths' shapes, the Gemini stage per stage, and the counts
-chip_smoke.py takes for every kernel): the arithmetic on shapes whose
-counts are known by hand."""
+(wespeaker_tpu_torch/bin/kernel_bounds.py: the SE-Res2 block, the Res2
+chain and the CAM++ blocks with the floors of the port's design, the
+statistics-pooling rows at their paths' shapes, the Gemini stage per
+stage, and the counts chip_smoke.py takes for every kernel): the
+arithmetic on shapes whose counts are known by hand."""
 
 import pytest
 
@@ -47,15 +48,45 @@ def test_cam_block_counts_by_hand():
     assert nbytes > m * (128 + 512) * 2
 
 
+def test_se_block_and_cam_floors_by_hand():
+    # row 1 at B=512, T=200, C=512: two 512 x 512 products (107.4 GFLOP),
+    # the chain (17.6) and the SE MLP (0.13): 125.1 GFLOP, 0.127 ms at 989
+    # TFLOP/s; the design moves 9 maps of 104.9 MB
+    flops, nbytes = kb.se_res2_block(512, 200, 512)
+    m = 512 * 200
+    assert flops == (2 * 2 * m * 512 * 512 + 2 * 7 * m * 3 * 64 * 64
+                     + 2 * 2 * 512 * 512 * 128)
+    assert round(flops / 1e8) == 1251
+    ms, by = kb.bound(flops, nbytes)
+    assert round(ms, 3) == 0.127 and by == "operations"
+    assert kb.se_res2_block_floor(512, 200, 512) == 9 * m * 512 * 2
+    # row 8: the three CAMPPlus blocks, 468 GFLOP; each layer reads its live
+    # channels, sum of M ci 2 = 3.14 GB (>= 0.94 ms at 3.35 TB/s)
+    flops = sum(kb.cam_dense_block(512, 100, c0, n)[0]
+                for c0, n in kb.CAMPPLUS_BLOCKS)
+    assert round(flops / 1e9) == 468
+    floor = sum(kb.cam_dense_block_floor(512, 100, c0, n)
+                for c0, n in kb.CAMPPLUS_BLOCKS)
+    k_sum = (sum(128 + 32 * i for i in range(12))
+             + sum(256 + 32 * i for i in range(24))
+             + sum(512 + 32 * i for i in range(16)))
+    assert k_sum == 30656
+    assert floor == 512 * 100 * k_sum * 2
+    assert round(floor / 1e9, 2) == 3.14
+    assert round(floor / kb.PEAK_BYTES * 1e3, 2) == 0.94
+
+
 def test_every_unported_row_has_a_bound(capsys):
-    """No row is left to port: the tool prints the pooling rows (6, 7) at
-    the shapes of the paths that run them, and row 9 once a Gemini
-    stage."""
+    """Every row a path runs at its main-path shape: the pooling rows (6, 7)
+    at the shapes of the paths that run them, row 9 once a Gemini stage,
+    rows 1 and 3 at ECAPA's and row 8 at CAMPPlus's three blocks (rows 1
+    and 8 with the design's floor)."""
     kb.main()
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split()[1] for ln in lines] == ["6", "6", "7", "7", "9", "9",
-                                              "9", "9"]
+                                              "9", "9", "1", "3", "8"]
     assert all(" ms (" in ln for ln in lines)
+    assert [("floor" in ln) for ln in lines[-3:]] == [True, False, True]
 
 
 @pytest.mark.parametrize("stage,shape,want_ms", [

@@ -1,7 +1,12 @@
-"""Least time an H100 could take for the statistics-pooling kernels (PERF.md
-rows 6 and 7), from their shapes on the paths that run them (ReDimNetB2's
-ASTP with global context, and ResNet34's TSTP), and for the Gemini stage
-kernel (row 9) at each of Gemini_DF_ResNet114's four stages.
+"""Least time an H100 could take for the SE-Res2 block and the Res2 chain
+(PERF.md rows 1 and 3) at ECAPA_TDNN_GLOB_c512's extraction shape, the
+CAM++ dense block (row 8) at CAMPPlus's three blocks, the
+statistics-pooling kernels (rows 6 and 7) on the paths that run them
+(ReDimNetB2's ASTP with global context, and ResNet34's TSTP), and the
+Gemini stage kernel (row 9) at each of Gemini_DF_ResNet114's four stages.
+Rows 1 and 8 also print the floor of the port's design, which keeps
+activations the TPU kernel held in VMEM in device memory: the bytes that
+design must move over 3.35 TB/s.
 
     python -m wespeaker_tpu_torch.bin.kernel_bounds
 
@@ -79,6 +84,34 @@ def cam_dense_block(b, t, c0, num_layers, seg_len=100, growth=32, bn=128):
     return flops, nbytes
 
 
+def se_res2_block(b, t, c, scale=8, se=128):
+    """ops/se_block_pallas.py::fused_se_res2_block on (B, T, C): two 1x1
+    convs C -> C, the Res2 chain (`res2_chain`), the SE MLP C -> 128 -> C
+    once an utterance, BN folded. -> (flops, bytes): x read once, out
+    written once, the weights and affines once."""
+    m, w, nums = b * t, c // scale, scale - 1
+    flops = (2 * 2 * m * c * c + res2_chain(b, t, c, scale)[0]
+             + 2 * 2 * b * c * se)
+    nbytes = (2 * m * c * BF16 + (2 * c * c + nums * 3 * w * w + 2 * c * se)
+              * BF16 + (6 * c + 3 * nums * w + se + c) * F32)
+    return flops, nbytes
+
+
+def se_res2_block_floor(b, t, c):
+    """Bytes the port's design moves in device memory for one call: x read
+    by the first GEMM and by the residual, h1, y and h2 each written once
+    and read once, out written: 9 (B, T, C) bf16 maps (the TPU kernel kept
+    h1, y and h2 in VMEM)."""
+    return 9 * b * t * c * BF16
+
+
+def cam_dense_block_floor(b, t, c0, num_layers, growth=32):
+    """Bytes the port's design must read for one call: each layer reads
+    its ci live channels of the dense map from device memory, sum of
+    M ci 2 (the TPU kernel read the map once from VMEM)."""
+    return sum(b * t * (c0 + growth * i) * BF16 for i in range(num_layers))
+
+
 def inv_bottleneck_stage(b, f, t, c, depth):
     """ops/inv_bottleneck_pallas.py::fused_inv_bottleneck_stage on
     (B, F, T, C): per block a 1x1 expand to 4C, a depthwise 3x3, a 1x1
@@ -98,38 +131,56 @@ def dw_pack(b, h, w, ci, co):
             b * h * w * (ci + co) * BF16 + 9 * ci * co * F32)
 
 
-# (PERF.md row, kernel, configuration, [(call, flops, bytes, peak)])
+CAMPPLUS_BLOCKS = ((128, 12), (256, 24), (512, 16))  # (C0, layers) at T'=100
+
+# (PERF.md row, kernel, configuration, [(call, flops, bytes, peak)], floor
+# bytes of the port's design or None)
 ROWS = [
     (6, "fused_softmax_stats",
      "ASTP of ReDimNetB2, B=512 x 200 frames, D=16*72=1152, bf16 logits "
      "and x, with a mask",
      [("call", *softmax_stats(512, 200, 1152, masked=True),
-       PEAK_F32_FLOPS)]),
+       PEAK_F32_FLOPS)], None),
     (6, "fused_softmax_stats",
      "the same with f32 logits",
      [("call", *softmax_stats(512, 200, 1152, logit_bytes=F32, masked=True),
-       PEAK_F32_FLOPS)]),
+       PEAK_F32_FLOPS)], None),
     (7, "fused_masked_stats",
      "ASTP global context of ReDimNetB2, B=512 x 200 frames, D=1152, "
      "with a mask",
-     [("call", *masked_stats(512, 200, 1152), PEAK_F32_FLOPS)]),
+     [("call", *masked_stats(512, 200, 1152), PEAK_F32_FLOPS)], None),
     (7, "fused_masked_stats",
      "TSTP of ResNet34, B=512 x 200 frames: T=25, D=32*8*10=2560, with a "
      "mask",
-     [("call", *masked_stats(512, 25, 2560), PEAK_F32_FLOPS)]),
+     [("call", *masked_stats(512, 25, 2560), PEAK_F32_FLOPS)], None),
 ] + [
     (9, "fused_inv_bottleneck_stage",
      f"Gemini_DF_ResNet114 stage {i}, B=512 x 200 frames: (F, T, C) = "
      f"({f}, {t}, {c}), {depth} blocks",
-     [("call", *inv_bottleneck_stage(512, f, t, c, depth), PEAK_BF16_FLOPS)])
+     [("call", *inv_bottleneck_stage(512, f, t, c, depth), PEAK_BF16_FLOPS)],
+     None)
     for i, (f, t, c, depth) in enumerate(
         ((40, 200, 32, 3), (20, 100, 64, 3), (10, 100, 128, 27),
          (5, 100, 256, 3)))
+] + [
+    (1, "fused_se_res2_block",
+     "ECAPA_TDNN_GLOB_c512, B=512, T=200, C=512, bf16",
+     [("call", *se_res2_block(512, 200, 512), PEAK_BF16_FLOPS)],
+     se_res2_block_floor(512, 200, 512)),
+    (3, "fused_res2_chain",
+     "ECAPA_TDNN_GLOB_c512's chain, B=512, T=200, C=512 (width 64), bf16",
+     [("call", *res2_chain(512, 200, 512), PEAK_BF16_FLOPS)], None),
+    (8, "fused_cam_dense_block",
+     "CAMPPlus's three blocks, B=512 x 200 frames (T'=100), bf16",
+     [(f"block{i + 1}", *cam_dense_block(512, 100, c0, layers),
+       PEAK_BF16_FLOPS) for i, (c0, layers) in enumerate(CAMPPLUS_BLOCKS)],
+     sum(cam_dense_block_floor(512, 100, c0, layers)
+         for c0, layers in CAMPPLUS_BLOCKS)),
 ]
 
 
 def main():
-    for row, name, config, calls in ROWS:
+    for row, name, config, calls, floor in ROWS:
         parts, total = [], 0.0
         for call, flops, nbytes, peak in calls:
             ms, by = bound(flops, nbytes, peak)
@@ -137,7 +188,10 @@ def main():
             parts.append(f"{call} {ms:.4f} ms ({flops / 1e9:.2f} GFLOP, "
                          f"{nbytes / 1e6:.1f} MB; {by})")
         print(f"row {row} {name} [{config}]: " + "; ".join(parts)
-              + (f"; total {total:.4f} ms" if len(calls) > 1 else ""))
+              + (f"; total {total:.4f} ms" if len(calls) > 1 else "")
+              + ("" if floor is None else
+                 f"; the design's floor {floor / PEAK_BYTES * 1e3:.4f} ms "
+                 f"({floor / 1e9:.3f} GB in device memory)"))
 
 
 if __name__ == "__main__":

@@ -22,7 +22,15 @@ warm-up; the dw_pack and masked-stats keys by replaying a CUDA graph of
 the calls, so that the wrapper's host time (about as long as the
 masked stats at T'=25) does not hide the kernel. Prints the card and
 one JSON line {kernel: ms} (`--only` limits it to the named ops
-modules). A kernel the package does not have is left out, so the same file times an older checkout: run it with that checkout
+modules). `--split` also prints, for one call of the SE-Res2 block, of
+the Res2 chain and of each CAM++ block, the device time of every CUDA
+kernel it launches (torch.profiler, `profile_extract.breakdown`).
+`--gemm` times instead the bf16 GEMM of rows 1 and 8 alone
+(`ops/gemm_sm90.py`, CUDA-graph replay): at the CAM++ bottleneck's shape
+(M = 512 x 100 rows of a 1024-channel map, K = 128, 512, 992, N = 128) in
+the bn_relu form with and without the partial sums and in the post form,
+at M = 67,584 (whole waves of 128-row tiles on 132 SMs) for K = 992, and
+at the SE block's (M = 512 x 200, K = N = 512) in the post form. A kernel the package does not have is left out, so the same file times an older checkout: run it with that checkout
 first on PYTHONPATH to compare two trees in one call (old, new, new,
 old).
 """
@@ -108,6 +116,33 @@ def gemini_forward_peak_gib(dev) -> float:
     return peak
 
 
+def time_gemm(r, iters):
+    """ms of ops/gemm_sm90.py's GEMM by shape and form (`--gemm`)."""
+    from wespeaker_tpu_torch.ops import gemm_sm90 as g9
+
+    out = {}
+    for name, m, lda, k, n in (
+            ("cam_k128", 512 * 100, 1024, 128, 128),
+            ("cam_k512", 512 * 100, 1024, 512, 128),
+            ("cam_k992", 512 * 100, 1024, 992, 128),
+            ("cam_k992_whole_waves", 132 * 4 * 128, 1024, 992, 128),
+            ("se", 512 * 200, 512, 512, 512)):
+        a = r(m, lda, dtype=torch.bfloat16)
+        wt = r(n, k, scale=k ** -0.5, dtype=torch.bfloat16)
+        sc, sh, bias = 1 + r(n, scale=.1), r(n, scale=.1), r(n, scale=.1)
+        asc, ash = 1 + r(k, scale=.1), r(k, scale=.1)
+        forms = {"post": dict(bias=bias)}
+        if name != "se":
+            forms = {"bn_relu_part": dict(a_scale=asc, a_shift=ash, t=100,
+                                          seg_len=100),
+                     "bn_relu": dict(a_scale=asc, a_shift=ash), **forms}
+        for form, kw in forms.items():
+            out[f"{name}_{form}"] = graph_ms(
+                lambda: g9.gemm_sm90(a, k, wt, sc, sh, **kw), iters)
+        del a
+    return out
+
+
 ONLY = None  # ops module names to time (--only), None for all
 
 
@@ -123,6 +158,11 @@ def _ops(name):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--split", action="store_true",
+                    help="also print each row 1, 3 and 8 call's device "
+                         "time per kernel (torch.profiler)")
+    ap.add_argument("--gemm", action="store_true",
+                    help="time the GEMM of rows 1 and 8 alone, by form")
     ap.add_argument("--only", default=None,
                     help="comma-separated ops modules to time (e.g. "
                          "inv_bottleneck,pooling); default all")
@@ -136,6 +176,16 @@ def main(argv=None):
     def r(*shape, scale=1.0, dtype=torch.float32):
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
                                * scale, device=dev).to(dtype)
+
+    def split(fn, what):
+        if args.split:
+            from wespeaker_tpu_torch.bin.profile_extract import breakdown
+            breakdown(fn, what)
+
+    if args.gemm:
+        print(torch.cuda.get_device_name(0))
+        print(json.dumps(time_gemm(r, args.iters)))
+        return
 
     out = {}
     b, t, c, d, a = 512, 200, 512, 1536, 128
@@ -152,6 +202,8 @@ def main(argv=None):
         out["se"] = cuda_ms(lambda: se.fused_se_res2_block(x, *ws,
                                                            dilation=3),
                             args.iters)
+        split(lambda: se.fused_se_res2_block(x, *ws, dilation=3),
+              f"row 1 fused_se_res2_block B={b} T={t} C={c} d=3 bf16")
         del x
     tail_w = (r(3 * c, d, scale=(3 * c) ** -0.5), r(d, scale=.1),
               r(3 * d, a, scale=d ** -0.5), r(a, scale=.1),
@@ -194,6 +246,9 @@ def main(argv=None):
             x = r(b, 100, c0, dtype=io)
             total += cuda_ms(lambda: cam.fused_cam_dense_block(
                 x, *ws, dilation=dil), args.iters)
+            split(lambda: cam.fused_cam_dense_block(x, *ws, dilation=dil),
+                  f"row 8 fused_cam_dense_block B={b} T'=100 C0={c0} "
+                  f"L={layers} d={dil} bf16")
         out["cam"] = total
     inv = _ops("inv_bottleneck")
     if inv is not None:
@@ -230,6 +285,8 @@ def main(argv=None):
         out["res2"] = cuda_ms(lambda: res2.fused_res2_chain(x, *ws,
                                                             dilation=3),
                               args.iters)
+        split(lambda: res2.fused_res2_chain(x, *ws, dilation=3),
+              f"row 3 fused_res2_chain B={b} T={t} C={c} d=3 bf16")
         del x
     dw = _ops("conv_dw_pack")
     if dw is not None:

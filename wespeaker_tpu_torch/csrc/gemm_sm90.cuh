@@ -1,0 +1,320 @@
+// gemm_sm90: the bf16 GEMM of the CAM++ dense block's bottleneck and the
+// SE-Res2 block's two pointwise convs on Hopper: TMA loads into a ring of
+// shared-memory stages, wgmma on the tensor cores, the epilogue from
+// registers.
+//
+//   out (m, n) bf16 = epilogue(A (m, k) @ W),  f32 accumulation
+//
+// A is row-major with a row stride lda >= k (the live prefix of a wider
+// map); W is given K-major, as wt (n, k) row-major with row stride ldw.
+// Both are read through 2-D tensor maps whose K extent is k exactly, so a
+// box that reaches past k reads zeros and never the bits of the channels
+// beyond it (the CAM++ dense map's channels past ci are not written yet).
+// Forms (template parameter):
+// - kFormPost:   v = relu(acc + bias) * scale + shift       (the SE convs)
+// - kFormBnRelu: A's prologue relu(a * a_scale + a_shift), rounded to bf16,
+//                per K column, then v = relu(acc * scale + shift) (CAM++)
+// and v is rounded to bf16. Optionally (part != null) the epilogue also
+// writes masked partial column sums of the stored (rounded) values for the
+// segments of seg_len frames of each utterance of t frames (row r is
+// frame r % t of utterance r / t): one f32 sum per (segment, 64-row unit
+// of M that holds some of its rows, column), summed over the unit's rows
+// in order, into part[(g * slots + u - u0(g)) * n + col] for segment g
+// (utterance-major) whose first row lies in unit u0(g). A reader sums a
+// segment's slots in order: the same input gives the same bits every call,
+// with no atomics. `slots` must hold every unit a segment touches:
+// (min(seg_len, t) + 62) / 64 + 1.
+//
+// Design: a persistent CTA an SM walks 128 x 128 output tiles, column
+// tiles fastest (the CTAs that share an A tile run together and meet it in
+// L2). One producer warp keeps a ring of kG9Stages (A, W) stages of 64 K
+// columns in flight by TMA, each 2 x 16 KB of 128-byte rows under the
+// 128-byte swizzle, completing on its `full` mbarrier; two consumer
+// warpgroups each own 64 rows of the tile and issue wgmma m64n128k16 on
+// both operands K-major from shared memory, retiring a stage (its `empty`
+// mbarrier, one arrival a warp) once the next stage's wgmmas are issued.
+// The bn_relu prologue cannot be done by TMA: each consumer warpgroup
+// rewrites its own 64 rows of the A stage in place (relu(a * s + t), zero
+// past k), fences the writes to the async proxy and syncs its 128 threads
+// before its wgmmas read them (the SS form; no second buffer). The
+// epilogue applies the form to the accumulators in registers, stages the
+// bf16 tile in shared memory (a padded 272-byte row: conflict-free) and
+// stores it as 16-byte vectors, rows past m masked; the partial sums read
+// the staged tile one thread a column. While the consumers run the
+// epilogue, the producer already loads the next tile's stages. Tried on
+// the card and slower or no faster (PERF.md, section 6): two warpgroups taking
+// whole tiles in turns so that one's epilogue overlaps the other's
+// products (ping-pong); 256-row tiles, two M-blocks a warpgroup; the
+// prologue in three warps of a producer warpgroup (too few threads for
+// its throughput); 5-8 stages, 32-K stages, two CTAs an SM.
+
+#pragma once
+
+#include "common.cuh"
+#include "hopper.cuh"
+
+namespace ws {
+
+constexpr int kG9M = 128, kG9N = 128, kG9K = 64, kG9Stages = 4;
+constexpr int kG9Threads = 288;  // two consumer warpgroups + a producer warp
+constexpr int kG9Half = kG9M * kG9K * 2;        // 16 KB: an A or W stage
+constexpr int kG9Stage = 2 * kG9Half;           // 32 KB
+constexpr int kG9StLd = kG9N * 2 + 16;          // staging row bytes
+constexpr int kG9Staging = 2 * 64 * kG9StLd;    // 34,816
+constexpr int kG9Bars = kG9Stages * kG9Stage + kG9Staging;
+constexpr int kG9Smem = 1024 + kG9Bars + 2 * kG9Stages * 8;
+
+struct Sm90Args {
+  int m, n, k;
+  const float* bias;   // kFormPost
+  const float* scale;  // both forms: the output's affine
+  const float* shift;
+  const float* a_scale;  // kFormBnRelu: A's affine, (k)
+  const float* a_shift;
+  __nv_bfloat16* out;  // (m, n), row stride n
+  // partial sums of the stored values, or part = null
+  float* part;
+  const float* mask;  // (m) frame validity, or null: all valid
+  int t, seg_len, nseg, slots;
+};
+
+// the partial sums' workspace slots a segment needs (see above)
+__host__ __device__ inline int seg_slots(int t, int seg_len) {
+  return ((seg_len < t ? seg_len : t) + 62) / 64 + 1;
+}
+
+// the sum of v over a 128-thread block (all its threads call it), in a
+// fixed order
+__device__ __forceinline__ float sum128(float v, float* red) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  __syncthreads();  // red's last readers are done
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  return (red[0] + red[1]) + (red[2] + red[3]);
+}
+
+template <int kForm>
+__global__ void __launch_bounds__(kG9Threads, 1)
+    gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
+                     const __grid_constant__ CUtensorMap tm_w,
+                     const Sm90Args p) {
+  static_assert(kForm == kFormPost || kForm == kFormBnRelu, "a gemm form");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms aligned
+  unsigned char* const sm = smem_raw + (base - raw);
+  // full: the stage's copies landed; empty: both consumers are done with it
+  const uint32_t bar_full = base + kG9Bars;
+  const uint32_t bar_empty = bar_full + 8 * kG9Stages;
+  const int tid = threadIdx.x;
+  // the warpgroup index, shuffled so the compiler knows it is warp-uniform
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int ntn = p.n / kG9N;
+  const int tiles = ((p.m + kG9M - 1) / kG9M) * ntn;
+  const int ktiles = (p.k + kG9K - 1) / kG9K;
+
+  if (tid == 0) {
+    for (int s = 0; s < kG9Stages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);  // a lane of each consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer warp: one thread issues every copy
+    if (tid != 256) return;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / ntn) * kG9M, n0 = (tile % ntn) * kG9N;
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int s = it % kG9Stages;
+        if (it >= kG9Stages)
+          mbar_wait(bar_empty + 8 * s, ((it / kG9Stages) - 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, kG9Stage);
+        tma_load_2d(base + s * kG9Stage, &tm_a, kt * kG9K, m0, full);
+        tma_load_2d(base + s * kG9Stage + kG9Half, &tm_w, kt * kG9K, n0,
+                    full);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
+  const int wt = tid % 128, warp = wt / 32, lane = tid % 32;
+  unsigned char* const stage_out =
+      sm + kG9Stages * kG9Stage + wg * 64 * kG9StLd;
+  float acc[64];
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / ntn) * kG9M, n0 = (tile % ntn) * kG9N;
+    for (int kt = 0; kt < ktiles; ++kt, ++it) {
+      const int s = it % kG9Stages;
+      mbar_wait(bar_full + 8 * s, (it / kG9Stages) & 1);
+      const uint32_t a_s = base + s * kG9Stage + wg * 64 * 128;
+      const uint32_t w_s = base + s * kG9Stage + kG9Half;
+      if constexpr (kForm == kFormBnRelu) {
+        // this thread's four 16-byte chunks of the warpgroup's 64 rows: rows
+        // wt / 8 + 16 i, physical chunk wt % 8, which holds K columns
+        // 8 ((wt % 8) ^ (row % 8)) .. + 8 under the swizzle (row % 8 is
+        // the same for all four)
+        const int k = kt * kG9K + 8 * ((wt % 8) ^ ((wt / 8) % 8));
+        float sc[8], sh[8];
+        const bool live = k < p.k;  // k is a multiple of 8, as is p.k
+#pragma unroll
+        for (int e = 0; e < 8; e += 4) {
+          const float4 a = live ? __ldg(reinterpret_cast<const float4*>(
+                                      p.a_scale + k + e))
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float4 b = live ? __ldg(reinterpret_cast<const float4*>(
+                                      p.a_shift + k + e))
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+          sc[e] = a.x, sc[e + 1] = a.y, sc[e + 2] = a.z, sc[e + 3] = a.w;
+          sh[e] = b.x, sh[e + 1] = b.y, sh[e + 2] = b.z, sh[e + 3] = b.w;
+        }
+        unsigned char* const a_g = sm + (a_s - base);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint4* q = reinterpret_cast<uint4*>(a_g + (wt / 8 + 16 * i) * 128 +
+                                              (wt % 8) * 16);
+          uint4 v = *q;
+          uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float x0, x1;
+            unpack2(w[e], x0, x1);
+            w[e] = pack2(fmaxf(x0 * sc[2 * e] + sh[2 * e], 0.f),
+                         fmaxf(x1 * sc[2 * e + 1] + sh[2 * e + 1], 0.f));
+          }
+          *q = v;
+        }
+        fence_proxy_async();
+        named_sync(1 + wg, 128);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kG9K / 16; ++ks)
+        wgmma_m64k16_kk(acc, wgmma_desc(a_s + ks * 32, 16, 1024, 1),
+                        wgmma_desc(w_s + ks * 32, 16, 1024, 1),
+                        kt > 0 || ks > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's wgmmas have retired
+      fence_regs(acc);
+      if (kt > 0)
+        mbar_arrive_if(bar_empty + 8 * ((it - 1) % kG9Stages), lane == 0);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive_if(bar_empty + 8 * ((it - 1) % kG9Stages), lane == 0);
+
+    // ---- epilogue: the form in registers, bf16 into the staging tile ----
+    named_sync(1 + wg, 128);  // the last tile's readers are done with it
+    const int r0 = 16 * warp + lane / 4;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = n0 + 8 * j + 2 * (lane % 4);
+      const float2 sc = __ldg(reinterpret_cast<const float2*>(p.scale + col));
+      const float2 sh = __ldg(reinterpret_cast<const float2*>(p.shift + col));
+      float2 bi = make_float2(0.f, 0.f);
+      if constexpr (kForm == kFormPost)
+        bi = __ldg(reinterpret_cast<const float2*>(p.bias + col));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+        if constexpr (kForm == kFormPost) {
+          v0 = fmaxf(v0 + bi.x, 0.f) * sc.x + sh.x;
+          v1 = fmaxf(v1 + bi.y, 0.f) * sc.y + sh.y;
+        } else {
+          v0 = fmaxf(v0 * sc.x + sh.x, 0.f);
+          v1 = fmaxf(v1 * sc.y + sh.y, 0.f);
+        }
+        *reinterpret_cast<uint32_t*>(stage_out + (r0 + 8 * h) * kG9StLd +
+                                     (8 * j + 2 * (lane % 4)) * 2) =
+            pack2(v0, v1);
+      }
+    }
+    named_sync(1 + wg, 128);
+    const int row0 = m0 + 64 * wg;
+    // 16-byte stores: a warp writes two whole 256-byte rows
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = wt + 128 * i, r = q / 16, ch = q % 16;
+      if (row0 + r < p.m)
+        *reinterpret_cast<uint4*>(p.out + (size_t)(row0 + r) * p.n + n0 +
+                                  ch * 8) =
+            *reinterpret_cast<const uint4*>(stage_out + r * kG9StLd + ch * 16);
+    }
+    if (p.part && row0 < p.m) {
+      // column wt of the unit's rows, one run of rows a segment, in order
+      const int unit = row0 / 64, rows = min(64, p.m - row0);
+      int b = row0 / p.t, tt = row0 - b * p.t, sg = tt / p.seg_len;
+      const __nv_bfloat16* col =
+          reinterpret_cast<const __nv_bfloat16*>(stage_out) + wt;
+      for (int r = 0; r < rows;) {
+        const int run = min(rows - r, min((sg + 1) * p.seg_len, p.t) - tt);
+        float sum = 0.f;
+#pragma unroll 4
+        for (int i = r; i < r + run; ++i)
+          sum += __bfloat162float(col[i * (kG9StLd / 2)]) *
+                 (p.mask ? __ldg(p.mask + row0 + i) : 1.f);
+        const int u0 = (b * p.t + sg * p.seg_len) / 64;
+        p.part[((size_t)(b * p.nseg + sg) * p.slots + unit - u0) * p.n + n0 +
+               wt] = sum;
+        r += run;
+        tt += run;
+        if (tt == p.t) {
+          ++b;
+          tt = 0;
+          sg = 0;
+        } else if (tt == (sg + 1) * p.seg_len) {
+          ++sg;
+        }
+      }
+    }
+  }
+}
+
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 132;
+  }();
+  return n;
+}
+
+// One launch: A (m, k) at row stride lda, wt (n, k) at row stride ldw, both
+// bf16 and 16-byte aligned. Requires n % 128 == 0, k % 8 == 0, lda and ldw
+// multiples of 8 (16-byte rows), and scale/shift (and bias in the post
+// form, a_scale/a_shift in the bn_relu form, 16-byte aligned) set.
+template <int kForm>
+cudaError_t gemm_sm90(const void* a, int lda, const void* wt, int ldw,
+                      const Sm90Args& p, cudaStream_t stream) {
+  if (p.m <= 0 || p.k <= 0 || p.n % kG9N || p.k % 8 || lda % 8 || ldw % 8 ||
+      lda < p.k || ldw < p.k || !p.scale || !p.shift ||
+      (kForm == kFormPost && !p.bias) ||
+      (kForm == kFormBnRelu && (!p.a_scale || !p.a_shift)) ||
+      (p.part && (p.t <= 0 || p.seg_len <= 0 ||
+                  p.slots < seg_slots(p.t, p.seg_len))))
+    return cudaErrorInvalidValue;
+  CUtensorMap tm_a, tm_w;
+  if (!tensor_map_2d_bf16(&tm_a, a, p.k, p.m, (unsigned long long)lda * 2,
+                          kG9K, kG9M, 128) ||
+      !tensor_map_2d_bf16(&tm_w, wt, p.k, p.n, (unsigned long long)ldw * 2,
+                          kG9K, kG9N, 128))
+    return cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_sm90_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kG9Smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((p.m + kG9M - 1) / kG9M) * (p.n / kG9N);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  gemm_sm90_kernel<kForm><<<grid, kG9Threads, kG9Smem, stream>>>(tm_a, tm_w,
+                                                                 p);
+  return cudaGetLastError();
+}
+
+}  // namespace ws

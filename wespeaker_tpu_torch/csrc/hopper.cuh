@@ -21,6 +21,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,6 +49,27 @@ __device__ __forceinline__ uint4 ld_stream16(const void* p) {
       : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
       : "l"(p));
   return v;
+}
+
+__host__ __device__ inline int round_up(int v, int m) {
+  return (v + m - 1) / m * m;
+}
+
+// The swizzle of a TMA box (and wgmma operand) of rows of kRow bytes,
+// 1 KB-aligned: the 16-byte chunks of a row XORed with the row's low bits
+template <int kRow>
+__device__ __forceinline__ uint32_t swz(uint32_t off) {
+  static_assert(kRow == 64 || kRow == 128, "rows of 64 or 128 bytes");
+  return kRow == 128 ? off ^ ((off >> 3) & 0x70u) : off ^ ((off >> 3) & 0x30u);
+}
+
+__device__ __forceinline__ void unpack2(uint32_t v, float& a, float& b) {
+  a = __uint_as_float(v << 16);
+  b = __uint_as_float(v & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // ---- mbarriers and TMA ----
@@ -104,6 +126,23 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// box at integer coordinates (c0 innermost; out-of-range elements read as
+// zero) of a 2-D tensor map into shared memory, completing on bar
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// the barrier of `threads` threads (a multiple of 32) with this id (1-15;
+// 0 is __syncthreads)
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
 // `bytes` (a multiple of 16) from global to shared memory, both 16-byte
 // aligned, completing on bar
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
@@ -121,45 +160,72 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// A 4-D bf16 tensor map over a row-major (d3, d2, d1, d0) array with boxes
-// of (1, b2, b1, b0), whose b0 * 2 bytes rows land in shared memory, d1
-// then d2 outer, under the swizzle of that width (32, 64 or 128 bytes; 0:
-// none). The encoder is CUDA's cuTensorMapEncodeTiled, reached through
-// the runtime, so the library does not link libcuda. Returns false where
-// the encoder refuses the map (a stride that is not a multiple of 16
-// bytes, for one).
-inline bool tensor_map_4d_bf16(CUtensorMap* map, const void* base,
-                               unsigned long long d0, unsigned long long d1,
-                               unsigned long long d2, unsigned long long d3,
-                               unsigned b0, unsigned b1, int swizzle,
-                               unsigned b2 = 1) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                              void*, const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = [] {
+// CUDA's cuTensorMapEncodeTiled, reached through the runtime, so the
+// library does not link libcuda; null where the driver lacks it.
+using TensorMapEncode = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+inline TensorMapEncode tensor_map_encoder() {
+  static TensorMapEncode encode = [] {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult q;
     if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
                                 cudaEnableDefault, &q) != cudaSuccess ||
         q != cudaDriverEntryPointSuccess)
       fn = nullptr;
-    return reinterpret_cast<Encode>(fn);
+    return reinterpret_cast<TensorMapEncode>(fn);
   }();
+  return encode;
+}
+
+inline CUtensorMapSwizzle tensor_map_swizzle(int swizzle) {
+  return swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+         : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+         : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                         : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
+// A 4-D bf16 tensor map over a row-major (d3, d2, d1, d0) array with boxes
+// of (1, b2, b1, b0), whose b0 * 2 bytes rows land in shared memory, d1
+// then d2 outer, under the swizzle of that width (32, 64 or 128 bytes; 0:
+// none). Returns false where the encoder refuses the map (a stride that is
+// not a multiple of 16 bytes, for one).
+inline bool tensor_map_4d_bf16(CUtensorMap* map, const void* base,
+                               unsigned long long d0, unsigned long long d1,
+                               unsigned long long d2, unsigned long long d3,
+                               unsigned b0, unsigned b1, int swizzle,
+                               unsigned b2 = 1) {
+  const TensorMapEncode encode = tensor_map_encoder();
   if (!encode) return false;
   const cuuint64_t dims[4] = {d0, d1, d2, d3};
   const cuuint64_t strides[3] = {d0 * 2, d0 * d1 * 2, d0 * d1 * d2 * 2};
   const cuuint32_t box[4] = {b0, b1, b2, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw =
-      swizzle == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
-      : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-      : swizzle == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
-                      : CU_TENSOR_MAP_SWIZZLE_NONE;
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(base), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, tensor_map_swizzle(swizzle),
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 2-D bf16 tensor map over d1 rows of d0 elements, row_bytes apart (a
+// row stride wider than the row: the live prefix of a wider map), with
+// boxes of b1 rows of b0 elements; elements past d0 or d1 read as zero.
+inline bool tensor_map_2d_bf16(CUtensorMap* map, const void* base,
+                               unsigned long long d0, unsigned long long d1,
+                               unsigned long long row_bytes, unsigned b0,
+                               unsigned b1, int swizzle) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {b0, b1};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                const_cast<void*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, tensor_map_swizzle(swizzle),
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -95,10 +95,6 @@ struct InvSmem {
       h_plane, h_chunk, bn3, bars, total;
 };
 
-__host__ __device__ inline int round_up(int v, int m) {
-  return (v + m - 1) / m * m;
-}
-
 __host__ __device__ inline InvSmem inv_smem(int c, int nc, int mo_blocks,
                                             int w1_slots, int halo, int th) {
   const int s = c < 64 ? c : 64;
@@ -121,22 +117,6 @@ __host__ __device__ inline InvSmem inv_smem(int c, int nc, int mo_blocks,
   return l;
 }
 
-// The swizzle of a TMA box (and wgmma operand) of rows of kRow bytes,
-// 1 KB-aligned: the 16-byte chunks of a row XORed with the row's low bits
-template <int kRow>
-__device__ __forceinline__ uint32_t swz(uint32_t off) {
-  static_assert(kRow == 64 || kRow == 128, "rows of 64 or 128 bytes");
-  return kRow == 128 ? off ^ ((off >> 3) & 0x70u) : off ^ ((off >> 3) & 0x30u);
-}
-
-__device__ __forceinline__ void unpack2(uint32_t v, float& a, float& b) {
-  a = __uint_as_float(v << 16);
-  b = __uint_as_float(v & 0xffff0000u);
-}
-__device__ __forceinline__ uint32_t pack2(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 // the barrier of E's 256 threads (id 1; 0 is __syncthreads)
 __device__ __forceinline__ void e_sync() {
   asm volatile("bar.sync 1, %0;" ::"n"(kInvE) : "memory");

@@ -19,25 +19,36 @@ Bound on an H100 at CAMPPlus's extraction shape (B=512 x 200 frames, so
 T' = 100 after the stride-2 TDNN): 63, 227 and 178 GFLOP for the three
 blocks of 12, 24 and 16 layers, 0.064 + 0.229 + 0.180 ms at 989 TFLOP/s
 (`bin/kernel_bounds.py`): compute-bound, almost all of it the 1x1 products
-whose K grows with the block. The design: the TPU kernel kept 16
-utterances' whole (T, C_end) map resident in VMEM; one utterance's (100,
-1024) bf16 map is already 200 KB of the H100's 227 KB of shared memory,
-served utterances run to minutes, and Hopper blocks run in no order. So
-the dense map `out` (B, T, C_end) lives in device memory (much of it in the
-50 MB L2), x is copied into its first C0 channels, and each layer is three
-launches:
-  1. the 1x1 GEMM over the live channels only (M = B*T, K = ci, N = 128;
-     `common.cuh::gemm` with a row stride of C_end), BN1-relu applied to A
-     as it is loaded, BN2-relu in the epilogue; bf16 on WMMA tensor cores,
-     f32 on CUDA-core FMA (TF32 misses 1e-4);
-  2. one block per utterance: the masked f32 mean of h over T, then per
-     segment its mean, ctx rounded, and the gate MLP once per segment (ctx
-     is constant within a segment, so this equals the per-frame gate);
-  3. the k=3 dilated conv over 64-frame tiles of one utterance with a halo
-     of d frames (zeros beyond the real ends, so any T works and no frame is
-     padded), times the gate, rounded, into the next 32 channels.
-That is 3 L kernel launches and one copy per call (156 and 3 for
-CAMPPlus's three blocks); fusing them, wgmma and TMA are later work.
+whose K grows with the block. That bound counts the dense map as read
+once, as the TPU kernel kept 16 utterances' whole (T, C_end) map in VMEM.
+One utterance's (100, 1024) bf16 map is already 200 KB of the H100's 227
+KB of shared memory, served utterances run to minutes, and Hopper blocks
+run in no order, so the dense map `out` (B, T, C_end) lives in device
+memory and every layer reads its live channels again: sum over layers of
+M ci 2 bytes, 3.14 GB a B=512 forward, at least 0.94 ms at 3.35 TB/s (the
+design's floor; `bin/kernel_bounds.py` prints it beside the bound).
+
+The design (bf16): x is copied into the dense map's first C0 channels,
+then each layer is two launches:
+  1. `csrc/gemm_sm90.cuh`'s GEMM over the live channels only (M = B*T,
+     K = ci, N = 128): TMA loads A from the map (row stride C_end, K extent
+     ci exactly, so the unwritten channels past ci are never read) and the
+     K-major weights into a 4-stage ring, two consumer warpgroups apply
+     BN1-relu to their A rows in shared memory and run wgmma; the epilogue
+     applies BN2-relu, stores h (M, 128) as 16-byte vectors, and writes the
+     masked column sums of the stored (rounded) h over each 64-row unit of
+     M and each segment it holds (`partial_slots`, `segment_units`): the
+     context means' sums, with no atomics and in a fixed order;
+  2. `cam_tap_gate_kernel`, a CTA per two work items of 128 frames of one
+     utterance (`tap_items`): the gate of each segment an item touches
+     (the utterance's and the segment's sums from the partials, over their
+     masked counts; ctx rounded; the MLP), and the k=3 dilated conv on
+     wgmma (N = 32, K = 3 x 128: the three taps are row offsets into one
+     TMA-loaded h tile with a d-frame halo; the taps loaded once a CTA),
+     times the gate, rounded into out[..., ci:ci+32].
+That is 2 L launches and one copy a call (104 and 3 for CAMPPlus's three
+blocks). f32 stays on the CUDA cores, three launches a layer (an FMA GEMM,
+a gate kernel per utterance, an FMA conv): TF32 misses 1e-4.
 """
 
 import ctypes
@@ -52,6 +63,9 @@ from wespeaker_tpu_torch.ops.se_block import _dot, _tap
 
 GROWTH = 32
 BOTTLENECK = 128
+TAP_ROWS = 128   # frames a work item of the bf16 conv kernel
+TAP_ITEMS = 2    # work items a CTA
+UNIT = 64        # rows of M a GEMM warpgroup sums into one partial
 
 
 def segment_means(x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -66,6 +80,49 @@ def segment_means(x: torch.Tensor, mask: Optional[torch.Tensor],
     xs = F.pad(x * m[..., None], (0, 0, 0, pad)).view(b, nseg, seg_len, c)
     cnt = F.pad(m, (0, pad)).view(b, nseg, seg_len, 1).sum(2)
     return xs.sum(2) / cnt.clamp(min=1.0)
+
+
+def partial_slots(t: int, seg_len: int) -> int:
+    """Workspace slots a segment needs for the GEMM's partial sums: the
+    64-row units of M a segment of at most min(seg_len, T) rows can touch
+    (csrc/gemm_sm90.cuh::seg_slots)."""
+    return (min(seg_len, t) + UNIT - 2) // UNIT + 1
+
+
+def segment_units(b: int, t: int, seg_len: int):
+    """For each segment g = utterance * nseg + s, in order: (first row,
+    end row, first unit, units) over M = B*T rows, utterance-major; the
+    GEMM writes segment g's sum over unit u0 + i into slot i."""
+    nseg = -(-t // seg_len)
+    out = []
+    for bi in range(b):
+        for s in range(nseg):
+            r0 = bi * t + s * seg_len
+            r1 = bi * t + min((s + 1) * seg_len, t)
+            u0 = r0 // UNIT
+            out.append((r0, r1, u0, (r1 - 1) // UNIT - u0 + 1))
+    return out
+
+
+def tap_smem_bytes(dilation: int, seg_len: int, t: int) -> int:
+    """Shared memory of csrc/cam_block.cu::cam_tap_gate_kernel: the taps
+    (two 12 KB slabs), for each of a CTA's TAP_ITEMS items the h tile with
+    its halo (two 1 KB-aligned slabs) and the gates of the segments 128
+    frames touch, ctx, the hidden layer, the MLP's partial sums and the
+    mbarrier."""
+    slab = -(-(TAP_ROWS + 2 * dilation) * 128 // 1024) * 1024
+    segs = min((TAP_ROWS - 1) // seg_len + 2, -(-t // seg_len))
+    return (1024 + 2 * 3 * GROWTH * 128 + 2 * TAP_ITEMS * slab
+            + (BOTTLENECK + 64 + 2 * BOTTLENECK + 2) * 4
+            + TAP_ITEMS * segs * GROWTH * 4)
+
+
+def tap_items(b: int, t: int):
+    """The conv kernel's work items in order, (utterance, first frame), and
+    the CTA that takes each: TAP_ITEMS consecutive items a CTA."""
+    items = [(bi, t0) for bi in range(b) for t0 in range(0, t, TAP_ROWS)]
+    return [(cta // TAP_ITEMS, bi, t0) for cta, (bi, t0) in
+            enumerate(items)]
 
 
 def _context_gate(h, mask, wc1, bc1, wc2, bc2, seg_len: int, io_dtype):
@@ -105,7 +162,7 @@ def cam_dense_block_reference(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2,
     return xc
 
 
-def _check_cuda_args(x, s1, w1, w2, wc1, wc2, mask, seg_len):
+def _check_cuda_args(x, s1, w1, w2, wc1, wc2, mask, seg_len, dilation=1):
     b, t, c0 = x.shape
     num_layers = w1.shape[0]
     cend = c0 + GROWTH * num_layers
@@ -133,6 +190,9 @@ def _check_cuda_args(x, s1, w1, w2, wc1, wc2, mask, seg_len):
     if seg_len < 1 or t < 1 or b < 1:
         raise ValueError(f"empty block input {tuple(x.shape)} or seg_len "
                          f"{seg_len}")
+    if x.dtype == torch.bfloat16 and TAP_ROWS + 2 * dilation > 256:
+        raise ValueError(f"dilation {dilation} is past the bf16 conv's "
+                         f"halo (a TMA box of {TAP_ROWS} + 2 d <= 256 rows)")
 
 
 def fused_cam_dense_block(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2,
@@ -155,10 +215,26 @@ def fused_cam_dense_block(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2,
                                          wc2, bc2, dilation, seg_len, mask)
     if x.device.type != "cuda":
         raise ValueError(f"fused_cam_dense_block: no kernel for {x.device}")
-    _check_cuda_args(x, s1, w1, w2, wc1, wc2, mask, seg_len)
+    _check_cuda_args(x, s1, w1, w2, wc1, wc2, mask, seg_len, dilation)
+    b, t, c0 = x.shape
+    out = torch.empty((b, t, c0 + GROWTH * w1.shape[0]), device=x.device,
+                      dtype=x.dtype)
+    _launch(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2, dilation,
+            seg_len, mask, out)
+    fused_cam_dense_block.launches += 1
+    return out
+
+
+fused_cam_dense_block.launches = 0
+
+
+def _launch(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2, dilation,
+            seg_len, mask, out):
+    """The C entry on checked CUDA operands, into `out` (B, T, C_end), a
+    contiguous buffer whose bits the kernel overwrites channel block by
+    channel block (the card tests pass one filled with NaN)."""
     b, t, c0 = x.shape
     num_layers = w1.shape[0]
-    cend = c0 + GROWTH * num_layers
     nseg = -(-t // seg_len)
     io = x.dtype
     dev = x.device
@@ -170,31 +246,37 @@ def fused_cam_dense_block(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2,
         return v.to(device=dev, dtype=torch.float32).contiguous()
 
     x = x.contiguous()
-    wts = [f32(s1), f32(t1), io_(w1), f32(s2), f32(t2), io_(w2), io_(wc1),
+    bf16 = io == torch.bfloat16
+    if bf16:  # the weights K-major, as the wgmma kernels read them
+        w1k, w2k = io_(w1.transpose(1, 2)), io_(w2.transpose(2, 3))
+    else:
+        w1k, w2k = io_(w1), io_(w2)
+    wts = [f32(s1), f32(t1), w1k, f32(s2), f32(t2), w2k, io_(wc1),
            f32(bc1), io_(wc2), f32(bc2)]
     m = None if mask is None else f32(mask)
     h = torch.empty((b * t, BOTTLENECK), device=dev, dtype=io)
-    gate = torch.empty((b, nseg, GROWTH), device=dev, dtype=torch.float32)
-    out = torch.empty((b, t, cend), device=dev, dtype=io)
+    slots = partial_slots(t, seg_len)
+    if bf16:
+        work = torch.empty((b * nseg, slots, BOTTLENECK), device=dev,
+                           dtype=torch.float32)
+    else:
+        work = torch.empty((b, nseg, GROWTH), device=dev,
+                           dtype=torch.float32)
 
     lib = _lib()
-    ptr = _build.pointers([x] + wts + [h, gate, out])
+    ptr = _build.pointers([x] + wts + [h, work, out])
+    gate, part = (None, ptr[12]) if bf16 else (ptr[12], None)
     rc = lib.ws_cam_dense_block(
-        ptr[0], None if m is None else m.data_ptr(), *ptr[1:],
-        b, t, c0, num_layers, dilation, seg_len, int(io == torch.bfloat16),
+        ptr[0], None if m is None else m.data_ptr(), *ptr[1:12], gate, part,
+        ptr[13], b, t, c0, num_layers, dilation, seg_len, slots, int(bf16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "fused_cam_dense_block")
-    fused_cam_dense_block.launches += 1
-    return out
-
-
-fused_cam_dense_block.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("cam_block")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ws_cam_dense_block.argtypes = [p] * 15 + [i] * 7 + [p]
+    lib.ws_cam_dense_block.argtypes = [p] * 16 + [i] * 8 + [p]
     lib.ws_cam_dense_block.restype = i
     return lib

@@ -10,16 +10,15 @@ Replaces the Pallas kernel wespeaker_tpu/ops/res2_pallas.py
         y[group i] = sp                   (x's type)
     y[group nums] = x[group nums]         (the passthrough group)
 
-The kernel is csrc/se_block.cu's `res2_chain_kernel`, the chain step of the
-whole-block kernel (ops/se_block.py), reached through its own C entry
-point `ws_res2_chain`: one block per utterance walks the steps in order
-over T tiles with a halo of d frames, the step's (3, W, W) weights and the
-tile in shared memory, on CUDA-core FMA, so any T works. Bound on an H100
-at ECAPA_TDNN_GLOB_c512's extraction shape (B=512, T=200, C=512, bf16):
-18 GFLOP and 210 MB (x read, y written), about 0.063 ms at 3.35 TB/s
-against 0.018 at 989 TFLOP/s: bytes bound it. The TPU kernel kept an
-8-utterance tile in VMEM and ran each step as one MXU matmul; moving the
-chain's products onto the tensor cores is later work.
+The kernel is csrc/se_block.cu's chain, the chain step of the whole-block
+kernel (ops/se_block.py), reached through its own C entry point
+`ws_res2_chain`. bf16 runs `res2_chain_tc_kernel` on the tensor cores (a
+CTA per utterance, or per frame tile with the whole chain's halo; the
+step's input held in shared memory; `se_block.chain_plan`); f32 runs the
+CUDA-core FMA chain (exact f32). Bound on an H100 at ECAPA_TDNN_GLOB_c512's
+extraction shape (B=512, T=200, C=512, bf16): 18 GFLOP and 210 MB (x read,
+y written), about 0.063 ms at 3.35 TB/s against 0.018 at 989 TFLOP/s:
+bytes bound it.
 """
 
 import ctypes
@@ -27,9 +26,8 @@ import functools
 
 import torch
 
-from wespeaker_tpu_torch.device import smem_budget_bytes
 from wespeaker_tpu_torch.ops import _build
-from wespeaker_tpu_torch.ops.se_block import _chain, _chain_smem_bytes
+from wespeaker_tpu_torch.ops.se_block import _chain, check_chain_smem
 
 _WIDTHS = (64, 128)
 
@@ -62,17 +60,13 @@ def _check_args(x, kernels, biases, bn_scale, bn_shift):
             raise ValueError(f"{name} {tuple(v.shape)} != {(nums, width)}")
 
 
-def _check_cuda_args(x, width, dilation):
+def _check_cuda_args(x, width, dilation, nums=7):
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_res2_chain takes f32 or bf16, not {x.dtype}")
     if width not in _WIDTHS:
         raise ValueError(f"fused_res2_chain takes group widths {_WIDTHS}; "
                          f"got {width}")
-    need = _chain_smem_bytes(width, dilation)
-    if need > smem_budget_bytes(x.device):
-        raise ValueError(f"Res2 chain of width {width} at dilation "
-                         f"{dilation} needs {need} bytes of shared memory, "
-                         f"more than {smem_budget_bytes(x.device)}")
+    check_chain_smem(x, width, nums, dilation)
 
 
 def fused_res2_chain(x, kernels, biases, bn_scale, bn_shift, dilation: int):
@@ -90,11 +84,14 @@ def fused_res2_chain(x, kernels, biases, bn_scale, bn_shift, dilation: int):
     if x.device.type != "cuda":
         raise ValueError(f"fused_res2_chain: no kernel for {x.device}")
     nums, _, width, _ = kernels.shape
-    _check_cuda_args(x, width, dilation)
+    _check_cuda_args(x, width, dilation, nums)
     b, t, c = x.shape
     dev, io = x.device, x.dtype
     x = x.contiguous()
-    cw = kernels.to(device=dev, dtype=io).contiguous()
+    cw = kernels.to(device=dev, dtype=io)
+    if io == torch.bfloat16:  # K-major, as the wgmma chain reads them
+        cw = cw.transpose(2, 3)
+    cw = cw.contiguous()
     caff = torch.stack([v.to(device=dev, dtype=torch.float32)
                         for v in (biases, bn_scale, bn_shift)]).contiguous()
     out = torch.empty_like(x)

@@ -16,28 +16,33 @@ activation, rounding where the JAX kernel rounds.
 
 Bound on an H100 at the flagship shape (B=512, T=200, C=512, bf16): about
 125 GFLOP (two 512x512 pointwise GEMMs are 107 of them, the chain 18) and
-210 MB of x read and out written, so about 0.13 ms at 989 TFLOP/s:
-compute-bound. The design: the TPU kernel kept 16 utterances whole in
-VMEM; a (200, 512) bf16 tile alone is 200 KB of the H100's 227 KB of
-shared memory, and the SE gate needs the mean of h2 over all valid T
-before any output is written. So the block is split into launches, with
-h1, y and h2 in device memory (each 105 MB at that shape, mostly served
-from the 50 MB L2 only in part):
-  1. pointwise GEMM + relu + BN (bf16: WMMA tensor cores, f32 accumulate;
-     f32: CUDA-core FMA, exact f32);
-  2. the Res2 chain: one block per utterance walks the 7 steps in order
-     over T tiles with a halo of d frames, the step's (3, W, W) weights and
-     the tile in shared memory, so any T works;
-  3. the second pointwise GEMM;
-  4. squeeze: masked mean over T, one thread per channel;
-  5./6. the excitation MLP as two small GEMMs;
-  7. the residual x + h2 * g.
-Fusing these back together (and wgmma/TMA) is later work.
+210 MB of x read and out written, so about 0.127 ms at 989 TFLOP/s:
+compute-bound. The TPU kernel kept 16 utterances whole in VMEM; a (200,
+512) bf16 tile alone is 200 KB of the H100's 227 KB of shared memory, and
+the SE gate needs the mean of h2 over all valid T before any output is
+written. So h1, y and h2 (each 105 MB at that shape) go through device
+memory: each written once and read once more, and x read twice, about
+1.05 GB a call, at least 0.31 ms at 3.35 TB/s (the design's floor;
+`bin/kernel_bounds.py` prints it beside the bound). The launches (bf16):
+  1. pointwise GEMM + bias, relu, BN on `csrc/gemm_sm90.cuh` (TMA ring,
+     wgmma, the epilogue from registers as 16-byte stores);
+  2. the Res2 chain on the tensor cores (`chain_plan`): a CTA per
+     utterance (or frame tile, with the whole chain's halo) runs the 7
+     steps with the step's input held in shared memory, each step 3 x 4
+     wgmma m64n64k16 per 64 frames, bf16 operands, f32 sums, rounded where
+     the JAX kernel rounds;
+  3. the second GEMM, whose epilogue also writes the masked column sums
+     of the stored h2 over each 64-row unit of M (fixed order, no atomics);
+  4. squeeze: the mean from those sums;
+  5./6. the excitation MLP as two small GEMMs (M = B; `common.cuh::gemm`);
+  7. the residual x + h2 * g, 16 bytes a thread.
+f32 runs the same seven launches on the CUDA cores (exact f32; TF32
+misses 1e-4): `common.cuh::gemm`'s FMA form, the FMA chain, `col_stats`.
 """
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -112,12 +117,60 @@ def se_res2_block_reference(x, w1, b1, s1, h1, cw, cb, cs, ch,
 
 
 def _chain_smem_bytes(width: int, dilation: int) -> int:
-    """Shared memory of csrc/se_block.cu::res2_chain_kernel: the step's
-    (3, W, W) weights and a (tile + 2d, W + 1) f32 tile; the tile is 64
-    rows for width 64 and 32 for width 128 (256 threads, 4x4 outputs
+    """Shared memory of csrc/se_block.cu::res2_chain_kernel (f32): the
+    step's (3, W, W) weights and a (tile + 2d, W + 1) f32 tile; the tile is
+    64 rows for width 64 and 32 for width 128 (256 threads, 4x4 outputs
     each)."""
     tile = 256 // (width // 4) * 4
     return 4 * (3 * width * width + (tile + 2 * dilation) * (width + 1))
+
+
+class ChainPlan(NamedTuple):
+    rows: int     # frames of the region a CTA computes each step
+    frames: int   # output frames a CTA writes
+    tiles: int    # CTAs an utterance
+    sp_rows: int  # rows of the step's input in shared memory
+    smem: int     # bytes of shared memory
+
+
+def chain_plan(t: int, width: int, nums: int, dilation: int) -> ChainPlan:
+    """The tile plan of csrc/se_block.cu::res2_chain_tc_kernel (bf16): a
+    CTA runs all `nums` steps over a region of 256 frames (width 64, four
+    warpgroups) or 128 (width 128) from t0 - (nums - 1) d, and writes the
+    frames [t0, t0 + F) whose every step it computed right, F = rows -
+    2 (nums - 1) d; step 0's input is h1 over the region and a d-frame halo
+    (whole 128-row TMA boxes). Raises where no frame is left."""
+    if width not in (64, 128):
+        raise ValueError(f"the bf16 chain takes group widths 64 and 128; "
+                         f"got {width}")
+    rows = 256 if width == 64 else 128
+    frames = rows - 2 * (nums - 1) * dilation
+    if frames < 1 or t < 1:
+        raise ValueError(f"the bf16 Res2 chain's {rows}-frame region leaves "
+                         f"no frame at {nums} steps of dilation {dilation}")
+    sp_rows = -(-(rows + 2 * dilation) // 128) * 128
+    slabs = width // 64
+    smem = 1024 + slabs * 128 * (sp_rows + 3 * width + rows) + 3 * 8
+    return ChainPlan(rows, frames, -(-t // frames), sp_rows, smem)
+
+
+def squeeze_slots(t: int) -> int:
+    """Workspace slots of the squeeze's partial sums: the 64-row units of
+    M an utterance of T frames touches (one segment an utterance)."""
+    return (t + 62) // 64 + 1
+
+
+def check_chain_smem(x, width: int, nums: int, dilation: int) -> None:
+    """Raise where the chain kernel of x's type does not fit the card's
+    shared memory (or, in bf16, leaves no frame a tile)."""
+    if x.dtype == torch.bfloat16:
+        need = chain_plan(x.shape[1], width, nums, dilation).smem
+    else:
+        need = _chain_smem_bytes(width, dilation)
+    if need > smem_budget_bytes(x.device):
+        raise ValueError(f"Res2 chain of width {width} at dilation "
+                         f"{dilation} needs {need} bytes of shared memory, "
+                         f"more than {smem_budget_bytes(x.device)}")
 
 
 def _check_cuda_args(x, cw, sw1, mask, dilation):
@@ -135,11 +188,7 @@ def _check_cuda_args(x, cw, sw1, mask, dilation):
                          f"sw1 {tuple(sw1.shape)}")
     if mask is not None and tuple(mask.shape) != (b, t):
         raise ValueError(f"mask {tuple(mask.shape)} != {(b, t)}")
-    need = _chain_smem_bytes(width, dilation)
-    if need > smem_budget_bytes(x.device):
-        raise ValueError(f"Res2 chain of width {width} at dilation "
-                         f"{dilation} needs {need} bytes of shared memory, "
-                         f"more than {smem_budget_bytes(x.device)}")
+    check_chain_smem(x, width, nums, dilation)
 
 
 def fused_se_res2_block(x, w1, b1, s1, h1, cw, cb, cs, ch,
@@ -174,7 +223,12 @@ def fused_se_res2_block(x, w1, b1, s1, h1, cw, cb, cs, ch,
                             for v in vs]).contiguous()
 
     x = x.contiguous()
-    wts = [io_(w1), f32(b1, s1, h1), io_(cw), f32(cb, cs, ch), io_(w2),
+    bf16 = io == torch.bfloat16
+    if bf16:  # the weights K-major, as the wgmma kernels read them
+        w1k, w2k, cwk = io_(w1.t()), io_(w2.t()), io_(cw.transpose(2, 3))
+    else:
+        w1k, w2k, cwk = io_(w1), io_(w2), io_(cw)
+    wts = [w1k, f32(b1, s1, h1), cwk, f32(cb, cs, ch), w2k,
            f32(b2, s2, h2), io_(sw1), f32(sb1), io_(sw2), f32(sb2)]
     m = None if mask is None else mask.to(device=dev,
                                           dtype=torch.float32).contiguous()
@@ -182,13 +236,15 @@ def fused_se_res2_block(x, w1, b1, s1, h1, cw, cb, cs, ch,
     mean = torch.empty((b, c), device=dev, dtype=io)
     z = torch.empty((b, _SE_BOTTLENECK), device=dev, dtype=io)
     g = torch.empty((b, c), device=dev, dtype=torch.float32)
+    slots = squeeze_slots(t)
+    part = torch.empty((b, slots, c) if bf16 else (1,), device=dev,
+                       dtype=torch.float32)
 
     lib = _lib()
-    ptr = _build.pointers([x] + wts + [h1b, yb, h2b, mean, z, g, out])
+    ptr = _build.pointers([x] + wts + [h1b, yb, h2b, mean, z, g, part, out])
     rc = lib.ws_se_res2_block(
         ptr[0], None if m is None else m.data_ptr(), *ptr[1:],
-        b, t, c, width, nums, _SE_BOTTLENECK, dilation,
-        int(io == torch.bfloat16),
+        b, t, c, width, nums, _SE_BOTTLENECK, dilation, slots, int(bf16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "fused_se_res2_block")
     fused_se_res2_block.launches += 1
@@ -202,6 +258,6 @@ fused_se_res2_block.launches = 0
 def _lib():
     lib = _build.load("se_block")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ws_se_res2_block.argtypes = [p] * 19 + [i] * 8 + [p]
+    lib.ws_se_res2_block.argtypes = [p] * 20 + [i] * 9 + [p]
     lib.ws_se_res2_block.restype = i
     return lib
