@@ -12,7 +12,9 @@ Phases, each printing one line:
               the card at the flagship width (C=512): bf16 unmasked at
               T=200 (cosine >= 0.9999), f32 masked at T=198 (TF32 off,
               rtol/atol 1e-4) and bf16 masked at the edge B=3, T=37 (B*T
-              = 111, no multiple of the GEMM's 128-row tile);
+              = 111, no multiple of the GEMM's 128-row tile); the tail
+              also bf16 masked at C=1024 (ECAPA_TDNN_GLOB_c1024's MFA
+              conv, 3072 -> 1536, random weights), B=3, T=37;
   3. train kernels  the training tail's forward kernel against its plain
               version on all four outputs (pooled, h, att, cstats), and
               its backward kernel against the plain backward and against
@@ -21,6 +23,7 @@ Phases, each printing one line:
               (rtol/atol 1e-4, each gradient scaled by its largest
               magnitude), except db1 against bf16 autograd (cosine >=
               0.99, see phase_train_kernels); db2 must be exactly zero;
+              then bf16 at C=1024 (random MFA weights), B=3, T=37;
   4. slice    ECAPA_TDNN_GLOB_c512 at full width with random weights and
               randomised BN statistics from a seed: make_eval_embed_fn in
               bf16 over 2 s chunks (32,240 samples), the kernel path
@@ -47,8 +50,11 @@ Phases, each printing one line:
   8. timing   CUDA events after warm-up at B=512, T=200, C=512, bf16: each
               inference kernel and its plain version, with the bound from
               the shapes (bin/kernel_bounds.py: 989 TFLOP/s bf16, 3.35
-              TB/s), the SE block's kernel launches a call and a forward
-              (torch.profiler); extraction audio-s/s at B=512;
+              TB/s) and for the tail the floor of its chain of launches,
+              the SE block's and the tail's kernel launches a call
+              (torch.profiler; the tail's four products must run on
+              gemm_sm90, none on the WMMA GEMM);
+              extraction audio-s/s at B=512;
   9. train timing  the train kernels and their plain versions at B=256,
               T=200, C=512, bf16, with bounds; train-step audio-s/s at
               bench.py's train config (B=256, 2 s chunks, bf16, dither,
@@ -382,12 +388,19 @@ def se_inputs(model, rng, b, t, dtype, dev):
     return x, [w.detach() for w in weights], model.layer3.dilation
 
 
-def tail_inputs(model, rng, b, t, dtype, dev):
-    xs = [torch.as_tensor(rng.standard_normal((b, t, C)).astype(np.float32),
+def tail_inputs(model, rng, b, t, dtype, dev, c=C):
+    """x2, x3, x4 (B, T, c) and the tail's weights: the model's, or at
+    another width c a random MFA conv (3c -> 1536) with the model's
+    pooling weights."""
+    xs = [torch.as_tensor(rng.standard_normal((b, t, c)).astype(np.float32),
                           device=dev).to(dtype) for _ in range(3)]
     p = model.pool
-    weights = (model.conv.weight[:, :, 0].t(), model.conv.bias,
-               p.linear1.weight[:, :, 0].t(), p.linear1.bias,
+    wm, bm = model.conv.weight[:, :, 0].t(), model.conv.bias
+    if c != C:
+        d = wm.shape[1]
+        wm = torch.as_tensor(rng.standard_normal((d, 3 * c)).astype(
+            np.float32) * (3 * c) ** -0.5, device=dev).t()
+    weights = (wm, bm, p.linear1.weight[:, :, 0].t(), p.linear1.bias,
                p.linear2.weight[:, :, 0].t(), p.linear2.bias)
     return xs, [w.detach() for w in weights]
 
@@ -428,28 +441,32 @@ def phase_device():
 def phase_kernels(model, dev):
     rng = np.random.default_rng(SEED)
     errs, parts = {}, []
-    # the edge: B*T = 111, no multiple of the GEMM's 128-row tile, masked
-    for dtype, t, masked, b in ((torch.bfloat16, T, False, SLICE_BATCH),
-                                (torch.float32, 198, True, SLICE_BATCH),
-                                (torch.bfloat16, 37, True, 3)):
+    # the edge: B*T = 111, no multiple of the GEMM's 128-row tile, masked;
+    # the tail also at C=1024 (three A maps of 1024 columns)
+    for dtype, t, masked, b, c in ((torch.bfloat16, T, False, SLICE_BATCH, C),
+                                   (torch.float32, 198, True, SLICE_BATCH, C),
+                                   (torch.bfloat16, 37, True, 3, C),
+                                   (torch.bfloat16, 37, True, 3, 1024)):
         mask = ragged_mask(rng, b, t, dev) if masked else None
-        x, w, dil = se_inputs(model, rng, b, t, dtype, dev)
-        got = se_block.fused_se_res2_block(x, *w, dilation=dil, mask=mask)
-        torch.cuda.synchronize()
-        want = se_block.se_res2_block_reference(x, *w, dilation=dil,
-                                                mask=mask)
-        err, cos = compare(got, want, dtype)
-        errs.setdefault("se", err)
-        parts.append(f"se_res2_block {str(dtype)[6:]} B={b} T={t} "
-                     f"{'masked' if masked else 'unmasked'} "
-                     f"max_abs_err={err:.3g} cos={cos:.7f}")
-        xs, tw = tail_inputs(model, rng, b, t, dtype, dev)
+        if c == C:
+            x, w, dil = se_inputs(model, rng, b, t, dtype, dev)
+            got = se_block.fused_se_res2_block(x, *w, dilation=dil,
+                                               mask=mask)
+            torch.cuda.synchronize()
+            want = se_block.se_res2_block_reference(x, *w, dilation=dil,
+                                                    mask=mask)
+            err, cos = compare(got, want, dtype)
+            errs.setdefault("se", err)
+            parts.append(f"se_res2_block {str(dtype)[6:]} B={b} T={t} "
+                         f"{'masked' if masked else 'unmasked'} "
+                         f"max_abs_err={err:.3g} cos={cos:.7f}")
+        xs, tw = tail_inputs(model, rng, b, t, dtype, dev, c)
         got = mfa_astp.fused_mfa_astp(*xs, *tw, mask=mask, glob=True)
         torch.cuda.synchronize()
         want = mfa_astp.mfa_astp_reference(*xs, *tw, mask=mask, glob=True)
         err, cos = compare(got, want, dtype)
         errs.setdefault("tail", err)
-        parts.append(f"mfa_astp {str(dtype)[6:]} B={b} T={t} "
+        parts.append(f"mfa_astp {str(dtype)[6:]} B={b} T={t} C={c} "
                      f"{'masked' if masked else 'unmasked'} "
                      f"max_abs_err={err:.3g} cos={cos:.7f}")
     print("kernels: " + "; ".join(parts))
@@ -593,16 +610,24 @@ def phase_timing(model, dev, smi):
         x, *w, dilation=dil), "ws::")[0]
     del x
     xs, tw = tail_inputs(model, rng, B, T, io, dev)
-    d, a = 1536, 128
-    tail_flops = 2 * m * 3 * C * d + 2 * 2 * m * d * a + 2 * B * 2 * d * a
-    tail_bytes = (3 * xs[0].numel() * io.itemsize + _nbytes(tw, io)
-                  + B * 2 * d * 4)
     res["tail"] = {"ms": cuda_ms(lambda: mfa_astp.fused_mfa_astp(
         *xs, *tw, glob=True)),
         "plain_ms": cuda_ms(lambda: mfa_astp.mfa_astp_reference(
             *xs, *tw, glob=True), iters=5)}
-    res["tail"]["bound_ms"], res["tail"]["bound_by"] = bound(tail_flops,
-                                                             tail_bytes)
+    res["tail"]["bound_ms"], res["tail"]["bound_by"] = bound(
+        *kernel_bounds.mfa_astp_tail(B, T, C))
+    tail_floor = sum(ms for _, ms, _ in kernel_bounds.mfa_astp_tail_floor(
+        B, T, C))
+    # the tail's launches a call, and those on gemm_sm90 (the MFA, context,
+    # tanh and logits products) and on the WMMA GEMM (none)
+    tail_sm90 = count_launches(lambda: mfa_astp.fused_mfa_astp(
+        *xs, *tw, glob=True), "gemm_sm90_kernel")[0]
+    tail_wmma, tail_all, _ = count_launches(lambda: mfa_astp.fused_mfa_astp(
+        *xs, *tw, glob=True), "gemm_wmma_kernel")
+    if (tail_sm90, tail_wmma) != (4, 0):
+        raise AssertionError(f"the bf16 tail launched gemm_sm90 {tail_sm90} "
+                             f"times and the WMMA GEMM {tail_wmma}, not 4 "
+                             "and 0")
     del xs
     wav = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, CHUNK_SAMPLES)).astype(
         np.float32), device=dev)
@@ -618,7 +643,9 @@ def phase_timing(model, dev, smi):
     fmt = "; ".join(
         f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound "
         f"{v['bound_ms']:.3f} by {v['bound_by']})" for k, v in res.items())
-    print(f"timing [{smi}] B={B} T={T} C={C} bf16: {fmt}; se_res2_block "
+    print(f"timing [{smi}] B={B} T={T} C={C} bf16: {fmt}; tail floor of "
+          f"its chain {tail_floor:.3f} ms, {tail_all} kernel launches a "
+          f"call ({tail_sm90} gemm_sm90, {tail_wmma} WMMA); se_res2_block "
           f"{se_launches} kernel launches a call, {3 * se_launches} a "
           f"forward (3 calls); extraction "
           f"kernel path {rates['kernel'][0]:.1f} audio-s/s "
@@ -651,7 +678,8 @@ GRAD_NAMES = ("dx2", "dx3", "dx4", "dwm", "dbm", "dk1", "db1", "dk2")
 
 def phase_train_kernels(model, dev):
     """The training tail's forward and backward kernels against their
-    plain versions at B=64, C=512: bf16 at T=200 and f32 at T=198. The
+    plain versions at B=64, C=512: bf16 at T=200 and f32 at T=198; and
+    bf16 at C=1024 (a random MFA conv), B=3, T=37. The
     backward takes the plain forward's residuals, so both sides see the
     same relu mask, and is also held against autograd through the plain
     forward: at the same bars, but db1 in bf16 at cosine >= 0.99, since
@@ -660,18 +688,20 @@ def phase_train_kernels(model, dev):
     shows it (0.998 at B=2 on the CPU, every other gradient >= 0.99999)."""
     rng = np.random.default_rng(SEED + 4)
     errs, parts = {}, []
-    for dtype, t in ((torch.bfloat16, T), (torch.float32, 198)):
-        xs, tw = tail_inputs(model, rng, SLICE_BATCH, t, dtype, dev)
+    for dtype, t, b, c in ((torch.bfloat16, T, SLICE_BATCH, C),
+                           (torch.float32, 198, SLICE_BATCH, C),
+                           (torch.bfloat16, 37, 3, 1024)):
+        xs, tw = tail_inputs(model, rng, b, t, dtype, dev, c)
         wm, bm, k1, b1, k2, b2 = tw
         got = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw, glob=True)
         torch.cuda.synchronize()
         want = mfa_astp_vjp.mfa_astp_train_fwd_reference(*xs, *tw, glob=True)
         fwd = [compare(gv, wv, dtype) for gv, wv in zip(got, want)]
         errs.setdefault("train_fwd", max(e for e, _ in fwd))
-        parts.append(f"train fwd {str(dtype)[6:]} T={t} " + " ".join(
-            f"{n}(err={e:.3g} cos={c:.7f})" for n, (e, c) in zip(FWD_NAMES,
-                                                                  fwd)))
-        g = torch.as_tensor(rng.standard_normal((SLICE_BATCH, 3072)).astype(
+        parts.append(f"train fwd {str(dtype)[6:]} B={b} T={t} C={c} "
+                     + " ".join(f"{n}(err={e:.3g} cos={c_:.7f})"
+                                for n, (e, c_) in zip(FWD_NAMES, fwd)))
+        g = torch.as_tensor(rng.standard_normal((b, 3072)).astype(
             np.float32), device=dev)
         pooled, h, att, cstats = want
         res = (*xs, wm, k1, b2, k2, pooled, h, att, cstats, g)
@@ -689,9 +719,10 @@ def phase_train_kernels(model, dev):
                                   0.99 if n == "db1" else 0.9999)
                    for n, gv, av in zip(GRAD_NAMES, grads[:-1], auto[:-1])]
         errs.setdefault("train_bwd", max(e for e, _ in bwd))
-        parts.append(f"train bwd {str(dtype)[6:]} T={t} db2=0 " + " ".join(
-            f"{n}(err={e:.3g} cos={c:.7f} autograd cos={ca:.7f})"
-            for n, (e, c), (_, ca) in zip(GRAD_NAMES, bwd, vs_auto)))
+        parts.append(f"train bwd {str(dtype)[6:]} B={b} T={t} C={c} db2=0 "
+                     + " ".join(
+            f"{n}(err={e:.3g} cos={c_:.7f} autograd cos={ca:.7f})"
+            for n, (e, c_), (_, ca) in zip(GRAD_NAMES, bwd, vs_auto)))
         del xs, got, want, grads, plain, ins, out, auto
     print("train kernels: " + "; ".join(parts))
     return errs
@@ -904,21 +935,8 @@ def phase_train_timing(model, dev, smi):
                         device=dev)
     pooled, h, att, cstats = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw)
     res = (*xs, wm, k1, b2, k2, pooled, h, att, cstats, g)
-    # forward: MFA conv, attention and logits products, context product;
-    # reads x and the weights, writes pooled, h, att, cstats
-    fwd_flops = 2 * m * 3 * C * d + 2 * 2 * m * d * a + 2 * b * 2 * d * a
-    fwd_bytes = (3 * xs[0].numel() * io.itemsize + _nbytes(tw, io)
-                 + (h.numel() + att.numel()) * io.itemsize + 2 * b * 2 * d * 4)
-    # backward: logits recomputed, datt, dh_att, dk2, dk1x; dx and dwm; the
-    # context products dcms and dk1's context rows. Reads x, h, att,
-    # pooled, cstats, g and the weights; writes dx (io) and the f32 weight
-    # gradients
-    bwd_flops = (5 * 2 * m * d * a + 2 * 2 * m * 3 * C * d
-                 + 2 * 2 * b * 2 * d * a)
-    bwd_bytes = (2 * 3 * xs[0].numel() * io.itemsize
-                 + (h.numel() + att.numel()) * io.itemsize
-                 + 3 * b * 2 * d * 4 + _nbytes([wm, k1, k2, b2], io)
-                 + 4 * (wm.numel() + k1.numel() + k2.numel() + 2 * d + a))
+    fwd_flops, fwd_bytes = kernel_bounds.mfa_astp_tail(b, T, C, train=True)
+    bwd_flops, bwd_bytes = kernel_bounds.mfa_astp_tail_bwd(b, T, C)
     res_t = {
         "train_fwd": {
             "ms": cuda_ms(lambda: mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw)),

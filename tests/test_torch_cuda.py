@@ -107,8 +107,13 @@ def test_se_block_kernel_matches_plain(cuda, dtype, masked, t, c):
     assert_matches(got, want, dtype)
 
 
+# the tail's edges: B*T = 111 and 3, no multiple of the 128-row tile, T = 1
+TAIL_EDGES = [(torch.bfloat16, True, 37, 1024),
+              (torch.bfloat16, False, 1, 512), (torch.float32, True, 1, 1024)]
+
+
 @pytest.mark.parametrize("glob", [True, False])
-@pytest.mark.parametrize("dtype,masked,t,c", CASES)
+@pytest.mark.parametrize("dtype,masked,t,c", CASES + TAIL_EDGES)
 def test_mfa_astp_kernel_matches_plain(cuda, dtype, masked, t, c, glob):
     xs, args, mask = tail_args(np.random.default_rng(1), 3, t, c, dtype,
                                cuda, masked, glob)
@@ -176,7 +181,9 @@ def train_args(rng, b, t, c, dtype, device, glob):
     return xs, w, g
 
 
-@pytest.mark.parametrize("dtype,t,c,glob", TRAIN_CASES)
+@pytest.mark.parametrize("dtype,t,c,glob", TRAIN_CASES + [
+    (torch.bfloat16, 37, 1024, True), (torch.bfloat16, 21, 512, False),
+    (torch.bfloat16, 1, 512, True)])
 def test_mfa_astp_train_fwd_kernel_matches_plain(cuda, dtype, t, c, glob):
     xs, w, _ = train_args(np.random.default_rng(5), 3, t, c, dtype, cuda,
                           glob)
@@ -186,6 +193,9 @@ def test_mfa_astp_train_fwd_kernel_matches_plain(cuda, dtype, t, c, glob):
     assert mfa_astp_vjp.mfa_astp_train_fwd.launches == before + 1
     want = mfa_astp_vjp.mfa_astp_train_fwd_reference(*xs, *w, glob=glob)
     for gv, wv in zip(got, want):
+        if not wv.any():  # cstats without the global context: zeros
+            assert gv.shape == wv.shape and not gv.any()
+            continue
         assert_matches(gv, wv, dtype)
 
 
@@ -771,7 +781,45 @@ GEMM_CASES = [("post", 3, 111, 512, 512, 512, None, False),
               ("bn_relu", 5, 1, 128, 160, 128, 100, False)]
 
 
-@pytest.mark.parametrize("form,b,t,k,lda,n,seg_len,masked", GEMM_CASES)
+# The MFA+ASTP tail's forms (rows 2 and 4): three A maps of C = 512 and
+# 1024 columns (M = 111 and 402), the tanh form with a per-utterance row
+# bias at T = 37, 1, 200 and 201 (128-row tiles straddle utterances) and
+# with a column bias, W K-major inside a wider row (ldw = 3D, NaN past K),
+# and the f32 form at the logits' N = 1536 and the context product's
+# M = 512 utterances, K = 2D.
+TAIL_GEMM_CASES = [("post3", 3, 37, 3 * 512, 3 * 512, 1536, None, False),
+                   ("post3", 2, 201, 3 * 1024, 3 * 1024, 1536, None, False),
+                   ("tanh_rb", 3, 37, 1536, 3 * 1536, 128, None, False),
+                   ("tanh_rb", 5, 1, 1536, 3 * 1536, 128, None, False),
+                   ("tanh_rb", 2, 200, 1536, 3 * 1536, 128, None, False),
+                   ("tanh_rb", 3, 201, 1536, 1536, 128, None, False),
+                   ("tanh", 3, 37, 1536, 1536, 128, None, False),
+                   ("f32", 3, 37, 128, 128, 1536, None, False),
+                   ("f32", 2, 201, 128, 128, 1536, None, False),
+                   ("f32", 512, 1, 3072, 4608, 128, None, False)]
+
+
+def _tail_gemm_case(rng, form, b, t, k, ldw, n, dev):
+    """Operands of gemm_sm90_tail: the parts of A, wt (n, ldw) with NaN
+    past k, and the form's vectors."""
+    def r(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
+                               * scale, device=dev)
+
+    m, nparts = b * t, 3 if form == "post3" else 1
+    parts = [r(m, k // nparts).to(torch.bfloat16) for _ in range(nparts)]
+    wt = r(n, ldw, scale=k ** -0.5).to(torch.bfloat16)
+    wt[:, k:] = float("nan")  # never read: W's K extent is k
+    kw = dict(bias=r(n, scale=.1))
+    if form == "post3":
+        kw.update(scale=1 + r(n, scale=.1), shift=r(n, scale=.1))
+    if form == "tanh_rb":
+        kw = dict(row_bias=r(b, n, scale=.5), t=t)
+    return parts, wt, kw, {"post3": "post", "tanh_rb": "tanh"}.get(form, form)
+
+
+@pytest.mark.parametrize("form,b,t,k,lda,n,seg_len,masked",
+                         GEMM_CASES + TAIL_GEMM_CASES)
 def test_gemm_sm90_matches_plain(cuda, form, b, t, k, lda, n, seg_len,
                                  masked):
     rng = np.random.default_rng(20)
@@ -780,6 +828,19 @@ def test_gemm_sm90_matches_plain(cuda, form, b, t, k, lda, n, seg_len,
         return torch.as_tensor(rng.standard_normal(shape).astype(np.float32)
                                * scale, device=cuda)
 
+    if form not in ("post", "bn_relu"):
+        # lda is W's row stride here
+        parts, wt, kw, name = _tail_gemm_case(rng, form, b, t, k, lda, n,
+                                              cuda)
+        before = gemm_sm90.gemm_sm90_tail.launches
+        got = gemm_sm90.gemm_sm90_tail(parts, wt, name, **kw)
+        torch.cuda.synchronize()
+        assert gemm_sm90.gemm_sm90_tail.launches == before + 1
+        want = gemm_sm90.gemm_sm90_tail_reference(parts, wt, name, **kw)
+        assert got.shape == (b * t, n)
+        assert_matches(got, want, torch.float32 if name == "f32"
+                       else torch.bfloat16)
+        return
     m = b * t
     a = r(m, lda).to(torch.bfloat16)
     a[:, k:] = float("nan")  # never read: the K extent is k
@@ -821,6 +882,28 @@ def test_gemm_sm90_refuses(cuda):
         gemm_sm90.gemm_sm90(a, 96, wt, v, v, bias=v)
     with pytest.raises(TypeError):
         gemm_sm90.gemm_sm90(a.float(), 96, wt, v, v, bias=v)
+    # three A maps whose width (C = 96) is no multiple of the 64-column K
+    # tile: the wrapper raises, and the C entry returns cudaErrorInvalidValue
+    # (1) without launching anything
+    wt3 = torch.zeros(128, 288, device=cuda, dtype=torch.bfloat16)
+    v = torch.ones(128, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        gemm_sm90.gemm_sm90_tail([a, a, a], wt3, "post", bias=v, scale=v,
+                                 shift=v)
+    out = torch.empty(64, 128, device=cuda, dtype=torch.bfloat16)
+    lib = gemm_sm90._tail_lib()
+    rc = lib.ws_gemm_sm90_tail(a.data_ptr(), a.data_ptr(), a.data_ptr(), 96,
+                               wt3.data_ptr(), 288, v.data_ptr(),
+                               v.data_ptr(), v.data_ptr(), None,
+                               out.data_ptr(), 64, 128, 288, 0, 0, 3,
+                               torch.cuda.current_stream().cuda_stream)
+    assert rc == 1
+    # the tanh and f32 forms take one A map; the tanh form needs a bias
+    rc = lib.ws_gemm_sm90_tail(a.data_ptr(), a.data_ptr(), a.data_ptr(), 96,
+                               wt3.data_ptr(), 288, None, None, None, None,
+                               out.data_ptr(), 64, 128, 96, 0, 4, 1,
+                               torch.cuda.current_stream().cuda_stream)
+    assert rc == 1
 
 
 @pytest.mark.parametrize("dtype,t,masked,dilation", [
@@ -854,15 +937,22 @@ def test_cam_block_never_reads_unwritten_channels(cuda, dtype, t, masked,
 
 
 def _redesigned_calls(rng, dev):
-    """One bf16 call of rows 1, 3 and 8 each, on seeded inputs with a
-    ragged mask where the row takes one."""
+    """One bf16 call of rows 1, 2, 3, 4 and 8 each, on seeded inputs with
+    a ragged mask where the row takes one."""
     args, mask = se_args(rng, 3, 149, 512, torch.bfloat16, dev, True)
     chain = dict(kernels=args["cw"], biases=args["cb"], bn_scale=args["cs"],
                  bn_shift=args["ch"])
     cargs = cam_args(rng, 6, 128, dev)
     cx = torch.as_tensor(rng.standard_normal((3, 149, 128)).astype(
         np.float32), device=dev).to(torch.bfloat16)
-    return {"se": lambda: se_block.fused_se_res2_block(**args, dilation=3,
+    xs, targs, tmask = tail_args(rng, 3, 149, 512, torch.bfloat16, dev, True,
+                                 True)
+    tw = [targs[k] for k in ("wm", "bm", "k1", "b1", "k2", "b2")]
+    return {"tail": lambda: mfa_astp.fused_mfa_astp(*xs, *tw, mask=tmask),
+            "train_fwd": lambda: torch.cat([
+                v.float().flatten() for v in
+                mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw)]),
+            "se": lambda: se_block.fused_se_res2_block(**args, dilation=3,
                                                        mask=mask),
             "res2": lambda: res2_chain.fused_res2_chain(args["x"], **chain,
                                                         dilation=4),
@@ -870,7 +960,7 @@ def _redesigned_calls(rng, dev):
                 cx, **cargs, dilation=2, mask=mask)}
 
 
-@pytest.mark.parametrize("row", ["se", "res2", "cam"])
+@pytest.mark.parametrize("row", ["se", "res2", "cam", "tail", "train_fwd"])
 def test_redesigned_kernels_give_the_same_bits_twice(cuda, row):
     """No float atomics: two calls on the same input give the same bits."""
     fn = _redesigned_calls(np.random.default_rng(22), cuda)[row]
@@ -878,3 +968,32 @@ def test_redesigned_kernels_give_the_same_bits_twice(cuda, row):
     second = fn()
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("glob", [True, False])
+def test_tail_runs_its_large_products_on_gemm_sm90(cuda, glob):
+    """A bf16 row-2 call and a bf16 row-4 call launch gemm_sm90 for the
+    MFA, tanh and logits products, and with the global context for the
+    context product too (three or four launches), and neither common.cuh's
+    WMMA GEMM nor its FMA GEMM, by the kernel names torch.profiler
+    records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xs, args, mask = tail_args(np.random.default_rng(23), 3, 200, 512,
+                               torch.bfloat16, cuda, True, glob)
+    tw = [args[k] for k in ("wm", "bm", "k1", "b1", "k2", "b2")]
+    for call in (lambda: mfa_astp.fused_mfa_astp(*xs, *tw, mask=mask,
+                                                 glob=glob),
+                 lambda: mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw,
+                                                         glob=glob)):
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert sum("gemm_sm90_kernel" in n for n in names) == 3 + glob, \
+            names
+        assert not any("gemm_wmma_kernel" in n or "gemm_fma_kernel" in n
+                       for n in names), names

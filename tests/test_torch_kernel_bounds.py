@@ -79,14 +79,61 @@ def test_se_block_and_cam_floors_by_hand():
 def test_every_unported_row_has_a_bound(capsys):
     """Every row a path runs at its main-path shape: the pooling rows (6, 7)
     at the shapes of the paths that run them, row 9 once a Gemini stage,
-    rows 1 and 3 at ECAPA's and row 8 at CAMPPlus's three blocks (rows 1
-    and 8 with the design's floor)."""
+    rows 1 and 3 at ECAPA's and row 8 at CAMPPlus's three blocks, rows 2
+    and 4 at ECAPA's extraction and train batches (rows 1, 8, 2 and 4 with
+    the design's floor)."""
     kb.main()
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split()[1] for ln in lines] == ["6", "6", "7", "7", "9", "9",
-                                              "9", "9", "1", "3", "8"]
+                                              "9", "9", "1", "3", "8", "2",
+                                              "4"]
     assert all(" ms (" in ln for ln in lines)
-    assert [("floor" in ln) for ln in lines[-3:]] == [True, False, True]
+    assert [("floor" in ln) for ln in lines[-5:]] == [True, False, True,
+                                                      True, True]
+
+
+def test_mfa_astp_tail_counts_by_hand():
+    # row 2 at B=512, T=200, C=512, D=1536, A=128: the MFA conv 2 * M * 3C
+    # * D = 483.2 GFLOP, the attention and logits products 40.3 each, the
+    # context product once an utterance 0.4: 564.1 GFLOP, 0.570 ms at 989
+    # TFLOP/s; x read once (314.6 MB)
+    m = 512 * 200
+    flops, nbytes = kb.mfa_astp_tail(512, 200, 512)
+    assert flops == (2 * m * 1536 * 1536 + 2 * 2 * m * 1536 * 128
+                     + 2 * 512 * 3072 * 128)
+    assert round(flops / 1e9, 1) == 564.1
+    assert nbytes == (3 * m * 512 * 2 + (1536 * 1536 + 3 * 1536 * 128
+                                         + 128 * 1536) * 2
+                      + (2 * 1536 + 128) * 4 + 512 * 3072 * 4)
+    ms, by = kb.bound(flops, nbytes)
+    assert round(ms, 3) == 0.570 and by == "operations"
+    # row 4 at B=256 also writes h, att and cstats
+    f4, b4 = kb.mfa_astp_tail(256, 200, 512, train=True)
+    m4 = 256 * 200
+    assert f4 * 2 == flops
+    assert b4 - kb.mfa_astp_tail(256, 200, 512)[1] == (
+        m4 * (1536 + 128) * 2 + 256 * 3072 * 4)
+    assert round(kb.bound(f4, b4)[0], 3) == 0.285
+    # the chain's floor: the MFA GEMM by operations, the rest by bytes:
+    # h read by the stats (315 MB) and the tanh GEMM (+ att), the f32
+    # logits written (629 MB) and read with h by softmax_stats
+    steps = dict((n, (ms, by)) for n, ms, by in
+                 kb.mfa_astp_tail_floor(512, 200, 512))
+    assert steps["mfa_gemm"] == (pytest.approx(483.2e9 / 989e12 * 1e3,
+                                               rel=1e-3), "operations")
+    assert steps["logits_gemm"][1] == "bytes"
+    assert steps["logits_gemm"][0] == pytest.approx(
+        (m * 128 * 2 + 128 * 1536 * 2 + m * 1536 * 4) / 3.35e9)
+    assert steps["softmax_stats"][0] == pytest.approx(
+        (m * 1536 * 6 + 512 * 3072 * 4) / 3.35e9)
+    total = sum(ms for ms, _ in steps.values())
+    assert round(total, 2) == 1.17
+    # row 5 at B=256: five products of 2 M D A and two of 2 M 3C D
+    f5, _ = kb.mfa_astp_tail_bwd(256, 200, 512)
+    assert f5 == (5 * 2 * m4 * 1536 * 128 + 2 * 2 * m4 * 1536 * 1536
+                  + 2 * 2 * 256 * 3072 * 128)
+    assert round(kb.bound(*kb.mfa_astp_tail_bwd(256, 200, 512))[0],
+                 3) == 0.591
 
 
 @pytest.mark.parametrize("stage,shape,want_ms", [

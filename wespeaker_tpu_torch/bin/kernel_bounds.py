@@ -1,12 +1,15 @@
 """Least time an H100 could take for the SE-Res2 block and the Res2 chain
-(PERF.md rows 1 and 3) at ECAPA_TDNN_GLOB_c512's extraction shape, the
+(PERF.md rows 1 and 3) at ECAPA_TDNN_GLOB_c512's extraction shape, its
+MFA+ASTP tail (row 2) there and the training tail's forward (row 4) at
+bench.py's train batch, the
 CAM++ dense block (row 8) at CAMPPlus's three blocks, the
 statistics-pooling kernels (rows 6 and 7) on the paths that run them
 (ReDimNetB2's ASTP with global context, and ResNet34's TSTP), and the
 Gemini stage kernel (row 9) at each of Gemini_DF_ResNet114's four stages.
 Rows 1 and 8 also print the floor of the port's design, which keeps
 activations the TPU kernel held in VMEM in device memory: the bytes that
-design must move over 3.35 TB/s.
+design must move over 3.35 TB/s; rows 2 and 4 the floor of their chain of
+launches, the sum of each launch's own bound (`mfa_astp_tail_floor`).
 
     python -m wespeaker_tpu_torch.bin.kernel_bounds
 
@@ -20,7 +23,7 @@ f32 outputs 4 bytes. Products count a multiply-add as two operations and
 only the live work (a CAM layer's zero-padded input rows, a segment's
 repeated context, are not counted); the stats kernels count their f32
 operations per element. chip_smoke.py computes every kernel's bound from
-its own inputs with the same `bound` (with `res2_chain`,
+its own inputs with the same `bound` (with `mfa_astp_tail`, `res2_chain`,
 `cam_dense_block`, `inv_bottleneck_stage`, `dw_pack`, `softmax_stats` and
 `masked_stats` for the kernels they name).
 """
@@ -112,6 +115,11 @@ def cam_dense_block_floor(b, t, c0, num_layers, growth=32):
     return sum(b * t * (c0 + growth * i) * BF16 for i in range(num_layers))
 
 
+def _bytes_floor(nbytes):
+    return (nbytes / PEAK_BYTES * 1e3,
+            f"{nbytes / 1e9:.3f} GB in device memory")
+
+
 def inv_bottleneck_stage(b, f, t, c, depth):
     """ops/inv_bottleneck_pallas.py::fused_inv_bottleneck_stage on
     (B, F, T, C): per block a 1x1 expand to 4C, a depthwise 3x3, a 1x1
@@ -131,10 +139,72 @@ def dw_pack(b, h, w, ci, co):
             b * h * w * (ci + co) * BF16 + 9 * ci * co * F32)
 
 
+def mfa_astp_tail(b, t, c, d=1536, a=128, train=False):
+    """ops/mfa_astp_pallas.py::fused_mfa_astp (row 2) or, with `train`,
+    ops/mfa_astp_vjp.py::_fwd_values (row 4) on x2, x3, x4 (B, T, C): the
+    MFA conv (3C -> D), the attention and logits products (D -> A -> D)
+    and the context product (2D -> A) once an utterance; reads x and the
+    weights, writes pooled (B, 2D) f32, and in training also the residuals
+    h, att (bf16) and cstats (B, 2D) f32."""
+    m = b * t
+    flops = 2 * m * 3 * c * d + 2 * 2 * m * d * a + 2 * b * 2 * d * a
+    nbytes = (3 * m * c * BF16 + (3 * c * d + 3 * d * a + a * d) * BF16
+              + (2 * d + a) * F32 + b * 2 * d * F32)
+    if train:
+        nbytes += m * (d + a) * BF16 + b * 2 * d * F32
+    return flops, nbytes
+
+
+def mfa_astp_tail_bwd(b, t, c, d=1536, a=128):
+    """ops/mfa_astp_vjp.py::_bwd_pallas (row 5): the logits recomputed,
+    datt, dh_att, dk2 and dk1x (five products of 2 M D A), dx and dwm (two
+    of 2 M 3C D), the context products dcms and dk1's context rows; reads
+    x, h, att, pooled, cstats, g and the weights, writes dx (bf16) and the
+    f32 weight gradients."""
+    m = b * t
+    flops = 5 * 2 * m * d * a + 2 * 2 * m * 3 * c * d + 2 * 2 * b * 2 * d * a
+    nbytes = (2 * 3 * m * c * BF16 + m * (d + a) * BF16 + 3 * b * 2 * d * F32
+              + (3 * c * d + 3 * d * a + a * d) * BF16 + d * F32
+              + (3 * c * d + 3 * d * a + a * d + 2 * d + a) * F32)
+    return flops, nbytes
+
+
+def mfa_astp_tail_floor(b, t, c, d=1536, a=128):
+    """The floor of the port's bf16 chain for rows 2 and 4
+    (csrc/mfa_astp_fwd.cuh): h, att and the f32 logits pass through device
+    memory, so each launch has its own bound, and the floor is their sum.
+    -> [(launch, ms, "operations" or "bytes")]."""
+    m = b * t
+    steps = [
+        ("mfa_gemm", 2 * m * 3 * c * d,
+         3 * m * c * BF16 + 3 * c * d * BF16 + m * d * BF16),
+        ("ctx_stats", 3 * m * d, m * d * BF16 + b * 2 * d * BF16),
+        ("ctx_gemm", 2 * b * 2 * d * a,
+         b * 2 * d * BF16 + 2 * d * a * BF16 + b * a * F32),
+        ("tanh_gemm", 2 * m * d * a,
+         m * d * BF16 + d * a * BF16 + m * a * BF16),
+        ("logits_gemm", 2 * m * a * d,
+         m * a * BF16 + a * d * BF16 + m * d * F32),
+        ("softmax_stats", 8 * m * d, m * d * (F32 + BF16) + b * 2 * d * F32),
+    ]
+    out = []
+    for name, flops, nbytes in steps:
+        peak = (PEAK_F32_FLOPS if name in ("ctx_stats", "softmax_stats")
+                else PEAK_BF16_FLOPS)
+        out.append((name, *bound(flops, nbytes, peak)))
+    return out
+
+
+def _tail_floor(b, t, c):
+    steps = mfa_astp_tail_floor(b, t, c)
+    return (sum(ms for _, ms, _ in steps), "the sum of its launches' "
+            + ", ".join(f"{n} {ms:.3f}" for n, ms, _ in steps))
+
+
 CAMPPLUS_BLOCKS = ((128, 12), (256, 24), (512, 16))  # (C0, layers) at T'=100
 
-# (PERF.md row, kernel, configuration, [(call, flops, bytes, peak)], floor
-# bytes of the port's design or None)
+# (PERF.md row, kernel, configuration, [(call, flops, bytes, peak)], the
+# floor of the port's design as (ms, what it is) or None)
 ROWS = [
     (6, "fused_softmax_stats",
      "ASTP of ReDimNetB2, B=512 x 200 frames, D=16*72=1152, bf16 logits "
@@ -166,7 +236,7 @@ ROWS = [
     (1, "fused_se_res2_block",
      "ECAPA_TDNN_GLOB_c512, B=512, T=200, C=512, bf16",
      [("call", *se_res2_block(512, 200, 512), PEAK_BF16_FLOPS)],
-     se_res2_block_floor(512, 200, 512)),
+     _bytes_floor(se_res2_block_floor(512, 200, 512))),
     (3, "fused_res2_chain",
      "ECAPA_TDNN_GLOB_c512's chain, B=512, T=200, C=512 (width 64), bf16",
      [("call", *res2_chain(512, 200, 512), PEAK_BF16_FLOPS)], None),
@@ -174,8 +244,17 @@ ROWS = [
      "CAMPPlus's three blocks, B=512 x 200 frames (T'=100), bf16",
      [(f"block{i + 1}", *cam_dense_block(512, 100, c0, layers),
        PEAK_BF16_FLOPS) for i, (c0, layers) in enumerate(CAMPPLUS_BLOCKS)],
-     sum(cam_dense_block_floor(512, 100, c0, layers)
-         for c0, layers in CAMPPLUS_BLOCKS)),
+     _bytes_floor(sum(cam_dense_block_floor(512, 100, c0, layers)
+                      for c0, layers in CAMPPLUS_BLOCKS))),
+    (2, "fused_mfa_astp",
+     "ECAPA_TDNN_GLOB_c512's tail, B=512, T=200, C=512, D=1536, A=128, "
+     "bf16",
+     [("call", *mfa_astp_tail(512, 200, 512), PEAK_BF16_FLOPS)],
+     _tail_floor(512, 200, 512)),
+    (4, "mfa_astp_train_fwd",
+     "the training tail's forward, B=256, T=200, C=512, bf16",
+     [("call", *mfa_astp_tail(256, 200, 512, train=True), PEAK_BF16_FLOPS)],
+     _tail_floor(256, 200, 512)),
 ]
 
 
@@ -190,8 +269,7 @@ def main():
         print(f"row {row} {name} [{config}]: " + "; ".join(parts)
               + (f"; total {total:.4f} ms" if len(calls) > 1 else "")
               + ("" if floor is None else
-                 f"; the design's floor {floor / PEAK_BYTES * 1e3:.4f} ms "
-                 f"({floor / 1e9:.3f} GB in device memory)"))
+                 f"; the design's floor {floor[0]:.4f} ms ({floor[1]})"))
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ the calls, so that the wrapper's host time (about as long as the
 masked stats at T'=25) does not hide the kernel. Prints the card and
 one JSON line {kernel: ms} (`--only` limits it to the named ops
 modules). `--split` also prints, for one call of the SE-Res2 block, of
+the MFA+ASTP tail (B=512), of the training tail's forward (B=256), of
 the Res2 chain and of each CAM++ block, the device time of every CUDA
 kernel it launches (torch.profiler, `profile_extract.breakdown`).
 `--gemm` times instead the bf16 GEMM of rows 1 and 8 alone
@@ -30,12 +31,17 @@ kernel it launches (torch.profiler, `profile_extract.breakdown`).
 (M = 512 x 100 rows of a 1024-channel map, K = 128, 512, 992, N = 128) in
 the bn_relu form with and without the partial sums and in the post form,
 at M = 67,584 (whole waves of 128-row tiles on 132 SMs) for K = 992, and
-at the SE block's (M = 512 x 200, K = N = 512) in the post form. A kernel the package does not have is left out, so the same file times an older checkout: run it with that checkout
-first on PYTHONPATH to compare two trees in one call (old, new, new,
-old).
+at the SE block's (M = 512 x 200, K = N = 512) in the post form.
+`--digest` prints a digest of the output bits of one call of rows 1, 2,
+3, 4 and 8 on the seeded inputs, and of rows 2 and 4's f32 routes at
+B=16, T=198 (row 2 masked), so two trees give the same bits where the
+digests match. A kernel the package does not have is left out, so the
+same file times an older checkout: run it with that checkout first on
+PYTHONPATH to compare two trees in one call (old, new, new, old).
 """
 
 import argparse
+import hashlib
 import importlib
 import json
 
@@ -159,8 +165,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--split", action="store_true",
-                    help="also print each row 1, 3 and 8 call's device "
-                         "time per kernel (torch.profiler)")
+                    help="also print each row 1, 2, 3, 4 and 8 call's "
+                         "device time per kernel (torch.profiler)")
+    ap.add_argument("--digest", action="store_true",
+                    help="also print a digest of the output bits of rows "
+                         "1, 2, 3, 4 and 8 on the seeded inputs")
     ap.add_argument("--gemm", action="store_true",
                     help="time the GEMM of rows 1 and 8 alone, by form")
     ap.add_argument("--only", default=None,
@@ -181,6 +190,20 @@ def main(argv=None):
         if args.split:
             from wespeaker_tpu_torch.bin.profile_extract import breakdown
             breakdown(fn, what)
+
+    digests = {}
+
+    def digest(key, fn):
+        """sha256 of one call's output bits (`--digest`): two trees agree
+        bit for bit on the same seeded inputs where their digests match."""
+        if args.digest:
+            outs = fn()
+            outs = outs if isinstance(outs, (tuple, list)) else [outs]
+            h = hashlib.sha256()
+            for v in outs:
+                h.update(v.contiguous().view(torch.uint8).cpu().numpy()
+                         .tobytes())
+            digests[key] = digests.get(key, "") + h.hexdigest()[:12]
 
     if args.gemm:
         print(torch.cuda.get_device_name(0))
@@ -204,6 +227,7 @@ def main(argv=None):
                             args.iters)
         split(lambda: se.fused_se_res2_block(x, *ws, dilation=3),
               f"row 1 fused_se_res2_block B={b} T={t} C={c} d=3 bf16")
+        digest("se", lambda: se.fused_se_res2_block(x, *ws, dilation=3))
         del x
     tail_w = (r(3 * c, d, scale=(3 * c) ** -0.5), r(d, scale=.1),
               r(3 * d, a, scale=d ** -0.5), r(a, scale=.1),
@@ -214,7 +238,19 @@ def main(argv=None):
         out["tail"] = cuda_ms(lambda: tail.fused_mfa_astp(*xs, *tail_w,
                                                           glob=True),
                               args.iters)
+        split(lambda: tail.fused_mfa_astp(*xs, *tail_w, glob=True),
+              f"row 2 fused_mfa_astp B={b} T={t} C={c} glob bf16")
+        digest("tail", lambda: tail.fused_mfa_astp(*xs, *tail_w, glob=True))
         del xs
+        if args.digest:
+            # and the f32 route, masked, at a ragged T
+            xs = [r(16, 198, c) for _ in range(3)]
+            mask = (torch.arange(198, device=dev)[None]
+                    < torch.arange(198, 198 - 16 * 9, -9, device=dev)[:, None]
+                    ).float()
+            digest("tail_f32", lambda: tail.fused_mfa_astp(
+                *xs, *tail_w, mask=mask, glob=True))
+            del xs
     vjp = _ops("mfa_astp_vjp")
     if vjp is not None:
         xs = [r(256, t, c, dtype=io) for _ in range(3)]
@@ -227,7 +263,15 @@ def main(argv=None):
                                    args.iters)
         out["train_bwd"] = cuda_ms(lambda: vjp.mfa_astp_train_bwd(*res),
                                    args.iters)
+        split(lambda: vjp.mfa_astp_train_fwd(*xs, *tail_w),
+              f"row 4 mfa_astp_train_fwd B=256 T={t} C={c} glob bf16")
+        digest("train_fwd", lambda: vjp.mfa_astp_train_fwd(*xs, *tail_w))
         del xs, res, pooled, h, att, cstats
+        if args.digest:
+            xs = [r(16, 198, c) for _ in range(3)]
+            digest("train_fwd_f32", lambda: vjp.mfa_astp_train_fwd(*xs,
+                                                                   *tail_w))
+            del xs
     cam = _ops("cam_block")
     if cam is not None:
         total = 0.0
@@ -249,6 +293,8 @@ def main(argv=None):
             split(lambda: cam.fused_cam_dense_block(x, *ws, dilation=dil),
                   f"row 8 fused_cam_dense_block B={b} T'=100 C0={c0} "
                   f"L={layers} d={dil} bf16")
+            digest("cam", lambda: cam.fused_cam_dense_block(x, *ws,
+                                                            dilation=dil))
         out["cam"] = total
     inv = _ops("inv_bottleneck")
     if inv is not None:
@@ -287,6 +333,7 @@ def main(argv=None):
                               args.iters)
         split(lambda: res2.fused_res2_chain(x, *ws, dilation=3),
               f"row 3 fused_res2_chain B={b} T={t} C={c} d=3 bf16")
+        digest("res2", lambda: res2.fused_res2_chain(x, *ws, dilation=3))
         del x
     dw = _ops("conv_dw_pack")
     if dw is not None:
@@ -312,6 +359,8 @@ def main(argv=None):
                                       args.iters)
         del x
     print(torch.cuda.get_device_name(0))
+    if digests:
+        print("digests " + json.dumps(digests))
     print(json.dumps(out))
 
 

@@ -1,20 +1,36 @@
-// gemm_sm90: the bf16 GEMM of the CAM++ dense block's bottleneck and the
-// SE-Res2 block's two pointwise convs on Hopper: TMA loads into a ring of
-// shared-memory stages, wgmma on the tensor cores, the epilogue from
-// registers.
+// gemm_sm90: the bf16 GEMM of the CAM++ dense block's bottleneck, the
+// SE-Res2 block's two pointwise convs and the MFA+ASTP tail's three large
+// products on Hopper: TMA loads into a ring of shared-memory stages, wgmma
+// on the tensor cores, the epilogue from registers.
 //
-//   out (m, n) bf16 = epilogue(A (m, k) @ W),  f32 accumulation
+//   out (m, n) = epilogue(A (m, k) @ W),  f32 accumulation
 //
 // A is row-major with a row stride lda >= k (the live prefix of a wider
 // map); W is given K-major, as wt (n, k) row-major with row stride ldw.
 // Both are read through 2-D tensor maps whose K extent is k exactly, so a
 // box that reaches past k reads zeros and never the bits of the channels
 // beyond it (the CAM++ dense map's channels past ci are not written yet).
+// A may also be drawn from kParts = 3 tensor maps as K-slices of one
+// product (the MFA conv over the three SE-Res2 block outputs, whose concat
+// is never materialised): each map has a K extent of exactly k / 3, which
+// must be a multiple of the 64-column K tile, and K tile kt reads map
+// kt / (k / 192) at column (kt % (k / 192)) * 64; W is one map of extent k.
 // Forms (template parameter):
-// - kFormPost:   v = relu(acc + bias) * scale + shift       (the SE convs)
+// - kFormPost:   v = relu(acc + bias) * scale + shift       (the SE convs,
+//                and the MFA conv with scale 1, shift 0)
 // - kFormBnRelu: A's prologue relu(a * a_scale + a_shift), rounded to bf16,
 //                per K column, then v = relu(acc * scale + shift) (CAM++)
-// and v is rounded to bf16. Optionally (part != null) the epilogue also
+// - kFormTanh:   v = tanh(acc + row_bias[r / t][col]), the row bias (m / t,
+//                n) f32 one row an utterance of t rows (ASTP's context
+//                bias; 128-row tiles straddle utterances, so each row looks
+//                its own up), or v = tanh(acc + bias[col]) where row_bias is
+//                null
+// and v is rounded to bf16; or
+// - kFormF32:    v = acc + bias, stored as f32 into out_f32 (ASTP's
+//                logits), straight from the registers: a warp's store
+//                covers 8 rows of 32 contiguous bytes, whole sectors, and
+//                needs no staging tile.
+// Optionally (part != null; the post and bn_relu forms) the epilogue also
 // writes masked partial column sums of the stored (rounded) values for the
 // segments of seg_len frames of each utterance of t frames (row r is
 // frame r % t of utterance r / t): one f32 sum per (segment, 64-row unit
@@ -64,10 +80,14 @@ constexpr int kG9Staging = 2 * 64 * kG9StLd;    // 34,816
 constexpr int kG9Bars = kG9Stages * kG9Stage + kG9Staging;
 constexpr int kG9Smem = 1024 + kG9Bars + 2 * kG9Stages * 8;
 
+// the forms beyond common.cuh's kFormPost and kFormBnRelu
+constexpr int kFormTanh = 4;
+constexpr int kFormF32 = 5;
+
 struct Sm90Args {
   int m, n, k;
-  const float* bias;   // kFormPost
-  const float* scale;  // both forms: the output's affine
+  const float* bias;   // kFormPost, kFormF32; kFormTanh without row_bias
+  const float* scale;  // kFormPost and kFormBnRelu: the output's affine
   const float* shift;
   const float* a_scale;  // kFormBnRelu: A's affine, (k)
   const float* a_shift;
@@ -76,6 +96,14 @@ struct Sm90Args {
   float* part;
   const float* mask;  // (m) frame validity, or null: all valid
   int t, seg_len, nseg, slots;
+  const float* row_bias;  // kFormTanh: (m / t, n), or null: bias
+  float* out_f32;         // kFormF32: (m, n), row stride n
+};
+
+// The A operand's tensor maps: kParts K-slices of one product.
+template <int kParts>
+struct Sm90AMaps {
+  CUtensorMap map[kParts];
 };
 
 // the partial sums' workspace slots a segment needs (see above)
@@ -94,12 +122,16 @@ __device__ __forceinline__ float sum128(float v, float* red) {
   return (red[0] + red[1]) + (red[2] + red[3]);
 }
 
-template <int kForm>
+template <int kForm, int kParts>
 __global__ void __launch_bounds__(kG9Threads, 1)
-    gemm_sm90_kernel(const __grid_constant__ CUtensorMap tm_a,
+    gemm_sm90_kernel(const __grid_constant__ Sm90AMaps<kParts> tm_a,
                      const __grid_constant__ CUtensorMap tm_w,
                      const Sm90Args p) {
-  static_assert(kForm == kFormPost || kForm == kFormBnRelu, "a gemm form");
+  static_assert(kForm == kFormPost || kForm == kFormBnRelu ||
+                    kForm == kFormTanh || kForm == kFormF32,
+                "a gemm form");
+  static_assert(kParts == 1 || (kParts == 3 && kForm == kFormPost),
+                "three A maps in the post form only");
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms aligned
@@ -134,7 +166,17 @@ __global__ void __launch_bounds__(kG9Threads, 1)
           mbar_wait(bar_empty + 8 * s, ((it / kG9Stages) - 1) & 1);
         const uint32_t full = bar_full + 8 * s;
         mbar_expect_tx(full, kG9Stage);
-        tma_load_2d(base + s * kG9Stage, &tm_a, kt * kG9K, m0, full);
+        // the A map of K tile kt and its column there (a select, not a
+        // dynamic index into the parameter)
+        const CUtensorMap* ma = &tm_a.map[0];
+        int ka = kt * kG9K;
+        if constexpr (kParts == 3) {
+          const int kpt = p.k / (3 * kG9K), part = kt / kpt;
+          ma = part == 0 ? &tm_a.map[0]
+                         : (part == 1 ? &tm_a.map[1] : &tm_a.map[2]);
+          ka = (kt - part * kpt) * kG9K;
+        }
+        tma_load_2d(base + s * kG9Stage, ma, ka, m0, full);
         tma_load_2d(base + s * kG9Stage + kG9Half, &tm_w, kt * kG9K, n0,
                     full);
       }
@@ -209,14 +251,48 @@ __global__ void __launch_bounds__(kG9Threads, 1)
     fence_regs(acc);
     mbar_arrive_if(bar_empty + 8 * ((it - 1) % kG9Stages), lane == 0);
 
+    const int r0 = 16 * warp + lane / 4;
+    if constexpr (kForm == kFormF32) {
+      // ---- epilogue: acc + bias, f32 straight from the registers ----
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane % 4);
+        const float2 bi = __ldg(reinterpret_cast<const float2*>(p.bias + col));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + 64 * wg + r0 + 8 * h;
+          if (row < p.m)
+            *reinterpret_cast<float2*>(p.out_f32 + (size_t)row * p.n + col) =
+                make_float2(acc[4 * j + 2 * h] + bi.x,
+                            acc[4 * j + 2 * h + 1] + bi.y);
+        }
+      }
+      continue;
+    }
+
     // ---- epilogue: the form in registers, bf16 into the staging tile ----
     named_sync(1 + wg, 128);  // the last tile's readers are done with it
-    const int r0 = 16 * warp + lane / 4;
+    // kFormTanh: the bias rows of this thread's two rows (r0 and r0 + 8 of
+    // the warpgroup's 64): its utterance's context bias, or the column bias;
+    // a row past m reads row m - 1's and is not stored
+    const float* rb[2] = {p.bias, p.bias};
+    if constexpr (kForm == kFormTanh) {
+      if (p.row_bias) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = min(m0 + 64 * wg + r0 + 8 * h, p.m - 1);
+          rb[h] = p.row_bias + (size_t)(row / p.t) * p.n;
+        }
+      }
+    }
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       const int col = n0 + 8 * j + 2 * (lane % 4);
-      const float2 sc = __ldg(reinterpret_cast<const float2*>(p.scale + col));
-      const float2 sh = __ldg(reinterpret_cast<const float2*>(p.shift + col));
+      float2 sc = make_float2(1.f, 1.f), sh = make_float2(0.f, 0.f);
+      if constexpr (kForm == kFormPost || kForm == kFormBnRelu) {
+        sc = __ldg(reinterpret_cast<const float2*>(p.scale + col));
+        sh = __ldg(reinterpret_cast<const float2*>(p.shift + col));
+      }
       float2 bi = make_float2(0.f, 0.f);
       if constexpr (kForm == kFormPost)
         bi = __ldg(reinterpret_cast<const float2*>(p.bias + col));
@@ -226,9 +302,14 @@ __global__ void __launch_bounds__(kG9Threads, 1)
         if constexpr (kForm == kFormPost) {
           v0 = fmaxf(v0 + bi.x, 0.f) * sc.x + sh.x;
           v1 = fmaxf(v1 + bi.y, 0.f) * sc.y + sh.y;
-        } else {
+        } else if constexpr (kForm == kFormBnRelu) {
           v0 = fmaxf(v0 * sc.x + sh.x, 0.f);
           v1 = fmaxf(v1 * sc.y + sh.y, 0.f);
+        } else {
+          const float2 rv =
+              __ldg(reinterpret_cast<const float2*>(rb[h] + col));
+          v0 = tanhf(v0 + rv.x);
+          v1 = tanhf(v1 + rv.y);
         }
         *reinterpret_cast<uint32_t*>(stage_out + (r0 + 8 * h) * kG9StLd +
                                      (8 * j + 2 * (lane % 4)) * 2) =
@@ -246,6 +327,7 @@ __global__ void __launch_bounds__(kG9Threads, 1)
                                   ch * 8) =
             *reinterpret_cast<const uint4*>(stage_out + r * kG9StLd + ch * 16);
     }
+    if constexpr (kForm != kFormPost && kForm != kFormBnRelu) continue;
     if (p.part && row0 < p.m) {
       // column wt of the unit's rows, one run of rows a segment, in order
       const int unit = row0 / 64, rows = min(64, p.m - row0);
@@ -286,35 +368,66 @@ inline int sm_count() {
   return n;
 }
 
-// One launch: A (m, k) at row stride lda, wt (n, k) at row stride ldw, both
-// bf16 and 16-byte aligned. Requires n % 128 == 0, k % 8 == 0, lda and ldw
-// multiples of 8 (16-byte rows), and scale/shift (and bias in the post
-// form, a_scale/a_shift in the bn_relu form, 16-byte aligned) set.
-template <int kForm>
-cudaError_t gemm_sm90(const void* a, int lda, const void* wt, int ldw,
-                      const Sm90Args& p, cudaStream_t stream) {
+// One launch: A (m, k) at row stride lda, or (kParts = 3) A0, A1, A2 each
+// (m, k / 3) at row stride lda; wt (n, k) at row stride ldw; all bf16 and
+// 16-byte aligned. Requires n % 128 == 0, k % 8 == 0 (k % 192 == 0 for three
+// maps: each a whole number of 64-column K tiles), lda and ldw multiples of
+// 8 (16-byte rows), and the form's vectors (16-byte aligned) set: scale and
+// shift, and bias in the post form, a_scale/a_shift in the bn_relu form;
+// row_bias and t > 0, or bias, in the tanh form; bias and out_f32 in the f32
+// form. A shape it does not take returns cudaErrorInvalidValue, and nothing
+// is launched.
+template <int kForm, int kParts>
+cudaError_t gemm_sm90_maps(const void* const* a, int lda, const void* wt,
+                           int ldw, const Sm90Args& p, cudaStream_t stream) {
+  constexpr bool kAffine = kForm == kFormPost || kForm == kFormBnRelu;
+  const int kp = p.k / kParts;
   if (p.m <= 0 || p.k <= 0 || p.n % kG9N || p.k % 8 || lda % 8 || ldw % 8 ||
-      lda < p.k || ldw < p.k || !p.scale || !p.shift ||
+      lda < kp || ldw < p.k ||
+      (kParts > 1 && (p.k % kParts || kp % kG9K)) ||
+      (kAffine && (!p.scale || !p.shift)) ||
       (kForm == kFormPost && !p.bias) ||
       (kForm == kFormBnRelu && (!p.a_scale || !p.a_shift)) ||
-      (p.part && (p.t <= 0 || p.seg_len <= 0 ||
+      (kForm == kFormTanh && !(p.row_bias ? p.t > 0 : p.bias != nullptr)) ||
+      (kForm == kFormF32 && (!p.bias || !p.out_f32)) ||
+      (kForm != kFormF32 && !p.out) ||
+      (p.part && (!kAffine || p.t <= 0 || p.seg_len <= 0 ||
                   p.slots < seg_slots(p.t, p.seg_len))))
     return cudaErrorInvalidValue;
-  CUtensorMap tm_a, tm_w;
-  if (!tensor_map_2d_bf16(&tm_a, a, p.k, p.m, (unsigned long long)lda * 2,
-                          kG9K, kG9M, 128) ||
-      !tensor_map_2d_bf16(&tm_w, wt, p.k, p.n, (unsigned long long)ldw * 2,
+  Sm90AMaps<kParts> tm_a;
+  CUtensorMap tm_w;
+  for (int i = 0; i < kParts; ++i)
+    if (!tensor_map_2d_bf16(&tm_a.map[i], a[i], kp, p.m,
+                            (unsigned long long)lda * 2, kG9K, kG9M, 128))
+      return cudaErrorInvalidValue;
+  if (!tensor_map_2d_bf16(&tm_w, wt, p.k, p.n, (unsigned long long)ldw * 2,
                           kG9K, kG9N, 128))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      gemm_sm90_kernel<kForm>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kG9Smem);
+      gemm_sm90_kernel<kForm, kParts>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kG9Smem);
   if (err != cudaSuccess) return err;
   const int tiles = ((p.m + kG9M - 1) / kG9M) * (p.n / kG9N);
   const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_sm90_kernel<kForm><<<grid, kG9Threads, kG9Smem, stream>>>(tm_a, tm_w,
-                                                                 p);
+  gemm_sm90_kernel<kForm, kParts>
+      <<<grid, kG9Threads, kG9Smem, stream>>>(tm_a, tm_w, p);
   return cudaGetLastError();
+}
+
+// One A map (every form).
+template <int kForm>
+cudaError_t gemm_sm90(const void* a, int lda, const void* wt, int ldw,
+                      const Sm90Args& p, cudaStream_t stream) {
+  return gemm_sm90_maps<kForm, 1>(&a, lda, wt, ldw, p, stream);
+}
+
+// Three A maps, K-slices of one product (the post form).
+template <int kForm>
+cudaError_t gemm_sm90_3(const void* a0, const void* a1, const void* a2,
+                        int lda, const void* wt, int ldw, const Sm90Args& p,
+                        cudaStream_t stream) {
+  const void* a[3] = {a0, a1, a2};
+  return gemm_sm90_maps<kForm, 3>(a, lda, wt, ldw, p, stream);
 }
 
 }  // namespace ws

@@ -3,74 +3,72 @@
 // design). Replaces the Pallas kernel
 // wespeaker_tpu/ops/mfa_astp_pallas.py::fused_mfa_astp.
 //
-// C interface: ws_mfa_astp(...) issues, on the given stream,
+// C interface: ws_mfa_astp(...) issues, on the given stream, the chain of
+// mfa_astp_fwd.cuh (shared with the training forward):
 //   MFA GEMM over the three block outputs -> context stats -> context GEMM
 //   (glob) -> attention GEMM + tanh -> logits GEMM -> softmax stats
 // and returns the first CUDA error (0 on success).
 
-#include "common.cuh"
+#include "mfa_astp_fwd.cuh"
 
-namespace ws {
-
-template <typename T>
-cudaError_t mfa_astp(const void* x2, const void* x3, const void* x4,
-                     const float* mask, const void* wm, const float* bm,
-                     const void* k1x, const void* k1ms, const float* b1,
-                     const void* k2, const float* b2, void* h, void* cstats,
-                     float* ctx, void* att, float* logits, float* out, int b,
-                     int t, int c, int d, int a, int glob,
-                     cudaStream_t stream) {
-  const int m = b * t;
-  cudaError_t err;
-  // 1. h = relu(x2 @ wm[:C] + x3 @ wm[C:2C] + x4 @ wm[2C:] + bm), in T
-  GemmArgs p = gemm_args(x2, x3, x4, 3, c, wm, h, m, d, kRelu);
-  p.bias = bm;
-  if ((err = gemm<T, T>(p, stream)) != cudaSuccess) return err;
-  // 4. (prepared) tanh(h @ k1x + bias) with bias b1, or the per-utterance
-  //    context bias
-  GemmArgs att_p = gemm_args(h, nullptr, nullptr, 1, d, k1x, att, m, a,
-                             kTanh);
-  if (glob) {
-    // 2. context mean and unbiased std of h over valid T, in T
-    T* cmean = static_cast<T*>(cstats);
-    T* cstd = cmean + (size_t)b * d;
-    if ((err = col_stats<T>(static_cast<const T*>(h), mask, cmean, cstd, b,
-                            t, d, stream)) != cudaSuccess)
-      return err;
-    // 3. ctx = cmean @ k1[D:2D] + cstd @ k1[2D:] + b1, in f32
-    p = gemm_args(cmean, cstd, nullptr, 2, d, k1ms, ctx, b, a, kNone);
-    p.bias = b1;
-    if ((err = gemm<T, float>(p, stream)) != cudaSuccess) return err;
-    att_p.row_bias = ctx;
-    att_p.rows_per_group = t;
-  } else {
-    att_p.bias = b1;
-  }
-  if ((err = gemm<T, T>(att_p, stream)) != cudaSuccess) return err;
-  // 5. logits = att @ k2 + b2, in f32
-  p = gemm_args(att, nullptr, nullptr, 1, a, k2, logits, m, d, kNone);
-  p.bias = b2;
-  if ((err = gemm<T, float>(p, stream)) != cudaSuccess) return err;
-  // 6. softmax over T and weighted stats
-  return softmax_stats<T>(logits, static_cast<const T*>(h), mask, out, b, t,
-                          d, stream);
-}
-
-}  // namespace ws
-
+// The weights as mfa_astp_fwd.cuh's TailFwd takes them for the type: bf16
+// K-major (wm (D, 3C); k1x (A, ldk1) with the context rows after its first
+// D columns; k2 (D, A); k1ms unused), f32 (K, N) row-major (wm (3C, D), k1x
+// (D, A), k1ms (2D, A), k2 (A, D)). aff is (3, D): bm, then ones and zeros
+// (the MFA GEMM's affine in gemm_sm90's post form; f32 reads bm alone).
+// cstats holds (B, 2D) in the I/O type.
 extern "C" int ws_mfa_astp(const void* x2, const void* x3, const void* x4,
-                           const float* mask, const void* wm, const float* bm,
-                           const void* k1x, const void* k1ms, const float* b1,
-                           const void* k2, const float* b2, void* h,
-                           void* cstats, float* ctx, void* att, float* logits,
-                           float* out, int b, int t, int c, int d, int a,
-                           int glob, int bf16, void* stream) {
+                           const float* mask, const void* wm, const float* aff,
+                           const void* k1x, int ldk1, const void* k1ms,
+                           const float* b1, const void* k2, const float* b2,
+                           void* h, void* cstats, float* ctx, void* att,
+                           float* logits, float* out, int b, int t, int c,
+                           int d, int a, int glob, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return ws::mfa_astp<__nv_bfloat16>(x2, x3, x4, mask, wm, bm, k1x, k1ms,
-                                       b1, k2, b2, h, cstats, ctx, att,
-                                       logits, out, b, t, c, d, a, glob, s);
-  return ws::mfa_astp<float>(x2, x3, x4, mask, wm, bm, k1x, k1ms, b1, k2, b2,
-                             h, cstats, ctx, att, logits, out, b, t, c, d, a,
-                             glob, s);
+    return ws::tail_fwd(ws::tail_fwd_args<__nv_bfloat16>(
+                            x2, x3, x4, mask, wm, aff, k1x, ldk1, k1ms, b1,
+                            k2, b2, h, cstats, nullptr, ctx, att, logits, out,
+                            b, t, c, d, a, glob),
+                        s);
+  return ws::tail_fwd(ws::tail_fwd_args<float>(
+                          x2, x3, x4, mask, wm, aff, k1x, ldk1, k1ms, b1, k2,
+                          b2, h, cstats, nullptr, ctx, att, logits, out, b, t,
+                          c, d, a, glob),
+                      s);
+}
+
+// gemm_sm90 in the tail's forms alone (ops/gemm_sm90.py::gemm_sm90_tail):
+// form 0 the post form over parts = 3 A maps a0, a1, a2 of k / 3 columns
+// each at row stride lda, with bias, scale and shift; with parts = 1 form 4
+// the tanh form with row_bias (m / t, n) or bias, form 5 the f32 form, acc
+// + bias, into out as f32. Returns cudaErrorInvalidValue for any other
+// combination or a shape gemm_sm90 does not take.
+extern "C" int ws_gemm_sm90_tail(const void* a0, const void* a1,
+                                 const void* a2, int lda, const void* wt,
+                                 int ldw, const float* bias,
+                                 const float* scale, const float* shift,
+                                 const float* row_bias, void* out, int m,
+                                 int n, int k, int t, int form, int parts,
+                                 void* stream) {
+  ws::Sm90Args p{};
+  p.m = m;
+  p.n = n;
+  p.k = k;
+  p.bias = bias;
+  p.scale = scale;
+  p.shift = shift;
+  p.row_bias = row_bias;
+  p.t = t;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (form == ws::kFormF32 && parts == 1) {
+    p.out_f32 = static_cast<float*>(out);
+    return ws::gemm_sm90<ws::kFormF32>(a0, lda, wt, ldw, p, s);
+  }
+  p.out = static_cast<__nv_bfloat16*>(out);
+  if (form == ws::kFormTanh && parts == 1)
+    return ws::gemm_sm90<ws::kFormTanh>(a0, lda, wt, ldw, p, s);
+  if (form == ws::kFormPost && parts == 3)
+    return ws::gemm_sm90_3<ws::kFormPost>(a0, a1, a2, lda, wt, ldw, p, s);
+  return cudaErrorInvalidValue;
 }

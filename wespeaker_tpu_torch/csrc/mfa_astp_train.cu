@@ -18,15 +18,10 @@
 // Here blocks run in no order and h is 600 KB per utterance, so each
 // kernel is a sequence of launches with intermediates in device memory:
 //
-// forward (ws_mfa_astp_train_fwd):
-//   1. h = relu(x2 @ wm2 + x3 @ wm3 + x4 @ wm4 + bm)   (the concat never
-//      exists: three K-slices of one product), stored in the I/O type;
-//   2. (glob) context mean and unbiased std of h over T, in f32, plus a
-//      copy in the I/O type for
-//   3. ctx = [cmean | cstd] @ [k1m; k1s] + b1, f32;
-//   4. att = tanh(h @ k1x + ctx), stored in the I/O type;
-//   5. logits = att @ k2 + b2, f32;
-//   6. softmax over T and the weighted mean and std -> pooled (B, 2D) f32.
+// forward (ws_mfa_astp_train_fwd): the chain of mfa_astp_fwd.cuh, shared
+//   with inference (in bf16 its four products on gemm_sm90, TMA + wgmma),
+//   keeping h and att in the I/O type and the f32 context stats as the
+//   backward's residuals;
 // backward (ws_mfa_astp_train_bwd), given g = dL/dpooled:
 //   1. logits recomputed from att (cheaper than keeping them: 315 MB f32);
 //   2. per (utterance, channel), three passes over T: the softmax weights
@@ -44,41 +39,13 @@
 //      fixed-order second pass (common.cuh gemm_tn): their 12 to 48 output
 //      tiles alone would leave most of the 132 SMs idle.
 // The transposed weights (k2^T, k1x^T, [k1m|k1s]^T, wm_i^T) are made once
-// per call by the wrapper. The GEMMs run on WMMA for bf16 and CUDA-core
-// FMA for exact f32. Keeping h and the logits on chip, wgmma and TMA are
-// later work.
+// per call by the wrapper. The backward's GEMMs run on WMMA for bf16 and
+// CUDA-core FMA for exact f32. The backward on gemm_sm90 and keeping h and
+// the logits on chip are later work.
 
-#include "common.cuh"
+#include "mfa_astp_fwd.cuh"
 
 namespace ws {
-
-// Context statistics of h over T per (utterance, channel): mean and
-// sqrt(sum (h - mean)^2 / max(T - 1, 1) + 1e-7), in f32 (cstats, the
-// residual the backward reads) and rounded to T (cstats_io, the operand of
-// the context GEMM). Both (b, 2d) as [mean | std].
-template <typename T>
-__global__ void ctx_stats_kernel(const T* __restrict__ h,
-                                 float* __restrict__ cstats,
-                                 T* __restrict__ cstats_io, int t, int d) {
-  const int b = blockIdx.y;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= d) return;
-  const T* hb = h + (size_t)b * t * d + col;
-  float s = 0.f;
-  for (int i = 0; i < t; ++i) s += to_f(hb[(size_t)i * d]);
-  const float mean = s / (float)t;
-  float q = 0.f;
-  for (int i = 0; i < t; ++i) {
-    const float dv = to_f(hb[(size_t)i * d]) - mean;
-    q += dv * dv;
-  }
-  const float sd = sqrtf(q / fmaxf((float)t - 1.f, 1.f) + 1e-7f);
-  const size_t o = (size_t)b * 2 * d + col;
-  cstats[o] = mean;
-  cstats[o + d] = sd;
-  cstats_io[o] = from_f<T>(mean);
-  cstats_io[o + d] = from_f<T>(sd);
-}
 
 // Backward of the weighted stats and the softmax over T, one thread per
 // (utterance, channel). With var = std^2, gv = dL/dvar and gm_eff =
@@ -182,51 +149,6 @@ __global__ void dacc_kernel(const float* __restrict__ dh_att,
   dbm_part[(size_t)b * d + col] = s;
 }
 
-template <typename T>
-cudaError_t train_fwd(const void* x2, const void* x3, const void* x4,
-                      const void* wm, const float* bm, const void* k1x,
-                      const void* k1ms, const float* b1, const void* k2,
-                      const float* b2, void* h, void* att, float* cstats,
-                      void* cstats_io, float* ctx, float* logits,
-                      float* pooled, int b, int t, int c, int d, int a,
-                      int glob, cudaStream_t stream) {
-  const int m = b * t;
-  cudaError_t err;
-  // 1. h
-  GemmArgs p = gemm_args(x2, x3, x4, 3, c, wm, h, m, d, kRelu);
-  p.bias = bm;
-  if ((err = gemm<T, T>(p, stream)) != cudaSuccess) return err;
-  GemmArgs att_p = gemm_args(h, nullptr, nullptr, 1, d, k1x, att, m, a,
-                             kTanh);
-  if (glob) {
-    // 2. context stats, 3. ctx
-    const dim3 grid((d + 127) / 128, b);
-    ctx_stats_kernel<T><<<grid, 128, 0, stream>>>(
-        static_cast<const T*>(h), cstats, static_cast<T*>(cstats_io), t, d);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    p = gemm_args(cstats_io, nullptr, nullptr, 1, 2 * d, k1ms, ctx, b, a,
-                  kNone);
-    p.bias = b1;
-    if ((err = gemm<T, float>(p, stream)) != cudaSuccess) return err;
-    att_p.row_bias = ctx;
-    att_p.rows_per_group = t;
-  } else {
-    if ((err = cudaMemsetAsync(cstats, 0, sizeof(float) * 2 * d * (size_t)b,
-                               stream)) != cudaSuccess)
-      return err;
-    att_p.bias = b1;
-  }
-  // 4. att
-  if ((err = gemm<T, T>(att_p, stream)) != cudaSuccess) return err;
-  // 5. logits
-  p = gemm_args(att, nullptr, nullptr, 1, a, k2, logits, m, d, kNone);
-  p.bias = b2;
-  if ((err = gemm<T, float>(p, stream)) != cudaSuccess) return err;
-  // 6. pooled
-  return softmax_stats<T>(logits, static_cast<const T*>(h), nullptr, pooled,
-                          b, t, d, stream);
-}
-
 struct BwdArgs {
   // residuals of the forward and the incoming gradient
   const void *x2, *x3, *x4, *h, *att;
@@ -312,21 +234,26 @@ cudaError_t train_bwd(const BwdArgs& q, int b, int t, int c, int d, int a,
 
 }  // namespace ws
 
+// The weights as mfa_astp_fwd.cuh's TailFwd takes them for the type (see
+// ws_mfa_astp); aff is (3, D): bm, then ones and zeros.
 extern "C" int ws_mfa_astp_train_fwd(
     const void* x2, const void* x3, const void* x4, const void* wm,
-    const float* bm, const void* k1x, const void* k1ms, const float* b1,
-    const void* k2, const float* b2, void* h, void* att, float* cstats,
-    void* cstats_io, float* ctx, float* logits, float* pooled, int b, int t,
-    int c, int d, int a, int glob, int bf16, void* stream) {
+    const float* aff, const void* k1x, int ldk1, const void* k1ms,
+    const float* b1, const void* k2, const float* b2, void* h, void* att,
+    float* cstats, void* cstats_io, float* ctx, float* logits, float* pooled,
+    int b, int t, int c, int d, int a, int glob, int bf16, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return ws::train_fwd<__nv_bfloat16>(x2, x3, x4, wm, bm, k1x, k1ms, b1,
-                                        k2, b2, h, att, cstats, cstats_io,
-                                        ctx, logits, pooled, b, t, c, d, a,
-                                        glob, s);
-  return ws::train_fwd<float>(x2, x3, x4, wm, bm, k1x, k1ms, b1, k2, b2, h,
-                              att, cstats, cstats_io, ctx, logits, pooled, b,
-                              t, c, d, a, glob, s);
+    return ws::tail_fwd(ws::tail_fwd_args<__nv_bfloat16>(
+                            x2, x3, x4, nullptr, wm, aff, k1x, ldk1, k1ms, b1,
+                            k2, b2, h, cstats_io, cstats, ctx, att, logits,
+                            pooled, b, t, c, d, a, glob),
+                        s);
+  return ws::tail_fwd(ws::tail_fwd_args<float>(
+                          x2, x3, x4, nullptr, wm, aff, k1x, ldk1, k1ms, b1,
+                          k2, b2, h, cstats_io, cstats, ctx, att, logits,
+                          pooled, b, t, c, d, a, glob),
+                      s);
 }
 
 // f32 elements of split-K workspace the backward needs.

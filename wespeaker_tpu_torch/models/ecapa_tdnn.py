@@ -16,6 +16,10 @@ of the differentiable `ops.mfa_astp_vjp.mfa_astp_train` (forward and
 backward kernels; the tail has no BatchNorm, so it is exact in training),
 and the SE blocks run layer by layer, as in the JAX package, whose block
 kernel is inference-only. `fused=False` runs every module layer by layer.
+The tail is fused only for ASTP pooling (`pooling_func`, as in the JAX
+package); with TAP, TSDP or TSTP the MFA conv runs as a layer and its
+output goes through the pooling module, which in eval takes
+`ops.pooling`'s masked statistics (TSDP, TSTP).
 
 `fused_res2=True` (the JAX package's opt-in Res2 kernel, inference only)
 acts where the whole block is not fused: in eval with `fused=False`, each
@@ -163,6 +167,7 @@ class ECAPA_TDNN(nn.Module):
                  fused: bool = True, fused_res2: bool = False):
         super().__init__()
         self.global_context_att = global_context_att
+        self.pooling_func = pooling_func
         self.fused = fused
         self.layer1 = Conv1dReluBn(feat_dim, channels, kernel_size=5,
                                    padding=2)
@@ -170,8 +175,9 @@ class ECAPA_TDNN(nn.Module):
         self.layer3 = SE_Res2Block(channels, 3, 1, 3, 3, 8, fused, fused_res2)
         self.layer4 = SE_Res2Block(channels, 3, 1, 4, 4, 8, fused, fused_res2)
         self.conv = nn.Conv1d(channels * 3, _MFA_DIM, kernel_size=1)
-        self.pool = get_pooling(pooling_func, _MFA_DIM,
-                                global_context_att=global_context_att)
+        pool_kw = ({"global_context_att": global_context_att}
+                   if pooling_func == "ASTP" else {})
+        self.pool = get_pooling(pooling_func, _MFA_DIM, **pool_kw)
         self.bn = nn.BatchNorm1d(pooling_out_dim(pooling_func, _MFA_DIM))
         self.linear = nn.Linear(self.bn.num_features, embed_dim)
         self.bn2 = nn.BatchNorm1d(embed_dim) if emb_bn else None
@@ -203,12 +209,14 @@ class ECAPA_TDNN(nn.Module):
         out2 = self.layer2(out1, mask)
         out3 = self.layer3(out2, mask)
         out4 = self.layer4(out3, mask)
-        # ASTP is the only pooling ported, so the tail is always fusable
-        if self.fused and not self.training:
+        # the fused tail is the MFA conv + ASTP; any other pooling runs
+        # after the conv, as in the JAX package
+        fusable = self.fused and self.pooling_func == "ASTP"
+        if fusable and not self.training:
             pooled = fused_mfa_astp(
                 out2, out3, out4, *self._tail_weights(), mask=mask,
                 glob=self.global_context_att).to(x.dtype)
-        elif self.fused and mask is None:
+        elif fusable and mask is None:
             pooled = mfa_astp_train(
                 out2, out3, out4, *self._tail_weights(),
                 glob=self.global_context_att).to(x.dtype)

@@ -1,10 +1,13 @@
-"""The bf16 GEMM of rows 1 and 8 on Hopper (`csrc/gemm_sm90.cuh`), alone.
+"""The bf16 GEMM of rows 1, 2, 4 and 8 on Hopper (`csrc/gemm_sm90.cuh`),
+alone.
 
-The SE-Res2 block (`ops/se_block.py`) and the CAM++ dense block
-(`ops/cam_block.py`) call it from their own C entry points; this wrapper
-reaches the same device code through `ws_gemm_sm90` (built into the
-se_block library), so that the card tests and `bin/time_kernels.py` can
-hold it against its plain version at any shape. It computes, with f32
+The SE-Res2 block (`ops/se_block.py`), the CAM++ dense block
+(`ops/cam_block.py`) and the MFA+ASTP tail's forward chain
+(`ops/mfa_astp.py`, `ops/mfa_astp_vjp.py`) call it from their own C entry
+points; these wrappers reach the same device code through `ws_gemm_sm90`
+(built into the se_block library) and `ws_gemm_sm90_tail` (the mfa_astp
+library), so that the card tests and `bin/time_kernels.py` can hold it
+against its plain version at any shape. `gemm_sm90` computes, with f32
 accumulation and the result rounded to bf16,
 
     post:    out = relu(a[:, :k] @ wt.T + bias) * scale + shift
@@ -16,7 +19,11 @@ read, whatever bits they hold) and wt (N, k) the weights K-major; and,
 where `seg_len` is given, the masked partial column sums of the stored
 out over each segment of seg_len frames of utterances of t frames (rows
 utterance-major) and each 64-row unit of M (`cam_block.segment_units`),
-as a (B * nseg, slots, N) f32 workspace.
+as a (B * nseg, slots, N) f32 workspace. `gemm_sm90_tail` computes the
+tail's forms (`gemm_sm90_tail_reference`): the post form over three A
+tensors as K-slices of one product (`k_walk`), the tanh form with a
+per-utterance row bias (`tile_utterances`) or a column bias, and the f32
+form acc + bias.
 """
 
 import ctypes
@@ -58,6 +65,107 @@ def partial_sums_reference(out, t, seg_len, mask=None):
             lo, hi = max(r0, (u0 + i) * 64), min(r1, (u0 + i + 1) * 64)
             ref[g, i] = rows[lo:hi].sum(0)
     return ref
+
+
+K_TILE, M_TILE = 64, 128  # gemm_sm90's K stage and output-tile rows
+FORMS = {"post": 0, "tanh": 4, "f32": 5}  # ws_gemm_sm90_tail's form codes
+
+
+def k_walk(k: int, parts: int = 1):
+    """The K walk of gemm_sm90's producer warp: for each 64-column K tile
+    kt of a product with K = k, the A tensor (part) it reads and the column
+    there. With three parts each has k / 3 columns, a whole number of K
+    tiles (the launcher refuses anything else): tile kt reads part
+    kt // (k / 192) at column (kt % (k / 192)) * 64."""
+    if parts == 1:
+        return [(0, kt * K_TILE) for kt in range(-(-k // K_TILE))]
+    if parts != 3 or k % (parts * K_TILE):
+        raise ValueError(f"gemm_sm90 takes 1 or 3 A tensors of a multiple "
+                         f"of {K_TILE} columns each; got K {k} over "
+                         f"{parts}")
+    kpt = k // (parts * K_TILE)
+    return [(kt // kpt, (kt % kpt) * K_TILE) for kt in range(parts * kpt)]
+
+
+def tile_utterances(m: int, t: int):
+    """For each 128-row output tile of M = B t rows, its first row and the
+    utterance of each of its rows (row // t), as the tanh form looks up its
+    row bias (rows past m are not stored)."""
+    return [(m0, torch.arange(m0, min(m0 + M_TILE, m)) // t)
+            for m0 in range(0, m, M_TILE)]
+
+
+def gemm_sm90_tail_reference(parts, wt, form, bias=None, scale=None,
+                             shift=None, row_bias=None, t=None):
+    """Plain PyTorch version of gemm_sm90_tail: acc = concat(parts) @ wt.T
+    in f32, then the post form relu(acc + bias) * scale + shift, the tanh
+    form tanh(acc + row_bias[r // t]) (or + bias), both rounded to bf16, or
+    the f32 form acc + bias."""
+    a = torch.cat([p.float() for p in parts], dim=-1)
+    acc = a @ wt[:, :a.shape[1]].float().t()
+    if form == "f32":
+        return acc + bias.float()
+    if form == "tanh":
+        m = acc.shape[0]
+        add = (bias.float() if row_bias is None else
+               row_bias.float()[torch.arange(m, device=acc.device) // t])
+        return torch.tanh(acc + add).to(torch.bfloat16)
+    return (torch.relu(acc + bias.float()) * scale.float()
+            + shift.float()).to(torch.bfloat16)
+
+
+def gemm_sm90_tail(parts, wt, form, bias=None, scale=None, shift=None,
+                   row_bias=None, t=None):
+    """parts: three (M, kp) bf16 CUDA tensors, the K-slices of A, for the
+    post form, one for the others;
+    wt (N, ldw) bf16, W K-major, its first K = len(parts) kp columns live
+    (the rest are never read); form "post" (bias, scale, shift
+    (N) f32), "tanh" (row_bias (M / t, N) f32 with t, or bias) or "f32"
+    (bias). Returns (M, N), bf16 or f32 for the f32 form. Raises for a
+    shape the kernel does not take; no fallback."""
+    a0 = parts[0]
+    if a0.device.type != "cuda":
+        raise ValueError("gemm_sm90_tail runs on the card only; the plain "
+                         "version is gemm_sm90_tail_reference")
+    if any(p.dtype != torch.bfloat16 for p in parts) or (
+            wt.dtype != torch.bfloat16):
+        raise TypeError("gemm_sm90_tail takes bf16 operands")
+    m, kp = a0.shape
+    (n, ldw), k = wt.shape, kp * len(parts)
+    if len(parts) != (3 if form == "post" else 1):
+        raise ValueError("the post form takes three A tensors, the tanh "
+                         "and f32 forms one")
+    k_walk(k, len(parts))
+    if (ldw < k or n % 128 or kp % 8 or ldw % 8
+            or any(tuple(p.shape) != (m, kp) for p in parts)):
+        raise ValueError(f"gemm_sm90_tail: parts "
+                         f"{[tuple(p.shape) for p in parts]}, wt "
+                         f"{tuple(wt.shape)}: needs N % 128 == 0, K and "
+                         "ldw multiples of 8, K <= ldw")
+    dev = a0.device
+
+    def f32(v):
+        return None if v is None else v.to(device=dev,
+                                           dtype=torch.float32).contiguous()
+
+    vecs = [f32(v) for v in (bias, scale, shift, row_bias)]
+    out = torch.empty((m, n), device=dev, dtype=torch.float32
+                      if form == "f32" else torch.bfloat16)
+    ins = [p.contiguous() for p in parts]
+    ins += [ins[0]] * (3 - len(ins))
+    ptrs = _build.pointers(ins + [wt.contiguous(), out])
+    lib = _tail_lib()
+    rc = lib.ws_gemm_sm90_tail(
+        *ptrs[:3], kp, ptrs[3], ldw,
+        *[None if v is None else v.data_ptr() for v in vecs], ptrs[4],
+        m, n, k, t or 0, FORMS[form], len(parts),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "gemm_sm90_tail")
+    gemm_sm90_tail.launches += 1
+    return out
+
+
+gemm_sm90_tail.launches = 0
 
 
 def gemm_sm90(a, k, wt, scale, shift, bias=None, a_scale=None, a_shift=None,
@@ -116,4 +224,14 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.ws_gemm_sm90.argtypes = [p, i, p, i] + [p] * 8 + [i] * 7 + [p]
     lib.ws_gemm_sm90.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_lib():
+    lib = _build.load("mfa_astp")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ws_gemm_sm90_tail.argtypes = ([p] * 3 + [i] + [p] + [i] + [p] * 5
+                                      + [i] * 6 + [p])
+    lib.ws_gemm_sm90_tail.restype = i
     return lib

@@ -29,8 +29,14 @@ activations and the f32 logits in device memory:
   5. @ k2 + b2 -> f32 logits;
   6. softmax over T and the weighted mean and std, one thread per
      (utterance, channel), two passes over T.
-The GEMMs use WMMA tensor cores for bf16 and CUDA-core FMA for exact f32.
-Keeping h on chip (T tiles, online softmax) and wgmma are later work.
+Both types run the chain of csrc/mfa_astp_fwd.cuh, which the training
+forward shares: in bf16 the four products on the TMA + wgmma GEMM of
+csrc/gemm_sm90.cuh (three A maps; the f32 form for the context product
+and the logits; the tanh form with a per-utterance row bias), in f32 on
+common.cuh's CUDA-core FMA GEMM, exact f32 (TF32 would miss 1e-4). The
+chain's floor, the sum of each launch's own bound, is ~1.17 ms
+(bin/kernel_bounds.py::mfa_astp_tail_floor).
+Keeping h on chip (T tiles, online softmax) is later work.
 """
 
 import ctypes
@@ -109,6 +115,9 @@ def mfa_astp_reference(x2, x3, x4, wm, bm, k1, b1, k2, b2,
 
 
 def _check_cuda_args(x2, x3, x4, wm, k1, k2, mask, glob):
+    """Raises for what the kernels do not take. C in (512, 1024), D = 1536
+    and A = 128 are also what gemm_sm90 takes in bf16 (C a multiple of
+    its 64-column K tile, N a multiple of 128): no shape falls back."""
     b, t, c = x2.shape
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_mfa_astp takes f32 or bf16, not {x2.dtype}")
@@ -148,6 +157,7 @@ def fused_mfa_astp(x2, x3, x4, wm, bm, k1, b1, k2, b2,
     d, a = _MFA_DIM, _ATT_DIM
     io = x2.dtype
     dev = x2.device
+    bf16 = io == torch.bfloat16
 
     def io_(v):
         return v.to(device=dev, dtype=io).contiguous()
@@ -156,28 +166,50 @@ def fused_mfa_astp(x2, x3, x4, wm, bm, k1, b1, k2, b2,
         return v.to(device=dev, dtype=torch.float32).contiguous()
 
     xs = [v.contiguous() for v in (x2, x3, x4)]
-    # glob: k1 rows [x | ctx_mean | ctx_std]; the last two are one
-    # (2D, A) operand of the context GEMM
-    k1x, k1ms = (io_(k1[:d]), io_(k1[d:])) if glob else (io_(k1), None)
-    wts = [io_(wm), f32(bm), k1x, f32(b1), io_(k2), f32(b2)]
+    wmk, k1xk, ldk1, k2k = kmajor_weights(wm, k1, k2, d, glob, io_, bf16)
+    # glob: k1 rows [x | ctx_mean | ctx_std]; in f32 the last two are one
+    # (2D, A) operand of the context GEMM (bf16 reads them in k1.t())
+    k1ms = io_(k1[d:]) if glob and not bf16 else None
+    aff = torch.cat([f32(bm).reshape(1, d), unit_affine(d, dev)])
+    b1f, b2f = f32(b1), f32(b2)
     m = None if mask is None else f32(mask)
     h = torch.empty((b, t, d), device=dev, dtype=io)
-    cstats = torch.empty((2, b, d), device=dev, dtype=io)
+    cstats = torch.empty((2 * b * d,), device=dev, dtype=io)
     ctx = torch.empty((b, a), device=dev, dtype=torch.float32)
     att = torch.empty((b, t, a), device=dev, dtype=io)
     logits = torch.empty((b, t, d), device=dev, dtype=torch.float32)
     out = torch.empty((b, 2 * d), device=dev, dtype=torch.float32)
 
     lib = _lib()
-    ptr = _build.pointers(xs + wts + [h, cstats, ctx, att, logits, out])
+    ptr = _build.pointers
     rc = lib.ws_mfa_astp(
-        *ptr[:3], None if m is None else m.data_ptr(), *ptr[3:6],
-        None if k1ms is None else _build.pointers([k1ms])[0], *ptr[6:],
-        b, t, c, d, a, int(glob), int(io == torch.bfloat16),
+        *ptr(xs), None if m is None else m.data_ptr(), *ptr([wmk, aff, k1xk]),
+        ldk1, None if k1ms is None else ptr([k1ms])[0],
+        *ptr([b1f, k2k, b2f, h, cstats, ctx, att, logits, out]),
+        b, t, c, d, a, int(glob), int(bf16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "fused_mfa_astp")
     fused_mfa_astp.launches += 1
     return out
+
+
+def kmajor_weights(wm, k1, k2, d, glob, io_, bf16):
+    """The tail's weights as the kernels read them: (wm, k1x, ldk1, k2).
+    bf16 (gemm_sm90 reads W K-major): wm.t() (D, 3C), k1.t() (A, 3D or D)
+    with k1x its first D columns at row stride ldk1 (and the context rows
+    the next 2D), k2.t() (D, A); the model's k=1 conv weights are these
+    already, so no transpose is made.
+    f32 (common.cuh's FMA GEMM): wm (3C, D), k1x (D, A), k2 (A, D)."""
+    if bf16:
+        return io_(wm.t()), io_(k1.t()), k1.shape[0], io_(k2.t())
+    return io_(wm), io_(k1[:d]), k1.shape[-1], io_(k2)
+
+
+@functools.lru_cache(maxsize=None)
+def unit_affine(d: int, device) -> torch.Tensor:
+    """(2, d) f32 ones and zeros: the MFA GEMM's scale and shift in
+    gemm_sm90's post form (relu(acc + bm) * 1 + 0, exact)."""
+    return torch.cat([torch.ones(1, d), torch.zeros(1, d)]).to(device)
 
 
 fused_mfa_astp.launches = 0
@@ -187,6 +219,6 @@ fused_mfa_astp.launches = 0
 def _lib():
     lib = _build.load("mfa_astp")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ws_mfa_astp.argtypes = [p] * 17 + [i] * 7 + [p]
+    lib.ws_mfa_astp.argtypes = [p] * 7 + [i] + [p] * 10 + [i] * 7 + [p]
     lib.ws_mfa_astp.restype = i
     return lib

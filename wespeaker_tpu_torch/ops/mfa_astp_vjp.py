@@ -16,11 +16,12 @@ approximation of the layer-by-layer path.
 
 A CPU tensor takes the plain versions (`mfa_astp_train_fwd_reference`,
 `mfa_astp_train_bwd_reference`); a CUDA tensor launches the kernels of
-csrc/mfa_astp_train.cu (bound and design in that file), or raises for a
-shape or type they do not take. Rounding follows the JAX kernels: h, the
-tanh activations, dlogits, dpre and dacc are rounded to the I/O type before
-their products, dctx and dbm are summed from the f32 values, cstats are
-f32, every product accumulates in f32.
+csrc/mfa_astp_train.cu (bound and design in that file; the bf16 forward
+is csrc/mfa_astp_fwd.cuh's chain on gemm_sm90, shared with inference), or
+raises for a shape or type they do not take. Rounding follows the JAX
+kernels: h, the tanh activations, dlogits, dpre and dacc are rounded to
+the I/O type before their products, dctx and dbm are summed from the f32
+values, cstats are f32, every product accumulates in f32.
 """
 
 import ctypes
@@ -30,7 +31,9 @@ from typing import Optional
 import torch
 
 from wespeaker_tpu_torch.ops import _build
-from wespeaker_tpu_torch.ops.mfa_astp import _dot, mfa_astp_reference
+from wespeaker_tpu_torch.ops.mfa_astp import (_dot, kmajor_weights,
+                                              mfa_astp_reference,
+                                              unit_affine)
 
 __all__ = ["mfa_astp_train", "mfa_astp_train_reference",
            "mfa_astp_train_fwd", "mfa_astp_train_bwd",
@@ -146,6 +149,9 @@ def mfa_astp_train_bwd_reference(x2, x3, x4, wm, k1, b2, k2, pooled, h, att,
 
 
 def _check_cuda_args(x2, x3, x4, wm, k1, k2, glob):
+    """Raises for what the kernels do not take: C, D and A multiples of 128
+    are also what gemm_sm90 takes in bf16 (C a multiple of its 64-column K
+    tile, N a multiple of 128, K of 8), so no shape falls back."""
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"mfa_astp_train takes f32 or bf16, not {x2.dtype}")
     if x3.shape != x2.shape or x4.shape != x2.shape or len({
@@ -192,9 +198,12 @@ def mfa_astp_train_fwd(x2, x3, x4, wm, bm, k1, b1, k2, b2,
         return v.detach().to(device=dev, dtype=torch.float32).contiguous()
 
     xs = [v.detach().contiguous() for v in (x2, x3, x4)]
-    # glob: k1 rows [x | ctx_mean | ctx_std]; the last two are one (2D, A)
-    # operand of the context GEMM
-    k1x, k1ms = (io_(k1[:d]), io_(k1[d:])) if glob else (io_(k1), None)
+    bf16 = io == torch.bfloat16
+    wmk, k1xk, ldk1, k2k = kmajor_weights(wm, k1, k2, d, glob, io_, bf16)
+    # glob: k1 rows [x | ctx_mean | ctx_std]; in f32 the last two are one
+    # (2D, A) operand of the context GEMM (bf16 reads them in k1.t())
+    k1ms = io_(k1[d:]) if glob and not bf16 else None
+    aff = torch.cat([f32(bm).reshape(1, d), unit_affine(d, dev)])
     h = torch.empty((b, t, d), device=dev, dtype=io)
     att = torch.empty((b, t, a), device=dev, dtype=io)
     cstats = torch.empty((b, 2 * d), device=dev, dtype=torch.float32)
@@ -205,14 +214,14 @@ def mfa_astp_train_fwd(x2, x3, x4, wm, bm, k1, b1, k2, b2,
 
     # every operand is held in a name until the launch is queued: a
     # temporary freed earlier could be handed to the next allocation
-    head = xs + [io_(wm), f32(bm), k1x]
-    tail = [f32(b1), io_(k2), f32(b2), h, att, cstats, cstats_io, ctx,
+    head = xs + [wmk, aff, k1xk]
+    tail = [f32(b1), k2k, f32(b2), h, att, cstats, cstats_io, ctx,
             logits, pooled]
     lib = _lib()
     ptr = _build.pointers
     rc = lib.ws_mfa_astp_train_fwd(
-        *ptr(head), None if k1ms is None else ptr([k1ms])[0], *ptr(tail),
-        b, t, c, d, a, int(glob), int(io == torch.bfloat16),
+        *ptr(head), ldk1, None if k1ms is None else ptr([k1ms])[0],
+        *ptr(tail), b, t, c, d, a, int(glob), int(bf16),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, rc, "mfa_astp_train_fwd")
     mfa_astp_train_fwd.launches += 1
@@ -334,7 +343,8 @@ def mfa_astp_train(x2, x3, x4, wm, bm, k1, b1, k2, b2, glob: bool = True,
 def _lib():
     lib = _build.load("mfa_astp_train")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ws_mfa_astp_train_fwd.argtypes = [p] * 17 + [i] * 7 + [p]
+    lib.ws_mfa_astp_train_fwd.argtypes = ([p] * 6 + [i] + [p] * 11 + [i] * 7
+                                          + [p])
     lib.ws_mfa_astp_train_fwd.restype = i
     lib.ws_mfa_astp_train_bwd_workspace.argtypes = [i] * 5
     lib.ws_mfa_astp_train_bwd_workspace.restype = ctypes.c_longlong
