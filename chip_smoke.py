@@ -56,7 +56,10 @@ Phases, each printing one line:
               gemm_sm90, none on the WMMA GEMM);
               extraction audio-s/s at B=512;
   9. train timing  the train kernels and their plain versions at B=256,
-              T=200, C=512, bf16, with bounds; train-step audio-s/s at
+              T=200, C=512, bf16, with bounds and the backward's design
+              floor; a bf16 backward call's launches (torch.profiler: five
+              on gemm_sm90, one gemm_tn_sm90, none on the WMMA or FMA
+              GEMMs); train-step audio-s/s at
               bench.py's train config (B=256, 2 s chunks, bf16, dither,
               spec-aug, ArcMargin 17,982, SGD) on the kernel path and the
               plain path (fused=False);
@@ -181,8 +184,11 @@ Phases, each printing one line:
               (count <= ddof), D = 7 and 600, f32 with mean 1e3 and std
               1e-2 (also the std within 1e-4 of its magnitude of the
               contract in f64) and B = 65,536,
-              T = 2, D = 8; an input that requires grad, or of another
-              type, raises;
+              T = 2, D = 8; the softmax stats also with f32 logits (the
+              ECAPA tail's) and at its edges, bf16 and f32 logits: T = 1,
+              one valid frame, D = 7, B = 65,537 with T = 3 and D = 8, and
+              logits near 80, each with an utterance of no valid frame;
+              an input that requires grad, or of another type, raises;
  28. redimnet slice  ReDimNetB2 at redimnet.yaml's width (feat 72 from a
               72-bin fbank, embed 192, ASTP with global context), random
               weights and BN statistics from the seed: make_eval_embed_fn in
@@ -951,6 +957,20 @@ def phase_train_timing(model, dev, smi):
     for k, (fl, nb) in (("train_fwd", (fwd_flops, fwd_bytes)),
                         ("train_bwd", (bwd_flops, bwd_bytes))):
         res_t[k]["bound_ms"], res_t[k]["bound_by"] = bound(fl, nb)
+    bwd_floor = sum(ms for _, ms, _ in kernel_bounds.mfa_astp_tail_bwd_floor(
+        b, T, C))
+    # a bf16 backward call's launches (torch.profiler): the logits, dpre,
+    # dcms, dacc and dx products on gemm_sm90, the three weight gradients
+    # in one gemm_tn_sm90 launch, and nothing on the WMMA or FMA GEMMs
+    bwd_call = lambda: mfa_astp_vjp.mfa_astp_train_bwd(*res)  # noqa: E731
+    bwd_sm90, bwd_all, _ = count_launches(bwd_call, "gemm_sm90_kernel")
+    bwd_tn = count_launches(bwd_call, "gemm_tn_sm90_kernel")[0]
+    bwd_old = (count_launches(bwd_call, "wmma")[0]
+               + count_launches(bwd_call, "fma_kernel")[0])
+    if (bwd_sm90, bwd_tn, bwd_old) != (5, 1, 0):
+        raise AssertionError(f"the bf16 backward launched gemm_sm90 "
+                             f"{bwd_sm90}, gemm_tn_sm90 {bwd_tn} and the "
+                             f"WMMA/FMA GEMMs {bwd_old} times, not 5, 1, 0")
     del xs, tw, res, pooled, h, att, cstats, g
 
     lr_fn, margin_fn = bench_schedules(b)
@@ -979,7 +999,10 @@ def phase_train_timing(model, dev, smi):
     fmt = "; ".join(
         f"{k} {v['ms']:.3f} ms (plain {v['plain_ms']:.3f}, bound "
         f"{v['bound_ms']:.3f} by {v['bound_by']})" for k, v in res_t.items())
-    print(f"train timing [{smi}] B={b} T={T} C={C} bf16: {fmt}; train step "
+    print(f"train timing [{smi}] B={b} T={T} C={C} bf16: {fmt}; backward "
+          f"floor of its launches {bwd_floor:.3f} ms, {bwd_all} kernel "
+          f"launches a call ({bwd_sm90} gemm_sm90, {bwd_tn} gemm_tn_sm90, "
+          f"{bwd_old} WMMA or FMA); train step "
           + "; ".join(f"{k} path {v[0]:.1f} audio-s/s ({v[1]:.1f} ms/step, "
                       f"peak {v[2]:.1f} GiB)" for k, v in rates.items()))
     return res_t
@@ -2167,6 +2190,14 @@ def phase_pool_kernels(dev):
                  f"{' masked' if masked else ''}")
         parts.append(f"softmax_stats {where} max_abs_err={err:.3g} "
                      f"cos={cos:.7f}")
+        if dtype == torch.bfloat16:  # and f32 logits (the ECAPA tail's)
+            got = pooling.fused_softmax_stats(logits.float(), x, mask)
+            torch.cuda.synchronize()
+            err, cos = stats_compare(got, pooling.softmax_stats_reference(
+                logits.float(), x, mask), dtype)
+            errs["softmax"] = max(errs["softmax"], err)
+            parts.append(f"softmax_stats f32 logits {where} "
+                         f"max_abs_err={err:.3g} cos={cos:.7f}")
         for ddof in (1, 0):
             got = pooling.fused_masked_stats(x, mask, ddof=ddof)
             torch.cuda.synchronize()
@@ -2215,6 +2246,33 @@ def phase_pool_kernels(dev):
         del x
     parts.append(f"masked_stats edges ({', '.join(c[0] for c in edge_cases)};"
                  f" ddof 0 and 1) max_abs_err={max(edge_errs):.3g}")
+    # edges of the one-pass softmax stats: T = 1, one valid frame, D = 7
+    # (the scalar path), an all-masked utterance, 65,537 utterances (past
+    # the grid.y of the thread-per-channel kernel it replaced), logits
+    # near +80; bf16 and f32 logits
+    soft_errs = []
+    for what, dtype, b, t, d, mask, shift in (
+            ("T=1", torch.bfloat16, 4, 1, 128, None, 0.0),
+            ("one valid frame", torch.float32, 4, 9, 64, one, 0.0),
+            ("D=7", torch.float32, 5, 9, 7, "ragged", 0.0),
+            ("B=65537", torch.bfloat16, 65537, 3, 8, "ragged", 0.0),
+            ("logits near 80", torch.bfloat16, 8, 200, 256, "ragged",
+             80.0)):
+        logits, x, _ = pool_inputs(rng, b, t, d, dtype, dev, False)
+        logits = logits + shift
+        if isinstance(mask, str):
+            mask = ragged_mask(rng, b, t, dev)
+            mask[-1] = 0  # an utterance with no valid frame
+        for lg in (logits, logits.float()):
+            got = pooling.fused_softmax_stats(lg, x, mask)
+            torch.cuda.synchronize()
+            err, cos = stats_compare(got, pooling.softmax_stats_reference(
+                lg, x, mask), dtype)
+            soft_errs.append(err)
+        del logits, x
+    parts.append("softmax_stats edges (T=1, one valid frame, D=7, "
+                 "B=65537, logits near 80; an all-masked utterance; bf16 "
+                 f"and f32 logits) max_abs_err={max(soft_errs):.3g}")
     x = torch.zeros(2, 8, 128, device=dev)
     refused = []
     for what, call in (

@@ -168,8 +168,14 @@ def scaled_close(got, want, name):
                                atol=1e-4, msg=lambda m: f"{name}: {m}")
 
 
+# (dtype, T, C, glob); bf16 also without the global context, at T = 37
+# (tiles straddle utterances) with C = 1024, and at T = 300 (the softmax
+# backward stages T in two chunks)
 TRAIN_CASES = [(torch.float32, 30, 128, True), (torch.float32, 30, 128, False),
-               (torch.float32, 198, 512, True), (torch.bfloat16, 200, 512, True)]
+               (torch.float32, 198, 512, True), (torch.bfloat16, 200, 512, True),
+               (torch.bfloat16, 200, 512, False),
+               (torch.bfloat16, 37, 1024, True),
+               (torch.bfloat16, 300, 512, True)]
 GRAD_NAMES = ["dx2", "dx3", "dx4", "dwm", "dbm", "dk1", "db1", "dk2", "db2"]
 
 
@@ -182,8 +188,7 @@ def train_args(rng, b, t, c, dtype, device, glob):
 
 
 @pytest.mark.parametrize("dtype,t,c,glob", TRAIN_CASES + [
-    (torch.bfloat16, 37, 1024, True), (torch.bfloat16, 21, 512, False),
-    (torch.bfloat16, 1, 512, True)])
+    (torch.bfloat16, 21, 512, False), (torch.bfloat16, 1, 512, True)])
 def test_mfa_astp_train_fwd_kernel_matches_plain(cuda, dtype, t, c, glob):
     xs, w, _ = train_args(np.random.default_rng(5), 3, t, c, dtype, cuda,
                           glob)
@@ -661,7 +666,16 @@ def assert_stats_match(got, want, dtype):
         assert_matches(g, w, dtype)
 
 
-@pytest.mark.parametrize("dtype,b,t,d,masked", POOL_CASES)
+# POOL_CASES and row 6's edges: T = 1, one valid frame, D = 7 (no vector
+# path), and 65,537 utterances (past the grid.y of the thread-per-channel
+# kernel it replaced)
+SOFTMAX_CASES = POOL_CASES + [(torch.bfloat16, 4, 1, 128, False),
+                              (torch.float32, 4, 9, 64, "one"),
+                              (torch.float32, 5, 9, 7, True),
+                              (torch.bfloat16, 65537, 3, 8, True)]
+
+
+@pytest.mark.parametrize("dtype,b,t,d,masked", SOFTMAX_CASES)
 def test_softmax_stats_kernel_matches_plain(cuda, dtype, b, t, d, masked):
     logits, x, mask = pool_args(np.random.default_rng(20), b, t, d, dtype,
                                 cuda, masked)
@@ -937,8 +951,8 @@ def test_cam_block_never_reads_unwritten_channels(cuda, dtype, t, masked,
 
 
 def _redesigned_calls(rng, dev):
-    """One bf16 call of rows 1, 2, 3, 4 and 8 each, on seeded inputs with
-    a ragged mask where the row takes one."""
+    """One bf16 call of rows 1, 2, 3, 4, 5, 6 and 8 each, on seeded inputs
+    with a ragged mask where the row takes one."""
     args, mask = se_args(rng, 3, 149, 512, torch.bfloat16, dev, True)
     chain = dict(kernels=args["cw"], biases=args["cb"], bn_scale=args["cs"],
                  bn_shift=args["ch"])
@@ -948,7 +962,16 @@ def _redesigned_calls(rng, dev):
     xs, targs, tmask = tail_args(rng, 3, 149, 512, torch.bfloat16, dev, True,
                                  True)
     tw = [targs[k] for k in ("wm", "bm", "k1", "b1", "k2", "b2")]
+    g = torch.as_tensor(rng.standard_normal((3, 2 * 1536)).astype(
+        np.float32), device=dev)
+    fwd = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw)
+    res = (*xs, tw[0], tw[2], tw[5], tw[4], *fwd, g)
     return {"tail": lambda: mfa_astp.fused_mfa_astp(*xs, *tw, mask=tmask),
+            "train_bwd": lambda: torch.cat([
+                v.float().flatten() for v in
+                mfa_astp_vjp.mfa_astp_train_bwd(*res)]),
+            "softmax": lambda: pooling.fused_softmax_stats(
+                fwd[1], fwd[1], tmask, concat=True),
             "train_fwd": lambda: torch.cat([
                 v.float().flatten() for v in
                 mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw)]),
@@ -960,7 +983,8 @@ def _redesigned_calls(rng, dev):
                 cx, **cargs, dilation=2, mask=mask)}
 
 
-@pytest.mark.parametrize("row", ["se", "res2", "cam", "tail", "train_fwd"])
+@pytest.mark.parametrize("row", ["se", "res2", "cam", "tail", "train_fwd",
+                                 "train_bwd", "softmax"])
 def test_redesigned_kernels_give_the_same_bits_twice(cuda, row):
     """No float atomics: two calls on the same input give the same bits."""
     fn = _redesigned_calls(np.random.default_rng(22), cuda)[row]
@@ -997,3 +1021,51 @@ def test_tail_runs_its_large_products_on_gemm_sm90(cuda, glob):
             names
         assert not any("gemm_wmma_kernel" in n or "gemm_fma_kernel" in n
                        for n in names), names
+
+
+@pytest.mark.parametrize("glob", [True, False])
+def test_train_bwd_runs_on_gemm_sm90_and_gemm_tn_sm90(cuda, glob):
+    """A bf16 row-5 call: the logits, dpre, (glob) dcms, dacc and dx
+    products on gemm_sm90 (five launches, four without the context), the
+    three weight gradients in one gemm_tn_sm90 launch, and no WMMA or FMA
+    GEMM, by the kernel names torch.profiler records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    xs, w, g = train_args(np.random.default_rng(24), 3, 200, 512,
+                          torch.bfloat16, cuda, glob)
+    wm, bm, k1, b1, k2, b2 = w
+    fwd = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *w, glob=glob)
+    res = (*xs, wm, k1, b2, k2, *fwd, g)
+    mfa_astp_vjp.mfa_astp_train_bwd(*res, glob=glob)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mfa_astp_vjp.mfa_astp_train_bwd(*res, glob=glob)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("gemm_sm90_kernel" in n for n in names) == 4 + glob, names
+    assert sum("gemm_tn_sm90_kernel" in n for n in names) == 1, names
+    assert not any("wmma" in n or "fma_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("k,m,n", [(1000, 128, 256), (51, 384, 128),
+                                   (51200, 256, 128), (4096, 1536, 1536)])
+def test_gemm_tn_sm90_matches_plain(cuda, k, m, n):
+    """The weight-gradient kernel alone: K no multiple of 64 (TMA reads
+    zeros past it), a split count from 1 up, against a^T b in f32 (rtol
+    1e-4, atol 1e-4 of the largest magnitude: sums over K in another
+    order), and the same bits twice."""
+    rng = np.random.default_rng(25)
+    a = torch.as_tensor(rng.standard_normal((k, m)).astype(np.float32),
+                        device=cuda).to(torch.bfloat16)
+    b = torch.as_tensor(rng.standard_normal((k, n)).astype(np.float32),
+                        device=cuda).to(torch.bfloat16)
+    before = gemm_sm90.gemm_tn_sm90.launches
+    got = gemm_sm90.gemm_tn_sm90(a, b)
+    again = gemm_sm90.gemm_tn_sm90(a, b)
+    torch.cuda.synchronize()
+    assert gemm_sm90.gemm_tn_sm90.launches == before + 2
+    assert torch.equal(got, again)
+    scaled_close(got, gemm_sm90.gemm_tn_sm90_reference(a, b), "a^T b")
+    with pytest.raises(ValueError):
+        gemm_sm90.gemm_tn_sm90(a[:, :64], b)

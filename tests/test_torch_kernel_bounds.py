@@ -79,17 +79,17 @@ def test_se_block_and_cam_floors_by_hand():
 def test_every_unported_row_has_a_bound(capsys):
     """Every row a path runs at its main-path shape: the pooling rows (6, 7)
     at the shapes of the paths that run them, row 9 once a Gemini stage,
-    rows 1 and 3 at ECAPA's and row 8 at CAMPPlus's three blocks, rows 2
-    and 4 at ECAPA's extraction and train batches (rows 1, 8, 2 and 4 with
-    the design's floor)."""
+    rows 1 and 3 at ECAPA's and row 8 at CAMPPlus's three blocks, rows 2,
+    4 and 5 at ECAPA's extraction and train batches (rows 1, 8, 2, 4 and 5
+    with the design's floor)."""
     kb.main()
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split()[1] for ln in lines] == ["6", "6", "7", "7", "9", "9",
                                               "9", "9", "1", "3", "8", "2",
-                                              "4"]
+                                              "4", "5"]
     assert all(" ms (" in ln for ln in lines)
-    assert [("floor" in ln) for ln in lines[-5:]] == [True, False, True,
-                                                      True, True]
+    assert [("floor" in ln) for ln in lines[-6:]] == [True, False, True,
+                                                      True, True, True]
 
 
 def test_mfa_astp_tail_counts_by_hand():
@@ -229,3 +229,27 @@ def test_dw_pack_bound_per_shape(name, shape, bytes_by_hand, want_ms):
     assert nbytes == bytes_by_hand
     ms, by = kb.bound(flops, nbytes)
     assert by == "bytes" and round(ms, 3) == want_ms
+
+
+def test_mfa_astp_tail_bwd_floor_by_hand():
+    # row 5's bf16 design at B=256, T=200, C=512 (M = 51,200 rows): the
+    # logits' f32 write 0.098 ms; the softmax backward reads the f32
+    # logits and h and writes dlogits and dh_pool once, 944 MB, 0.282; dpre
+    # reads dlogits, 0.055; dacc reads dpre, h and dh_pool and writes dacc,
+    # 0.192; dx and the three weight gradients by operations, 241.6 GFLOP
+    # (0.244) and 281.8 (0.285); the sum of the splits' slabs 0.026: ~1.18
+    m = 256 * 200
+    steps = dict((n, (ms, by)) for n, ms, by in
+                 kb.mfa_astp_tail_bwd_floor(256, 200, 512))
+    assert steps["softmax_bwd"] == (pytest.approx(m * 1536 * 12 / 3.35e9),
+                                    "bytes")
+    assert round(m * 1536 * 12 / 1e6) == 944
+    assert steps["dx_gemm"] == (pytest.approx(
+        2 * m * 1536 * 1536 / 989e12 * 1e3), "operations")
+    assert steps["weight_grads"][1] == "operations"
+    assert round(steps["weight_grads"][0], 3) == 0.285
+    assert round(steps["dacc_gemm"][0], 3) == 0.192
+    assert round(steps["logits_gemm"][0], 3) == 0.098
+    total = sum(ms for ms, _ in steps.values())
+    assert round(total, 2) == 1.18
+    assert kb.ROWS[-1][0] == 5 and round(kb.ROWS[-1][4][0], 2) == 1.18

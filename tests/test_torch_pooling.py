@@ -11,6 +11,19 @@ inputs, in f32 on the CPU.
 - At D = 600, which the JAX kernels do not take (D % 128 != 0), the plain
   versions against JAX's jnp `pooling_layers._std` and ASTP tail, with an
   utterance that has no valid frame (uniform softmax weights); 1e-5.
+- Row 6's one-pass design (csrc/common.cuh `softmax_stats_kernel`),
+  emulated in torch as the kernel walks it (`ops.pooling.softmax_plan`:
+  kc channels a thread, items of 32 columns, tw warps an item, warp j
+  taking frames j, j + tw, ... in batches of 8 (4 on the scalar path),
+  each batch's max first and the sums rescaled by exp(m_old - m_new) (the
+  kernel works in base 2, exp2 of the logits times log2(e)), the
+  warps' parts merged by the same rescaling in warp order): against JAX's
+  Pallas kernel (interpret) or, at D = 600, its jnp softmax and sums, at
+  rtol/atol 1e-5, masked and not, with an utterance that has no valid
+  frame, D = 600, T = 1 (the std, the rounding of x^2 alone there, within
+  sqrt(2^-22) max |x|), logits near +80 and -80 (exp overflows without
+  the max), with bf16-sized (kc = 4) and f32-sized (kc = 2) logits and
+  tw = 1 to 8; merging the warps' parts without the rescaling misses.
 - TSDP, TSTP and ASTP (with and without global context) in eval with
   autograd off, which routes them through ops.pooling (the plain versions
   on the CPU), against JAX's flax layers at 1e-5, with no kernel launch;
@@ -33,6 +46,7 @@ from wespeaker_tpu_torch.utils import weights  # noqa: E402
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
+LOG2E = 1.4426950408889634
 
 
 def _inputs(seed, b, t, d, masked, empty=False):
@@ -143,6 +157,105 @@ def test_twins_take_unaligned_width(masked):
     if masked:  # no valid frame: uniform weights over all T frames
         np.testing.assert_allclose(got[0][-1].numpy(), x[-1].mean(0),
                                    **TOL)
+
+
+def emulate_softmax_stats(logits, x, mask, logit_bytes, rescale=True):
+    """Row 6 as the kernel computes it, in f32 (see the module docstring);
+    rescale=False merges the warps' parts as if they shared one max."""
+    b, t, d = x.shape
+    kc, _, tw = pooling.softmax_plan(b, t, d, logit_bytes)
+    ku = pooling.SOFTMAX_FRAMES if d % kc == 0 else 4
+    a = logits.float() * LOG2E  # base 2, as the kernel
+    if mask is not None:
+        a = torch.where(mask[..., None] > 0, a, torch.full_like(a, -1e30))
+    xf = x.float()
+    parts = []
+    for j in range(tw):
+        m = torch.full((b, d), -3.0e38)
+        s, s1, s2 = (torch.zeros(b, d) for _ in range(3))
+        for f0 in range(j, t, tw * ku):
+            idx = torch.arange(f0, min(f0 + tw * ku, t), tw)
+            mx = torch.maximum(m, a[:, idx].amax(1))
+            sc = torch.exp2(m - mx)
+            e = torch.exp2(a[:, idx] - mx[:, None])
+            eh = e * xf[:, idx]
+            s = s * sc + e.sum(1)
+            s1 = s1 * sc + eh.sum(1)
+            s2 = s2 * sc + (eh * xf[:, idx]).sum(1)
+            m = mx
+        parts.append((m, s, s1, s2))
+    m, s, s1, s2 = parts[0]
+    for mq, sq, s1q, s2q in parts[1:]:
+        mx = torch.maximum(m, mq)
+        sa, sb = ((torch.exp2(m - mx), torch.exp2(mq - mx)) if rescale
+                  else (1.0, 1.0))
+        s, s1, s2 = s * sa + sq * sb, s1 * sa + s1q * sb, s2 * sa + s2q * sb
+        m = mx
+    mean = s1 / s
+    return mean, torch.sqrt(torch.clamp(s2 / s - mean * mean, min=1e-7))
+
+
+def _jax_softmax_stats(logits, x, mask):
+    """JAX's Pallas kernel in interpret mode (D % 128 == 0; the masked
+    logits go in at -1e30, as ASTP sets them), else its jnp softmax and
+    sums."""
+    a = jnp.asarray(logits)
+    if mask is not None:
+        a = jnp.where(jnp.asarray(mask)[..., None] > 0, a, -1e30)
+    if x.shape[-1] % 128 == 0:
+        return pooling_pallas.fused_softmax_stats(a, jnp.asarray(x),
+                                                  interpret=True)
+    w = jax.nn.softmax(a, axis=1)
+    mean = jnp.sum(w * x, axis=1)
+    return mean, jnp.sqrt(jnp.clip(jnp.sum(w * x ** 2, axis=1) - mean ** 2,
+                                   min=1e-7))
+
+
+@pytest.mark.parametrize("logit_bytes", [2, 4])
+@pytest.mark.parametrize("b,t,d,masked,shift", [
+    (3, 201, 128, False, 0.0),      # few items: T over 8 warps
+    (3, 201, 128, True, 0.0),       # ... with an utterance of no frame
+    (40, 70, 256, True, 80.0),      # logits near +80
+    (3, 50, 128, False, -80.0),     # near -80
+    (3, 47, 600, True, 0.0),        # D = 600: the scalar path's batches
+    (5, 1, 128, False, 0.0),        # T = 1
+    (700, 9, 64, False, 0.0)])      # items fill the card: one warp each
+def test_softmax_stats_one_pass_matches_jax(b, t, d, masked, shift,
+                                            logit_bytes):
+    logits, x, mask = _inputs(b * 7 + t + d, b, t, d, masked, empty=True)
+    logits = logits + np.float32(shift)
+    want = _jax_softmax_stats(logits, x, mask)
+    got = emulate_softmax_stats(_t(logits), _t(x), _t(mask), logit_bytes)
+    if t == 1:
+        # one frame: the variance E[x^2] - mean^2 is the rounding of x^2
+        # alone, whose bits depend on where a sum contracts into a
+        # multiply-add; the mean at 1e-5, the std within sqrt(2^-22) max |x|
+        _close(got[:1], want[:1])
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   rtol=0, atol=2.0 ** -11 * np.abs(x).max())
+    else:
+        _close(got, want)
+    kc, chunks, tw = pooling.softmax_plan(b, t, d, logit_bytes)
+    assert kc == 8 // logit_bytes and chunks * 32 * kc >= d
+    if masked:  # no valid frame: uniform weights over all T frames
+        np.testing.assert_allclose(got[0][-1].numpy(), x[-1].mean(0), **TOL)
+    if tw > 1 and shift:
+        wrong = emulate_softmax_stats(_t(logits), _t(x), _t(mask),
+                                      logit_bytes, rescale=False)
+        assert not np.allclose(wrong[0].numpy(), np.asarray(want[0]), **TOL)
+
+
+def test_softmax_plan_splits_t_only_where_items_do_not_fill():
+    # ReDimNetB2 (B = 512, D = 1152): bf16 logits, 9 chunks, two warps an
+    # item; f32 logits, 18 chunks, one; ECAPA's tail (D = 1536, f32) at
+    # B = 512 one warp, at B = 256 two; a few utterances take eight
+    assert pooling.softmax_plan(512, 200, 1152, 2) == (4, 9, 2)
+    assert pooling.softmax_plan(512, 200, 1152, 4) == (2, 18, 1)
+    assert pooling.softmax_plan(512, 200, 1536, 4) == (2, 24, 1)
+    assert pooling.softmax_plan(256, 200, 1536, 4) == (2, 24, 2)
+    assert pooling.softmax_plan(3, 201, 128, 2) == (4, 1, 8)
+    # 65,537 utterances: a 1-D grid of items, no cap on B
+    assert pooling.softmax_plan(65537, 2, 8, 2) == (4, 1, 1)
 
 
 def test_wrappers_check_shapes_on_every_device():

@@ -23,6 +23,28 @@ csrc/mfa_astp_fwd.cuh on csrc/gemm_sm90.cuh), on the CPU.
   kernel in interpret mode: pooled, h, att, cstats) and
   `mfa_astp_train_reference`. An emulation that gives a whole tile its
   first row's utterance misses where tiles straddle utterances.
+- The bf16 backward's plans (csrc/mfa_astp_train.cu on gemm_sm90 and
+  gemm_tn_sm90): the weight-gradient launch's units (`ops.mfa_astp_vjp.
+  tn_units`, mirrored by the C launcher) give every output tile every K
+  row once, splits in order, and whole waves of 132 SMs at the flagship
+  shape; row tile m0 of dwm reads x_{2 + m0 // C} at column m0 % C; the
+  dx launch's column tile n0 writes dx_{2 + n0 // C} (`dx_tiles`).
+- A plain-torch emulation of the backward as the kernels compute it: the
+  logits in the f32 form; the softmax backward by 64-channel groups, four
+  frame strides per channel with rescaled sums, staged `softmax_bwd_frames`
+  frames at a time (and, forced, 16 at a time: the chunked path); dpre in
+  the tanh_grad form with dctx from the partial sums (each utterance's
+  64-row-unit slots in order, the unwritten ones NaN); dcms in the f32
+  form and the context terms h k + c0 per (utterance, channel); dacc in
+  the relu_grad form with each row's own utterance's terms and dbm from
+  the partial sums; dx in the plain form over N = 3C,
+  each column tile into its dx_i; the weight gradients unit by unit and
+  their splits summed in order. In f32 it matches JAX's `_bwd_pallas`
+  (interpret mode) and `_bwd_jnp`, all nine gradients, at rtol 1e-5 and
+  atol 1e-5 of each gradient's largest magnitude (sums over B*T rows in
+  another order), at T = 37 and 201 (tiles straddle utterances), C = 512
+  and 1024, glob on and off; with the tile's first-row utterance in the
+  relu_grad form it misses.
 """
 
 import numpy as np
@@ -36,6 +58,9 @@ import jax.numpy as jnp  # noqa: E402
 from wespeaker_tpu.ops import mfa_astp_pallas as jtail  # noqa: E402
 from wespeaker_tpu.ops import mfa_astp_vjp as jvjp  # noqa: E402
 from wespeaker_tpu_torch.ops import gemm_sm90 as g9  # noqa: E402
+from wespeaker_tpu_torch.ops import mfa_astp_vjp as tvjp  # noqa: E402
+from wespeaker_tpu_torch.ops.cam_block import (partial_slots,  # noqa: E402
+                                               segment_units)
 
 torch.set_num_threads(2)
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -84,6 +109,16 @@ def _gemm_tiles(parts, wt, n_cols, epilogue, t, first_row_utt=False):
     """gemm_sm90 on (M, kp) parts and W K-major, tile by tile: each
     128 x 128 output tile sums its 64-column K tiles in the walk's order,
     then applies epilogue(acc, rows, utterances) to the tile."""
+    return _gemm_tiles_rows(parts, wt, n_cols,
+                            lambda acc, rows, n0, utt: epilogue(acc, n0,
+                                                                utt),
+                            t, first_row_utt)
+
+
+def _gemm_tiles_rows(parts, wt, n_cols, epilogue, t, first_row_utt=False):
+    """_gemm_tiles whose epilogue(acc, rows, n0, utterances) also gets the
+    tile's rows (a slice of M), for the forms that read per-element
+    operands."""
     m, kp = parts[0].shape
     k = kp * len(parts)
     out = None
@@ -96,7 +131,7 @@ def _gemm_tiles(parts, wt, n_cols, epilogue, t, first_row_utt=False):
             for kt, (part, col) in enumerate(g9.k_walk(k, len(parts))):
                 acc += (parts[part][rows, col:col + 64]
                         @ wt[n0:n0 + 128, kt * 64:(kt + 1) * 64].t())
-            v = epilogue(acc, n0, utt)
+            v = epilogue(acc, rows, n0, utt)
             if out is None:
                 out = torch.empty(m, n_cols, dtype=v.dtype)
             out[rows, n0:n0 + 128] = v
@@ -235,3 +270,245 @@ def test_emulation_matches_jax_train_forward(b, t, c, glob):
         np.testing.assert_allclose(g, wv, **TOL, err_msg=name)
     np.testing.assert_allclose(got[0], np.asarray(
         jvjp.mfa_astp_train_reference(*jx, *jw, glob=glob)), **TOL)
+
+
+# ---- the bf16 backward (row 5) ----
+
+GRADS = ["dx2", "dx3", "dx4", "dwm", "dbm", "dk1", "db1", "dk2", "db2"]
+
+
+@pytest.mark.parametrize("b,t,c", [(3, 37, 512), (2, 201, 1024),
+                                   (256, 200, 512), (256, 200, 1024),
+                                   (5, 1, 512)])
+def test_weight_grad_units_cover_every_k_row_once(b, t, c):
+    """dwm (3C, D), dk2 (A, D), dk1x (D, A) at D = 1536, A = 128: each
+    output tile gets each 64-row K tile once, its splits in order; dwm's
+    row tile m0 reads x_{2 + m0 // C} at column m0 % C."""
+    d, a, k = 1536, 128, b * t
+    products = [(3, c, d), (1, a, d), (1, d, a)]
+    units = list(tvjp.tn_units(products, k))
+    ktiles = -(-k // 64)
+    seen = {}
+    for u in units:
+        key = (u["q"], u["m0"], u["n0"])
+        seen.setdefault(key, []).append((u["split"], u["k0"], u["k1"]))
+        parts, a_cols, n = products[u["q"]]
+        assert 0 <= u["part"] < parts and u["col"] + 128 <= (
+            a_cols if parts > 1 else a_cols * parts)
+        if u["q"] == 0:
+            assert (u["part"], u["col"]) == (u["m0"] // c, u["m0"] % c)
+    want_tiles = sum(p * ac // 128 * n // 128 for p, ac, n in products)
+    assert len(seen) == want_tiles
+    for runs in seen.values():
+        splits = [s for s, _, _ in runs]
+        assert splits == sorted(splits) == list(range(len(runs)))
+        edges = [k0 for _, k0, _ in runs] + [runs[-1][2]]
+        assert edges[0] == 0 and edges[-1] == 64 * ktiles
+        assert all(k1 == k0 for (_, _, k1), (_, k0, _) in zip(runs,
+                                                                runs[1:]))
+        assert all(k1 > k0 for _, k0, k1 in runs)
+    if b == 256:
+        # the flagship: the units fill whole waves of 132 SMs to >= 95%
+        waves = -(-len(units) // 132)
+        assert len(units) / (132 * waves) >= 0.95
+
+
+@pytest.mark.parametrize("c", [512, 1024, 128])
+def test_dx_column_tiles_write_each_output_once(c):
+    hits = np.zeros((3, c), np.int64)
+    for n0, (o, col) in zip(range(0, 3 * c, 128), tvjp.dx_tiles(c)):
+        assert (o, col) == (n0 // c, n0 % c) and col + 128 <= c
+        hits[o, col:col + 128] += 1
+    assert (hits == 1).all()
+    with pytest.raises(ValueError, match="128"):
+        tvjp.dx_tiles(192)
+
+
+def _partial_sums(v, t):
+    """gemm_sm90's partial sums of the f32 tile values v (M, N), one
+    segment an utterance: each 64-row unit sums its runs of one
+    utterance's rows in row order into slot unit - u0 (the rest stay NaN,
+    unwritten), then each utterance's slots are summed in order
+    (slot_sum_kernel). -> (B, N)"""
+    m, n = v.shape
+    b = m // t
+    part = torch.full((b, partial_slots(t, t), n), float("nan"))
+    for unit in range(-(-m // 64)):
+        r = unit * 64
+        while r < min(m, unit * 64 + 64):
+            bi = r // t
+            end = min(m, unit * 64 + 64, (bi + 1) * t)
+            acc = torch.zeros(n)
+            for i in range(r, end):
+                acc = acc + v[i]
+            part[bi, unit - (bi * t) // 64] = acc
+            r = end
+    out = torch.empty(b, n)
+    for bi, (_, _, _, units) in enumerate(segment_units(b, t, t)):
+        acc = torch.zeros(n)
+        for u in range(units):
+            acc = acc + part[bi, u]
+        out[bi] = acc
+    return out
+
+
+def _softmax_bwd(logits, h, pooled, g, tc):
+    """softmax_bwd_kernel: per channel four frame strides (part p takes
+    frames p, p + 4, ... of each staged chunk of tc frames), each with a
+    running max and its sums rescaled where a chunk raises it, merged in
+    part order; then dlogits and dh_pool. -> (dl, dh_pool) (B, T, D)."""
+    b, t, d = logits.shape
+    mean, sd = pooled[:, :d], pooled[:, d:]
+    gv = torch.where(sd * sd > 1e-7, g[:, d:] * 0.5 / sd.clamp(min=1e-12),
+                     torch.zeros_like(sd))
+    gme = g[:, :d] - 2.0 * gv * mean
+    m = torch.full((4, b, d), -3.0e38)
+    s, sw = torch.zeros(4, b, d), torch.zeros(4, b, d)
+    for f0 in range(0, t, tc):
+        n = min(tc, t - f0)
+        for p in range(4):
+            idx = torch.arange(f0 + p, f0 + n, 4)
+            if len(idx) == 0:
+                continue
+            lg, x = logits[:, idx], h[:, idx]
+            mx = torch.maximum(m[p], lg.amax(1))
+            sc = torch.exp(m[p] - mx)
+            e = torch.exp(lg - mx[:, None])
+            s[p] = s[p] * sc + e.sum(1)
+            sw[p] = sw[p] * sc + (e * (gme[:, None] * x
+                                       + gv[:, None] * x * x)).sum(1)
+            m[p] = mx
+    mx = m.amax(0)
+    ss, ssw = torch.zeros(b, d), torch.zeros(b, d)
+    for p in range(4):
+        sc = torch.exp(m[p] - mx)
+        ss, ssw = ss + s[p] * sc, ssw + sw[p] * sc
+    w = torch.exp(logits - mx[:, None]) / ss[:, None]
+    dw = gme[:, None] * h + gv[:, None] * h * h
+    return (w * (dw - (ssw / ss)[:, None]),
+            w * (gme[:, None] + 2.0 * gv[:, None] * h))
+
+
+def emulate_bwd(xs, wm, k1, b2, k2, pooled, h, att, cstats, g, glob,
+                tc=None, first_row_utt=False):
+    """What the bf16 backward's launches compute, as they tile it, in f32:
+    -> the nine gradients as mfa_astp_train_bwd returns them."""
+    b, t, c = xs[0].shape
+    d, a, m = wm.shape[1], k2.shape[0], b * t
+    h2, att2 = h.reshape(m, d), att.reshape(m, a)
+    # 1. logits: the f32 form, W = k2^T (D, A)
+    logits = _gemm_tiles([att2], k2.t(), d,
+                         lambda acc, n0, _: acc + b2[n0:n0 + 128], t)
+    # 2. the softmax backward
+    dl, dh_pool = _softmax_bwd(logits.reshape(b, t, d), h, pooled, g,
+                               tc or tvjp.softmax_bwd_frames(4))
+    dl2, dh_pool2 = dl.reshape(m, d), dh_pool.reshape(m, d)
+    # 3. dpre: the tanh_grad form, W = k2 (A, D), att read per element;
+    #    dctx from its partial sums of the f32 values
+    dpre = _gemm_tiles_rows(
+        [dl2], k2, a, lambda acc, rows, n0, _: acc * (
+            1.0 - att2[rows, n0:n0 + 128] ** 2), t)
+    dctx = _partial_sums(dpre, t)
+    # 4. dcms: the f32 form over one row an utterance, W = k1's context
+    #    rows (2D, A)
+    cm, cs = cstats[:, :d], cstats[:, d:]
+    if glob:
+        dcms = _gemm_tiles([dctx], k1[d:], 2 * d, lambda acc, n0, _: acc, 1)
+        dcm, dcs = dcms[:, :d], dcms[:, d:]
+
+    # 5. dacc: the relu_grad form, W = k1x (D, A), each row with its own
+    #    utterance's context terms; dbm from the partial sums, utterances
+    #    in 32 groups (slot_total_kernel), the groups in order
+    def relu_grad(acc, rows, n0, utt):
+        cols = slice(n0, n0 + 128)
+        hv = h2[rows, cols]
+        v = acc + dh_pool2[rows, cols]
+        if glob:
+            # ctx_coef_kernel's [k | c0], then h k + c0
+            k = 2.0 / max(t - 1, 1) * dcs[utt, cols] * 0.5 / cs[utt, cols]
+            v = v + (hv * k + (dcm[utt, cols] / t - cm[utt, cols] * k))
+        return torch.where(hv > 0, v, torch.zeros_like(v))
+
+    dacc = _gemm_tiles_rows([dpre], k1[:d], d, relu_grad, t, first_row_utt)
+    per_utt = _partial_sums(dacc, t)
+    dbm = torch.zeros(d)
+    for j in range(32):
+        grp = torch.zeros(d)
+        for bi in range(j, b, 32):
+            grp = grp + per_utt[bi]
+        dbm = dbm + grp
+    # 6. dx: the plain form over N = 3C, W = wm (3C, D), each column tile
+    #    into its dx_i
+    dx_all = _gemm_tiles([dacc], wm, 3 * c, lambda acc, n0, _: acc, t)
+    dxs = [torch.full((m, c), float("nan")) for _ in range(3)]
+    for n0, (o, col) in zip(range(0, 3 * c, 128), tvjp.dx_tiles(c)):
+        dxs[o][:, col:col + 128] = dx_all[:, n0:n0 + 128]
+    # 7. the weight gradients, unit by unit into their split's slab, the
+    #    splits summed in order
+    a_ops = [[x.reshape(m, c) for x in xs], [att2], [h2]]
+    b_ops = [dacc, dl2, dpre]
+    products = [(3, c, d), (1, a, d), (1, d, a)]
+    slabs = {}
+    for u in tvjp.tn_units(products, m):
+        q = u["q"]
+        kr = slice(u["k0"], min(u["k1"], m))
+        av = a_ops[q][u["part"]][kr, u["col"]:u["col"] + 128]
+        bv = b_ops[q][kr, u["n0"]:u["n0"] + 128]
+        slab = slabs.setdefault((u["split"], q), torch.full(
+            (products[q][0] * products[q][1], products[q][2]),
+            float("nan")))
+        slab[u["m0"]:u["m0"] + 128, u["n0"]:u["n0"] + 128] = av.t() @ bv
+    wg = []
+    for q, (parts, a_cols, n) in enumerate(products):
+        acc = torch.zeros(parts * a_cols, n)
+        for split in sorted(sp for sp, qq in slabs if qq == q):
+            acc = acc + slabs[(split, q)]
+        wg.append(acc)
+    dwm, dk2, dk1x = wg
+    dk1 = (torch.cat([dk1x, cm.t() @ dctx, cs.t() @ dctx], 0) if glob
+           else dk1x)
+    return ([x.reshape(b, t, c) for x in dxs]
+            + [dwm, dbm, dk1, dctx.sum(0), dk2, torch.zeros(d)])
+
+
+def _bwd_case(seed, b, t, c, glob):
+    xs, w, _ = _case(seed, b, t, c, glob, False)
+    jx = [jnp.asarray(v) for v in xs]
+    jw = [jnp.asarray(w[k]) for k in ("wm", "bm", "k1", "b1", "k2", "b2")]
+    pooled, h, att, cstats = jvjp._fwd_values(*jx, *jw, glob, True)
+    g = np.random.default_rng(seed + 1).normal(
+        size=(b, 2 * D)).astype(np.float32)
+    jres = (*jx, jw[0], jw[2], jw[5], jw[4], pooled, h, att, cstats)
+    tres = [torch.from_numpy(np.array(v)) for v in (
+        *xs, w["wm"], w["k1"], w["b2"], w["k2"], pooled, h, att, cstats)]
+    return jres, tres, g
+
+
+def _close_scaled(got, want, name):
+    want = np.asarray(want, np.float32)
+    scale = max(float(np.abs(want).max()), 1e-6)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * scale,
+                               err_msg=name)
+
+
+@pytest.mark.parametrize("b,t,c,glob,tc", [
+    (3, 37, 512, True, None), (2, 201, 1024, True, None),
+    (3, 37, 1024, False, 16), (2, 201, 512, False, None),
+    (3, 37, 512, True, 16)])
+def test_bwd_emulation_matches_jax(b, t, c, glob, tc):
+    jres, tres, g = _bwd_case(40 + t + c // 512, b, t, c, glob)
+    got = emulate_bwd(tres[:3], *tres[3:], torch.from_numpy(g), glob, tc)
+    want_pallas = jvjp._bwd_pallas(glob, True, jres, jnp.asarray(g))
+    want_jnp = jvjp._bwd_jnp(glob, True, jres, jnp.asarray(g))
+    for name, gv, wp, wj in zip(GRADS, got, want_pallas, want_jnp):
+        assert tuple(gv.shape) == tuple(np.shape(wp)), name
+        _close_scaled(gv.numpy(), wp, name)
+        _close_scaled(gv.numpy(), wj, name)
+    if glob:
+        # 128-row tiles straddle utterances at T = 37 and 201: the relu_grad
+        # form needs each row's own utterance's context terms
+        wrong = emulate_bwd(tres[:3], *tres[3:], torch.from_numpy(g), glob,
+                            tc, first_row_utt=True)
+        assert not np.allclose(wrong[0].numpy(), np.asarray(want_pallas[0]),
+                               rtol=1e-5, atol=1e-5 * float(np.abs(
+                                   np.asarray(want_pallas[0])).max()))

@@ -9,7 +9,9 @@ Gemini stage kernel (row 9) at each of Gemini_DF_ResNet114's four stages.
 Rows 1 and 8 also print the floor of the port's design, which keeps
 activations the TPU kernel held in VMEM in device memory: the bytes that
 design must move over 3.35 TB/s; rows 2 and 4 the floor of their chain of
-launches, the sum of each launch's own bound (`mfa_astp_tail_floor`).
+launches, the sum of each launch's own bound (`mfa_astp_tail_floor`), and
+the training tail's backward (row 5) the same for its launches
+(`mfa_astp_tail_bwd_floor`).
 
     python -m wespeaker_tpu_torch.bin.kernel_bounds
 
@@ -195,8 +197,45 @@ def mfa_astp_tail_floor(b, t, c, d=1536, a=128):
     return out
 
 
-def _tail_floor(b, t, c):
-    steps = mfa_astp_tail_floor(b, t, c)
+def mfa_astp_tail_bwd_floor(b, t, c, d=1536, a=128, splits=7):
+    """The floor of the port's bf16 backward for row 5
+    (csrc/mfa_astp_train.cu, ws_mfa_astp_train_bwd_sm90): the f32 logits,
+    dlogits, dh_pool, dpre and dacc pass through device memory, so each
+    launch has its own bound, and the floor is their sum (the weight
+    gradients are one launch, then the fixed-order sum of its `splits`
+    f32 slabs; the partial-sum readers move under 10 MB and are left out).
+    -> [(launch, ms, "operations" or "bytes")]."""
+    m = b * t
+    wgrad = 3 * c * d + 2 * a * d  # f32 elements of dwm, dk2, dk1x
+    steps = [
+        ("logits_gemm", 2 * m * a * d,
+         m * a * BF16 + a * d * BF16 + m * d * F32),
+        # read the f32 logits and h, write dlogits (bf16) and dh_pool (f32)
+        ("softmax_bwd", 12 * m * d, m * d * (F32 + BF16 + BF16 + F32)),
+        ("dpre_gemm", 2 * m * d * a,
+         m * d * BF16 + a * d * BF16 + 2 * m * a * BF16),
+        ("dcms_gemm", 2 * b * a * 2 * d,
+         b * a * BF16 + 2 * d * a * BF16 + b * 2 * d * F32),
+        # read dpre, h and dh_pool, write dacc
+        ("dacc_gemm", 2 * m * a * d,
+         m * a * BF16 + d * a * BF16 + m * d * (BF16 + F32 + BF16)),
+        ("dx_gemm", 2 * m * d * 3 * c,
+         m * d * BF16 + 3 * c * d * BF16 + m * 3 * c * BF16),
+        # x2, x3, x4, dacc, att, dlogits, h and dpre read once
+        ("weight_grads", 2 * m * (3 * c * d + 2 * a * d),
+         m * (3 * c + 3 * d + 2 * a) * BF16 + wgrad * F32),
+        ("splitk_sum", splits * wgrad, (splits + 1) * wgrad * F32),
+    ]
+    out = []
+    for name, flops, nbytes in steps:
+        peak = (PEAK_F32_FLOPS if name in ("softmax_bwd", "splitk_sum")
+                else PEAK_BF16_FLOPS)
+        out.append((name, *bound(flops, nbytes, peak)))
+    return out
+
+
+def _tail_floor(b, t, c, steps=None):
+    steps = steps or mfa_astp_tail_floor(b, t, c)
     return (sum(ms for _, ms, _ in steps), "the sum of its launches' "
             + ", ".join(f"{n} {ms:.3f}" for n, ms, _ in steps))
 
@@ -255,6 +294,10 @@ ROWS = [
      "the training tail's forward, B=256, T=200, C=512, bf16",
      [("call", *mfa_astp_tail(256, 200, 512, train=True), PEAK_BF16_FLOPS)],
      _tail_floor(256, 200, 512)),
+    (5, "mfa_astp_train_bwd",
+     "the training tail's backward, B=256, T=200, C=512, bf16",
+     [("call", *mfa_astp_tail_bwd(256, 200, 512), PEAK_BF16_FLOPS)],
+     _tail_floor(256, 200, 512, mfa_astp_tail_bwd_floor(256, 200, 512))),
 ]
 
 

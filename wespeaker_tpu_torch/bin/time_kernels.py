@@ -22,10 +22,12 @@ warm-up; the dw_pack and masked-stats keys by replaying a CUDA graph of
 the calls, so that the wrapper's host time (about as long as the
 masked stats at T'=25) does not hide the kernel. Prints the card and
 one JSON line {kernel: ms} (`--only` limits it to the named ops
-modules). `--split` also prints, for one call of the SE-Res2 block, of
-the MFA+ASTP tail (B=512), of the training tail's forward (B=256), of
-the Res2 chain and of each CAM++ block, the device time of every CUDA
-kernel it launches (torch.profiler, `profile_extract.breakdown`).
+modules); `softmax_f32` is row 6 with f32 logits (the ECAPA tail's
+form). `--split` also prints, for one call of the SE-Res2 block, of
+the MFA+ASTP tail (B=512), of the training tail's forward and backward
+(B=256), of the Res2 chain, of each CAM++ block and of the
+softmax-weighted stats (bf16 and f32 logits), the device time of every
+CUDA kernel it launches (torch.profiler, `profile_extract.breakdown`).
 `--gemm` times instead the bf16 GEMM of rows 1 and 8 alone
 (`ops/gemm_sm90.py`, CUDA-graph replay): at the CAM++ bottleneck's shape
 (M = 512 x 100 rows of a 1024-channel map, K = 128, 512, 992, N = 128) in
@@ -165,8 +167,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--split", action="store_true",
-                    help="also print each row 1, 2, 3, 4 and 8 call's "
-                         "device time per kernel (torch.profiler)")
+                    help="also print each row 1, 2, 3, 4, 5, 6 and 8 "
+                         "call's device time per kernel (torch.profiler)")
     ap.add_argument("--digest", action="store_true",
                     help="also print a digest of the output bits of rows "
                          "1, 2, 3, 4 and 8 on the seeded inputs")
@@ -265,6 +267,8 @@ def main(argv=None):
                                    args.iters)
         split(lambda: vjp.mfa_astp_train_fwd(*xs, *tail_w),
               f"row 4 mfa_astp_train_fwd B=256 T={t} C={c} glob bf16")
+        split(lambda: vjp.mfa_astp_train_bwd(*res),
+              f"row 5 mfa_astp_train_bwd B=256 T={t} C={c} glob bf16")
         digest("train_fwd", lambda: vjp.mfa_astp_train_fwd(*xs, *tail_w))
         del xs, res, pooled, h, att, cstats
         if args.digest:
@@ -351,6 +355,13 @@ def main(argv=None):
         logits, x = r(b, t, 1152, dtype=io), r(b, t, 1152, dtype=io)
         out["softmax"] = cuda_ms(lambda: pool.fused_softmax_stats(logits, x),
                                  args.iters)
+        split(lambda: pool.fused_softmax_stats(logits, x),
+              f"row 6 fused_softmax_stats B={b} T={t} D=1152 bf16")
+        logits = logits.float()
+        out["softmax_f32"] = cuda_ms(
+            lambda: pool.fused_softmax_stats(logits, x), args.iters)
+        split(lambda: pool.fused_softmax_stats(logits, x),
+              f"row 6 fused_softmax_stats B={b} T={t} D=1152 f32 logits")
         out["masked"] = graph_ms(lambda: pool.fused_masked_stats(x),
                                  args.iters)
         del logits, x

@@ -24,12 +24,13 @@
 //   (B, T, C), one thread per (utterance, channel), output in any type at
 //   any row stride.
 // - softmax_stats: ASTP's softmax over T and the weighted mean and std,
-//   logits in f32 or bf16.
-// - gemm_tn: C[M, N] = A^T B with A (K, M) and B (K, N) row-major, the
-//   weight-gradient product whose reduction runs over K = B*T rows. K is
-//   split across blocks (split-K); each split writes its f32 partial to a
-//   workspace and a second pass sums the splits in a fixed order, so the
-//   result does not depend on the order blocks run in (no float atomics).
+//   logits in f32 or bf16, in one streamed pass (row 6).
+// - gemm_tn: C[M, N] = A^T B with A (K, M) and B (K, N) row-major f32, the
+//   weight-gradient product whose reduction runs over K = B*T rows, on the
+//   CUDA cores (bf16 runs on gemm_tn_sm90.cuh). K is split across blocks
+//   (split-K); each split writes its f32 partial to a workspace and a
+//   second pass sums the splits in a fixed order, so the result does not
+//   depend on the order blocks run in (no float atomics).
 // - col_sum: f32 column sums of a (rows, n) matrix, rows in order.
 //
 // Kernels launch on the caller's stream, allocate nothing and do not
@@ -42,7 +43,10 @@
 #include <mma.h>
 
 #include <cstddef>
+#include <cstdint>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace ws {
 
@@ -436,55 +440,192 @@ cudaError_t col_stats(const T* h, const float* mask, TO* mean_out,
   return cudaGetLastError();
 }
 
-// ---- ASTP softmax over T and weighted stats ----
+// ---- ASTP softmax over T and weighted stats (row 6) ----
+//
+// Softmax over T per (utterance, channel) of the logits (TL: f32, or bf16
+// where the caller computed them in bf16) and the weighted mean and std of
+// h, in one pass over T. A thread owns kC = 8 / sizeof(TL) channels of one
+// utterance (4 with bf16 logits, 2 with f32) and reads them with one 8-byte
+// load of logits and one of kC values of h a frame, streamed past L1 with
+// a 256-byte L2 prefetch, kSmFrames frames in flight. It keeps an online
+// softmax: a running max m and s = sum e, s1 = sum e h, s2 = sum e h^2 with
+// e = exp(a - m), in base 2 (a = logit log2(e), e = exp2(a - m): one
+// exp2 a value); each batch of frames takes its max first and rescales the
+// three sums once by exp2(m_old - m_new), so the logits and h are read once.
+// An item is (utterance, 32 consecutive kC-channel columns), so a warp
+// reads 256 contiguous bytes of logits a frame; `tw` warps split an item's
+// frames (warp j takes frames j, j + tw, ...) only where the items alone do
+// not fill the card (as row 7's masked stats), and their (m, s, s1, s2)
+// merge by the same rescaling in warp order, so the result does not depend
+// on scheduling. The grid is 1-D: any b * ceil(d / (32 kC)) < 2^31. Masked
+// frames (mask may be null) take the logit -1e30, as in the JAX kernel, so
+// an utterance with no valid frame gets uniform weights. Any d: where d is
+// no multiple of kC (or a base is not 16-byte aligned) each value is
+// loaded alone. out: (b, 2d) f32 [mean | sqrt(max(E[h^2] - mean^2,
+// 1e-7))], the raw sums as the JAX kernel takes them (no shift).
+// ops/pooling.py::softmax_plan mirrors the item and warp split.
+constexpr int kSmWarps = 8;
+// frames a batch, in flight a thread (vector path). Timed on the H100 at
+// ReDimNetB2's shape, batches of 16 took 0.240 ms against 0.258 with f32
+// logits but 0.185 against 0.160 with bf16; one batch size for both keeps
+// bf16 logits and their f32 copy to the same bits.
+constexpr int kSmFrames = 8;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// Softmax over T per (utterance, channel) and the weighted mean and std of
-// h, one thread per channel, two passes over T: the max, then the sums of
-// e, e*h and e*h^2 with e = exp(logit - max). Logits are read in TL (f32,
-// or bf16 where the caller computed them in bf16). Masked frames (mask may
-// be null) take the logit -1e30, as in the JAX kernel, so an utterance
-// with no valid frame gets uniform weights. out: (b, 2d) f32
-// [mean | sqrt(max(var, 1e-7))].
-template <typename T, typename TL>
-__global__ void softmax_stats_kernel(const TL* __restrict__ logits,
-                                     const T* __restrict__ h,
-                                     const float* __restrict__ mask,
-                                     float* __restrict__ out, int t, int d) {
-  const int b = blockIdx.y;
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= d) return;
-  const TL* lb = logits + (size_t)b * t * d + col;
-  const T* hb = h + (size_t)b * t * d + col;
-  const float* mb = mask ? mask + (size_t)b * t : nullptr;
-  float mx = -3.0e38f;  // below any logit, masked ones included
-  for (int i = 0; i < t; ++i) {
-    const float a =
-        (mb && !(mb[i] > 0.f)) ? -1e30f : to_f(lb[(size_t)i * d]);
-    mx = fmaxf(mx, a);
+template <typename T, typename TL, bool kAligned>
+__global__ void __launch_bounds__(32 * kSmWarps)
+    softmax_stats_kernel(const TL* __restrict__ logits,
+                         const T* __restrict__ h,
+                         const float* __restrict__ mask,
+                         float* __restrict__ out, int b, int t, int d,
+                         int chunks, int tw) {
+  constexpr int kC = 8 / sizeof(TL);
+  constexpr int kU = kAligned ? kSmFrames : 4;  // frames a batch
+  __shared__ float parts[kSmWarps][4][kC][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int item = blockIdx.x * (kSmWarps / tw) + warp / tw;
+  const int j = warp % tw;  // this warp's share of the item's frames
+  const int bi = item / chunks;
+  const int c0 = ((item % chunks) * 32 + lane) * kC;
+  const bool live = bi < b && c0 < d;
+  const size_t off = live ? (size_t)bi * t * d + c0 : 0;
+  const TL* lb = logits + off;
+  const T* hb = h + off;
+  const float* mb = mask ? mask + (live ? (size_t)bi * t : 0) : nullptr;
+  float m[kC], s[kC], s1[kC], s2[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    m[c] = -3.0e38f;  // below any logit, masked ones included
+    s[c] = s1[c] = s2[c] = 0.f;
   }
-  float s = 0.f, s1 = 0.f, s2 = 0.f;
-  for (int i = 0; i < t; ++i) {
-    const float a =
-        (mb && !(mb[i] > 0.f)) ? -1e30f : to_f(lb[(size_t)i * d]);
-    const float e = expf(a - mx);
-    const float hv = to_f(hb[(size_t)i * d]);
-    s += e;
-    s1 += e * hv;
-    s2 += e * hv * hv;
+  for (int f0 = j; f0 < t; f0 += tw * kU) {
+    // a batch: frames f0 + u tw; a frame past t takes -3e38 (e = 0)
+    float a[kU][kC], x[kU][kC];
+    if constexpr (kAligned) {
+      uint4 rl[kU], rx[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int f = f0 + u * tw;
+        rl[u] = rx[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (live && f < t) {
+          rl[u] = ld_stream<8>(lb + (size_t)f * d);
+          rx[u] = ld_stream<(int)(kC * sizeof(T))>(hb + (size_t)f * d);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int f = f0 + u * tw;
+        const bool valid = f < t, masked = valid && mb && !(mb[f] > 0.f);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          const float lv = to_f(reinterpret_cast<const TL*>(&rl[u])[c]);
+          a[u][c] = valid ? (masked ? -1e30f : lv * kLog2e) : -3.0e38f;
+          x[u][c] = to_f(reinterpret_cast<const T*>(&rx[u])[c]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int f = f0 + u * tw;
+        const bool valid = f < t, masked = valid && mb && !(mb[f] > 0.f);
+#pragma unroll
+        for (int c = 0; c < kC; ++c) {
+          const bool in = live && valid && c0 + c < d;
+          const size_t o = (size_t)f * d + c;
+          a[u][c] = valid ? (masked ? -1e30f
+                                    : (in ? to_f(lb[o]) * kLog2e : 0.f))
+                          : -3.0e38f;
+          x[u][c] = in ? to_f(hb[o]) : 0.f;
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      float mx = m[c];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) mx = fmaxf(mx, a[u][c]);
+      const float sc = exp2f(m[c] - mx);
+      s[c] *= sc;
+      s1[c] *= sc;
+      s2[c] *= sc;
+      m[c] = mx;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const float e = exp2f(a[u][c] - mx), eh = e * x[u][c];
+        s[c] += e;
+        s1[c] += eh;
+        s2[c] = fmaf(eh, x[u][c], s2[c]);
+      }
+    }
   }
-  const float mean = s1 / s;
-  const float var = s2 / s - mean * mean;
-  out[(size_t)b * 2 * d + col] = mean;
-  out[(size_t)b * 2 * d + d + col] = sqrtf(fmaxf(var, 1e-7f));
+  if (tw > 1) {
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      parts[warp][0][c][lane] = m[c];
+      parts[warp][1][c][lane] = s[c];
+      parts[warp][2][c][lane] = s1[c];
+      parts[warp][3][c][lane] = s2[c];
+    }
+    __syncthreads();
+    if (j != 0) return;
+    // the item's tw parts, in warp order (a part with no frame has s = 0)
+#pragma unroll
+    for (int c = 0; c < kC; ++c) {
+      for (int q = 1; q < tw; ++q) {
+        const float mq = parts[warp + q][0][c][lane];
+        const float mx = fmaxf(m[c], mq);
+        const float sa = exp2f(m[c] - mx), sb = exp2f(mq - mx);
+        s[c] = s[c] * sa + parts[warp + q][1][c][lane] * sb;
+        s1[c] = s1[c] * sa + parts[warp + q][2][c][lane] * sb;
+        s2[c] = s2[c] * sa + parts[warp + q][3][c][lane] * sb;
+        m[c] = mx;
+      }
+    }
+  }
+  if (!live) return;
+  float* ob = out + (size_t)bi * 2 * d + c0;
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    if (!kAligned && c0 + c >= d) break;
+    const float mean = s1[c] / s[c];
+    const float var = s2[c] / s[c] - mean * mean;
+    ob[c] = mean;
+    ob[d + c] = sqrtf(fmaxf(var, 1e-7f));
+  }
+}
+
+// tw, the warps an item's frames are split over: 1 where the items fill
+// the card twice over (132 SMs x 32 warps x 2), else doubled until they do,
+// up to kSmWarps, while a warp keeps more than one batch of frames.
+__host__ __device__ inline int softmax_stats_tw(long long items, int t) {
+  int tw = 1;
+  while (tw < kSmWarps && items * tw < 2 * 132 * 32 && t > kSmFrames * tw)
+    tw *= 2;
+  return tw;
 }
 
 template <typename T, typename TL>
 cudaError_t softmax_stats(const TL* logits, const T* h, const float* mask,
                           float* out, int b, int t, int d,
                           cudaStream_t stream) {
-  const dim3 grid((d + 127) / 128, b);
-  softmax_stats_kernel<T, TL><<<grid, 128, 0, stream>>>(logits, h, mask, out,
-                                                        t, d);
+  constexpr int kC = 8 / sizeof(TL);
+  if (b <= 0 || t <= 0 || d <= 0) return cudaErrorInvalidValue;
+  const int chunks = ((d + kC - 1) / kC + 31) / 32;
+  const long long items = (long long)b * chunks;
+  if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int tw = softmax_stats_tw(items, t);
+  const long long blocks = (items + kSmWarps / tw - 1) / (kSmWarps / tw);
+  const bool aligned = d % kC == 0 &&
+                       reinterpret_cast<uintptr_t>(logits) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(h) % 16 == 0;
+  auto launch = [&](auto kernel) {
+    kernel<<<(unsigned)blocks, 32 * kSmWarps, 0, stream>>>(
+        logits, h, mask, out, b, t, d, chunks, tw);
+  };
+  if (aligned)
+    launch(softmax_stats_kernel<T, TL, true>);
+  else
+    launch(softmax_stats_kernel<T, TL, false>);
   return cudaGetLastError();
 }
 
@@ -499,90 +640,6 @@ struct GemmTnArgs {
   int k;
   int kc;  // rows of K per split, a multiple of 32
 };
-
-// bf16 on the tensor cores: the A tile is stored [k][m] in shared memory,
-// which WMMA reads as a column-major (m x k) fragment.
-__global__ void __launch_bounds__(256) gemm_tn_wmma_kernel(GemmTnArgs p) {
-  using namespace nvcuda;
-  __shared__ __align__(32) __nv_bfloat16 as[kWBK * kBLd];
-  __shared__ __align__(32) __nv_bfloat16 bs[kWBK * kBLd];
-  __shared__ __align__(32) float cs[8][16 * 16];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wr = warp / 2, wc = warp % 2;
-  const int row0 = blockIdx.y * kWBM, col0 = blockIdx.x * kWBN;
-  const int kbeg = blockIdx.z * p.kc;
-  const int kend = min(kbeg + p.kc, p.k);
-  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(p.a);
-  const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(p.b);
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = kbeg; k0 < kend; k0 += kWBK) {
-    // A and B tiles: 32 rows of K x 16 chunks of 8 bf16 (16 bytes)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int idx = tid + i * 256;
-      const int r = idx / 16, ch = idx % 16;
-      const int gk = k0 + r;
-      const int gm = row0 + ch * 8;
-      uint4 va = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vb = make_uint4(0u, 0u, 0u, 0u);
-      if (gk < kend) {
-        if (gm < p.m)
-          va = *reinterpret_cast<const uint4*>(a + (size_t)gk * p.m + gm);
-        vb = *reinterpret_cast<const uint4*>(b + (size_t)gk * p.n + col0 +
-                                             ch * 8);
-      }
-      *reinterpret_cast<uint4*>(&as[r * kBLd + ch * 8]) = va;
-      *reinterpret_cast<uint4*>(&bs[r * kBLd + ch * 8]) = vb;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major>
-          af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          bf[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], &as[kk * kBLd + wr * 32 + i * 16],
-                               kBLd);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(bf[j], &bs[kk * kBLd + wc * 64 + j * 16],
-                               kBLd);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = p.work + (size_t)blockIdx.z * p.m * p.n;
-  float* c = cs[warp];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      wmma::store_matrix_sync(c, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int row = row0 + wr * 32 + i * 16 + e / 16;
-        const int col = col0 + wc * 64 + j * 16 + e % 16;
-        if (row < p.m) out[(size_t)row * p.n + col] = c[e];
-      }
-      __syncwarp();
-    }
-  }
-}
 
 // f32 on the CUDA cores (exact f32, no TF32), 8x8 outputs per thread.
 __global__ void __launch_bounds__(256) gemm_tn_fma_kernel(GemmTnArgs p) {
@@ -667,23 +724,18 @@ inline size_t gemm_tn_workspace(int m, int n, int k) {
   return (size_t)gemm_tn_splits(m, n, k, nullptr) * m * n;
 }
 
-// out (m, n) f32 = a^T b, a (k, m) and b (k, n) of type T. Requires
-// n % 128 == 0 and m % 8 == 0; work holds work_elems floats.
-template <typename T>
-cudaError_t gemm_tn(const void* a, const void* b, float* out, int m, int n,
-                    int k, float* work, size_t work_elems,
-                    cudaStream_t stream) {
+// out (m, n) f32 = a^T b, a (k, m) and b (k, n) f32. Requires n % 128 == 0
+// and m % 8 == 0; work holds work_elems floats. (bf16 runs on
+// gemm_tn_sm90.cuh.)
+inline cudaError_t gemm_tn(const float* a, const float* b, float* out, int m,
+                           int n, int k, float* work, size_t work_elems,
+                           cudaStream_t stream) {
   if (n % 128 || m % 8 || m <= 0 || k <= 0) return cudaErrorInvalidValue;
   GemmTnArgs p{a, b, work, m, n, k, 0};
   const int splits = gemm_tn_splits(m, n, k, &p.kc);
   if ((size_t)splits * m * n > work_elems) return cudaErrorInvalidValue;
   const dim3 grid(n / 128, (m + 127) / 128, splits);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    gemm_tn_wmma_kernel<<<grid, 256, 0, stream>>>(p);
-  } else {
-    static_assert(std::is_same<T, float>::value, "f32 or bf16 operands");
-    gemm_tn_fma_kernel<<<grid, 256, 0, stream>>>(p);
-  }
+  gemm_tn_fma_kernel<<<grid, 256, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t mn = (size_t)m * n;

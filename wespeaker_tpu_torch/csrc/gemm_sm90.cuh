@@ -26,12 +26,28 @@
 //                its own up), or v = tanh(acc + bias[col]) where row_bias is
 //                null
 // and v is rounded to bf16; or
-// - kFormF32:    v = acc + bias, stored as f32 into out_f32 (ASTP's
-//                logits), straight from the registers: a warp's store
-//                covers 8 rows of 32 contiguous bytes, whole sectors, and
-//                needs no staging tile.
-// Optionally (part != null; the post and bn_relu forms) the epilogue also
-// writes masked partial column sums of the stored (rounded) values for the
+// - kFormF32:    v = acc + bias (or acc where bias is null), stored as f32
+//                into out_f32 (ASTP's logits), straight from the
+//                registers: a warp's store covers 8 rows of 32 contiguous
+//                bytes, whole sectors, and needs no staging tile.
+// The training tail's backward (mfa_astp_train.cu) adds three, each
+// rounded to bf16:
+// - kFormTanhGrad: v = acc * (1 - aux^2), aux (m, n) bf16 read per element
+//                (the tanh activations: dpre = datt (1 - att^2));
+// - kFormReluGrad: v = [aux > 0] (acc + aux_f32 + aux k + c0), aux (m, n)
+//                bf16 (h), aux_f32 (m, n) f32 (dh_pool), [k | c0] = coef
+//                (m / t, 2n) f32 at each row's own utterance (as the tanh
+//                form's row bias; the context terms, mfa_astp_train.cu's
+//                ctx_coef_kernel), or v = [aux > 0] (acc + aux_f32) where
+//                coef is null;
+// - kFormPlain:  v = acc into three outputs side by side: the column tile
+//                n0 writes out, out1 or out2 (n0 / n_out), each (m, n_out)
+//                at row stride n_out (n_out % 128 == 0 keeps a tile inside
+//                one), so one launch over N = 3 n_out makes three tensors.
+// Optionally (part != null; the post, bn_relu, tanh_grad and relu_grad
+// forms) the epilogue also writes masked partial column sums of the stored
+// values (rounded in the post and bn_relu forms; the f32 values before
+// their rounding in the two gradient forms, which stage f32) for the
 // segments of seg_len frames of each utterance of t frames (row r is
 // frame r % t of utterance r / t): one f32 sum per (segment, 64-row unit
 // of M that holds some of its rows, column), summed over the unit's rows
@@ -76,13 +92,27 @@ constexpr int kG9Threads = 288;  // two consumer warpgroups + a producer warp
 constexpr int kG9Half = kG9M * kG9K * 2;        // 16 KB: an A or W stage
 constexpr int kG9Stage = 2 * kG9Half;           // 32 KB
 constexpr int kG9StLd = kG9N * 2 + 16;          // staging row bytes
-constexpr int kG9Staging = 2 * 64 * kG9StLd;    // 34,816
-constexpr int kG9Bars = kG9Stages * kG9Stage + kG9Staging;
-constexpr int kG9Smem = 1024 + kG9Bars + 2 * kG9Stages * 8;
+constexpr int kG9StLdF = kG9N * 4 + 16;         // the same, f32 staging
 
 // the forms beyond common.cuh's kFormPost and kFormBnRelu
 constexpr int kFormTanh = 4;
 constexpr int kFormF32 = 5;
+constexpr int kFormTanhGrad = 6;
+constexpr int kFormReluGrad = 7;
+constexpr int kFormPlain = 8;
+
+// the gradient forms stage f32 values (their partial sums are of those)
+__host__ __device__ constexpr bool g9_stage_f32(int form) {
+  return form == kFormTanhGrad || form == kFormReluGrad;
+}
+// the staging tile's bytes (34,816, or 67,584 for f32) and the dynamic
+// shared memory of a form: the stages, the staging tile, the mbarriers
+__host__ __device__ constexpr int g9_staging(int form) {
+  return 2 * 64 * (g9_stage_f32(form) ? kG9StLdF : kG9StLd);
+}
+__host__ __device__ constexpr int g9_smem(int form) {
+  return 1024 + kG9Stages * kG9Stage + g9_staging(form) + 2 * kG9Stages * 8;
+}
 
 struct Sm90Args {
   int m, n, k;
@@ -98,6 +128,15 @@ struct Sm90Args {
   int t, seg_len, nseg, slots;
   const float* row_bias;  // kFormTanh: (m / t, n), or null: bias
   float* out_f32;         // kFormF32: (m, n), row stride n
+  // kFormTanhGrad, kFormReluGrad: aux (m, n) bf16; kFormReluGrad: aux_f32
+  // (m, n) f32, and coef (m / t, 2n) f32 or null
+  const __nv_bfloat16* aux;
+  const float* aux_f32;
+  const float* coef;
+  // kFormPlain: the outputs of column tiles n_out .. 2 n_out - 1 and
+  // 2 n_out .. 3 n_out - 1 (out takes the first n_out columns)
+  __nv_bfloat16 *out1, *out2;
+  int n_out;
 };
 
 // The A operand's tensor maps: kParts K-slices of one product.
@@ -128,8 +167,12 @@ __global__ void __launch_bounds__(kG9Threads, 1)
                      const __grid_constant__ CUtensorMap tm_w,
                      const Sm90Args p) {
   static_assert(kForm == kFormPost || kForm == kFormBnRelu ||
-                    kForm == kFormTanh || kForm == kFormF32,
+                    kForm == kFormTanh || kForm == kFormF32 ||
+                    kForm == kFormTanhGrad || kForm == kFormReluGrad ||
+                    kForm == kFormPlain,
                 "a gemm form");
+  constexpr bool kStageF32 = g9_stage_f32(kForm);
+  constexpr int kStLd = kStageF32 ? kG9StLdF : kG9StLd;
   static_assert(kParts == 1 || (kParts == 3 && kForm == kFormPost),
                 "three A maps in the post form only");
   extern __shared__ unsigned char smem_raw[];
@@ -137,7 +180,7 @@ __global__ void __launch_bounds__(kG9Threads, 1)
   const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle atoms aligned
   unsigned char* const sm = smem_raw + (base - raw);
   // full: the stage's copies landed; empty: both consumers are done with it
-  const uint32_t bar_full = base + kG9Bars;
+  const uint32_t bar_full = base + kG9Stages * kG9Stage + g9_staging(kForm);
   const uint32_t bar_empty = bar_full + 8 * kG9Stages;
   const int tid = threadIdx.x;
   // the warpgroup index, shuffled so the compiler knows it is warp-uniform
@@ -187,11 +230,38 @@ __global__ void __launch_bounds__(kG9Threads, 1)
   // ---- consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 ----
   const int wt = tid % 128, warp = wt / 32, lane = tid % 32;
   unsigned char* const stage_out =
-      sm + kG9Stages * kG9Stage + wg * 64 * kG9StLd;
+      sm + kG9Stages * kG9Stage + wg * 64 * kStLd;
   float acc[64];
   int it = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int m0 = (tile / ntn) * kG9M, n0 = (tile % ntn) * kG9N;
+    const int r0 = 16 * warp + lane / 4;
+    // the gradient forms' per-element operands, fetched before the tile's
+    // products so that their latency hides behind them: aux for this
+    // thread's elements into registers and, for kFormReluGrad, the
+    // warpgroup's 64 rows of aux_f32 into the staging tile by cp.async
+    // (rows clamped past m; such rows are not stored)
+    unsigned ar[16][2];
+    if constexpr (kStageF32) {
+      if constexpr (kForm == kFormReluGrad) {
+        named_sync(1 + wg, 128);  // the last tile's readers are done
+        const uint32_t st = smem_u32(stage_out);
+#pragma unroll 4
+        for (int q = wt; q < 64 * 32; q += 128) {
+          const int row = min(m0 + 64 * wg + q / 32, p.m - 1);
+          cp_async16(st + (q / 32) * kStLd + (q % 32) * 16,
+                     p.aux_f32 + (size_t)row * p.n + n0 + (q % 32) * 4);
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = min(m0 + 64 * wg + r0 + 8 * h, p.m - 1);
+        const unsigned* a = reinterpret_cast<const unsigned*>(
+            p.aux + (size_t)row * p.n + n0 + 2 * (lane % 4));
+#pragma unroll
+        for (int j = 0; j < 16; ++j) ar[j][h] = __ldg(a + 4 * j);
+      }
+    }
     for (int kt = 0; kt < ktiles; ++kt, ++it) {
       const int s = it % kG9Stages;
       mbar_wait(bar_full + 8 * s, (it / kG9Stages) & 1);
@@ -251,13 +321,14 @@ __global__ void __launch_bounds__(kG9Threads, 1)
     fence_regs(acc);
     mbar_arrive_if(bar_empty + 8 * ((it - 1) % kG9Stages), lane == 0);
 
-    const int r0 = 16 * warp + lane / 4;
     if constexpr (kForm == kFormF32) {
       // ---- epilogue: acc + bias, f32 straight from the registers ----
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int col = n0 + 8 * j + 2 * (lane % 4);
-        const float2 bi = __ldg(reinterpret_cast<const float2*>(p.bias + col));
+        const float2 bi =
+            p.bias ? __ldg(reinterpret_cast<const float2*>(p.bias + col))
+                   : make_float2(0.f, 0.f);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = m0 + 64 * wg + r0 + 8 * h;
@@ -270,8 +341,12 @@ __global__ void __launch_bounds__(kG9Threads, 1)
       continue;
     }
 
-    // ---- epilogue: the form in registers, bf16 into the staging tile ----
-    named_sync(1 + wg, 128);  // the last tile's readers are done with it
+    // ---- epilogue: the form in registers, into the staging tile (bf16,
+    // or f32 for the gradient forms) ----
+    if constexpr (kForm == kFormReluGrad) cp_async_wait_all();
+    // the last tile's readers are done with the staging tile (and, for
+    // kFormReluGrad, every thread's copies into it have landed)
+    named_sync(1 + wg, 128);
     // kFormTanh: the bias rows of this thread's two rows (r0 and r0 + 8 of
     // the warpgroup's 64): its utterance's context bias, or the column bias;
     // a row past m reads row m - 1's and is not stored
@@ -285,62 +360,137 @@ __global__ void __launch_bounds__(kG9Threads, 1)
         }
       }
     }
+    // the gradient forms, from the operands fetched before the products;
+    // kFormReluGrad adds its rows' utterances' context coefficients and
+    // writes v over aux_f32 in the staging tile (each element read and
+    // written by the same thread)
+    if constexpr (kStageF32) {
+      const float* coef_row[2] = {nullptr, nullptr};
+      if constexpr (kForm == kFormReluGrad) {
+        if (p.coef) {
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = n0 + 8 * j + 2 * (lane % 4);
-      float2 sc = make_float2(1.f, 1.f), sh = make_float2(0.f, 0.f);
-      if constexpr (kForm == kFormPost || kForm == kFormBnRelu) {
-        sc = __ldg(reinterpret_cast<const float2*>(p.scale + col));
-        sh = __ldg(reinterpret_cast<const float2*>(p.shift + col));
-      }
-      float2 bi = make_float2(0.f, 0.f);
-      if constexpr (kForm == kFormPost)
-        bi = __ldg(reinterpret_cast<const float2*>(p.bias + col));
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-        if constexpr (kForm == kFormPost) {
-          v0 = fmaxf(v0 + bi.x, 0.f) * sc.x + sh.x;
-          v1 = fmaxf(v1 + bi.y, 0.f) * sc.y + sh.y;
-        } else if constexpr (kForm == kFormBnRelu) {
-          v0 = fmaxf(v0 * sc.x + sh.x, 0.f);
-          v1 = fmaxf(v1 * sc.y + sh.y, 0.f);
-        } else {
-          const float2 rv =
-              __ldg(reinterpret_cast<const float2*>(rb[h] + col));
-          v0 = tanhf(v0 + rv.x);
-          v1 = tanhf(v1 + rv.y);
+          for (int h = 0; h < 2; ++h)
+            coef_row[h] = p.coef + (size_t)(min(m0 + 64 * wg + r0 + 8 * h,
+                                                p.m - 1) /
+                                            p.t) *
+                                       2 * p.n;
         }
-        *reinterpret_cast<uint32_t*>(stage_out + (r0 + 8 * h) * kG9StLd +
-                                     (8 * j + 2 * (lane % 4)) * 2) =
-            pack2(v0, v1);
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float a0, a1;
+          unpack2(ar[j][h], a0, a1);
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          float2* sv = reinterpret_cast<float2*>(
+              stage_out + (r0 + 8 * h) * kStLd + (8 * j + 2 * (lane % 4)) *
+                                                     4);
+          if constexpr (kForm == kFormTanhGrad) {
+            v0 *= 1.f - a0 * a0;
+            v1 *= 1.f - a1 * a1;
+          } else {
+            const float2 dp = *sv;
+            v0 += dp.x;
+            v1 += dp.y;
+            if (coef_row[h]) {
+              const float2 k =
+                  __ldg(reinterpret_cast<const float2*>(coef_row[h] + col));
+              const float2 c = __ldg(
+                  reinterpret_cast<const float2*>(coef_row[h] + p.n + col));
+              v0 += a0 * k.x + c.x;
+              v1 += a1 * k.y + c.y;
+            }
+            v0 = a0 > 0.f ? v0 : 0.f;
+            v1 = a1 > 0.f ? v1 : 0.f;
+          }
+          *sv = make_float2(v0, v1);
+        }
+      }
+    }
+    if constexpr (!kStageF32) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + 8 * j + 2 * (lane % 4);
+        float2 sc = make_float2(1.f, 1.f), sh = make_float2(0.f, 0.f);
+        if constexpr (kForm == kFormPost || kForm == kFormBnRelu) {
+          sc = __ldg(reinterpret_cast<const float2*>(p.scale + col));
+          sh = __ldg(reinterpret_cast<const float2*>(p.shift + col));
+        }
+        float2 bi = make_float2(0.f, 0.f);
+        if constexpr (kForm == kFormPost)
+          bi = __ldg(reinterpret_cast<const float2*>(p.bias + col));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+          if constexpr (kForm == kFormPost) {
+            v0 = fmaxf(v0 + bi.x, 0.f) * sc.x + sh.x;
+            v1 = fmaxf(v1 + bi.y, 0.f) * sc.y + sh.y;
+          } else if constexpr (kForm == kFormBnRelu) {
+            v0 = fmaxf(v0 * sc.x + sh.x, 0.f);
+            v1 = fmaxf(v1 * sc.y + sh.y, 0.f);
+          } else if constexpr (kForm == kFormTanh) {
+            const float2 rv =
+                __ldg(reinterpret_cast<const float2*>(rb[h] + col));
+            v0 = tanhf(v0 + rv.x);
+            v1 = tanhf(v1 + rv.y);
+          }
+          *reinterpret_cast<uint32_t*>(stage_out + (r0 + 8 * h) * kStLd +
+                                       (8 * j + 2 * (lane % 4)) * 2) =
+              pack2(v0, v1);
+        }
       }
     }
     named_sync(1 + wg, 128);
     const int row0 = m0 + 64 * wg;
+    // the output of this column tile: kFormPlain picks one of three
+    __nv_bfloat16* dst = p.out;
+    int ldo = p.n, c0 = n0;
+    if constexpr (kForm == kFormPlain) {
+      const int o = n0 / p.n_out;
+      dst = o == 0 ? p.out : (o == 1 ? p.out1 : p.out2);
+      ldo = p.n_out;
+      c0 = n0 - o * p.n_out;
+    }
     // 16-byte stores: a warp writes two whole 256-byte rows
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int q = wt + 128 * i, r = q / 16, ch = q % 16;
+      uint4 v;
+      if constexpr (kStageF32) {
+        const float4* f =
+            reinterpret_cast<const float4*>(stage_out + r * kStLd + ch * 32);
+        const float4 lo = f[0], hi = f[1];
+        v = make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w), pack2(hi.x, hi.y),
+                       pack2(hi.z, hi.w));
+      } else {
+        v = *reinterpret_cast<const uint4*>(stage_out + r * kStLd + ch * 16);
+      }
       if (row0 + r < p.m)
-        *reinterpret_cast<uint4*>(p.out + (size_t)(row0 + r) * p.n + n0 +
-                                  ch * 8) =
-            *reinterpret_cast<const uint4*>(stage_out + r * kG9StLd + ch * 16);
+        *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * ldo + c0 +
+                                  ch * 8) = v;
     }
-    if constexpr (kForm != kFormPost && kForm != kFormBnRelu) continue;
+    if constexpr (kForm != kFormPost && kForm != kFormBnRelu && !kStageF32)
+      continue;
     if (p.part && row0 < p.m) {
       // column wt of the unit's rows, one run of rows a segment, in order
       const int unit = row0 / 64, rows = min(64, p.m - row0);
       int b = row0 / p.t, tt = row0 - b * p.t, sg = tt / p.seg_len;
-      const __nv_bfloat16* col =
-          reinterpret_cast<const __nv_bfloat16*>(stage_out) + wt;
+      // the staged value of row i in column wt
+      auto staged = [&](int i) {
+        if constexpr (kStageF32)
+          return reinterpret_cast<const float*>(stage_out + i * kStLd)[wt];
+        else
+          return __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+              stage_out + i * kStLd)[wt]);
+      };
       for (int r = 0; r < rows;) {
         const int run = min(rows - r, min((sg + 1) * p.seg_len, p.t) - tt);
         float sum = 0.f;
 #pragma unroll 4
         for (int i = r; i < r + run; ++i)
-          sum += __bfloat162float(col[i * (kG9StLd / 2)]) *
-                 (p.mask ? __ldg(p.mask + row0 + i) : 1.f);
+          sum += staged(i) * (p.mask ? __ldg(p.mask + row0 + i) : 1.f);
         const int u0 = (b * p.t + sg * p.seg_len) / 64;
         p.part[((size_t)(b * p.nseg + sg) * p.slots + unit - u0) * p.n + n0 +
                wt] = sum;
@@ -374,13 +524,15 @@ inline int sm_count() {
 // maps: each a whole number of 64-column K tiles), lda and ldw multiples of
 // 8 (16-byte rows), and the form's vectors (16-byte aligned) set: scale and
 // shift, and bias in the post form, a_scale/a_shift in the bn_relu form;
-// row_bias and t > 0, or bias, in the tanh form; bias and out_f32 in the f32
-// form. A shape it does not take returns cudaErrorInvalidValue, and nothing
-// is launched.
+// row_bias and t > 0, or bias, in the tanh form; out_f32 in the f32 form;
+// aux and t > 0 in the gradient forms, aux_f32 in the relu_grad form;
+// out1, out2 and n = 3 n_out, n_out % 128 == 0, in the plain form. A shape
+// it does not take returns cudaErrorInvalidValue, and nothing is launched.
 template <int kForm, int kParts>
 cudaError_t gemm_sm90_maps(const void* const* a, int lda, const void* wt,
                            int ldw, const Sm90Args& p, cudaStream_t stream) {
   constexpr bool kAffine = kForm == kFormPost || kForm == kFormBnRelu;
+  constexpr bool kSums = kAffine || g9_stage_f32(kForm);
   const int kp = p.k / kParts;
   if (p.m <= 0 || p.k <= 0 || p.n % kG9N || p.k % 8 || lda % 8 || ldw % 8 ||
       lda < kp || ldw < p.k ||
@@ -389,9 +541,14 @@ cudaError_t gemm_sm90_maps(const void* const* a, int lda, const void* wt,
       (kForm == kFormPost && !p.bias) ||
       (kForm == kFormBnRelu && (!p.a_scale || !p.a_shift)) ||
       (kForm == kFormTanh && !(p.row_bias ? p.t > 0 : p.bias != nullptr)) ||
-      (kForm == kFormF32 && (!p.bias || !p.out_f32)) ||
+      (kForm == kFormF32 && !p.out_f32) ||
       (kForm != kFormF32 && !p.out) ||
-      (p.part && (!kAffine || p.t <= 0 || p.seg_len <= 0 ||
+      (g9_stage_f32(kForm) && (!p.aux || p.t <= 0)) ||
+      (kForm == kFormReluGrad && !p.aux_f32) ||
+      (kForm == kFormPlain &&
+       (!p.out1 || !p.out2 || p.n_out <= 0 || p.n_out % kG9N ||
+        p.n != 3 * p.n_out)) ||
+      (p.part && (!kSums || p.t <= 0 || p.seg_len <= 0 ||
                   p.slots < seg_slots(p.t, p.seg_len))))
     return cudaErrorInvalidValue;
   Sm90AMaps<kParts> tm_a;
@@ -403,14 +560,15 @@ cudaError_t gemm_sm90_maps(const void* const* a, int lda, const void* wt,
   if (!tensor_map_2d_bf16(&tm_w, wt, p.k, p.n, (unsigned long long)ldw * 2,
                           kG9K, kG9N, 128))
     return cudaErrorInvalidValue;
+  constexpr int kSmem = g9_smem(kForm);
   cudaError_t err = cudaFuncSetAttribute(
       gemm_sm90_kernel<kForm, kParts>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kG9Smem);
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   const int tiles = ((p.m + kG9M - 1) / kG9M) * (p.n / kG9N);
   const int grid = tiles < sm_count() ? tiles : sm_count();
   gemm_sm90_kernel<kForm, kParts>
-      <<<grid, kG9Threads, kG9Smem, stream>>>(tm_a, tm_w, p);
+      <<<grid, kG9Threads, kSmem, stream>>>(tm_a, tm_w, p);
   return cudaGetLastError();
 }
 

@@ -50,6 +50,26 @@ __device__ __forceinline__ uint4 ld_stream16(const void* p) {
       : "l"(p));
   return v;
 }
+__device__ __forceinline__ unsigned ld_stream4(const void* p) {
+  unsigned v;
+  asm volatile("ld.global.nc.L1::no_allocate.L2::256B.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p));
+  return v;
+}
+// kBytes (4, 8 or 16) streamed bytes in the low words of a uint4
+template <int kBytes>
+__device__ __forceinline__ uint4 ld_stream(const void* p) {
+  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16, "4, 8 or 16");
+  if constexpr (kBytes == 16) {
+    return ld_stream16(p);
+  } else if constexpr (kBytes == 8) {
+    const uint2 v = ld_stream8(p);
+    return make_uint4(v.x, v.y, 0u, 0u);
+  } else {
+    return make_uint4(ld_stream4(p), 0u, 0u, 0u);
+  }
+}
 
 __host__ __device__ inline int round_up(int v, int m) {
   return (v + m - 1) / m * m;
@@ -152,6 +172,18 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// 16 bytes from global to shared memory (both 16-byte aligned) without
+// passing through registers, cached in L2 only; complete once this thread
+// has waited with cp_async_wait_all
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // orders this thread's generic-proxy writes to shared memory before later
@@ -365,6 +397,44 @@ __device__ __forceinline__ void wgmma_m64n192k16_tt(float (&d)[96],
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
         "+f"(d[95])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// D (64 x 128, f32, registers) = A (64 x 16) B (16 x 128) + (scale_d ? D :
+// 0), bf16 operands in shared memory, both MN-major (imm-trans-a =
+// imm-trans-b = 1): the A^T B of a weight gradient, whose operands are
+// row-major (K, M) and (K, N) tiles as TMA lands them; laid out as above.
+__device__ __forceinline__ void wgmma_m64n128k16_tt(float (&d)[64],
+                                                     uint64_t da, uint64_t db,
+                                                     int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
 // D (64 x N, f32, registers) = A (64 x 16) B (16 x N) + (scale_d ? D : 0),

@@ -23,7 +23,10 @@ as a (B * nseg, slots, N) f32 workspace. `gemm_sm90_tail` computes the
 tail's forms (`gemm_sm90_tail_reference`): the post form over three A
 tensors as K-slices of one product (`k_walk`), the tanh form with a
 per-utterance row bias (`tile_utterances`) or a column bias, and the f32
-form acc + bias.
+form acc + bias. `gemm_tn_sm90` reaches the weight-gradient kernel of
+the training tail's bf16 backward (`csrc/gemm_tn_sm90.cuh`, built into the
+mfa_astp_train library) for one A^T B product, against
+`gemm_tn_sm90_reference`.
 """
 
 import ctypes
@@ -216,6 +219,43 @@ def gemm_sm90(a, k, wt, scale, shift, bias=None, a_scale=None, a_shift=None,
 
 
 gemm_sm90.launches = 0
+
+
+def gemm_tn_sm90_reference(a, b):
+    """Plain version of gemm_tn_sm90: a^T b in f32."""
+    return a.float().t() @ b.float()
+
+
+def gemm_tn_sm90(a, b):
+    """a (K, M), b (K, N) bf16 CUDA tensors, M and N multiples of 128 ->
+    a^T b (M, N) f32, split over K with a fixed-order sum. Raises for a
+    shape the kernel does not take; no fallback."""
+    if a.device.type != "cuda":
+        raise ValueError("gemm_tn_sm90 runs on the card only; the plain "
+                         "version is gemm_tn_sm90_reference")
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError("gemm_tn_sm90 takes bf16 operands")
+    (k, m), (kb, n) = a.shape, b.shape
+    if k != kb or m % 128 or n % 128 or k == 0:
+        raise ValueError(f"gemm_tn_sm90: a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)}: needs one K and M, N multiples "
+                         "of 128")
+    from wespeaker_tpu_torch.ops.mfa_astp_vjp import _lib as train_lib
+
+    lib = train_lib()
+    dev = a.device
+    out = torch.empty((m, n), device=dev, dtype=torch.float32)
+    n_work = lib.ws_gemm_tn_sm90_workspace(m, n, k)
+    work = torch.empty(n_work, device=dev, dtype=torch.float32)
+    ptrs = _build.pointers([a.contiguous(), b.contiguous(), out, work])
+    rc = lib.ws_gemm_tn_sm90(*ptrs[:3], m, n, k, ptrs[3], n_work,
+                             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, rc, "gemm_tn_sm90")
+    gemm_tn_sm90.launches += 1
+    return out
+
+
+gemm_tn_sm90.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,11 +17,17 @@ approximation of the layer-by-layer path.
 A CPU tensor takes the plain versions (`mfa_astp_train_fwd_reference`,
 `mfa_astp_train_bwd_reference`); a CUDA tensor launches the kernels of
 csrc/mfa_astp_train.cu (bound and design in that file; the bf16 forward
-is csrc/mfa_astp_fwd.cuh's chain on gemm_sm90, shared with inference), or
-raises for a shape or type they do not take. Rounding follows the JAX
+is csrc/mfa_astp_fwd.cuh's chain on gemm_sm90, shared with inference, and
+the bf16 backward eleven launches on gemm_sm90's forms and gemm_tn_sm90),
+or raises for a shape or type they do not take. Rounding follows the JAX
 kernels: h, the tanh activations, dlogits, dpre and dacc are rounded to
 the I/O type before their products, dctx and dbm are summed from the f32
 values, cstats are f32, every product accumulates in f32.
+
+`tn_splits` and `tn_units` give the walk of the bf16 backward's
+weight-gradient launch (csrc/gemm_tn_sm90.cuh), `dx_tiles` the output of
+each column tile of its dx launch, mirrored by the C code, so that the CPU
+tests can check them.
 """
 
 import ctypes
@@ -31,6 +37,7 @@ from typing import Optional
 import torch
 
 from wespeaker_tpu_torch.ops import _build
+from wespeaker_tpu_torch.ops.cam_block import partial_slots
 from wespeaker_tpu_torch.ops.mfa_astp import (_dot, kmajor_weights,
                                               mfa_astp_reference,
                                               unit_affine)
@@ -148,6 +155,67 @@ def mfa_astp_train_bwd_reference(x2, x3, x4, wm, k1, b2, k2, pooled, h, att,
     return (*dxs, dwm, dbm, dk1, db1, dk2, db2)
 
 
+TILE, K_TILE = 128, 64  # gemm_sm90's output tile, its K stage
+
+
+def tn_splits(tiles: int, ktiles: int, sms: int = 132):
+    """The split count of the weight-gradient launch's K (ktiles 64-row
+    tiles) over `tiles` output tiles on `sms` SMs, and the K tiles a split:
+    the s of 1..32 with the least modelled time, whole waves of units of
+    ceil(ktiles / s) K tiles plus four tiles' worth of epilogue, the
+    smallest on a tie; empty splits dropped
+    (csrc/gemm_tn_sm90.cuh::gemm_tn_sm90_splits)."""
+    best, best_cost = 1, None
+    for s in range(1, min(32, ktiles) + 1):
+        cost = -(-tiles * s // sms) * (-(-ktiles // s) + 4)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    per = -(-ktiles // best)
+    return -(-ktiles // per), per
+
+
+def tn_units(products, k: int, sms: int = 132):
+    """The work units of one gemm_tn_sm90 launch, in the order a CTA's
+    index walks them: products is [(a_parts, a_cols, n)], each an A^T B
+    with A a_parts tensors of a_cols columns side by side (M = a_parts
+    a_cols) and B n columns. Yields dicts with the product q, the split,
+    the output tile (m0, n0), the A tensor and its column for the tile
+    (`part`, `col`: row tile m0 of three side-by-side tensors reads tensor
+    m0 // a_cols at column m0 % a_cols) and the K rows [k0, k1)."""
+    tiles = []
+    for q, (parts, a_cols, n) in enumerate(products):
+        m = parts * a_cols
+        tiles += [(q, m0, n0) for m0 in range(0, m, TILE)
+                  for n0 in range(0, n, TILE)]
+    ktiles = -(-k // K_TILE)
+    splits, per = tn_splits(len(tiles), ktiles, sms)
+    for u in range(len(tiles) * splits):
+        q, m0, n0 = tiles[u % len(tiles)]
+        split = u // len(tiles)
+        parts, a_cols, _ = products[q]
+        width = a_cols if parts > 1 else parts * a_cols
+        yield dict(q=q, split=split, m0=m0, n0=n0, part=m0 // width,
+                   col=m0 % width, k0=split * per * K_TILE,
+                   k1=min((split + 1) * per, ktiles) * K_TILE)
+
+
+def softmax_bwd_frames(io_bytes: int) -> int:
+    """Frames of (logits f32, h in the I/O type) the softmax backward
+    stages at once for 64 channels, each row padded by 16 bytes, in its
+    100 KB (csrc/mfa_astp_train.cu::sb_frames): 246 in bf16, 188 in f32.
+    T up to this is read once; a longer T is staged again for the writes."""
+    return 100 * 1024 // ((64 * 4 + 16) + (64 * io_bytes + 16))
+
+
+def dx_tiles(c: int):
+    """The dx launch (gemm_sm90's plain form over N = 3C): for each
+    128-column tile n0, the output it writes (0, 1, 2 for dx2, dx3, dx4)
+    and its first column there."""
+    if c % TILE:
+        raise ValueError(f"the dx launch takes C % {TILE} == 0; got C {c}")
+    return [(n0 // c, n0 % c) for n0 in range(0, 3 * c, TILE)]
+
+
 def _check_cuda_args(x2, x3, x4, wm, k1, k2, glob):
     """Raises for what the kernels do not take: C, D and A multiples of 128
     are also what gemm_sm90 takes in bf16 (C a multiple of its 64-column K
@@ -259,34 +327,33 @@ def mfa_astp_train_bwd(x2, x3, x4, wm, k1, b2, k2, pooled, h, att, cstats,
 
     ins = [v.detach().contiguous() for v in (x2, x3, x4, h, att)]
     ins += [f32(pooled), f32(cstats), f32(g)]
-    weights = [io_(k2), io_(k2.t()), io_(k1[:d].t())]      # k2, k2^T, k1x^T
-    k1mst = io_(k1[d:].t()) if glob else None              # [k1m|k1s]^T
-    wmt = [io_(wm[i * c:(i + 1) * c].t()) for i in range(3)]  # wm_i^T
     b2f = f32(b2)
-    dxs = [empty(b, t, c, dtype=io) for _ in range(3)]
-    dwm, dbm, dk1x = empty(3 * c, d), empty(d), empty(d, a)
-    dctx, dk2 = empty(b, a), empty(a, d)
-    logits, dl = empty(b, t, d), empty(b, t, d, dtype=io)
-    datt, dp = empty(b, t, a), empty(b, t, a, dtype=io)
-    dctx_io = empty(b, a, dtype=io)
-    dcms = empty(b, 2 * d) if glob else None
-    dh, da, dbm_part = empty(b, t, d), empty(b, t, d, dtype=io), empty(b, d)
-
     lib = _lib()
-    n_work = lib.ws_mfa_astp_train_bwd_workspace(b, t, c, d, a)
-    work = empty(n_work)
     ptr = _build.pointers
-
-    def opt(v):
-        return None if v is None else ptr([v])[0]
-
-    rc = lib.ws_mfa_astp_train_bwd(
-        *ptr(ins + weights), opt(k1mst), *ptr(wmt + [b2f] + dxs),
-        *ptr([dwm, dbm, dk1x, dctx, dk2, logits, dl, datt, dp, dctx_io]),
-        opt(dcms), *ptr([dh, da, dbm_part, work]), n_work,
-        b, t, c, d, a, int(glob), int(io == torch.bfloat16),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, rc, "mfa_astp_train_bwd")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if io == torch.bfloat16:
+        dxs, dwm, dbm, dk1x, dctx, dk2 = _bwd_sm90(lib, ins, wm, k1, k2,
+                                                   b2f, b, t, c, d, a, glob,
+                                                   io_, empty, stream)
+    else:
+        weights = [io_(k2), io_(k2.t()), io_(k1[:d].t())]  # k2, k2^T, k1x^T
+        k1mst = io_(k1[d:].t()) if glob else None           # [k1m|k1s]^T
+        wmt = [io_(wm[i * c:(i + 1) * c].t()) for i in range(3)]  # wm_i^T
+        dxs = [empty(b, t, c) for _ in range(3)]
+        dwm, dbm, dk1x = empty(3 * c, d), empty(d), empty(d, a)
+        dctx, dk2 = empty(b, a), empty(a, d)
+        logits, dl = empty(b, t, d), empty(b, t, d)
+        datt, dp = empty(b, t, a), empty(b, t, a)
+        dcms = empty(b, 2 * d) if glob else None
+        dh, da, dbm_part = empty(b, t, d), empty(b, t, d), empty(b, d)
+        n_work = lib.ws_mfa_astp_train_bwd_workspace(b, t, c, d, a)
+        work = empty(n_work)
+        rc = lib.ws_mfa_astp_train_bwd(
+            *ptr(ins + weights), _opt(k1mst), *ptr(wmt + [b2f] + dxs),
+            *ptr([dwm, dbm, dk1x, dctx, dk2, logits, dl, datt, dp]),
+            _opt(dcms), *ptr([dh, da, dbm_part, work]), n_work,
+            b, t, c, d, a, int(glob), stream)
+        _build.check(lib, rc, "mfa_astp_train_bwd")
     mfa_astp_train_bwd.launches += 1
     db1 = dctx.sum(dim=0)
     if glob:
@@ -296,6 +363,43 @@ def mfa_astp_train_bwd(x2, x3, x4, wm, k1, b2, k2, pooled, h, att, cstats,
     else:
         dk1 = dk1x
     return (*dxs, dwm, dbm, dk1, db1, dk2, torch.zeros(d, device=dev))
+
+
+def _opt(v):
+    return None if v is None else _build.pointers([v])[0]
+
+
+def _bwd_sm90(lib, ins, wm, k1, k2, b2f, b, t, c, d, a, glob, io_, empty,
+              stream):
+    """The bf16 backward (csrc/mfa_astp_train.cu, ws_mfa_astp_train_bwd_sm90):
+    every weight in the layout its product reads K-major: k2^T (D, A) for
+    the logits, k2 (A, D) for datt, k1 (3D or D, A) for dh_att and dcms,
+    wm (3C, D) for dx. -> (dxs, dwm, dbm, dk1x, dctx, dk2)."""
+    bf = torch.bfloat16
+    weights = [io_(k2.t()), io_(k2), io_(k1), io_(wm)]
+    dxs = [empty(b, t, c, dtype=bf) for _ in range(3)]
+    # the weight gradients in one f32 buffer [dwm | dk2 | dk1x]
+    wgrad = empty(3 * c * d + 2 * a * d)
+    dwm = wgrad[:3 * c * d].view(3 * c, d)
+    dk2 = wgrad[3 * c * d:3 * c * d + a * d].view(a, d)
+    dk1x = wgrad[3 * c * d + a * d:].view(d, a)
+    dbm, dctx = empty(d), empty(b, a)
+    logits, dl = empty(b, t, d), empty(b, t, d, dtype=bf)
+    dp, dctx_io = empty(b, t, a, dtype=bf), empty(b, a, dtype=bf)
+    da = empty(b, t, d, dtype=bf)
+    dcms, coef = (empty(b, 2 * d), empty(b, 2 * d)) if glob else (None, None)
+    slots = partial_slots(t, t)
+    part_ctx, part_bm = empty(b, slots, a), empty(b, slots, d)
+    n_work = lib.ws_mfa_astp_train_bwd_sm90_workspace(b, t, c, d, a)
+    work = empty(n_work)
+    ptr = _build.pointers
+    rc = lib.ws_mfa_astp_train_bwd_sm90(
+        *ptr(ins + weights + [b2f] + dxs),
+        *ptr([wgrad, dbm, dctx, logits, dl, dp, dctx_io, da]), _opt(dcms),
+        _opt(coef), *ptr([part_ctx, part_bm]), slots, *ptr([work]), n_work,
+        b, t, c, d, a, int(glob), stream)
+    _build.check(lib, rc, "mfa_astp_train_bwd")
+    return dxs, dwm, dbm, dk1x, dctx, dk2
 
 
 mfa_astp_train_bwd.launches = 0
@@ -348,7 +452,16 @@ def _lib():
     lib.ws_mfa_astp_train_fwd.restype = i
     lib.ws_mfa_astp_train_bwd_workspace.argtypes = [i] * 5
     lib.ws_mfa_astp_train_bwd_workspace.restype = ctypes.c_longlong
-    lib.ws_mfa_astp_train_bwd.argtypes = ([p] * 34 + [ctypes.c_longlong]
-                                          + [i] * 7 + [p])
+    ll = ctypes.c_longlong
+    lib.ws_mfa_astp_train_bwd.argtypes = [p] * 33 + [ll] + [i] * 6 + [p]
     lib.ws_mfa_astp_train_bwd.restype = i
+    lib.ws_mfa_astp_train_bwd_sm90_workspace.argtypes = [i] * 5
+    lib.ws_mfa_astp_train_bwd_sm90_workspace.restype = ll
+    lib.ws_mfa_astp_train_bwd_sm90.argtypes = ([p] * 28 + [i, p, ll]
+                                               + [i] * 6 + [p])
+    lib.ws_mfa_astp_train_bwd_sm90.restype = i
+    lib.ws_gemm_tn_sm90_workspace.argtypes = [i] * 3
+    lib.ws_gemm_tn_sm90_workspace.restype = ll
+    lib.ws_gemm_tn_sm90.argtypes = [p] * 3 + [i] * 3 + [p, ll, p]
+    lib.ws_gemm_tn_sm90.restype = i
     return lib

@@ -23,9 +23,15 @@ utterance with no valid frame gets uniform softmax weights, as in JAX.
 
 Row 6 is csrc/common.cuh's `softmax_stats_kernel`, the one the ECAPA tail
 kernels run inside, reached through its own C entry point in
-csrc/pooling.cu: one thread per (utterance, channel) walks T twice (the
-max, then the sums), so any D and up to 65,535 utterances (grid.y) work,
-where the TPU kernel asked for D % 128 == 0 and padded B to 8. Row 7 is
+csrc/pooling.cu. It reads the logits and x once: a thread owns 8 bytes of
+logits a frame (4 bf16 or 2 f32 channels of one utterance) and the same
+channels of x, streamed past L1, 8 frames in flight, and keeps an online
+softmax (a running max, and the sums of e, e x and e x^2 rescaled by
+exp(m_old - m_new) where a batch of frames raises the max); T is split
+across warps only where the (utterance, 32-column) items alone do not fill
+the card, and the warps' parts merge by the same rescaling in warp order
+(`softmax_plan`). Its grid is 1-D, so any B and D work, where the TPU
+kernel asked for D % 128 == 0 and padded B to 8. Row 7 is
 csrc/pooling.cu's `masked_stats_kernel`, which reads x once: a thread owns
 4 bf16 (2 f32) channels of one utterance and reads them with 8-byte loads
 streamed past L1, 16 frames in flight; T is split across warps only where
@@ -41,8 +47,8 @@ Bound on an H100 at ReDimNetB2's pooling shape (B=512, T=200, D=1152,
 bf16 logits and x): row 6 reads 472 MB and writes 4.7 MB, 0.142 ms at
 3.35 TB/s against 0.014 ms of f32 arithmetic (0.213 ms with f32 logits);
 row 7 reads 236 MB, 0.072 ms, and at ResNet34's TSTP shape (T' = 25,
-D = 2560) 0.023 ms. Both are bound by bytes; row 6's second pass over T
-reads the logits again where L2 does not keep them (later work).
+D = 2560) 0.023 ms. Both are bound by bytes, and each reads its inputs
+once.
 """
 
 import ctypes
@@ -54,7 +60,27 @@ import torch
 from wespeaker_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-_MAX_SOFTMAX_BATCH = 65535  # row 6's grid.y
+# row 6's launch (csrc/common.cuh): warps a block, frames a batch (the
+# vector path; the scalar path takes 4), SMs x warps an SM
+SOFTMAX_WARPS, SOFTMAX_FRAMES, CARD_WARPS = 8, 8, 132 * 32
+
+
+def softmax_plan(b: int, t: int, d: int, logit_bytes: int):
+    """Row 6's split of the work, as csrc/common.cuh's softmax_stats
+    launcher makes it: (kc, chunks, tw) with kc = 8 // logit_bytes channels
+    a thread, chunks = the 32-thread column groups of an utterance (items
+    are (utterance, chunk)), and tw the warps an item's frames are split
+    over: 1 where the items fill the card twice over, else doubled until
+    they do, up to SOFTMAX_WARPS, while a warp keeps more than one batch of
+    SOFTMAX_FRAMES frames. Warp j of an item takes frames j, j + tw, ...
+    in batches of SOFTMAX_FRAMES."""
+    kc = 8 // logit_bytes
+    chunks = -(-(-(-d // kc)) // 32)
+    tw = 1
+    while (tw < SOFTMAX_WARPS and b * chunks * tw < 2 * CARD_WARPS
+           and t > SOFTMAX_FRAMES * tw):
+        tw *= 2
+    return kc, chunks, tw
 
 
 def softmax_stats_reference(logits, x, mask=None):
@@ -146,9 +172,6 @@ def fused_softmax_stats(logits: torch.Tensor, x: torch.Tensor,
         raise ValueError(f"{what}: no kernel for {x.device}")
     _check_cuda_args(what, [x, logits], mask)
     b, t, _ = x.shape
-    if b > _MAX_SOFTMAX_BATCH:
-        raise ValueError(f"{what} takes at most {_MAX_SOFTMAX_BATCH} "
-                         "utterances")
     mask = _mask_arg(mask)
     out = torch.empty(b, 2 * d, device=x.device, dtype=torch.float32)
     lib = _lib()
