@@ -927,8 +927,12 @@ def phase_trainer(dev):
 
 
 def phase_train_timing(model, dev, smi):
-    """CUDA events after warm-up at B=256, T=200, C=512, bf16: the train
-    kernels and their plain versions with bounds; then the train step of
+    """At B=256, T=200, C=512, bf16: the backward kernels against their
+    plain version on the same residuals (each of the eight gradients at
+    cosine >= 0.9999, db2 exactly zero), since the weight-gradient launch
+    splits K by the shape (7 splits here, 3 at B=64); CUDA events after
+    warm-up for the train kernels and their plain versions with bounds;
+    then the train step of
     bench.py (B=256, 2 s chunks, bf16, dither, spec-aug, ArcMargin 17,982,
     SGD) on the kernel path and the plain path, host clock around 5 steps
     that end in a synchronize."""
@@ -941,6 +945,18 @@ def phase_train_timing(model, dev, smi):
                         device=dev)
     pooled, h, att, cstats = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw)
     res = (*xs, wm, k1, b2, k2, pooled, h, att, cstats, g)
+    grads = mfa_astp_vjp.mfa_astp_train_bwd(*res)
+    torch.cuda.synchronize()
+    if grads[-1].abs().max().item() != 0.0:
+        raise AssertionError(f"db2 is not exactly zero at B={b}")
+    plain = mfa_astp_vjp.mfa_astp_train_bwd_reference(*res)
+    bwd = [scaled_compare(gv, wv, io)
+           for gv, wv in zip(grads[:-1], plain[:-1])]
+    errs = {"train_bwd": max(e for e, _ in bwd)}
+    print(f"train bwd bf16 B={b} T={T} C={C} against its plain version: "
+          "db2=0 " + " ".join(f"{n}(err={e:.3g} cos={c_:.7f})"
+                              for n, (e, c_) in zip(GRAD_NAMES, bwd)))
+    del grads, plain
     fwd_flops, fwd_bytes = kernel_bounds.mfa_astp_tail(b, T, C, train=True)
     bwd_flops, bwd_bytes = kernel_bounds.mfa_astp_tail_bwd(b, T, C)
     res_t = {
@@ -1005,7 +1021,7 @@ def phase_train_timing(model, dev, smi):
           f"{bwd_old} WMMA or FMA); train step "
           + "; ".join(f"{k} path {v[0]:.1f} audio-s/s ({v[1]:.1f} ms/step, "
                       f"peak {v[2]:.1f} GiB)" for k, v in rates.items()))
-    return res_t
+    return res_t, errs
 
 
 def voice(rng, n):
@@ -2510,7 +2526,9 @@ def main():
     launches.update(train_fwd=train_launches["train_fwd"],
                     train_bwd=train_launches["train_bwd"])
     timing = phase_timing(model, dev, smi)
-    timing.update(phase_train_timing(model, dev, smi))
+    train_timing, train_errs = phase_train_timing(model, dev, smi)
+    timing.update(train_timing)
+    errs["train_bwd"] = max(errs["train_bwd"], train_errs["train_bwd"])
     errs.update(phase_res2_kernels(model, dev))
     launches["res2"] = phase_res2_slice(model, dev)["res2"]
     timing.update(phase_res2_timing(model, dev, smi))

@@ -8,6 +8,7 @@ arithmetic on shapes whose counts are known by hand."""
 import pytest
 
 from wespeaker_tpu_torch.bin import kernel_bounds as kb
+from wespeaker_tpu_torch.ops import gemm_sm90 as g9
 
 
 @pytest.mark.parametrize("flops,nbytes,want", [
@@ -248,6 +249,12 @@ def test_mfa_astp_tail_bwd_floor_by_hand():
         2 * m * 1536 * 1536 / 989e12 * 1e3), "operations")
     assert steps["weight_grads"][1] == "operations"
     assert round(steps["weight_grads"][0], 3) == 0.285
+    # the split sum reads the slabs of the launch's own plan, 7 splits of
+    # its 168 tiles at 800 K tiles, and writes the gradients once
+    wgrad = 3 * 512 * 1536 + 2 * 128 * 1536
+    assert g9.tn_splits(168, 800, sms=132) == (7, 115)
+    assert steps["splitk_sum"] == (pytest.approx(8 * wgrad * 4 / 3.35e9),
+                                   "bytes")
     assert round(steps["dacc_gemm"][0], 3) == 0.192
     assert round(steps["logits_gemm"][0], 3) == 0.098
     total = sum(ms for ms, _ in steps.values())

@@ -256,6 +256,9 @@ def test_softmax_plan_splits_t_only_where_items_do_not_fill():
     assert pooling.softmax_plan(3, 201, 128, 2) == (4, 1, 8)
     # 65,537 utterances: a 1-D grid of items, no cap on B
     assert pooling.softmax_plan(65537, 2, 8, 2) == (4, 1, 1)
+    # the plan follows the SMs it is given: on half the card ReDimNetB2's
+    # 4,608 bf16 items fill it twice over with one warp each
+    assert pooling.softmax_plan(512, 200, 1152, 2, sms=66) == (4, 9, 1)
 
 
 def test_wrappers_check_shapes_on_every_device():

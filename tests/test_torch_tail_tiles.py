@@ -24,10 +24,10 @@ csrc/mfa_astp_fwd.cuh on csrc/gemm_sm90.cuh), on the CPU.
   `mfa_astp_train_reference`. An emulation that gives a whole tile its
   first row's utterance misses where tiles straddle utterances.
 - The bf16 backward's plans (csrc/mfa_astp_train.cu on gemm_sm90 and
-  gemm_tn_sm90): the weight-gradient launch's units (`ops.mfa_astp_vjp.
+  gemm_tn_sm90): the weight-gradient launch's units (`ops.gemm_sm90.
   tn_units`, mirrored by the C launcher) give every output tile every K
-  row once, splits in order, and whole waves of 132 SMs at the flagship
-  shape; row tile m0 of dwm reads x_{2 + m0 // C} at column m0 % C; the
+  row once, splits in order, and fill their last wave of 132 SMs to at
+  least 95% at the flagship shape; row tile m0 of dwm reads x_{2 + m0 // C} at column m0 % C; the
   dx launch's column tile n0 writes dx_{2 + n0 // C} (`dx_tiles`).
 - A plain-torch emulation of the backward as the kernels compute it: the
   logits in the f32 form; the softmax backward by 64-channel groups, four
@@ -59,7 +59,7 @@ from wespeaker_tpu.ops import mfa_astp_pallas as jtail  # noqa: E402
 from wespeaker_tpu.ops import mfa_astp_vjp as jvjp  # noqa: E402
 from wespeaker_tpu_torch.ops import gemm_sm90 as g9  # noqa: E402
 from wespeaker_tpu_torch.ops import mfa_astp_vjp as tvjp  # noqa: E402
-from wespeaker_tpu_torch.ops.cam_block import (partial_slots,  # noqa: E402
+from wespeaker_tpu_torch.ops.gemm_sm90 import (partial_slots,  # noqa: E402
                                                segment_units)
 
 torch.set_num_threads(2)
@@ -286,7 +286,7 @@ def test_weight_grad_units_cover_every_k_row_once(b, t, c):
     row tile m0 reads x_{2 + m0 // C} at column m0 % C."""
     d, a, k = 1536, 128, b * t
     products = [(3, c, d), (1, a, d), (1, d, a)]
-    units = list(tvjp.tn_units(products, k))
+    units = list(g9.tn_units(products, k))
     ktiles = -(-k // 64)
     seen = {}
     for u in units:
@@ -308,7 +308,7 @@ def test_weight_grad_units_cover_every_k_row_once(b, t, c):
                                                                 runs[1:]))
         assert all(k1 > k0 for _, k0, k1 in runs)
     if b == 256:
-        # the flagship: the units fill whole waves of 132 SMs to >= 95%
+        # the flagship: the units fill their last wave of 132 SMs to >= 95%
         waves = -(-len(units) // 132)
         assert len(units) / (132 * waves) >= 0.95
 
@@ -449,7 +449,7 @@ def emulate_bwd(xs, wm, k1, b2, k2, pooled, h, att, cstats, g, glob,
     b_ops = [dacc, dl2, dpre]
     products = [(3, c, d), (1, a, d), (1, d, a)]
     slabs = {}
-    for u in tvjp.tn_units(products, m):
+    for u in g9.tn_units(products, m):
         q = u["q"]
         kr = slice(u["k0"], min(u["k1"], m))
         av = a_ops[q][u["part"]][kr, u["col"]:u["col"] + 128]

@@ -32,6 +32,8 @@ its own inputs with the same `bound` (with `mfa_astp_tail`, `res2_chain`,
 
 import math
 
+from wespeaker_tpu_torch.ops.gemm_sm90 import tn_splits
+
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
 PEAK_F32_FLOPS = 67e12     # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -197,16 +199,20 @@ def mfa_astp_tail_floor(b, t, c, d=1536, a=128):
     return out
 
 
-def mfa_astp_tail_bwd_floor(b, t, c, d=1536, a=128, splits=7):
+def mfa_astp_tail_bwd_floor(b, t, c, d=1536, a=128):
     """The floor of the port's bf16 backward for row 5
     (csrc/mfa_astp_train.cu, ws_mfa_astp_train_bwd_sm90): the f32 logits,
     dlogits, dh_pool, dpre and dacc pass through device memory, so each
     launch has its own bound, and the floor is their sum (the weight
-    gradients are one launch, then the fixed-order sum of its `splits`
-    f32 slabs; the partial-sum readers move under 10 MB and are left out).
+    gradients are one launch, then the fixed-order sum of the f32 slabs of
+    the K splits that launch makes, `tn_splits` of its 128 x 128 tiles; the
+    partial-sum readers move under 10 MB and are left out).
     -> [(launch, ms, "operations" or "bytes")]."""
     m = b * t
     wgrad = 3 * c * d + 2 * a * d  # f32 elements of dwm, dk2, dk1x
+    tiles = ((-(-3 * c // 128)) * -(-d // 128)
+             + 2 * -(-a // 128) * -(-d // 128))  # dwm, then dk2 and dk1x
+    splits, _ = tn_splits(tiles, -(-m // 64))
     steps = [
         ("logits_gemm", 2 * m * a * d,
          m * a * BF16 + a * d * BF16 + m * d * F32),

@@ -594,12 +594,24 @@ __global__ void __launch_bounds__(32 * kSmWarps)
   }
 }
 
+// The card's SMs, read once (132 on an H100 SXM, taken where the query
+// fails); device.py::sm_count gives the Python mirrors the same count.
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, v = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+    return v > 0 ? v : 132;
+  }();
+  return n;
+}
+
 // tw, the warps an item's frames are split over: 1 where the items fill
-// the card twice over (132 SMs x 32 warps x 2), else doubled until they do,
+// the card twice over (sms SMs x 32 warps x 2), else doubled until they do,
 // up to kSmWarps, while a warp keeps more than one batch of frames.
-__host__ __device__ inline int softmax_stats_tw(long long items, int t) {
+inline int softmax_stats_tw(long long items, int t, int sms) {
   int tw = 1;
-  while (tw < kSmWarps && items * tw < 2 * 132 * 32 && t > kSmFrames * tw)
+  while (tw < kSmWarps && items * tw < 2LL * sms * 32 && t > kSmFrames * tw)
     tw *= 2;
   return tw;
 }
@@ -613,7 +625,7 @@ cudaError_t softmax_stats(const TL* logits, const T* h, const float* mask,
   const int chunks = ((d + kC - 1) / kC + 31) / 32;
   const long long items = (long long)b * chunks;
   if (items > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int tw = softmax_stats_tw(items, t);
+  const int tw = softmax_stats_tw(items, t, sm_count());
   const long long blocks = (items + kSmWarps / tw - 1) / (kSmWarps / tw);
   const bool aligned = d % kC == 0 &&
                        reinterpret_cast<uintptr_t>(logits) % 16 == 0 &&

@@ -508,16 +508,6 @@ __global__ void __launch_bounds__(kG9Threads, 1)
   }
 }
 
-inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 132;
-  }();
-  return n;
-}
-
 // One launch: A (m, k) at row stride lda, or (kParts = 3) A0, A1, A2 each
 // (m, k / 3) at row stride lda; wt (n, k) at row stride ldw; all bf16 and
 // 16-byte aligned. Requires n % 128 == 0, k % 8 == 0 (k % 192 == 0 for three

@@ -20,9 +20,12 @@
 // gemm_sm90's. The products have few output tiles (dwm 144, dk2 and dk1x
 // 12 each at C = 512), so K is split: a work unit is (split, tile), tiles
 // fastest, so the units in flight share one K range in L2; the split count
-// makes the units whole waves of the card's SMs where it can
-// (`gemm_tn_sm90_splits`: 168 tiles x 11 splits = 14 waves of 132), and a
-// persistent CTA an SM walks them. Each unit stores its f32 partial tile
+// is the one with the least modelled time, the waves of units over the
+// card's SMs times a unit's K tiles plus its epilogue
+// (`gemm_tn_sm90_splits`). At B=256, T=200, C=512 that is 168 tiles x 7
+// splits of 115 K tiles = 1,176 units, 8.9 waves of 132: 11 splits would
+// fill 14 whole waves, but their 73-tile units pay the epilogue more often
+// (cost 1,078 against 1,071). A persistent CTA an SM walks the units. Each unit stores its f32 partial tile
 // from the registers into its split's slab of the workspace, and
 // splitk_reduce_kernel sums the slabs in split order: the same bits every
 // call, no atomics. Row tile m0 of a product whose A is three tensors side
@@ -189,7 +192,7 @@ __global__ void __launch_bounds__(kG9Threads, 1)
 // of units each of ceil(ktiles / s) K tiles plus about four tiles' worth
 // for its epilogue; the smallest on a tie. Splits that would be empty are
 // dropped (ceil(ktiles / kt_per) of them remain). Writes the K tiles a
-// split to *kt_per. ops/mfa_astp_vjp.py::tn_splits mirrors it.
+// split to *kt_per. ops/gemm_sm90.py::tn_splits mirrors it.
 inline int gemm_tn_sm90_splits(int tiles, int ktiles, int sms, int* kt_per) {
   int best = 1;
   long long best_cost = -1;

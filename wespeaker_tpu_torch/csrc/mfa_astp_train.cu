@@ -47,8 +47,9 @@
 //   6. dx = dacc wm^T as one launch over N = 3C in the plain form, column
 //      tile n0 writing dx_{2 + n0 / C};
 //   7. dwm = [x2 | x3 | x4]^T dacc, dk2 = att^T dlogits and dk1x = h^T dpre
-//      in one launch of gemm_tn_sm90.cuh (wgmma on MN-major tiles, split K
-//      in whole waves, a fixed-order sum of the splits).
+//      in one launch of gemm_tn_sm90.cuh (wgmma on MN-major tiles, K split
+//      by a cost model of waves and epilogues, a fixed-order sum of the
+//      splits).
 // Every weight is read as the wrapper receives it in the JAX layout (wm
 // (3C, D), k1 (3D or D, A), k2 (A, D)) or, for the logits, k2^T: each is
 // already K-major for the product that reads it. Eleven launches (nine

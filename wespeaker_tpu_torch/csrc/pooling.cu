@@ -198,11 +198,12 @@ cudaError_t masked_stats_entry(const void* x, const float* mask, float* out,
   constexpr int kC = 8 / sizeof(T);
   if (b <= 0 || t <= 0 || d <= 0) return cudaErrorInvalidValue;
   const int chunks = ((d + kC - 1) / kC + 31) / 32;
-  // one warp an item where the items fill the card twice over (132 SMs x
+  // one warp an item where the items fill the card twice over (its SMs x
   // 32 warps x 2); below that, T is split until they do or a warp would
   // walk fewer than one batch of kStatsFrames frames
   int tw = 1;
-  while (tw < kStatsWarps && (long long)b * chunks * tw < 2 * 132 * 32 &&
+  while (tw < kStatsWarps &&
+         (long long)b * chunks * tw < 2LL * sm_count() * 32 &&
          t > kStatsFrames * tw)
     tw *= 2;
   const long long items = (long long)b * chunks;

@@ -1,4 +1,5 @@
-"""Device resolution and the shared-memory budget of the card.
+"""Device resolution, the shared-memory budget and the SM count of the
+card.
 
 Counterpart of wespeaker_tpu/ops/tpu_info.py: there the fused Pallas
 kernels sized their tiles against a VMEM budget read from the TPU; here
@@ -36,3 +37,18 @@ def smem_budget_bytes(device: DeviceLike = None) -> int:
         raise RuntimeError("this torch build does not report "
                            "shared_memory_per_block_optin")
     return int(optin)
+
+
+H100_SMS = 132  # an H100 SXM's SMs, where no card can be asked
+
+
+def sm_count(device: DeviceLike = None) -> int:
+    """The card's SMs, as the CUDA launchers read them at run time
+    (csrc/common.cuh::sm_count), or H100_SMS where CUDA is absent, so that
+    the CPU mirrors of the launch plans follow the card they model."""
+    if not torch.cuda.is_available():
+        return H100_SMS
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return H100_SMS
+    return int(torch.cuda.get_device_properties(dev).multi_processor_count)

@@ -59,13 +59,14 @@ import torch
 import torch.nn.functional as F
 
 from wespeaker_tpu_torch.ops import _build
+from wespeaker_tpu_torch.ops.gemm_sm90 import (  # noqa: F401
+    partial_slots, segment_units)
 from wespeaker_tpu_torch.ops.se_block import _dot, _tap
 
 GROWTH = 32
 BOTTLENECK = 128
 TAP_ROWS = 128   # frames a work item of the bf16 conv kernel
 TAP_ITEMS = 2    # work items a CTA
-UNIT = 64        # rows of M a GEMM warpgroup sums into one partial
 
 
 def segment_means(x: torch.Tensor, mask: Optional[torch.Tensor],
@@ -80,28 +81,6 @@ def segment_means(x: torch.Tensor, mask: Optional[torch.Tensor],
     xs = F.pad(x * m[..., None], (0, 0, 0, pad)).view(b, nseg, seg_len, c)
     cnt = F.pad(m, (0, pad)).view(b, nseg, seg_len, 1).sum(2)
     return xs.sum(2) / cnt.clamp(min=1.0)
-
-
-def partial_slots(t: int, seg_len: int) -> int:
-    """Workspace slots a segment needs for the GEMM's partial sums: the
-    64-row units of M a segment of at most min(seg_len, T) rows can touch
-    (csrc/gemm_sm90.cuh::seg_slots)."""
-    return (min(seg_len, t) + UNIT - 2) // UNIT + 1
-
-
-def segment_units(b: int, t: int, seg_len: int):
-    """For each segment g = utterance * nseg + s, in order: (first row,
-    end row, first unit, units) over M = B*T rows, utterance-major; the
-    GEMM writes segment g's sum over unit u0 + i into slot i."""
-    nseg = -(-t // seg_len)
-    out = []
-    for bi in range(b):
-        for s in range(nseg):
-            r0 = bi * t + s * seg_len
-            r1 = bi * t + min((s + 1) * seg_len, t)
-            u0 = r0 // UNIT
-            out.append((r0, r1, u0, (r1 - 1) // UNIT - u0 + 1))
-    return out
 
 
 def tap_smem_bytes(dilation: int, seg_len: int, t: int) -> int:

@@ -18,7 +18,7 @@ where a is (M, lda) with its first k columns live (the rest are never
 read, whatever bits they hold) and wt (N, k) the weights K-major; and,
 where `seg_len` is given, the masked partial column sums of the stored
 out over each segment of seg_len frames of utterances of t frames (rows
-utterance-major) and each 64-row unit of M (`cam_block.segment_units`),
+utterance-major) and each 64-row unit of M (`segment_units`),
 as a (B * nseg, slots, N) f32 workspace. `gemm_sm90_tail` computes the
 tail's forms (`gemm_sm90_tail_reference`): the post form over three A
 tensors as K-slices of one product (`k_walk`), the tanh form with a
@@ -26,7 +26,9 @@ per-utterance row bias (`tile_utterances`) or a column bias, and the f32
 form acc + bias. `gemm_tn_sm90` reaches the weight-gradient kernel of
 the training tail's bf16 backward (`csrc/gemm_tn_sm90.cuh`, built into the
 mfa_astp_train library) for one A^T B product, against
-`gemm_tn_sm90_reference`.
+`gemm_tn_sm90_reference`; `tn_splits` and `tn_units` mirror that kernel's
+split of K and walk of its work units. `partial_slots` and `segment_units`
+give the layout of the partial-sum workspace.
 """
 
 import ctypes
@@ -35,8 +37,32 @@ from typing import Optional
 
 import torch
 
+from wespeaker_tpu_torch.device import sm_count
 from wespeaker_tpu_torch.ops import _build
-from wespeaker_tpu_torch.ops.cam_block import partial_slots, segment_units
+
+UNIT = 64  # rows of M a GEMM warpgroup sums into one partial
+
+
+def partial_slots(t: int, seg_len: int) -> int:
+    """Workspace slots a segment needs for the GEMM's partial sums: the
+    64-row units of M a segment of at most min(seg_len, T) rows can touch
+    (csrc/gemm_sm90.cuh::seg_slots)."""
+    return (min(seg_len, t) + UNIT - 2) // UNIT + 1
+
+
+def segment_units(b: int, t: int, seg_len: int):
+    """For each segment g = utterance * nseg + s, in order: (first row,
+    end row, first unit, units) over M = B*T rows, utterance-major; the
+    GEMM writes segment g's sum over unit u0 + i into slot i."""
+    nseg = -(-t // seg_len)
+    out = []
+    for bi in range(b):
+        for s in range(nseg):
+            r0 = bi * t + s * seg_len
+            r1 = bi * t + min((s + 1) * seg_len, t)
+            u0 = r0 // UNIT
+            out.append((r0, r1, u0, (r1 - 1) // UNIT - u0 + 1))
+    return out
 
 
 def gemm_sm90_reference(a, k, wt, scale, shift, bias=None, a_scale=None,
@@ -221,6 +247,49 @@ def gemm_sm90(a, k, wt, scale, shift, bias=None, a_scale=None, a_shift=None,
 gemm_sm90.launches = 0
 
 
+def tn_splits(tiles: int, ktiles: int, sms: Optional[int] = None):
+    """The split count of the weight-gradient launch's K (ktiles 64-row
+    tiles) over `tiles` output tiles on `sms` SMs, and the K tiles a split:
+    the s of 1..32 with the least modelled time, the waves of units over
+    the SMs times a unit's ceil(ktiles / s) K tiles plus four tiles' worth
+    of epilogue, the smallest on a tie; empty splits dropped
+    (csrc/gemm_tn_sm90.cuh::gemm_tn_sm90_splits). sms defaults to the
+    card's, as the launcher reads it."""
+    sms = sm_count() if sms is None else sms
+    best, best_cost = 1, None
+    for s in range(1, min(32, ktiles) + 1):
+        cost = -(-tiles * s // sms) * (-(-ktiles // s) + 4)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    per = -(-ktiles // best)
+    return -(-ktiles // per), per
+
+
+def tn_units(products, k: int, sms: Optional[int] = None):
+    """The work units of one gemm_tn_sm90 launch, in the order a CTA's
+    index walks them: products is [(a_parts, a_cols, n)], each an A^T B
+    with A a_parts tensors of a_cols columns side by side (M = a_parts
+    a_cols) and B n columns, in 128 x 128 output tiles. Yields dicts with the product q, the split,
+    the output tile (m0, n0), the A tensor and its column for the tile
+    (`part`, `col`: row tile m0 of three side-by-side tensors reads tensor
+    m0 // a_cols at column m0 % a_cols) and the K rows [k0, k1)."""
+    tiles = []
+    for q, (parts, a_cols, n) in enumerate(products):
+        m = parts * a_cols
+        tiles += [(q, m0, n0) for m0 in range(0, m, M_TILE)
+                  for n0 in range(0, n, M_TILE)]
+    ktiles = -(-k // K_TILE)
+    splits, per = tn_splits(len(tiles), ktiles, sms)
+    for u in range(len(tiles) * splits):
+        q, m0, n0 = tiles[u % len(tiles)]
+        split = u // len(tiles)
+        parts, a_cols, _ = products[q]
+        width = a_cols if parts > 1 else parts * a_cols
+        yield dict(q=q, split=split, m0=m0, n0=n0, part=m0 // width,
+                   col=m0 % width, k0=split * per * K_TILE,
+                   k1=min((split + 1) * per, ktiles) * K_TILE)
+
+
 def gemm_tn_sm90_reference(a, b):
     """Plain version of gemm_tn_sm90: a^T b in f32."""
     return a.float().t() @ b.float()
@@ -240,9 +309,7 @@ def gemm_tn_sm90(a, b):
         raise ValueError(f"gemm_tn_sm90: a {tuple(a.shape)}, b "
                          f"{tuple(b.shape)}: needs one K and M, N multiples "
                          "of 128")
-    from wespeaker_tpu_torch.ops.mfa_astp_vjp import _lib as train_lib
-
-    lib = train_lib()
+    lib = _tn_lib()
     dev = a.device
     out = torch.empty((m, n), device=dev, dtype=torch.float32)
     n_work = lib.ws_gemm_tn_sm90_workspace(m, n, k)
@@ -274,4 +341,15 @@ def _tail_lib():
     lib.ws_gemm_sm90_tail.argtypes = ([p] * 3 + [i] + [p] + [i] + [p] * 5
                                       + [i] * 6 + [p])
     lib.ws_gemm_sm90_tail.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _tn_lib():
+    lib = _build.load("mfa_astp_train")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ws_gemm_tn_sm90_workspace.argtypes = [i] * 3
+    lib.ws_gemm_tn_sm90_workspace.restype = ll
+    lib.ws_gemm_tn_sm90.argtypes = [p] * 3 + [i] * 3 + [p, ll, p]
+    lib.ws_gemm_tn_sm90.restype = i
     return lib

@@ -24,10 +24,9 @@ kernels: h, the tanh activations, dlogits, dpre and dacc are rounded to
 the I/O type before their products, dctx and dbm are summed from the f32
 values, cstats are f32, every product accumulates in f32.
 
-`tn_splits` and `tn_units` give the walk of the bf16 backward's
-weight-gradient launch (csrc/gemm_tn_sm90.cuh), `dx_tiles` the output of
-each column tile of its dx launch, mirrored by the C code, so that the CPU
-tests can check them.
+`dx_tiles` gives the output of each column tile of the bf16 backward's dx
+launch, mirrored by the C code, so that the CPU tests can check it; the
+walk of its weight-gradient launch is ops/gemm_sm90.py's `tn_units`.
 """
 
 import ctypes
@@ -37,7 +36,7 @@ from typing import Optional
 import torch
 
 from wespeaker_tpu_torch.ops import _build
-from wespeaker_tpu_torch.ops.cam_block import partial_slots
+from wespeaker_tpu_torch.ops.gemm_sm90 import partial_slots
 from wespeaker_tpu_torch.ops.mfa_astp import (_dot, kmajor_weights,
                                               mfa_astp_reference,
                                               unit_affine)
@@ -155,48 +154,7 @@ def mfa_astp_train_bwd_reference(x2, x3, x4, wm, k1, b2, k2, pooled, h, att,
     return (*dxs, dwm, dbm, dk1, db1, dk2, db2)
 
 
-TILE, K_TILE = 128, 64  # gemm_sm90's output tile, its K stage
-
-
-def tn_splits(tiles: int, ktiles: int, sms: int = 132):
-    """The split count of the weight-gradient launch's K (ktiles 64-row
-    tiles) over `tiles` output tiles on `sms` SMs, and the K tiles a split:
-    the s of 1..32 with the least modelled time, whole waves of units of
-    ceil(ktiles / s) K tiles plus four tiles' worth of epilogue, the
-    smallest on a tie; empty splits dropped
-    (csrc/gemm_tn_sm90.cuh::gemm_tn_sm90_splits)."""
-    best, best_cost = 1, None
-    for s in range(1, min(32, ktiles) + 1):
-        cost = -(-tiles * s // sms) * (-(-ktiles // s) + 4)
-        if best_cost is None or cost < best_cost:
-            best, best_cost = s, cost
-    per = -(-ktiles // best)
-    return -(-ktiles // per), per
-
-
-def tn_units(products, k: int, sms: int = 132):
-    """The work units of one gemm_tn_sm90 launch, in the order a CTA's
-    index walks them: products is [(a_parts, a_cols, n)], each an A^T B
-    with A a_parts tensors of a_cols columns side by side (M = a_parts
-    a_cols) and B n columns. Yields dicts with the product q, the split,
-    the output tile (m0, n0), the A tensor and its column for the tile
-    (`part`, `col`: row tile m0 of three side-by-side tensors reads tensor
-    m0 // a_cols at column m0 % a_cols) and the K rows [k0, k1)."""
-    tiles = []
-    for q, (parts, a_cols, n) in enumerate(products):
-        m = parts * a_cols
-        tiles += [(q, m0, n0) for m0 in range(0, m, TILE)
-                  for n0 in range(0, n, TILE)]
-    ktiles = -(-k // K_TILE)
-    splits, per = tn_splits(len(tiles), ktiles, sms)
-    for u in range(len(tiles) * splits):
-        q, m0, n0 = tiles[u % len(tiles)]
-        split = u // len(tiles)
-        parts, a_cols, _ = products[q]
-        width = a_cols if parts > 1 else parts * a_cols
-        yield dict(q=q, split=split, m0=m0, n0=n0, part=m0 // width,
-                   col=m0 % width, k0=split * per * K_TILE,
-                   k1=min((split + 1) * per, ktiles) * K_TILE)
+TILE = 128  # gemm_sm90's output tile
 
 
 def softmax_bwd_frames(io_bytes: int) -> int:
@@ -460,8 +418,4 @@ def _lib():
     lib.ws_mfa_astp_train_bwd_sm90.argtypes = ([p] * 28 + [i, p, ll]
                                                + [i] * 6 + [p])
     lib.ws_mfa_astp_train_bwd_sm90.restype = i
-    lib.ws_gemm_tn_sm90_workspace.argtypes = [i] * 3
-    lib.ws_gemm_tn_sm90_workspace.restype = ll
-    lib.ws_gemm_tn_sm90.argtypes = [p] * 3 + [i] * 3 + [p, ll, p]
-    lib.ws_gemm_tn_sm90.restype = i
     return lib

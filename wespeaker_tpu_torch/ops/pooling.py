@@ -57,27 +57,31 @@ from typing import Optional
 
 import torch
 
+from wespeaker_tpu_torch.device import sm_count
 from wespeaker_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
 # row 6's launch (csrc/common.cuh): warps a block, frames a batch (the
-# vector path; the scalar path takes 4), SMs x warps an SM
-SOFTMAX_WARPS, SOFTMAX_FRAMES, CARD_WARPS = 8, 8, 132 * 32
+# vector path; the scalar path takes 4), warps an SM
+SOFTMAX_WARPS, SOFTMAX_FRAMES, SM_WARPS = 8, 8, 32
 
 
-def softmax_plan(b: int, t: int, d: int, logit_bytes: int):
+def softmax_plan(b: int, t: int, d: int, logit_bytes: int,
+                 sms: Optional[int] = None):
     """Row 6's split of the work, as csrc/common.cuh's softmax_stats
     launcher makes it: (kc, chunks, tw) with kc = 8 // logit_bytes channels
     a thread, chunks = the 32-thread column groups of an utterance (items
     are (utterance, chunk)), and tw the warps an item's frames are split
-    over: 1 where the items fill the card twice over, else doubled until
-    they do, up to SOFTMAX_WARPS, while a warp keeps more than one batch of
-    SOFTMAX_FRAMES frames. Warp j of an item takes frames j, j + tw, ...
-    in batches of SOFTMAX_FRAMES."""
+    over: 1 where the items fill the card (sms SMs of SM_WARPS warps,
+    by default the card's, as the launcher reads it) twice over, else
+    doubled until they do, up to SOFTMAX_WARPS, while a warp keeps more
+    than one batch of SOFTMAX_FRAMES frames. Warp j of an item takes frames
+    j, j + tw, ... in batches of SOFTMAX_FRAMES."""
+    sms = sm_count() if sms is None else sms
     kc = 8 // logit_bytes
     chunks = -(-(-(-d // kc)) // 32)
     tw = 1
-    while (tw < SOFTMAX_WARPS and b * chunks * tw < 2 * CARD_WARPS
+    while (tw < SOFTMAX_WARPS and b * chunks * tw < 2 * sms * SM_WARPS
            and t > SOFTMAX_FRAMES * tw):
         tw *= 2
     return kc, chunks, tw
