@@ -209,7 +209,44 @@ Phases, each printing one line:
               torch.std_mean timed 3 times in turns by CUDA-graph replay
               (median and spread); ReDimNetB2 and
               ResNet34 extraction audio-s/s with the pooling kernels and
-              with fused=False pooling.
+              with fused=False pooling;
+ 31. dino     bench.py's DINO config (ECAPA_TDNN_GLOB_c512, a 65,536-d BN
+              head 2048 / 256, B=64 utterances as 2 global 3 s and 4 local
+              2 s crops, bf16, SGD, teacher temp 0.04, weights from the
+              seed), ssl/dino.py's DINOTrainStep: 3 finite steps, each
+              launching the SE block kernel 3 times and the tail kernel
+              once (the teacher's eval forward) and the training tail's
+              forward and backward twice (the student, global then local
+              crops), nothing else; rows 4 and 5 against their plain
+              versions at (B, T) = (128, 298) and (256, 198) in bf16
+              (cosine >= 0.9999 on each output and gradient, db2 = 0);
+              then one step of the kernel path and one of the plain path
+              (fused=False, plain pooling) from the same weights in f32
+              (TF32 off) and bf16, each path's teacher the EMA of its
+              student: the loss within 1e-3 relative and the center at
+              cosine >= 0.999; in f32 each layer's update and teacher move
+              at cosine >= 0.999; in bf16 each path's update against the
+              plain f32 step's, layer by layer, the kernel path's error no
+              more than 1.1 x the plain path's + 0.05 (compare_dino_paths
+              says why); rows 1 and 2 against their plain versions on the
+              teacher's own bf16 activations of the global crops
+              (B=128, T=298), cosine >= 0.9999;
+ 32. dino timing  crop-audio-s/s (64 x 14 s a step) and peak device memory
+              of that step on the kernel path and the plain path, features
+              precomputed, CUDA events over 5 steps after 2 warm-up, 3
+              repeats (median and spread); then one step of each by
+              torch.profiler: device ms, launches and busy share;
+ 33. dino trainer  bin/train_dino.py with ecapa_dino.yaml at full width in
+              bf16 on a synthetic corpus of 192 utterances: one epoch of
+              3 steps (stop_epoch 1) with the step's launches 3 times,
+              model_0.pt and trainer_state.pt written; then resume=true
+              for the second epoch, whose steps continue at 3; the
+              extractor loads model_1.pt and embeds one utterance;
+ 34. contrastive  bin/train_contrastive.py with ecapa_moco.yaml (queue
+              65,536) and ecapa_simclr.yaml, B=64 x 2 s, bf16, 3 steps
+              each: finite logged losses, per step MoCo's rows 1 and 2
+              (key encoder) 3 and 1 times and rows 4 and 5 once, SimCLR's
+              rows 4 and 5 once; MoCo's queue pointer at 3 x 64.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -231,9 +268,14 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
+from wespeaker_tpu_torch.bin import (  # noqa: E402
+    train_contrastive as contrastive_cli)
+from wespeaker_tpu_torch.bin import train_dino as dino_cli  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import load_model_for_eval  # noqa: E402
 from wespeaker_tpu_torch.bin import kernel_bounds  # noqa: E402
 from wespeaker_tpu_torch.bin import profile_extract  # noqa: E402
+from wespeaker_tpu_torch.bin.profile_train import (  # noqa: E402
+    DINO_BATCH, DINO_OUT, dino_features, dino_step)
 from wespeaker_tpu_torch.bin.kernel_bounds import (  # noqa: E402
     PEAK_F32_FLOPS, bound, cam_dense_block, inv_bottleneck_stage,
     masked_stats, softmax_stats)
@@ -2505,6 +2547,419 @@ def phase_redimnet_timing(model, dev, smi):
     return res
 
 
+RECIPES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "voxceleb", "v3")  # the SSL YAMLs
+DINO_CROP_SECONDS = 2 * 3.0 + 4 * 2.0  # crop audio of one utterance
+DINO_PER_STEP = dict(NO_LAUNCH, se=3, tail=1, train_fwd=2, train_bwd=2)
+MOCO_PER_STEP = dict(NO_LAUNCH, se=3, tail=1, train_fwd=1, train_bwd=1)
+SIMCLR_PER_STEP = dict(NO_LAUNCH, train_fwd=1, train_bwd=1)
+# biases whose exact gradient is 0 in the DINO step: b2 shifts a softmax
+# column over frames; the pooled BN's bias, the embedding's bias and the
+# head's hidden biases shift a feature that the next BatchNorm over the
+# batch removes. The plain path updates them by rounding noise.
+DINO_ZERO_GRAD = ("backbone." + B2, "backbone.bn.bias",
+                  "backbone.linear.bias", "head.mlp_0.bias",
+                  "head.mlp_1.bias")
+
+
+def check_train_tail(model, rng, b, t, dev):
+    """Rows 4 and 5 against their plain versions at (b, t) in bf16 with
+    the model's tail weights: cosine >= 0.9999 on each of the forward's
+    four outputs and the backward's eight gradients, db2 exactly zero.
+    Returns (max abs error, lowest cosine) of each row."""
+    io = torch.bfloat16
+    xs, tw = tail_inputs(model, rng, b, t, io, dev)
+    wm, bm, k1, b1, k2, b2 = tw
+    got = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw, glob=True)
+    torch.cuda.synchronize()
+    want = mfa_astp_vjp.mfa_astp_train_fwd_reference(*xs, *tw, glob=True)
+    fwd = [compare(gv, wv, io) for gv, wv in zip(got, want)]
+    g = torch.as_tensor(rng.standard_normal((b, 3072)).astype(np.float32),
+                        device=dev)
+    res = (*xs, wm, k1, b2, k2, *want, g)
+    grads = mfa_astp_vjp.mfa_astp_train_bwd(*res, glob=True)
+    torch.cuda.synchronize()
+    if grads[-1].abs().max().item() != 0.0:
+        raise AssertionError(f"db2 is not exactly zero at B={b} T={t}")
+    plain = mfa_astp_vjp.mfa_astp_train_bwd_reference(*res, glob=True)
+    bwd = [scaled_compare(gv, wv, io)
+           for gv, wv in zip(grads[:-1], plain[:-1])]
+    return [(max(e for e, _ in r), min(c for _, c in r)) for r in (fwd, bwd)]
+
+
+def check_eval_tail(model, x):
+    """Rows 1 and 2 against their plain versions where the DINO teacher
+    runs them: its three SE-Res2 blocks and its MFA+ASTP tail on its own
+    activations of x, the global crops (B=128, T=298) in bf16, each block
+    fed the kernel's output of the one before; cosine >= 0.9999 (compare).
+    Returns (max abs error, lowest cosine) of each row."""
+    model.eval()
+    rows = {"se": [], "tail": []}
+    with torch.no_grad():
+        h, outs = model.layer1(x), []
+        for layer in (model.layer2, model.layer3, model.layer4):
+            pre, res2, post, se = layer.se_res2block
+            w = (*pre.folded(), *res2.folded(), *post.folded(),
+                 *se.folded())
+            got = se_block.fused_se_res2_block(h, *w, dilation=layer.dilation)
+            torch.cuda.synchronize()
+            want = se_block.se_res2_block_reference(h, *w,
+                                                    dilation=layer.dilation)
+            rows["se"].append(compare(got, want, x.dtype))
+            h = got
+            outs.append(h)
+        tw = model._tail_weights()
+        got = mfa_astp.fused_mfa_astp(*outs, *tw, glob=True)
+        torch.cuda.synchronize()
+        want = mfa_astp.mfa_astp_reference(*outs, *tw, glob=True)
+        rows["tail"].append(compare(got, want, x.dtype))
+    return [(max(e for e, _ in r), min(c for _, c in r))
+            for r in rows.values()]
+
+
+def per_layer(fn, got, want, skip=()):
+    """fn(got's, want's parameters of a module as one vector each) per
+    module, the names in `skip` left out."""
+    layers = {}
+    for n in got:
+        if n not in skip:
+            layers.setdefault(n.rsplit(".", 1)[0], []).append(n)
+    return {k: fn(torch.cat([got[n].flatten() for n in ns]),
+                  torch.cat([want[n].flatten() for n in ns]))
+            for k, ns in layers.items()}
+
+
+def layer_cosines(got, want, skip=()):
+    """Per module, the cosine of two updates; sorted, lowest first."""
+    return sorted(per_layer(cosine, got, want, skip).items(),
+                  key=lambda kv: kv[1])
+
+
+def dino_one_step(dev, feats, dtype, fused):
+    """One DINO step from the seeded weights at the recipe's base LR 0.2 *
+    64 / 256 (its schedule starts at 0), the last layer not frozen, so
+    that every layer moves. Returns (loss, the student's update, the
+    teacher's move, the center); raises unless the teacher moved to the
+    EMA m t + (1 - m) s of the old teacher and the new student, within
+    four f32 ulps of the larger of |t| and |s| (m and 1 - m rounded to
+    f32, and three roundings) of the f64 value."""
+    step = dino_step(dev, dtype, fused, freeze=0,
+                     lr_fn=lambda s: 0.2 * DINO_BATCH / 256)
+    m = step.momentum_fn(0)
+    s0 = {n: p.detach().clone() for n, p in step.student.named_parameters()}
+    t0 = {n: p.detach().clone() for n, p in step.teacher.named_parameters()}
+    loss = float(step(feats)["loss"])
+    s1 = dict(step.student.named_parameters())
+    ulp = torch.finfo(torch.float32).eps
+    for n, p in step.teacher.named_parameters():
+        t, s_ = t0[n].double(), s1[n].detach().double()
+        err = (p.double() - (t * m + s_ * (1 - m))).abs()
+        if (err > 4 * ulp * torch.maximum(t.abs(), s_.abs())).any():
+            raise AssertionError(f"teacher {n} is not the EMA of its "
+                                 f"student: {err.max().item():.3g} off")
+    out = (loss, {n: (p.detach() - s0[n]).float() for n, p in s1.items()},
+           {n: (p.detach() - t0[n]).float()
+            for n, p in step.teacher.named_parameters()},
+           step.center.clone())
+    del step, s0, t0, s1
+    torch.cuda.empty_cache()
+    return out
+
+
+def fmt_low(cos, n=3):
+    return ", ".join(f"{k} {v:.6f}" for k, v in cos[:n])
+
+
+DINO_BF16_FLOOR = 0.05  # the per-layer bf16 bar's slack (compare_dino_paths)
+
+
+def compare_dino_paths(dev, feats):
+    """One step of the kernel path and one of the plain path from the same
+    weights, in f32 (TF32 off) and in bf16. Both: the loss within 1e-3,
+    the center at cosine >= 0.999, and each path's teacher the EMA of its
+    student (dino_one_step). f32: each layer's update and each layer's
+    teacher move at cosine >= 0.999. bf16: at this seeded init the DINO
+    gradient of many layers is small (the BN affines' ~4e-5 an element)
+    and bf16 rounding moves it by percents on either path: the kernel
+    path's and the plain path's updates each sit at cosine ~0.956 from
+    the exact f32 update in the worst layer, and at ~0.996 from each
+    other (as this phase prints on an H100), and a BN weight near 1 moves
+    in the EMA by ~8e-9, below half an f32 ulp. So in bf16 each path's
+    update is held, layer by layer, against the plain f32 step's (the
+    exact update; there the two paths agree at 1.000000 a layer): a
+    layer's error ||update - exact|| / ||exact|| on the kernel path at
+    most 1.1 x the plain path's in that layer + DINO_BF16_FLOOR. A 50%
+    error in one layer fails it. The per-layer cosines kernel vs plain,
+    the teacher's moves and the layers nearest the bar are printed.
+    Returns the line's parts and the failed bars."""
+    parts, bad = [], []
+    runs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for fused in (True, False):
+            runs[dtype, fused] = dino_one_step(dev, feats, dtype, fused)
+    exact = runs[torch.float32, False][1]
+    for dtype in (torch.float32, torch.bfloat16):
+        (lk, uk, tk, ck), (lp, up, tp, cp) = (runs[dtype, True],
+                                              runs[dtype, False])
+        if uk["backbone." + B2].abs().max().item() != 0.0:
+            raise AssertionError("kernel path: b2 moved; its gradient is 0")
+        rel, ccos = abs(lk - lp) / abs(lp), cosine(ck, cp)
+        name = str(dtype)[6:]
+        if rel > 1e-3 or ccos < 0.999:
+            bad.append(f"{name} loss or center")
+        upd = layer_cosines(uk, up, DINO_ZERO_GRAD)
+        ema = layer_cosines(tk, tp, DINO_ZERO_GRAD)
+        line = (f"{name}: loss rel {rel:.2e}, center cosine {ccos:.6f}, "
+                f"update cosine per layer lowest {fmt_low(upd)}; teacher "
+                f"move lowest {fmt_low(ema)}")
+        if dtype == torch.float32:
+            if min(upd[0][1], ema[0][1]) < 0.999:
+                bad.append("f32 update or teacher move")
+        else:
+            err = [per_layer(lambda a, b: ((a - b).norm() / b.norm()).item(),
+                             u, exact, DINO_ZERO_GRAD) for u in (uk, up)]
+            # (excess over 1.1 x plain, layer, kernel error, plain error)
+            near = sorted(((err[0][k] - 1.1 * err[1][k], k, err[0][k],
+                            err[1][k]) for k in err[0]), reverse=True)
+            over = [k for x, k, *_ in near if x > DINO_BF16_FLOOR]
+            if over:
+                bad.append(f"bf16 update error against the exact update in "
+                           f"{over}")
+            low = [layer_cosines(u, exact, DINO_ZERO_GRAD)[0] for u in (uk,
+                                                                        up)]
+            line += (f" (recorded); against the plain f32 step's update, "
+                     f"per layer relative error kernel <= 1.1 x plain + "
+                     f"{DINO_BF16_FLOOR} over {len(near)} layers, nearest "
+                     + ", ".join(f"{k} {e:.4f} vs {p:.4f} (excess {x:+.4f})"
+                                 for x, k, e, p in near[:3])
+                     + f"; largest error kernel {max(err[0].values()):.4f}, "
+                     f"plain {max(err[1].values()):.4f}; lowest layer cosine "
+                     f"kernel {low[0][0]} {low[0][1]:.6f}, plain {low[1][0]} "
+                     f"{low[1][1]:.6f}")
+        parts.append(line)
+    return parts, bad
+
+
+def phase_dino(dev):
+    """bench.py's DINO config on the kernel path: 3 bf16 steps, finite,
+    each launching rows 1, 2, 4 and 5 3, 1, 2 and 2 times and nothing
+    else; rows 4 and 5 against their plain versions at the student's two
+    crop shapes, (128, 298) and (256, 198), rows 1 and 2 at the teacher's
+    (check_eval_tail); then one step of the kernel
+    path and one of the plain path from the same weights
+    (compare_dino_paths)."""
+    feats = dino_features(dev)
+    step = dino_step(dev)
+    losses = []
+    for i in range(3):
+        zero_counts()
+        losses.append(float(step(feats)["loss"]))
+        torch.cuda.synchronize()
+        if counts() != DINO_PER_STEP:
+            raise AssertionError(f"DINO step {i}: launches {counts()}, want "
+                                 f"{DINO_PER_STEP}")
+    if not all(np.isfinite(losses)) or step.step != 3:
+        raise AssertionError(f"DINO losses {losses}, step {step.step}")
+    rng = np.random.default_rng(SEED + 42)
+    tails = []
+    for b, t in ((2 * DINO_BATCH, 298), (4 * DINO_BATCH, 198)):
+        (fe, fc), (be, bc) = check_train_tail(step.student.backbone, rng, b,
+                                              t, dev)
+        tails.append(f"(B={b}, T={t}) fwd err {fe:.3g} cos >= {fc:.7f}, "
+                     f"bwd err {be:.3g} cos >= {bc:.7f}")
+    (se_e, se_c), (tail_e, tail_c) = check_eval_tail(
+        step.teacher.backbone, feats["global_feat"].to(torch.bfloat16))
+    del step
+    torch.cuda.empty_cache()
+    parts, bad = compare_dino_paths(dev, feats)
+    print(f"dino: ECAPA_TDNN_GLOB_c512 + DINO head {DINO_OUT} (BN) bf16 "
+          f"B={DINO_BATCH} x (2 x 3 s + 4 x 2 s), SGD, teacher temp "
+          f"0.04: losses {[round(v, 4) for v in losses]}; launches per step "
+          f"se=3 tail=1 train_fwd=2 train_bwd=2, nothing else; rows 4 and 5 "
+          f"vs plain bf16 " + "; ".join(tails) + "; rows 1 and 2 vs plain "
+          f"on the teacher's bf16 activations (B={2 * DINO_BATCH}, T=298): "
+          f"three SE blocks err {se_e:.3g} cos >= {se_c:.7f}, tail err "
+          f"{tail_e:.3g} cos {tail_c:.7f}; one step of each path "
+          "from the same weights, kernel vs plain: " + "; ".join(parts))
+    if bad:
+        raise AssertionError(f"kernel and plain DINO steps disagree: {bad}")
+
+
+def device_time(fn):
+    """One call of fn under torch.profiler, then one between CUDA events:
+    (device ms summed over its kernels, kernel launches, call ms)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(profile_extract._device_us(e), e.count)
+            for e in prof.key_averages()]
+    rows = [r for r in rows if r[0] > 0]
+    return (sum(us for us, _ in rows) / 1e3, sum(n for _, n in rows),
+            cuda_ms(fn, iters=1, warmup=0))
+
+
+def fmt_device(dev_ms, launches, call_ms):
+    if not launches:
+        return (f"no kernel recorded, device time not measured (call "
+                f"{call_ms:.2f} ms)")
+    return (f"device {dev_ms:.3f} ms over {launches} launches, call "
+            f"{call_ms:.2f} ms, {100 * dev_ms / call_ms:.1f}% busy")
+
+
+def phase_dino_timing(dev, smi):
+    """Crop-audio-s/s of bench.py's DINO step (64 x 14 s of crops a step)
+    on the kernel path and the plain path, features precomputed as
+    bench_dino_step.py does: CUDA events over 5 steps after 2 warm-up,
+    3 repeats (median and spread), and the peak device memory of the
+    path's steps; then one step's device time by torch.profiler and one
+    step between CUDA events (device_time), so the busy share is read
+    late in the script, where the step runs."""
+    feats = dino_features(dev)
+    rates = {}
+    for path, fused in (("kernel", True), ("plain", False)):
+        step = dino_step(dev, fused=fused)
+        for _ in range(2):
+            step(feats)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = [cuda_ms(lambda: step(feats), iters=5, warmup=0)
+              for _ in range(TIMING_REPS)]
+        med = float(np.median(ms))
+        rates[path] = (DINO_BATCH * DINO_CROP_SECONDS / (med / 1e3), med,
+                       max(ms) - min(ms),
+                       torch.cuda.max_memory_allocated() / 2**30)
+        if not np.isfinite(float(step(feats)["loss"])):
+            raise AssertionError(f"{path} DINO step is not finite")
+        rates[path] += device_time(lambda: step(feats))
+        del step
+        torch.cuda.empty_cache()
+    print(f"dino timing [{smi}] bf16 B={DINO_BATCH} x (2 x 3 s + 4 x 2 s), "
+          f"head {DINO_OUT}, features precomputed: "
+          + "; ".join(f"{k} path {v[0]:.1f} crop-audio-s/s ({v[1]:.2f} "
+                      f"ms/step median of {TIMING_REPS}, spread {v[2]:.2f} "
+                      f"ms; peak {v[3]:.1f} GiB; one more step by "
+                      f"torch.profiler: {fmt_device(v[4], v[5], v[6])})"
+                      for k, v in rates.items()))
+    return rates
+
+
+def ssl_corpus(root):
+    """3 x DINO_BATCH utterances of 2.5-4 s (3 speakers): an epoch of 3
+    steps."""
+    return write_corpus(root, np.random.default_rng(SEED + 43), n_spk=3,
+                        n_utt=DINO_BATCH)
+
+
+def logged_losses(exp):
+    with open(os.path.join(exp, "train.log")) as f:
+        return [float(ln.split(" loss ")[1].split()[0])
+                for ln in f.read().splitlines() if " loss " in ln]
+
+
+def phase_dino_trainer(dev, raw, utt2spk, root):
+    """bin/train_dino.py with the recipe's YAML (ecapa_dino.yaml: full width,
+    65,536-d head, 2 x 3 s + 4 x 2 s) in bf16 on the synthetic corpus: one
+    epoch of 3 steps (stop_epoch 1), launching the DINO step's kernels 3
+    times; then resume=true for the second epoch, whose steps continue at
+    3; the extractor loads model_1.pt and embeds one utterance."""
+    exp = os.path.join(root, "dino")
+    conf = os.path.join(RECIPES, "dino/conf/ecapa_dino.yaml")
+    over = [f"exp_dir={exp}", "data_type=raw", f"train_data={raw}",
+            f"utt2spk={utt2spk}", "num_epochs=2", "enable_amp=true",
+            "log_batch_interval=1", f"seed={SEED}",
+            f"dataset_args.batch_size={DINO_BATCH}"]
+    zero_counts()
+    t0 = time.perf_counter()
+    first = dino_cli.train_dino(conf, over + ["stop_epoch=1"], device=dev)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = counts()
+    want = {k: 3 * v for k, v in DINO_PER_STEP.items()}
+    models = os.path.join(exp, "models")
+    if (first.step != 3 or launches != want
+            or not os.path.exists(os.path.join(models, "model_0.pt"))
+            or not os.path.exists(os.path.join(models, "trainer_state.pt"))):
+        raise AssertionError(f"first epoch: {first.step} steps, launches "
+                             f"{launches} (want {want})")
+    del first
+    second = dino_cli.train_dino(conf, over + ["resume=true"], device=dev)
+    losses = logged_losses(exp)
+    if second.step != 6 or len(losses) != 6 or not np.all(
+            np.isfinite(losses)):
+        raise AssertionError(f"resumed run: step {second.step}, logged "
+                             f"losses {losses}")
+    with open(os.path.join(exp, "train.log")) as f:
+        if "resumed trainer state at epoch 1 (step 3)" not in f.read():
+            raise AssertionError("the second run did not resume at step 3")
+    del second
+    configs = load_yaml(os.path.join(exp, "config.yaml"))
+    model = load_model_for_eval(configs, os.path.join(models, "model_1.pt"),
+                                device=dev)
+    wav = np.random.default_rng(SEED + 44).uniform(
+        -0.5, 0.5, (1, 48000)).astype(np.float32)
+    emb = make_eval_embed_fn(model, FbankConfig(), device=dev)({"wav": wav})
+    if emb.shape != (1, 192) or not torch.isfinite(emb).all():
+        raise AssertionError(f"embedding {emb}")
+    print(f"dino trainer: bin/train_dino.py ecapa_dino.yaml bf16 batch "
+          f"{DINO_BATCH} on {3 * DINO_BATCH} utterances: epoch 0 in 3 "
+          f"steps ({first_s:.1f} s with "
+          f"build), launches se={launches['se']} tail={launches['tail']} "
+          f"train_fwd={launches['train_fwd']} "
+          f"train_bwd={launches['train_bwd']}; resumed at step 3 for epoch "
+          f"1, steps 3-5; losses {[round(v, 4) for v in losses]}; "
+          f"model_1.pt served a (1, 192) embedding, norm "
+          f"{emb.norm().item():.4f}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_contrastive(dev, raw, utt2spk, root):
+    """bin/train_contrastive.py with the recipes' YAMLs (ecapa_moco.yaml:
+    queue 65,536; ecapa_simclr.yaml), B=64 x 2 s, bf16, one epoch of 3
+    steps each: finite losses, the kernels of each step (MoCo: rows 1 and
+    2 for the key encoder, 4 and 5 for the query; SimCLR: 4 and 5 once
+    over both views), MoCo's queue pointer at 3 x 64."""
+    parts = []
+    for method, per_step in (("moco", MOCO_PER_STEP),
+                             ("simclr", SIMCLR_PER_STEP)):
+        conf = os.path.join(RECIPES, f"{method}/conf/ecapa_{method}.yaml")
+        exp = os.path.join(root, method)
+        zero_counts()
+        t0 = time.perf_counter()
+        step = contrastive_cli.train_contrastive(
+            conf, [f"exp_dir={exp}", "data_type=raw", f"train_data={raw}",
+                   f"utt2spk={utt2spk}", "num_epochs=1", "enable_amp=true",
+                   "log_batch_interval=1", f"seed={SEED}",
+                   f"ssl_method={method}",
+                   f"dataset_args.batch_size={DINO_BATCH}"], device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches, losses = counts(), logged_losses(exp)
+        want = {k: 3 * v for k, v in per_step.items()}
+        if (step.step != 3 or launches != want or len(losses) != 3
+                or not np.all(np.isfinite(losses))):
+            raise AssertionError(f"{method}: {step.step} steps, launches "
+                                 f"{launches} (want {want}), losses "
+                                 f"{losses}")
+        extra = ""
+        if method == "moco":
+            if step.queue_ptr != 3 * DINO_BATCH or step.queue.shape != (
+                    65536, 192):
+                raise AssertionError(f"moco queue {tuple(step.queue.shape)}"
+                                     f" pointer {step.queue_ptr}")
+            extra = f", queue (65536, 192) pointer {step.queue_ptr}"
+        parts.append(f"{method} losses {[round(v, 4) for v in losses]} "
+                     f"({sec:.1f} s with build), launches "
+                     + " ".join(f"{k}={v}" for k, v in launches.items() if v)
+                     + extra)
+        del step
+        torch.cuda.empty_cache()
+    print(f"contrastive: bin/train_contrastive.py bf16 B={DINO_BATCH} x 2 s, "
+          "3 steps each: " + "; ".join(parts))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -2560,6 +3015,13 @@ def main():
     phase_redimnet_serving(dev)
     timing.update(phase_redimnet_timing(redim, dev, smi))
     del redim
+    torch.cuda.empty_cache()
+    phase_dino(dev)
+    phase_dino_timing(dev, smi)
+    with tempfile.TemporaryDirectory() as d:
+        raw, utt2spk = ssl_corpus(d)
+        phase_dino_trainer(dev, raw, utt2spk, d)
+        phase_contrastive(dev, raw, utt2spk, d)
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),

@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "ops/cam_block.py", "models/campplus.py",
             "ops/inv_bottleneck.py", "models/gemini_dfresnet.py",
             "ops/conv_dw_pack.py", "ops/res2_chain.py",
-            "models/resnet.py"} <= names
+            "models/resnet.py", "ssl/dino.py", "ssl/contrastive.py",
+            "ssl/dataset.py", "ssl/featurize.py", "bin/train_dino.py",
+            "bin/train_contrastive.py"} <= names
     bad = []
     for path in files:
         for name in _imported(ast.parse(path.read_text(), str(path))):

@@ -4,11 +4,13 @@ Counterpart of wespeaker_tpu/data/dataset.py (upstream
 wespeaker/dataset/dataset.py:136-273): the processor chain of
 data/pipeline.py for `raw` and `shard` lists, repeated without end with a
 reshuffle per epoch, yielding fixed-shape numpy batches for the train
-step, and a one-thread prefetcher. Not ported yet, and refused: the
-`feat` data type, the host half of device-side augmentation and SSL
-multi-crop. Reverb/noise augmentation (the packed audio stores), the
+step, and a one-thread prefetcher. With `defer_chunk_aug` (the SSL
+trainers' setting) an epoch is the stream of whole utterances, neither
+chunked nor augmented, which ssl/dataset.py crops into views. Not ported
+yet, and refused: the `feat` data type and the host half of device-side
+augmentation. Reverb/noise augmentation (the packed audio stores), the
 evaluation mode, the per-rank and per-worker split and the multi-process
-prefetcher are not ported either (bin/train.py refuses their options).
+prefetcher are not ported either (the trainers refuse their options).
 """
 
 import queue
@@ -37,8 +39,6 @@ class SpeakerDataset:
             raise ValueError(f"unknown data_type {data_type}")
         if configs.get("device_aug", False):
             raise _not_ported("device_aug")
-        if configs.get("defer_chunk_aug", False):
-            raise _not_ported("defer_chunk_aug (SSL multi-crop)")
         if configs.get("speed_perturb_mode", "random") != "random":
             raise _not_ported("speed_perturb_mode "
                               f"{configs['speed_perturb_mode']}")
@@ -72,6 +72,10 @@ class SpeakerDataset:
         data = P.spk_to_id(data, self.spk2id)
         if cfg.get("speed_perturb", True):
             data = P.speed_perturb(data, len(self.spk2id), rng)
+        if cfg.get("defer_chunk_aug", False):
+            # SSL multi-crop: the trainer crops each utterance into views
+            # and augments each view on its own (ssl/dataset.py)
+            return data
         num_frms = cfg.get("num_frms", 200)
         sr = cfg.get("resample_rate", 16000)
         chunk_len = ((num_frms - 1) * fbank_args.get("frame_shift", 10)

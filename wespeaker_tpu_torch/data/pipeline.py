@@ -11,7 +11,8 @@ Generator passed in, so the same seed gives the same samples as the JAX
 package. Speed perturb is polyphase resampling (sox's `speed` + `rate`);
 the chunk length ((num_frms - 1) * frame_shift + frame_length) ms yields
 exactly num_frms fbank frames. Not ported yet: kaldi feature input,
-reverb/noise augmentation, the expanded speed perturb and http(s) shards.
+reverb/noise augmentation (`make_crop_aug` refuses a store), the expanded
+speed perturb and http(s) shards.
 """
 
 import json
@@ -198,6 +199,15 @@ def get_random_chunk(data: np.ndarray, chunk_len: int,
     reps = chunk_len // n + 1
     tiled = np.tile(data, (reps,) + (1,) * (data.ndim - 1))
     return tiled[:chunk_len]
+
+
+def make_crop_aug(reverb_store, noise_store, aug_prob: float):
+    """Per-view aug_fn for ssl/dataset.multi_crop: None without a reverb or
+    noise store (or with aug_prob <= 0), so the views go unaugmented, as in
+    the JAX package. The stores are not ported, and one given raises."""
+    if not (reverb_store or noise_store) or aug_prob <= 0:
+        return None
+    raise NotImplementedError("reverb/noise augmentation is not ported yet")
 
 
 def filter_and_cap(data, min_num_frames=100, max_num_frames=800,

@@ -26,6 +26,13 @@ state_dict. It inverts the rules of wespeaker_tpu/utils/torch_compat.py:
     downsample_conv / downsample_bn -> downsample.0 / .1), plus the frozen
     all-ones backbone.inputs_weights.0 that the flax tree does not keep
 
+`from_jax_dino_state` maps the JAX package's DINO state (its fields as
+nested dicts of arrays, as flax.serialization.to_state_dict gives them)
+onto the port's student and teacher (ssl/dino.py's DINOModel): the
+backbone by the model's rules under `backbone.`, the head under `head.`
+(mlp_<i> and mlp_bn_<i> keep their names; last_layer_v, (in, out) in both,
+is no `kernel` and keeps its layout), and the center.
+
 `load_checkpoint` reads an upstream or port `.pt` state_dict into a model
 with `load_state_dict(strict=True)`; the keys the port has no use for are
 handled by name, not by a lenient load.
@@ -144,6 +151,28 @@ def from_jax_variables(variables: Mapping[str, Any],
         # tree does not keep (torch_compat ignores it)
         sd["backbone.inputs_weights.0"] = torch.ones(1, 1, 1, 1)
     return sd
+
+
+def from_jax_dino_state(state: Mapping[str, Any],
+                        model_name: str = "ECAPA_TDNN") -> Dict[str, Any]:
+    """The JAX package's DINOState fields {"student", "teacher",
+    "student_stats", "teacher_stats", "center", "step"} (nested dicts of
+    numpy or JAX arrays; the trees {"backbone", "head"}) -> {"student":
+    state_dict, "teacher": state_dict, "center": (1, out_dim) f32 tensor,
+    "step": int} for ssl/dino.py's DINOModel with a `model_name`
+    backbone."""
+    out = {}
+    for role in ("student", "teacher"):
+        sd = OrderedDict()
+        for part, name in (("backbone", model_name), ("head", "DINOHead")):
+            tree = {"params": state[role][part],
+                    "batch_stats": state[f"{role}_stats"].get(part) or {}}
+            for key, value in from_jax_variables(tree, name).items():
+                sd[f"{part}.{key}"] = value
+        out[role] = sd
+    out["center"] = torch.tensor(np.asarray(state["center"], np.float32))
+    out["step"] = int(np.asarray(state.get("step", 0)))
+    return out
 
 
 def _unwrap(obj: Any) -> Dict[str, torch.Tensor]:
