@@ -14,7 +14,11 @@ Phases, each printing one line:
               rtol/atol 1e-4) and bf16 masked at the edge B=3, T=37 (B*T
               = 111, no multiple of the GEMM's 128-row tile); the tail
               also bf16 masked at C=1024 (ECAPA_TDNN_GLOB_c1024's MFA
-              conv, 3072 -> 1536, random weights), B=3, T=37;
+              conv, 3072 -> 1536, random weights), B=3, T=37, and at
+              C=256 (the quality smoke's ECAPA_TDNN, MFA conv 768 ->
+              1536, random weights) without the global context, as that
+              model has none: bf16 at T=200, f32 masked at T=198 and
+              bf16 masked at B=3, T=37; and with it in bf16 at T=200;
   3. train kernels  the training tail's forward kernel against its plain
               version on all four outputs (pooled, h, att, cstats), and
               its backward kernel against the plain backward and against
@@ -23,7 +27,10 @@ Phases, each printing one line:
               (rtol/atol 1e-4, each gradient scaled by its largest
               magnitude), except db1 against bf16 autograd (cosine >=
               0.99, see phase_train_kernels); db2 must be exactly zero;
-              then bf16 at C=1024 (random MFA weights), B=3, T=37;
+              then bf16 at C=1024 (random MFA weights), B=3, T=37, and
+              at C=256 (random MFA weights), B=64, T=200, bf16 and f32,
+              each without the global context (the smoke's model) and
+              with it;
   4. slice    ECAPA_TDNN_GLOB_c512 at full width with random weights and
               randomised BN statistics from a seed: make_eval_embed_fn in
               bf16 over 2 s chunks (32,240 samples), the kernel path
@@ -246,14 +253,29 @@ Phases, each printing one line:
               65,536) and ecapa_simclr.yaml, B=64 x 2 s, bf16, 3 steps
               each: finite logged losses, per step MoCo's rows 1 and 2
               (key encoder) 3 and 1 times and rows 4 and 5 once, SimCLR's
-              rows 4 and 5 once; MoCo's queue pointer at 3 x 64.
+              rows 4 and 5 once; MoCo's queue pointer at 3 x 64;
+ 35. quality  bin/smoke_quality.py's synthetic formant corpus at 12
+              speakers (8 training and 2 evaluation utterances of 3 s
+              each) and its supervised config (ECAPA_TDNN at 256
+              channels, embed 128, ArcMargin, SGD, bf16 AMP, B=64 x 200
+              frames), driven through the port's CLIs in this process:
+              bin/train.py for 2 epochs of 20 steps, rows 4 and 5 once a
+              step and nothing else; bin/extract.py --bf16 at batch 8,
+              row 2 once a batch and nothing else (the SE blocks of
+              width 32 run layer by layer); each embedding against
+              make_eval_embed_fn's plain path on the same checkpoint and
+              buckets (cosine >= 0.9999); bin/score.py, each score within
+              1e-5 of a numpy f64 cosine over the ark; the EER and minDCF
+              of bin/compute_metrics.py, printed without a bar.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
 """
 
 import concurrent.futures
+import contextlib
 import copy
+import io
 import json
 import os
 import subprocess
@@ -269,9 +291,14 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
 from wespeaker_tpu_torch.bin import (  # noqa: E402
+    compute_metrics as metrics_cli, extract as extract_cli,
+    score as score_cli, smoke_quality)
+from wespeaker_tpu_torch.bin import (  # noqa: E402
     train_contrastive as contrastive_cli)
 from wespeaker_tpu_torch.bin import train_dino as dino_cli  # noqa: E402
-from wespeaker_tpu_torch.bin.extract import load_model_for_eval  # noqa: E402
+from wespeaker_tpu_torch.bin.extract import (  # noqa: E402
+    iter_wavs_from_list, load_model_for_eval)
+from wespeaker_tpu_torch.data.dataset import eval_batches  # noqa: E402
 from wespeaker_tpu_torch.bin import kernel_bounds  # noqa: E402
 from wespeaker_tpu_torch.bin import profile_extract  # noqa: E402
 from wespeaker_tpu_torch.bin.profile_train import (  # noqa: E402
@@ -305,10 +332,12 @@ from wespeaker_tpu_torch.train.train_step import (  # noqa: E402
     features_from_batch)
 from wespeaker_tpu_torch.utils.config import (  # noqa: E402
     load_yaml, parse_config_or_kwargs)
+from wespeaker_tpu_torch.utils.kaldi_io import read_vec_scp_dict  # noqa
 from wespeaker_tpu_torch.utils.schedulers import (  # noqa: E402
     ExponentialDecrease, MarginScheduler)
 
 B, T, C = 512, 200, 512
+SMOKE_C = 256  # ECAPA_TDNN of the quality smoke (bin/smoke_quality.py)
 SLICE_BATCH = 64
 CHUNK_SAMPLES = (200 - 1) * 160 + 400  # 32,240 samples: 200 frames
 CHUNK_SECONDS = 2.0                     # counted as bench.py counts them
@@ -436,10 +465,11 @@ def se_inputs(model, rng, b, t, dtype, dev):
     return x, [w.detach() for w in weights], model.layer3.dilation
 
 
-def tail_inputs(model, rng, b, t, dtype, dev, c=C):
+def tail_inputs(model, rng, b, t, dtype, dev, c=C, glob=True):
     """x2, x3, x4 (B, T, c) and the tail's weights: the model's, or at
     another width c a random MFA conv (3c -> 1536) with the model's
-    pooling weights."""
+    pooling weights. Without the global context, attention's first conv
+    takes the rows of the model's that act on the frames (1536 -> 128)."""
     xs = [torch.as_tensor(rng.standard_normal((b, t, c)).astype(np.float32),
                           device=dev).to(dtype) for _ in range(3)]
     p = model.pool
@@ -448,7 +478,10 @@ def tail_inputs(model, rng, b, t, dtype, dev, c=C):
         d = wm.shape[1]
         wm = torch.as_tensor(rng.standard_normal((d, 3 * c)).astype(
             np.float32) * (3 * c) ** -0.5, device=dev).t()
-    weights = (wm, bm, p.linear1.weight[:, :, 0].t(), p.linear1.bias,
+    k1 = p.linear1.weight[:, :, 0].t()
+    if not glob:
+        k1 = k1[:wm.shape[1]].contiguous()
+    weights = (wm, bm, k1, p.linear1.bias,
                p.linear2.weight[:, :, 0].t(), p.linear2.bias)
     return xs, [w.detach() for w in weights]
 
@@ -490,11 +523,18 @@ def phase_kernels(model, dev):
     rng = np.random.default_rng(SEED)
     errs, parts = {}, []
     # the edge: B*T = 111, no multiple of the GEMM's 128-row tile, masked;
-    # the tail also at C=1024 (three A maps of 1024 columns)
-    for dtype, t, masked, b, c in ((torch.bfloat16, T, False, SLICE_BATCH, C),
-                                   (torch.float32, 198, True, SLICE_BATCH, C),
-                                   (torch.bfloat16, 37, True, 3, C),
-                                   (torch.bfloat16, 37, True, 3, 1024)):
+    # the tail also at C=1024 (three A maps of 1024 columns) and at C=256
+    # without the global context (the quality smoke's ECAPA_TDNN) in both
+    # types and at the edge, and once with it
+    for dtype, t, masked, b, c, glob in (
+            (torch.bfloat16, T, False, SLICE_BATCH, C, True),
+            (torch.float32, 198, True, SLICE_BATCH, C, True),
+            (torch.bfloat16, 37, True, 3, C, True),
+            (torch.bfloat16, 37, True, 3, 1024, True),
+            (torch.bfloat16, T, False, SLICE_BATCH, SMOKE_C, False),
+            (torch.float32, 198, True, SLICE_BATCH, SMOKE_C, False),
+            (torch.bfloat16, 37, True, 3, SMOKE_C, False),
+            (torch.bfloat16, T, False, SLICE_BATCH, SMOKE_C, True)):
         mask = ragged_mask(rng, b, t, dev) if masked else None
         if c == C:
             x, w, dil = se_inputs(model, rng, b, t, dtype, dev)
@@ -508,13 +548,14 @@ def phase_kernels(model, dev):
             parts.append(f"se_res2_block {str(dtype)[6:]} B={b} T={t} "
                          f"{'masked' if masked else 'unmasked'} "
                          f"max_abs_err={err:.3g} cos={cos:.7f}")
-        xs, tw = tail_inputs(model, rng, b, t, dtype, dev, c)
-        got = mfa_astp.fused_mfa_astp(*xs, *tw, mask=mask, glob=True)
+        xs, tw = tail_inputs(model, rng, b, t, dtype, dev, c, glob)
+        got = mfa_astp.fused_mfa_astp(*xs, *tw, mask=mask, glob=glob)
         torch.cuda.synchronize()
-        want = mfa_astp.mfa_astp_reference(*xs, *tw, mask=mask, glob=True)
+        want = mfa_astp.mfa_astp_reference(*xs, *tw, mask=mask, glob=glob)
         err, cos = compare(got, want, dtype)
         errs.setdefault("tail", err)
         parts.append(f"mfa_astp {str(dtype)[6:]} B={b} T={t} C={c} "
+                     f"{'glob ' if glob else 'no-glob '}"
                      f"{'masked' if masked else 'unmasked'} "
                      f"max_abs_err={err:.3g} cos={cos:.7f}")
     print("kernels: " + "; ".join(parts))
@@ -726,8 +767,10 @@ GRAD_NAMES = ("dx2", "dx3", "dx4", "dwm", "dbm", "dk1", "db1", "dk2")
 
 def phase_train_kernels(model, dev):
     """The training tail's forward and backward kernels against their
-    plain versions at B=64, C=512: bf16 at T=200 and f32 at T=198; and
-    bf16 at C=1024 (a random MFA conv), B=3, T=37. The
+    plain versions at B=64, C=512: bf16 at T=200 and f32 at T=198; bf16
+    at C=1024 (a random MFA conv), B=3, T=37; and at C=256 (the quality
+    smoke's width, a random MFA conv), B=64, T=200, bf16 and f32, each
+    without the global context (the smoke's ECAPA_TDNN) and with it. The
     backward takes the plain forward's residuals, so both sides see the
     same relu mask, and is also held against autograd through the plain
     forward: at the same bars, but db1 in bf16 at cosine >= 0.99, since
@@ -736,38 +779,52 @@ def phase_train_kernels(model, dev):
     shows it (0.998 at B=2 on the CPU, every other gradient >= 0.99999)."""
     rng = np.random.default_rng(SEED + 4)
     errs, parts = {}, []
-    for dtype, t, b, c in ((torch.bfloat16, T, SLICE_BATCH, C),
-                           (torch.float32, 198, SLICE_BATCH, C),
-                           (torch.bfloat16, 37, 3, 1024)):
-        xs, tw = tail_inputs(model, rng, b, t, dtype, dev, c)
+    for dtype, t, b, c, glob in (
+            (torch.bfloat16, T, SLICE_BATCH, C, True),
+            (torch.float32, 198, SLICE_BATCH, C, True),
+            (torch.bfloat16, 37, 3, 1024, True),
+            (torch.bfloat16, T, SLICE_BATCH, SMOKE_C, False),
+            (torch.float32, T, SLICE_BATCH, SMOKE_C, False),
+            (torch.bfloat16, T, SLICE_BATCH, SMOKE_C, True),
+            (torch.float32, T, SLICE_BATCH, SMOKE_C, True)):
+        xs, tw = tail_inputs(model, rng, b, t, dtype, dev, c, glob)
         wm, bm, k1, b1, k2, b2 = tw
-        got = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw, glob=True)
+        got = mfa_astp_vjp.mfa_astp_train_fwd(*xs, *tw, glob=glob)
         torch.cuda.synchronize()
-        want = mfa_astp_vjp.mfa_astp_train_fwd_reference(*xs, *tw, glob=True)
-        fwd = [compare(gv, wv, dtype) for gv, wv in zip(got, want)]
+        want = mfa_astp_vjp.mfa_astp_train_fwd_reference(*xs, *tw, glob=glob)
+        fwd = []
+        for n, gv, wv in zip(FWD_NAMES, got, want):
+            if n == "cstats" and not glob:  # no context: zeros on both
+                if gv.shape != wv.shape or gv.any() or wv.any():
+                    raise AssertionError("cstats without glob is not zero")
+                fwd.append((0.0, 1.0))
+            else:
+                fwd.append(compare(gv, wv, dtype))
         errs.setdefault("train_fwd", max(e for e, _ in fwd))
         parts.append(f"train fwd {str(dtype)[6:]} B={b} T={t} C={c} "
+                     f"{'glob ' if glob else 'no-glob '}"
                      + " ".join(f"{n}(err={e:.3g} cos={c_:.7f})"
                                 for n, (e, c_) in zip(FWD_NAMES, fwd)))
         g = torch.as_tensor(rng.standard_normal((b, 3072)).astype(
             np.float32), device=dev)
         pooled, h, att, cstats = want
         res = (*xs, wm, k1, b2, k2, pooled, h, att, cstats, g)
-        grads = mfa_astp_vjp.mfa_astp_train_bwd(*res, glob=True)
+        grads = mfa_astp_vjp.mfa_astp_train_bwd(*res, glob=glob)
         torch.cuda.synchronize()
         if grads[-1].abs().max().item() != 0.0:
             raise AssertionError("db2 is not exactly zero")
-        plain = mfa_astp_vjp.mfa_astp_train_bwd_reference(*res, glob=True)
+        plain = mfa_astp_vjp.mfa_astp_train_bwd_reference(*res, glob=glob)
         bwd = [scaled_compare(gv, wv, dtype)
                for gv, wv in zip(grads[:-1], plain[:-1])]
         ins = [v.clone().requires_grad_(True) for v in (*xs, *tw)]
-        out = mfa_astp_vjp.mfa_astp_train_reference(*ins, glob=True)
+        out = mfa_astp_vjp.mfa_astp_train_reference(*ins, glob=glob)
         auto = torch.autograd.grad((out * g).sum(), ins)
         vs_auto = [scaled_compare(gv, av.to(gv.dtype), dtype,
                                   0.99 if n == "db1" else 0.9999)
                    for n, gv, av in zip(GRAD_NAMES, grads[:-1], auto[:-1])]
         errs.setdefault("train_bwd", max(e for e, _ in bwd))
-        parts.append(f"train bwd {str(dtype)[6:]} B={b} T={t} C={c} db2=0 "
+        parts.append(f"train bwd {str(dtype)[6:]} B={b} T={t} C={c} "
+                     f"{'glob ' if glob else 'no-glob '}db2=0 "
                      + " ".join(
             f"{n}(err={e:.3g} cos={c_:.7f} autograd cos={ca:.7f})"
             for n, (e, c_), (_, ca) in zip(GRAD_NAMES, bwd, vs_auto)))
@@ -2960,6 +3017,98 @@ def phase_contrastive(dev, raw, utt2spk, root):
           "3 steps each: " + "; ".join(parts))
 
 
+QUALITY_SPK = 12
+QUALITY_BATCH = 8  # extraction batch: 24 evaluation utterances in 3
+
+
+def phase_quality(dev):
+    """The quality smoke's chain on its own model at 12 speakers: the
+    corpus of bin/smoke_quality.py, then in this process bin/train.py
+    (its supervised config: ECAPA_TDNN at 256 channels, bf16, batch 64 x
+    200 frames, 2 epochs of 20 steps), bin/extract.py --bf16 (the
+    checkpoint's embeddings), bin/score.py and bin/compute_metrics.py.
+    Training launches rows 4 and 5 once a step and nothing else,
+    extraction row 2 once a batch and nothing else (the SE blocks take the
+    layers at this width); each utterance's embedding against
+    make_eval_embed_fn's plain path (fused=False, plain pooling, bf16) on
+    the same checkpoint and buckets at cosine >= 0.9999; each score within
+    1e-5 of a numpy f64 cosine over the ark. The EER is printed, held to
+    no bar (two short epochs)."""
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as root:
+        smoke_quality.make_corpus(root, n_spk=QUALITY_SPK)
+        cfg, exp = smoke_quality.write_config(root, "supervised")
+        zero_counts()
+        step = train_cli.train(cfg, ["num_epochs=2", "samples_per_epoch=1280",
+                                     "log_batch_interval=10"], device=dev)
+        torch.cuda.synchronize()
+        train_launches = counts()
+        want = dict(NO_LAUNCH, train_fwd=step.step, train_bwd=step.step)
+        if step.step != 40 or train_launches != want:
+            raise AssertionError(f"quality training: {step.step} steps, "
+                                 f"launches {train_launches}, want 40 and "
+                                 f"{want}")
+        del step
+        configs = load_yaml(os.path.join(exp, "config.yaml"))
+        ckpt = os.path.join(exp, "models", "final_model.pt")
+        eval_list = os.path.join(root, "eval.list")
+        batches = list(eval_batches(iter_wavs_from_list(eval_list),
+                                    batch_size=QUALITY_BATCH))
+        zero_counts()
+        scp = extract_cli.extract(os.path.join(exp, "config.yaml"), ckpt,
+                                  eval_list, os.path.join(root, "emb"),
+                                  batch_size=QUALITY_BATCH, bf16=True,
+                                  device=dev)
+        torch.cuda.synchronize()
+        extract_launches = counts()
+        if extract_launches != dict(NO_LAUNCH, tail=len(batches)):
+            raise AssertionError(f"quality extraction: launches "
+                                 f"{extract_launches}, want tail "
+                                 f"{len(batches)} (one a batch), no other")
+        emb = read_vec_scp_dict(scp)
+        model = load_model_for_eval(configs, ckpt, device=dev)
+        route = {b.eval_route for b in (model.layer2, model.layer3,
+                                        model.layer4)}
+        plain = make_eval_embed_fn(
+            set_pooling_fused(model.set_fused(False), False), FbankConfig(),
+            compute_dtype=torch.bfloat16, device=dev)
+        cos = []
+        for batch in batches:
+            want_emb = plain({"wav": batch["wav"], "mask": batch["mask"]})
+            got = torch.as_tensor(np.stack([emb[k] for k in batch["key"]]),
+                                  device=dev)
+            cos.append(row_cosines(got, want_emb).min().item())
+        if min(cos) < 0.9999 or len(emb) != 2 * QUALITY_SPK:
+            raise AssertionError(f"quality: {len(emb)} embeddings, kernel "
+                                 f"vs plain path cosine {min(cos)}")
+        trials = os.path.join(root, "trials")
+        score_file = score_cli.score(exp, scp, trials=[trials],
+                                     device=dev)[0]
+        score_err = 0.0
+        with open(score_file) as f:
+            lines = [ln.split() for ln in f]
+        for a, b, s_, _ in lines:
+            ea, eb = emb[a].astype(np.float64), emb[b].astype(np.float64)
+            ref = ea @ eb / (np.linalg.norm(ea) * np.linalg.norm(eb))
+            score_err = max(score_err, abs(float(s_) - ref))
+        if score_err > 1e-5:
+            raise AssertionError(f"quality: score vs f64 cosine {score_err}")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            eer, _, mindcf = metrics_cli.metrics_for_file(score_file)
+    print(f"quality: bin/smoke_quality.py's corpus at {QUALITY_SPK} speakers "
+          f"and supervised config (ECAPA_TDNN C={SMOKE_C}, SE route "
+          f"{sorted(route)}), bin/train.py 2 epochs of 20 steps bf16 B=64: "
+          f"launches train_fwd={train_launches['train_fwd']} "
+          f"train_bwd={train_launches['train_bwd']} se=0 tail=0; "
+          f"bin/extract.py --bf16 {len(emb)} utterances in {len(batches)} "
+          f"batches: tail={extract_launches['tail']} se=0, min cosine vs "
+          f"the plain path {min(cos):.7f}; bin/score.py {len(lines)} trials, "
+          f"max |score - f64 cosine| {score_err:.2e}; "
+          f"bin/compute_metrics.py EER {eer:.3f}% minDCF {mindcf:.3f} (no "
+          f"bar); {time.perf_counter() - t_start:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3022,6 +3171,7 @@ def main():
         raw, utt2spk = ssl_corpus(d)
         phase_dino_trainer(dev, raw, utt2spk, d)
         phase_contrastive(dev, raw, utt2spk, d)
+    phase_quality(dev)
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),

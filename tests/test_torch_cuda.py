@@ -107,9 +107,11 @@ def test_se_block_kernel_matches_plain(cuda, dtype, masked, t, c):
     assert_matches(got, want, dtype)
 
 
-# the tail's edges: B*T = 111 and 3, no multiple of the 128-row tile, T = 1
+# the tail's edges: B*T = 111 and 3, no multiple of the 128-row tile, T = 1;
+# and C = 256 (the quality smoke's ECAPA) in both types
 TAIL_EDGES = [(torch.bfloat16, True, 37, 1024),
-              (torch.bfloat16, False, 1, 512), (torch.float32, True, 1, 1024)]
+              (torch.bfloat16, False, 1, 512), (torch.float32, True, 1, 1024),
+              (torch.bfloat16, True, 200, 256), (torch.float32, True, 198, 256)]
 
 
 @pytest.mark.parametrize("glob", [True, False])
@@ -160,6 +162,38 @@ def test_ecapa_kernel_path_matches_plain_path(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_ecapa_256_takes_the_layers_and_the_tail_kernel(cuda):
+    """ECAPA_TDNN at 256 channels (the quality smoke's model) in bf16 eval:
+    its SE blocks (group width 32) run layer by layer, as the JAX width
+    rule routes them, so the block kernel never launches and the tail
+    kernel launches once a forward; the embeddings match the plain path
+    (fused=False, plain pooling) at cosine >= 0.9999."""
+    from wespeaker_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN
+    from wespeaker_tpu_torch.models.pooling_layers import set_pooling_fused
+
+    torch.manual_seed(0)
+    model = ECAPA_TDNN(256, 80, 128).to(cuda).eval()
+    assert {b.eval_route for b in (model.layer2, model.layer3,
+                                   model.layer4)} == {"layers"}
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((8, 200, 80)).astype(np.float32),
+                        device=cuda).to(torch.bfloat16)
+    mask = torch.ones(8, 200, device=cuda)
+    mask[3, 150:] = 0
+    with torch.inference_mode():
+        s0 = se_block.fused_se_res2_block.launches
+        t0 = mfa_astp.fused_mfa_astp.launches
+        got = model(x, mask)
+        assert se_block.fused_se_res2_block.launches == s0
+        assert mfa_astp.fused_mfa_astp.launches == t0 + 1
+        model.set_fused(False)
+        set_pooling_fused(model, False)
+        want = model(x, mask)
+    assert torch.isfinite(got.float()).all()
+    a, b = got.double().flatten(), want.double().flatten()
+    assert (a @ b / (a.norm() * b.norm())).item() >= 0.9999
+
+
 def scaled_close(got, want, name):
     """f32 gradient against its plain version, each scaled by its largest
     magnitude (sums over B*T rows in another order), rtol/atol 1e-4."""
@@ -170,12 +204,17 @@ def scaled_close(got, want, name):
 
 # (dtype, T, C, glob); bf16 also without the global context, at T = 37
 # (tiles straddle utterances) with C = 1024, and at T = 300 (the softmax
-# backward stages T in two chunks)
+# backward stages T in two chunks); C = 256 in both types, with and without
+# the global context (the quality smoke's ECAPA_TDNN has none)
 TRAIN_CASES = [(torch.float32, 30, 128, True), (torch.float32, 30, 128, False),
                (torch.float32, 198, 512, True), (torch.bfloat16, 200, 512, True),
                (torch.bfloat16, 200, 512, False),
                (torch.bfloat16, 37, 1024, True),
-               (torch.bfloat16, 300, 512, True)]
+               (torch.bfloat16, 300, 512, True),
+               (torch.bfloat16, 200, 256, True),
+               (torch.float32, 198, 256, True),
+               (torch.bfloat16, 200, 256, False),
+               (torch.float32, 198, 256, False)]
 GRAD_NAMES = ["dx2", "dx3", "dx4", "dwm", "dbm", "dk1", "db1", "dk2", "db2"]
 
 

@@ -45,7 +45,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "ops/conv_dw_pack.py", "ops/res2_chain.py",
             "models/resnet.py", "ssl/dino.py", "ssl/contrastive.py",
             "ssl/dataset.py", "ssl/featurize.py", "bin/train_dino.py",
-            "bin/train_contrastive.py"} <= names
+            "bin/train_contrastive.py", "bin/extract.py",
+            "utils/kaldi_io.py", "utils/eval_device.py",
+            "backend/metrics.py", "backend/scoring.py", "bin/score.py",
+            "bin/score_norm.py", "bin/compute_metrics.py",
+            "bin/average_model.py", "bin/smoke_quality.py"} <= names
     bad = []
     for path in files:
         for name in _imported(ast.parse(path.read_text(), str(path))):
@@ -78,6 +82,16 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--config", str(cfg), "--checkpoint", "none.pt",
                     "--port", "0"])
+    from wespeaker_tpu_torch.backend.scoring import TrialScorer
+    from wespeaker_tpu_torch.bin import extract, score
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract.main(["--config", str(cfg), "--checkpoint", "none.pt",
+                      "--data_list", "none.list", "--out_prefix", "emb"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        score.main(["--exp_dir", str(tmp_path), "--eval_scp_path",
+                    "none.scp", "trials"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrialScorer({"a": np.ones(4, np.float32)})
     assert resolve_device("cpu").type == "cpu"
 
 

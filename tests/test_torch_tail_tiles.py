@@ -4,7 +4,7 @@ csrc/mfa_astp_fwd.cuh on csrc/gemm_sm90.cuh), on the CPU.
 - gemm_sm90's three-map K walk (`ops.gemm_sm90.k_walk`, which the C
   launcher mirrors): K tile kt of the MFA conv reads A map kt // (C / 64)
   at column (kt % (C / 64)) * 64, every column of every map once, at C =
-  512 and 1024; C % 64 != 0 is refused. The 128-row output tiles
+  256, 512 and 1024; C % 64 != 0 is refused. The 128-row output tiles
   (`tile_utterances`) cover every row of M = B*T once and give each row
   its own utterance, r // t, for the tanh form's row bias: tiles straddle
   utterances at T = 1, 21, 37, 200 and 201 (B*T no multiple of 128).
@@ -17,7 +17,7 @@ csrc/mfa_astp_fwd.cuh on csrc/gemm_sm90.cuh), on the CPU.
   logits acc + b2; the masked softmax over T and the weighted stats. In
   f32 it matches JAX's `mfa_astp_reference` and `fused_mfa_astp(...,
   interpret=True)` at rtol/atol 1e-5, glob and not, masked and not, C =
-  512 and 1024 (at T = 1 the std half is the rounding of h^2 alone, on
+  256 (the quality smoke's ECAPA), 512 and 1024 (at T = 1 the std half is the rounding of h^2 alone, on
   which JAX's two paths differ, and is held to that rounding's size); for
   the training forward, JAX's `_fwd_values` (the Pallas
   kernel in interpret mode: pooled, h, att, cstats) and
@@ -42,8 +42,8 @@ csrc/mfa_astp_fwd.cuh on csrc/gemm_sm90.cuh), on the CPU.
   their splits summed in order. In f32 it matches JAX's `_bwd_pallas`
   (interpret mode) and `_bwd_jnp`, all nine gradients, at rtol 1e-5 and
   atol 1e-5 of each gradient's largest magnitude (sums over B*T rows in
-  another order), at T = 37 and 201 (tiles straddle utterances), C = 512
-  and 1024, glob on and off; with the tile's first-row utterance in the
+  another order), at T = 37 and 201 (tiles straddle utterances), C = 256,
+  512 and 1024, glob on and off; with the tile's first-row utterance in the
   relu_grad form it misses.
 """
 
@@ -67,7 +67,7 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 D, A = 256, 128  # two 128-column tiles of the MFA conv; the attention width
 
 
-@pytest.mark.parametrize("c", [512, 1024, 64, 192])
+@pytest.mark.parametrize("c", [512, 1024, 256, 64, 192])
 def test_k_walk_reads_every_column_of_every_map_once(c):
     walk = g9.k_walk(3 * c, 3)
     kpt = c // 64
@@ -216,7 +216,8 @@ def _case(seed, b, t, c, glob, masked):
 @pytest.mark.parametrize("b,t,c,glob,masked", [
     (3, 37, 512, True, True), (2, 201, 1024, True, False),
     (5, 1, 512, True, False), (3, 21, 1024, False, True),
-    (2, 200, 512, False, False), (2, 200, 512, True, True)])
+    (2, 200, 512, False, False), (2, 200, 512, True, True),
+    (3, 37, 256, True, True), (3, 37, 256, False, True)])
 def test_emulation_matches_jax_inference(b, t, c, glob, masked):
     xs, w, mask = _case(10 + t, b, t, c, glob, masked)
     tx = [torch.from_numpy(v) for v in xs]
@@ -255,7 +256,9 @@ def test_emulation_matches_jax_inference(b, t, c, glob, masked):
 
 @pytest.mark.parametrize("b,t,c,glob", [(3, 37, 512, True),
                                         (2, 201, 1024, True),
-                                        (3, 21, 512, False)])
+                                        (3, 21, 512, False),
+                                        (3, 37, 256, True),
+                                        (3, 37, 256, False)])
 def test_emulation_matches_jax_train_forward(b, t, c, glob):
     xs, w, _ = _case(20 + t, b, t, c, glob, False)
     tx = [torch.from_numpy(v) for v in xs]
@@ -279,7 +282,7 @@ GRADS = ["dx2", "dx3", "dx4", "dwm", "dbm", "dk1", "db1", "dk2", "db2"]
 
 @pytest.mark.parametrize("b,t,c", [(3, 37, 512), (2, 201, 1024),
                                    (256, 200, 512), (256, 200, 1024),
-                                   (5, 1, 512)])
+                                   (5, 1, 512), (64, 200, 256)])
 def test_weight_grad_units_cover_every_k_row_once(b, t, c):
     """dwm (3C, D), dk2 (A, D), dk1x (D, A) at D = 1536, A = 128: each
     output tile gets each 64-row K tile once, its splits in order; dwm's
@@ -313,7 +316,7 @@ def test_weight_grad_units_cover_every_k_row_once(b, t, c):
         assert len(units) / (132 * waves) >= 0.95
 
 
-@pytest.mark.parametrize("c", [512, 1024, 128])
+@pytest.mark.parametrize("c", [512, 1024, 256, 128])
 def test_dx_column_tiles_write_each_output_once(c):
     hits = np.zeros((3, c), np.int64)
     for n0, (o, col) in zip(range(0, 3 * c, 128), tvjp.dx_tiles(c)):
@@ -494,7 +497,8 @@ def _close_scaled(got, want, name):
 @pytest.mark.parametrize("b,t,c,glob,tc", [
     (3, 37, 512, True, None), (2, 201, 1024, True, None),
     (3, 37, 1024, False, 16), (2, 201, 512, False, None),
-    (3, 37, 512, True, 16)])
+    (3, 37, 512, True, 16), (3, 37, 256, True, None),
+    (3, 37, 256, False, None)])
 def test_bwd_emulation_matches_jax(b, t, c, glob, tc):
     jres, tres, g = _bwd_case(40 + t + c // 512, b, t, c, glob)
     got = emulate_bwd(tres[:3], *tres[3:], torch.from_numpy(g), glob, tc)

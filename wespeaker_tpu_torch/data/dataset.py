@@ -9,13 +9,17 @@ trainers' setting) an epoch is the stream of whole utterances, neither
 chunked nor augmented, which ssl/dataset.py crops into views. Not ported
 yet, and refused: the `feat` data type and the host half of device-side
 augmentation. Reverb/noise augmentation (the packed audio stores), the
-evaluation mode, the per-rank and per-worker split and the multi-process
-prefetcher are not ported either (the trainers refuse their options).
+per-rank and per-worker split and the multi-process prefetcher are not
+ported either (the trainers refuse their options).
+
+`eval_batches` and `eval_feat_batches` are the extraction side: whole
+utterances or feature matrices sorted by length into padded buckets with
+validity masks, bit-identical to the JAX package's.
 """
 
 import queue
 import threading
-from typing import Dict, Iterator
+from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -132,3 +136,83 @@ class Prefetcher:
                 return
             yield item
 
+
+def _bucket_len(longest: int, quantum: int, cap: Optional[int],
+                pow2: bool) -> Tuple[int, int]:
+    """(padded length, valid-length cap) of a bucket whose longest item is
+    `longest`: the cap bounds it, then the linear grid of `quantum` or the
+    ladder quantum, 2 quantum, 4 quantum, ... rounds it up. The cap bounds
+    the valid part even where the ladder pads past it."""
+    if cap is not None:
+        longest = min(longest, cap)
+    if not pow2:
+        return -(-longest // quantum) * quantum, longest
+    padded = quantum
+    while padded < longest:
+        padded *= 2
+    return padded, longest
+
+
+def _sorted_buckets(items: Iterable[Tuple[str, np.ndarray]], batch_size: int,
+                    quantum: int, cap: Optional[int],
+                    sort_window: Optional[int], pow2: bool, data_key: str
+                    ) -> Iterator[dict]:
+    """Windows of `sort_window` items (the whole stream for None), each
+    sorted by length (axis 0) and cut into batches right-padded to their
+    bucket, with a (B, padded) validity mask."""
+
+    def emit(window):
+        window.sort(key=lambda kv: kv[1].shape[0])
+        for i in range(0, len(window), batch_size):
+            group = window[i:i + batch_size]
+            padded, valid = _bucket_len(max(v.shape[0] for _, v in group),
+                                        quantum, cap, pow2)
+            out = np.zeros((len(group), padded) + group[0][1].shape[1:],
+                           np.float32)
+            mask = np.zeros((len(group), padded), np.float32)
+            for j, (_, v) in enumerate(group):
+                v = v[:valid]
+                out[j, :v.shape[0]] = v
+                mask[j, :v.shape[0]] = 1.0
+            yield {data_key: out, "mask": mask,
+                   "key": [k for k, _ in group]}
+
+    window = []
+    for item in items:
+        window.append(item)
+        if sort_window is not None and len(window) >= sort_window:
+            yield from emit(window)
+            window = []
+    if window:
+        yield from emit(window)
+
+
+def eval_batches(utt_wavs: Iterable[Tuple[str, np.ndarray]],
+                 batch_size: int = 8, quantum_samples: int = 16000,
+                 max_samples: Optional[int] = None,
+                 sort_window: Optional[int] = 4096,
+                 pow2_buckets: bool = False) -> Iterator[dict]:
+    """Extraction batches of whole utterances (key, f32 wav): sorted by
+    length in windows of `sort_window` (None: the whole list), grouped by
+    `batch_size`, right-padded to the group's longest rounded up to a
+    multiple of `quantum_samples` (or, with `pow2_buckets`, up the ladder
+    quantum, 2 quantum, 4 quantum, ...), with a per-sample validity mask,
+    so that masked CMVN and pooling give the unpadded batch=1 result
+    (upstream extract.py:112-135). `max_samples` caps the valid samples
+    of every utterance. Yields {"wav": (B, N), "mask": (B, N), "key":
+    [B keys]}, as the JAX package's eval_batches does, bit for bit."""
+    return _sorted_buckets(utt_wavs, batch_size, quantum_samples,
+                           max_samples, sort_window, pow2_buckets, "wav")
+
+
+def eval_feat_batches(utt_feats: Iterable[Tuple[str, np.ndarray]],
+                      batch_size: int = 8, quantum_frames: int = 100,
+                      max_frames: Optional[int] = None,
+                      sort_window: Optional[int] = 4096,
+                      pow2_buckets: bool = False) -> Iterator[dict]:
+    """eval_batches for precomputed (T, F) feature matrices (the `feat`
+    data type): buckets of `quantum_frames` (100 = 1 s at a 10 ms hop),
+    `max_frames` capping the valid frames, and a (B, T) frame mask.
+    Yields {"feat": (B, T, F), "mask": (B, T), "key": [B keys]}."""
+    return _sorted_buckets(utt_feats, batch_size, quantum_frames,
+                           max_frames, sort_window, pow2_buckets, "feat")

@@ -10,9 +10,10 @@ device in the train step. Every random choice draws from the numpy
 Generator passed in, so the same seed gives the same samples as the JAX
 package. Speed perturb is polyphase resampling (sox's `speed` + `rate`);
 the chunk length ((num_frms - 1) * frame_shift + frame_length) ms yields
-exactly num_frms fbank frames. Not ported yet: kaldi feature input,
-reverb/noise augmentation (`make_crop_aug` refuses a store), the expanded
-speed perturb and http(s) shards.
+exactly num_frms fbank frames. Kaldi scp lines are read for extraction
+(`read_vec_scp_iterlines`). Not ported yet: the kaldi feature input of
+training, reverb/noise augmentation (`make_crop_aug` refuses a store),
+the expanded speed perturb and http(s) shards.
 """
 
 import json
@@ -22,6 +23,7 @@ from typing import Dict, Iterable, Iterator, List, Optional
 import numpy as np
 
 from wespeaker_tpu_torch.data.wav_io import read_wav
+from wespeaker_tpu_torch.utils.kaldi_io import read_vec_scp_lines
 
 AUDIO_EXTS = (".wav", ".flac")
 
@@ -118,6 +120,10 @@ def parse_shard(tar_paths: Iterable[str]) -> Iterator[dict]:
                     current["spk"] = data.decode().strip()
             if "wav" in current and "spk" in current:
                 yield current
+
+
+# (key, array) from kaldi scp lines; the parser lives in utils.kaldi_io
+read_vec_scp_iterlines = read_vec_scp_lines
 
 
 def local_shuffle(data: Iterator[dict], buffer_size: int = 2500,

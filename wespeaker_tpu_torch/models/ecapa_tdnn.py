@@ -7,7 +7,8 @@ channels-last, as in the JAX package. An optional (B, T) frame mask makes
 padded batches equal the batch=1 whole-utterance path (masked SE squeeze
 and masked pooling).
 
-In eval mode with `fused=True` (the default), each SE_Res2Block runs as one
+In eval mode with `fused=True` (the default), each SE_Res2Block of group
+width >= 64 (512 channels and up; `SE_Res2Block.eval_route`) runs as one
 call of `ops.se_block.fused_se_res2_block` and the MFA conv + ASTP tail as
 one call of `ops.mfa_astp.fused_mfa_astp`, with BN folded: on a CUDA tensor
 those launch the hand-written kernels, on a CPU tensor their plain
@@ -21,11 +22,14 @@ package); with TAP, TSDP or TSTP the MFA conv runs as a layer and its
 output goes through the pooling module, which in eval takes
 `ops.pooling`'s masked statistics (TSDP, TSTP).
 
-`fused_res2=True` (the JAX package's opt-in Res2 kernel, inference only)
-acts where the whole block is not fused: in eval with `fused=False`, each
-block's Res2 chain is one call of `ops.res2_chain.fused_res2_chain` and the
-rest of the model runs layer by layer (the JAX package's
-`ECAPA_TDNN(fused_res2=True, fused_block=False, fused_tail=False)`).
+Narrower blocks (width 32 at 256 channels) run layer by layer in eval,
+as the JAX package's width rule routes them, and the tail still takes its
+kernel. `fused_res2=True` (the JAX package's opt-in Res2 kernel,
+inference only) acts where the whole block is not fused: in eval with
+`fused=False`, each block's Res2 chain is one call of
+`ops.res2_chain.fused_res2_chain` and the rest of the model runs layer by
+layer (the JAX package's `ECAPA_TDNN(fused_res2=True, fused_block=False,
+fused_tail=False)`).
 """
 
 from typing import Optional
@@ -129,7 +133,19 @@ class SE_Connect(nn.Module):
                 self.linear2.weight.t(), self.linear2.bias)
 
 
+# the group width from which the block's eval kernels run, as in the JAX
+# package (se_block_pallas.block_kernel_fits, res2_pallas.kernel_fits)
+KERNEL_MIN_WIDTH = 64
+
+
 class SE_Res2Block(nn.Module):
+    """`eval_route` is fixed here from the group width channels // scale:
+    "kernel" from KERNEL_MIN_WIDTH up, where eval takes the block kernel
+    (`fused`) or the Res2 chain kernel (`fused_res2`); "layers" below it
+    (ECAPA_TDNN with 256 channels), where eval runs layer by layer whatever
+    `fused` and `fused_res2` say, as the JAX package's width rule routes
+    it. Training runs layer by layer either way."""
+
     def __init__(self, channels: int, kernel_size: int, stride: int,
                  padding: int, dilation: int, scale: int, fused: bool = True,
                  fused_res2: bool = False):
@@ -137,6 +153,8 @@ class SE_Res2Block(nn.Module):
         self.dilation = dilation
         self.fused = fused
         self.fused_res2 = fused_res2
+        self.eval_route = ("kernel" if channels // scale >= KERNEL_MIN_WIDTH
+                           else "layers")
         self.se_res2block = nn.Sequential(
             Conv1dReluBn(channels, channels, kernel_size=1),
             Res2Conv1dReluBn(channels, kernel_size, stride, padding,
@@ -148,12 +166,13 @@ class SE_Res2Block(nn.Module):
     def forward(self, x: torch.Tensor,
                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         pre, res2, post, se = self.se_res2block
-        if self.fused and not self.training:
+        kernels = self.eval_route == "kernel" and not self.training
+        if kernels and self.fused:
             return fused_se_res2_block(
                 x, *pre.folded(), *res2.folded(), *post.folded(),
                 *se.folded(), dilation=self.dilation, mask=mask)
         out = pre(x)
-        if self.fused_res2 and not self.training:
+        if kernels and self.fused_res2:
             out = fused_res2_chain(out, *res2.folded(), dilation=self.dilation)
         else:
             out = res2(out)

@@ -48,7 +48,7 @@ import torch
 from wespeaker_tpu_torch.ops import _build
 
 _NEG_INF = -1e30
-_CHANNELS = (512, 1024)
+_C_MULTIPLE = 128  # as the training tail (ops/mfa_astp_vjp.py) takes C
 _MFA_DIM = 1536
 _ATT_DIM = 128
 
@@ -115,9 +115,11 @@ def mfa_astp_reference(x2, x3, x4, wm, bm, k1, b1, k2, b2,
 
 
 def _check_cuda_args(x2, x3, x4, wm, k1, k2, mask, glob):
-    """Raises for what the kernels do not take. C in (512, 1024), D = 1536
-    and A = 128 are also what gemm_sm90 takes in bf16 (C a multiple of
-    its 64-column K tile, N a multiple of 128): no shape falls back."""
+    """Raises for what the kernels do not take. C a multiple of 128 (256,
+    512, 1024: the widths the training tail takes), D = 1536 and A = 128
+    are also what gemm_sm90 takes in bf16 (C a multiple of its 64-column K
+    tile, N a multiple of 128) and the f32 FMA GEMM (K slices of a
+    multiple of 32): no shape falls back."""
     b, t, c = x2.shape
     if x2.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_mfa_astp takes f32 or bf16, not {x2.dtype}")
@@ -125,12 +127,12 @@ def _check_cuda_args(x2, x3, x4, wm, k1, k2, mask, glob):
             x2.dtype, x3.dtype, x4.dtype}) != 1:
         raise ValueError("x2, x3, x4 must share shape and dtype")
     want_k1 = ((3 if glob else 1) * _MFA_DIM, _ATT_DIM)
-    if (c not in _CHANNELS or tuple(wm.shape) != (3 * c, _MFA_DIM)
+    if (c <= 0 or c % _C_MULTIPLE or tuple(wm.shape) != (3 * c, _MFA_DIM)
             or tuple(k1.shape) != want_k1
             or tuple(k2.shape) != (_ATT_DIM, _MFA_DIM)):
         raise ValueError(
-            f"fused_mfa_astp takes C in {_CHANNELS}, wm (3C, {_MFA_DIM}), "
-            f"k1 {want_k1}, k2 ({_ATT_DIM}, {_MFA_DIM}); got x "
+            f"fused_mfa_astp takes C % {_C_MULTIPLE} == 0, wm (3C, "
+            f"{_MFA_DIM}), k1 {want_k1}, k2 ({_ATT_DIM}, {_MFA_DIM}); got x "
             f"{tuple(x2.shape)}, wm {tuple(wm.shape)}, k1 {tuple(k1.shape)},"
             f" k2 {tuple(k2.shape)}")
     if mask is not None and tuple(mask.shape) != (b, t):

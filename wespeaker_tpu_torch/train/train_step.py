@@ -197,28 +197,41 @@ def build_train_state(build_modules: Callable[[], Tuple[nn.Module,
 def make_eval_embed_fn(model: nn.Module,
                        fbank_cfg: FbankConfig = FbankConfig(),
                        compute_dtype=torch.float32, fbank_conv_dtype=None,
-                       device: DeviceLike = None
+                       device: DeviceLike = None, from_wav: bool = True,
+                       featurize_fn: Optional[Callable] = None
                        ) -> Callable[[Dict[str, Any]], torch.Tensor]:
-    """wav batch + optional sample mask -> (B, D) f32 embeddings, as
-    wespeaker/bin/extract.py computes them: no augmentation, no dither,
-    CMVN on. `model` is moved to `device` (the card unless the caller
-    passes device="cpu") and put in eval mode; its parameters stay f32,
-    activations run in compute_dtype.
+    """Batch -> (B, D) f32 embeddings, as wespeaker/bin/extract.py computes
+    them: no augmentation, no dither, CMVN on. `model` is moved to
+    `device` (the card unless the caller passes device="cpu") and put in
+    eval mode; its parameters stay f32 (each layer casts them to the
+    activations' type per call), activations run in compute_dtype.
 
-    batch: {"wav": (B, N) in [-1, 1], optional "mask": (B, N) sample
-    validity}, numpy arrays or tensors. (The JAX version's feature input
-    and featurize_fn for other frontends are not ported yet.)"""
+    from_wav=True: {"wav": (B, N) in [-1, 1], optional "mask": (B, N)
+    sample validity} -> fbank (the sample mask becomes a frame mask).
+    from_wav=False: {"feat": (B, T, F) features, optional "mask": (B, T)
+    frame validity}, as the `feat` data type's extraction passes them.
+    Either way masked CMVN, then the model. Numpy arrays or tensors.
+    `featurize_fn` (the JAX version's hook for non-fbank frontends) is not
+    ported: the SSL frontends are not, and passing one raises."""
+    if featurize_fn is not None:
+        raise NotImplementedError("featurize_fn (non-fbank frontends) is not "
+                                  "ported yet")
     dev = resolve_device(device)
     model = model.to(dev).eval()
 
     def embed_fn(batch: Dict[str, Any]) -> torch.Tensor:
         with torch.inference_mode():
-            wav = _on(batch["wav"], dev) * (1 << 15)
-            feat = compute_fbank(wav, fbank_cfg, conv_dtype=fbank_conv_dtype)
             mask = batch.get("mask")
-            fmask = None if mask is None else _sample_to_frame_mask(
-                _on(mask, dev), feat.shape[-2], fbank_cfg.window_shift,
-                fbank_cfg.window_size)
+            if from_wav:
+                wav = _on(batch["wav"], dev) * (1 << 15)
+                feat = compute_fbank(wav, fbank_cfg,
+                                     conv_dtype=fbank_conv_dtype)
+                fmask = None if mask is None else _sample_to_frame_mask(
+                    _on(mask, dev), feat.shape[-2], fbank_cfg.window_shift,
+                    fbank_cfg.window_size)
+            else:
+                feat = _on(batch["feat"], dev)
+                fmask = None if mask is None else _on(mask, dev)
             feat = apply_cmvn(feat, mask=fmask).to(compute_dtype)
             return model(feat, fmask).float()
 
