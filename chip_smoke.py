@@ -266,7 +266,30 @@ Phases, each printing one line:
               make_eval_embed_fn's plain path on the same checkpoint and
               buckets (cosine >= 0.9999); bin/score.py, each score within
               1e-5 of a numpy f64 cosine over the ark; the EER and minDCF
-              of bin/compute_metrics.py, printed without a bar.
+              of bin/compute_metrics.py, printed without a bar; then the
+              smoke's back end (bin/smoke_quality.py::back_end): the
+              training list extracted, PLDA, AS-Norm and QMF through
+              bin/plda_tools.py, bin/score_norm.py, bin/prep_data.py and
+              bin/score_calibration.py, their EERs printed without a bar.
+ 36. backend  the SRE recipes' back end on examples/sre/v2/conf/
+              resnet34_sre.yaml (ResNet34, 8 kHz, fbank 40, embed 256,
+              TSTP) at full width: a seeded port model (BN statistics
+              from synthetic voices) mapped to flax trees
+              (utils.weights.to_jax_variables) and written as three
+              perturbed model_{0,1,2}.ckpt by the port's msgpack writer;
+              bin/average_model.py -> avg_model.ckpt; bin/extract.py over
+              128 speakers x 4 synthetic 2 s utterances (16 kHz, resampled
+              to 8 kHz) at batch 128 from the .ckpt and from a .pt holding
+              the same average (summed in f64 by torch): the two arks
+              must be equal byte for byte, and the .ckpt run must launch
+              row 7 (the TSTP's masked stats) once a batch and nothing
+              else; then examples/sre/v3's stages 5-8 through the CLIs:
+              bin/embd_proc.py (mean-subtract | length-norm | lda dim 100
+              | length-norm), bin/plda_tools.py train, adapt and eval,
+              bin/compute_metrics.py; each LLR of the trial list on the
+              card within 1e-4 of the same function in f64 on the CPU,
+              relative to max(|LLR|, 1); each step's seconds and the EERs
+              (random model, no bar) printed.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -289,7 +312,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from wespeaker_tpu_torch.backend.plda import TwoCovPLDA, _llr  # noqa: E402
 from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
+from wespeaker_tpu_torch.bin import (  # noqa: E402
+    average_model as avg_cli, embd_proc as proc_cli, plda_tools as plda_cli)
 from wespeaker_tpu_torch.bin import (  # noqa: E402
     compute_metrics as metrics_cli, extract as extract_cli,
     score as score_cli, smoke_quality)
@@ -328,13 +354,18 @@ from wespeaker_tpu_torch.serving import EmbeddingServer  # noqa: E402
 from wespeaker_tpu_torch.train import (AugConfig,  # noqa: E402
                                        build_train_state, make_eval_embed_fn,
                                        make_train_step)
+from wespeaker_tpu_torch.train.composite import build_model  # noqa: E402
 from wespeaker_tpu_torch.train.train_step import (  # noqa: E402
     features_from_batch)
+from wespeaker_tpu_torch.utils import checkpoint as ckpt_io  # noqa: E402
 from wespeaker_tpu_torch.utils.config import (  # noqa: E402
     load_yaml, parse_config_or_kwargs)
-from wespeaker_tpu_torch.utils.kaldi_io import read_vec_scp_dict  # noqa
+from wespeaker_tpu_torch.utils.kaldi_io import (  # noqa: E402
+    read_spk2emb, read_vec_scp_dict)
 from wespeaker_tpu_torch.utils.schedulers import (  # noqa: E402
     ExponentialDecrease, MarginScheduler)
+from wespeaker_tpu_torch.utils.weights import (  # noqa: E402
+    to_jax_projection, to_jax_variables)
 
 B, T, C = 512, 200, 512
 SMOKE_C = 256  # ECAPA_TDNN of the quality smoke (bin/smoke_quality.py)
@@ -3096,6 +3127,12 @@ def phase_quality(dev):
         printed = io.StringIO()
         with contextlib.redirect_stdout(printed):
             eer, _, mindcf = metrics_cli.metrics_for_file(score_file)
+        t_back = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            back = smoke_quality.back_end(root, exp, ckpt,
+                                          os.path.join(root, "emb"),
+                                          ["--device", str(dev.type)])
+        back_s = time.perf_counter() - t_back
     print(f"quality: bin/smoke_quality.py's corpus at {QUALITY_SPK} speakers "
           f"and supervised config (ECAPA_TDNN C={SMOKE_C}, SE route "
           f"{sorted(route)}), bin/train.py 2 epochs of 20 steps bf16 B=64: "
@@ -3106,7 +3143,255 @@ def phase_quality(dev):
           f"the plain path {min(cos):.7f}; bin/score.py {len(lines)} trials, "
           f"max |score - f64 cosine| {score_err:.2e}; "
           f"bin/compute_metrics.py EER {eer:.3f}% minDCF {mindcf:.3f} (no "
-          f"bar); {time.perf_counter() - t_start:.1f} s")
+          f"bar); back end (bin/smoke_quality.py::back_end, {back_s:.1f} s): "
+          f"PLDA EER {back['plda_eer_percent']:.3f}%, AS-Norm "
+          f"{back['asnorm_eer_percent']:.3f}%, QMF "
+          f"{back['qmf_eer_percent']:.3f}% (no bar); "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+
+BACKEND_SPK, BACKEND_UTT, BACKEND_TRAIN_SPK = 128, 4, 112
+BACKEND_BATCH, BACKEND_LDA = 128, 100
+SRE_CONFIG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "sre", "v2", "conf",
+                          "resnet34_sre.yaml")
+
+
+def speaker_voices(root, rng):
+    """BACKEND_SPK speakers x BACKEND_UTT utterances of 2 s at 16 kHz, each
+    speaker a fixed pitch and harmonic envelope, each utterance its own
+    jitter, modulation and noise. Writes wavs, a jsonl list per set
+    (train: the first BACKEND_TRAIN_SPK speakers; enroll: utterance 0 of
+    the others; test: their utterances 1-3; adapt: the enroll and test
+    utterances and utterance 3 of every training speaker), utt2spk per
+    set and the trials (every enrolled speaker x test utterance). Returns
+    the paths."""
+    n = 2 * 16000
+    t = np.arange(n) / 16000
+    sets = {k: [] for k in ("train", "enroll", "test", "adapt")}
+    for s_ in range(BACKEND_SPK):
+        f0 = rng.uniform(90, 260)
+        amps = rng.uniform(0.1, 1.0, 12)
+        for u in range(BACKEND_UTT):
+            f = f0 * (1 + 0.03 * rng.standard_normal())
+            tone = sum(a * np.sin(2 * np.pi * f * (k + 1) * t
+                                  + rng.uniform(0, 6.3))
+                       for k, a in enumerate(amps))
+            env = 0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1, 4) * t
+                                     + rng.uniform(0, 6.3))
+            wav = tone * env / (np.abs(tone).max() + 1e-9)
+            wav = (0.3 * wav + 0.01 * rng.standard_normal(n)).astype(
+                np.float32)
+            key = f"spk{s_:03d}_utt{u}"
+            path = os.path.join(root, key + ".wav")
+            write_wav(path, wav, 16000)
+            entry = (key, path, f"spk{s_:03d}")
+            if s_ < BACKEND_TRAIN_SPK:
+                sets["train"].append(entry)
+                if u == 3:
+                    sets["adapt"].append(entry)
+            else:
+                sets["enroll" if u == 0 else "test"].append(entry)
+                sets["adapt"].append(entry)
+    paths = {}
+    for name, entries in sets.items():
+        paths[name] = os.path.join(root, f"{name}.list")
+        with open(paths[name], "w") as f:
+            f.write("".join(json.dumps({"key": k, "wav": w, "spk": sp})
+                            + "\n" for k, w, sp in entries))
+        paths[name + "_utt2spk"] = os.path.join(root, f"{name}.utt2spk")
+        with open(paths[name + "_utt2spk"], "w") as f:
+            f.write("".join(f"{k} {sp}\n" for k, _, sp in entries))
+    paths["trials"] = os.path.join(root, "trials")
+    with open(paths["trials"], "w") as f:
+        for _, _, es in sets["enroll"]:
+            for u, _, us in sets["test"]:
+                f.write(f"{es} {u} "
+                        f"{'target' if es == us else 'nontarget'}\n")
+    return paths
+
+
+def perturbed(sd, rng, scale=0.01):
+    """A copy of the state_dict: floating tensors plus scale x their std x
+    normal noise, BN variances times U(0.95, 1.05); counters kept."""
+    out = {}
+    for key, v in sd.items():
+        v = v.detach().cpu()
+        if not v.is_floating_point():
+            out[key] = v.clone()
+        elif key.endswith("running_var"):
+            out[key] = v * torch.as_tensor(rng.uniform(0.95, 1.05, v.shape),
+                                           dtype=v.dtype)
+        else:
+            noise = torch.as_tensor(rng.standard_normal(v.shape),
+                                    dtype=v.dtype)
+            out[key] = v + scale * (v.std() if v.numel() > 1 else 1) * noise
+    return out
+
+
+def phase_backend(dev):
+    """Checkpoint interop and the SRE back end at full width; see the
+    module docstring (phase 36)."""
+    secs = {}
+    t_start = t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        secs[name] = round(now - t0, 2)
+        t0 = now
+
+    configs = load_yaml(SRE_CONFIG)
+    rate = configs["dataset_args"]["resample_rate"]
+    bins = configs["dataset_args"]["fbank_args"]["num_mel_bins"]
+    embed = configs["model_args"]["embed_dim"]
+    rng = np.random.default_rng(SEED + 36)
+    with tempfile.TemporaryDirectory() as root:
+        data = speaker_voices(root, rng)
+        lap("corpus")
+        torch.manual_seed(SEED)
+        model = randomised_bn(build_model(configs), dev, True,
+                              FbankConfig(num_mel_bins=bins,
+                                          sample_rate=rate))
+        base = model.state_dict()
+        head = torch.nn.Linear(embed, 1211)  # a head the extractor drops
+        models = os.path.join(root, "models")
+        os.makedirs(models)
+        sds = []
+        for epoch in range(3):
+            sd = perturbed(base, rng)
+            sds.append(sd)
+            ckpt_io.save_msgpack_checkpoint(
+                os.path.join(models, f"model_{epoch}.ckpt"),
+                {**to_jax_variables(sd, configs["model"]),
+                 **to_jax_projection(head.state_dict())})
+        del model
+        avg_ckpt = os.path.join(models, "avg_model.ckpt")
+        with contextlib.redirect_stdout(io.StringIO()):
+            avg_cli.main(["--src_path", models, "--dst_model", avg_ckpt,
+                          "--num", "3"])
+        avg = {}
+        for key, last in sds[-1].items():
+            if last.is_floating_point():
+                acc = sds[0][key].double()
+                for sd in sds[1:]:
+                    acc = acc + sd[key].double()
+                avg[key] = (acc / len(sds)).float()
+            else:
+                avg[key] = last
+        avg_pt = os.path.join(models, "avg_model.pt")
+        torch.save({"state_dict": avg}, avg_pt)
+        ckpt_mb = os.path.getsize(avg_ckpt) / 2 ** 20
+        lap("checkpoints")
+
+        n_batches = len(list(eval_batches(
+            iter_wavs_from_list(data["train"], rate), batch_size=BACKEND_BATCH,
+            quantum_samples=rate)))
+        arks = {}
+        for name, path in (("ckpt", avg_ckpt), ("pt", avg_pt)):
+            zero_counts()
+            extract_cli.main(["--config", SRE_CONFIG, "--checkpoint", path,
+                              "--data_list", data["train"], "--out_prefix",
+                              os.path.join(root, f"train_{name}"),
+                              "--batch_size", str(BACKEND_BATCH)])
+            torch.cuda.synchronize()
+            if name == "ckpt":
+                launches = counts()
+            with open(os.path.join(root, f"train_{name}.ark"), "rb") as f:
+                arks[name] = f.read()
+            lap(f"extract_{name}")
+        if launches != dict(NO_LAUNCH, masked=n_batches):
+            raise AssertionError(f"backend extraction launched {launches}, "
+                                 f"want masked={n_batches} (one a batch), "
+                                 "no other")
+        if arks["ckpt"] != arks["pt"]:
+            raise AssertionError("backend: the .ckpt and .pt embeddings "
+                                 "differ")
+        emb = read_vec_scp_dict(os.path.join(root, "train_ckpt.scp"))
+        vecs = np.stack(list(emb.values()))
+        if vecs.shape != (BACKEND_TRAIN_SPK * BACKEND_UTT, embed) or not \
+                np.isfinite(vecs).all():
+            raise AssertionError(f"backend embeddings {vecs.shape}")
+        scp = {"cts": os.path.join(root, "train_ckpt.scp")}
+        for name in ("enroll", "test", "adapt"):
+            extract_cli.main(["--config", SRE_CONFIG, "--checkpoint",
+                              avg_ckpt, "--data_list", data[name],
+                              "--out_prefix", os.path.join(root, name),
+                              "--batch_size", str(BACKEND_BATCH)])
+            scp[name] = os.path.join(root, name + ".scp")
+        lap("extract_eval")
+
+        dev_arg = ["--device", str(dev.type)]
+        proc = os.path.join(root, "embd_proc.pkl")
+        proc_cli.main(["prep", "--chain",
+                       f"mean-subtract --scp {scp['adapt']} | length-norm | "
+                       f"lda --scp {scp['cts']} --utt2spk "
+                       f"{data['train_utt2spk']} --dim {BACKEND_LDA} | "
+                       "length-norm", "--out", proc, *dev_arg])
+        for name in list(scp):
+            proc_cli.main(["apply", "--proc", proc, "--in_scp", scp[name],
+                           "--out_prefix", os.path.join(root, name + "_proc"),
+                           *dev_arg])
+            scp[name + "_proc"] = os.path.join(root, name + "_proc.scp")
+        lap("embd_proc")
+        plda, adapted = (os.path.join(root, "plda.h5"),
+                         os.path.join(root, "plda_adapt.h5"))
+        plda_cli.main(["train", "--scp_path", scp["cts_proc"], "--utt2spk",
+                       data["train_utt2spk"], "--model_path", plda,
+                       "--embed_dim", str(BACKEND_LDA), *dev_arg])
+        lap("plda_train")
+        plda_cli.main(["adapt", "--model_path", plda, "--adapt_scp_path",
+                       scp["adapt_proc"], "--out_model", adapted, *dev_arg])
+        lap("plda_adapt")
+        eers = {}
+        for name, model_path in (("plda", plda), ("plda_adapt", adapted)):
+            score_file = os.path.join(root, name + ".score")
+            with contextlib.redirect_stdout(io.StringIO()):
+                plda_cli.main(["eval", "--enroll_scp_path",
+                               scp["enroll_proc"], "--enroll_utt2spk",
+                               data["enroll_utt2spk"], "--test_scp_path",
+                               scp["test_proc"], "--trials", data["trials"],
+                               "--score_path", score_file, "--model_path",
+                               model_path, *dev_arg])
+            lap(f"{name}_eval")
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                metrics_cli.main([score_file])
+            eers[name] = smoke_quality.parse_metrics(printed.getvalue())[0]
+
+        model = TwoCovPLDA.load(adapted)
+        enroll = read_spk2emb(scp["enroll_proc"], data["enroll_utt2spk"])
+        test = read_vec_scp_dict(scp["test_proc"])
+        with open(data["trials"]) as f:
+            pairs = [tuple(line.split()[:2]) for line in f]
+        card = model.score_trials(enroll, test, pairs, device=dev)
+        e, t_, n, ei, ti = model.trial_tables(enroll, test, pairs)
+        f64 = _llr(torch.as_tensor(model.psi, dtype=torch.float64),
+                   torch.as_tensor(e)[ei], torch.as_tensor(t_)[ti],
+                   torch.as_tensor(n, dtype=torch.float64)[ei][:, None]
+                   ).numpy()
+        rel = np.abs(card - f64) / np.maximum(np.abs(f64), 1.0)
+        raw_rel = np.abs(card - f64) / np.abs(f64)
+        if not np.isfinite(card).all() or rel.max() > 1e-4:
+            raise AssertionError(f"backend: LLR on the card vs f64 on the "
+                                 f"CPU, max relative error {rel.max():.3g}")
+        lap("llr_check")
+    print(f"backend: {configs['model']} {bins}-bin fbank at {rate} Hz embed "
+          f"{embed} TSTP ({os.path.basename(SRE_CONFIG)}); three perturbed "
+          f"model_<n>.ckpt by the port's msgpack writer, bin/average_model.py "
+          f"-> avg_model.ckpt ({ckpt_mb:.1f} MiB); bin/extract.py on "
+          f"{len(emb)} training utterances at batch {BACKEND_BATCH}: .ckpt "
+          f"and .pt arks byte-identical, launches masked="
+          f"{launches['masked']} ({n_batches} batches) and none else; sre "
+          f"v3 chain (LDA {BACKEND_LDA}) via bin/embd_proc.py, "
+          f"bin/plda_tools.py train/adapt/eval on {len(pairs)} trials: "
+          f"PLDA EER {eers['plda']:.3f}%, adapted {eers['plda_adapt']:.3f}% "
+          f"(random model, no bar); LLR card vs f64 CPU max error "
+          f"{rel.max():.3g} of max(|LLR|, 1) (raw relative "
+          f"{raw_rel.max():.3g}, |LLR| {np.abs(f64).min():.3g}-"
+          f"{np.abs(f64).max():.3g}); seconds {json.dumps(secs)}; "
+          f"{time.perf_counter() - t_start:.1f} s")
 
 
 def main():
@@ -3172,6 +3457,7 @@ def main():
         phase_dino_trainer(dev, raw, utt2spk, d)
         phase_contrastive(dev, raw, utt2spk, d)
     phase_quality(dev)
+    phase_backend(dev)
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),

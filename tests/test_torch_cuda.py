@@ -1108,3 +1108,35 @@ def test_gemm_tn_sm90_matches_plain(cuda, k, m, n):
     scaled_close(got, gemm_sm90.gemm_tn_sm90_reference(a, b), "a^T b")
     with pytest.raises(ValueError):
         gemm_sm90.gemm_tn_sm90(a[:, :64], b)
+
+
+def test_plda_llr_on_the_card_matches_the_cpu(cuda):
+    """backend/plda.py's scoring on the card: llr_scores and score_trials
+    (counts and multisession averaging) against the same f32 function on
+    the CPU (rtol 1e-5, atol 1e-4), and within 1e-4 of each score's
+    magnitude (floored at 1) of the function in f64 on the CPU."""
+    from wespeaker_tpu_torch.backend import plda
+
+    rng = np.random.default_rng(26)
+    dim = 64
+    spk2emb = {f"s{s}": rng.normal(size=(2 + s % 5, dim)) + 2 * rng.normal(
+        size=dim) for s in range(40)}
+    model = plda.TwoCovPLDA(dim, normalize_length=True).train(spk2emb, 3)
+    enroll = {f"e{i}": rng.normal(size=(1 + i % 3, dim)) for i in range(30)}
+    test = {f"t{i}": rng.normal(size=dim) for i in range(50)}
+    trials = [(e, t) for e in enroll for t in test]
+    for multi in (True, False):
+        got = model.score_trials(enroll, test, trials, multi, device=cuda)
+        want = model.score_trials(enroll, test, trials, multi, device="cpu")
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    e = model.transform_embeddings(rng.normal(size=(500, dim)))
+    t = model.transform_embeddings(rng.normal(size=(500, dim)))
+    n = rng.integers(1, 6, size=500)
+    got = model.llr_scores(e, t, n, device=cuda)
+    np.testing.assert_allclose(got, model.llr_scores(e, t, n, device="cpu"),
+                               rtol=1e-5, atol=1e-4)
+    f64 = plda._llr(torch.as_tensor(model.psi), torch.as_tensor(e),
+                    torch.as_tensor(t), torch.as_tensor(n[:, None],
+                                                        dtype=torch.float64))
+    f64 = f64.numpy()
+    assert (np.abs(got - f64) <= 1e-4 * np.maximum(np.abs(f64), 1)).all()

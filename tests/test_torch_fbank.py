@@ -32,19 +32,24 @@ def _cfg(module, **kw):
     return module.FbankConfig(dither=0.0, **kw)
 
 
-@pytest.mark.parametrize("window,num_mel", [("hamming", 80), ("povey", 40)])
-def test_fused_fbank_matches_jax_and_oracle(window, num_mel):
+# (window, bins, rate, frames of the 18,137-sample input); 8 kHz, 40
+# povey bins is the SRE recipes' fbank (examples/sre/v2/conf)
+@pytest.mark.parametrize("window,num_mel,rate,frames", [
+    ("hamming", 80, 16000, 111), ("povey", 40, 16000, 111),
+    ("povey", 40, 8000, 225)])
+def test_fused_fbank_matches_jax_and_oracle(window, num_mel, rate, frames):
     wav = _wav(batch=2)
     got = tfb.compute_fbank(torch.from_numpy(wav),
                             _cfg(tfb, num_mel_bins=num_mel,
-                                 window_type=window)).numpy()
+                                 window_type=window,
+                                 sample_rate=rate)).numpy()
     want = np.asarray(jfb.compute_fbank(
         jnp.asarray(wav), _cfg(jfb, num_mel_bins=num_mel,
-                               window_type=window)))
-    assert got.shape == want.shape == (2, 111, num_mel)
+                               window_type=window, sample_rate=rate)))
+    assert got.shape == want.shape == (2, frames, num_mel)
     np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
-    oracle = fbank_numpy(wav[1].astype(np.float64), num_mel=num_mel,
-                         window=window)
+    oracle = fbank_numpy(wav[1].astype(np.float64), sample_rate=rate,
+                         num_mel=num_mel, window=window)
     np.testing.assert_allclose(got[1], oracle, rtol=0, atol=ATOL)
 
 

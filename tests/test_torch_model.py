@@ -25,8 +25,8 @@ from wespeaker_tpu_torch.frontend import FbankConfig  # noqa: E402
 from wespeaker_tpu_torch.models import get_speaker_model  # noqa: E402
 from wespeaker_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN  # noqa: E402
 from wespeaker_tpu_torch.train import make_eval_embed_fn  # noqa: E402
-from wespeaker_tpu_torch.utils.weights import (from_jax_variables,  # noqa
-                                               load_checkpoint)
+from wespeaker_tpu_torch.utils.checkpoint import load_checkpoint  # noqa
+from wespeaker_tpu_torch.utils.weights import from_jax_variables  # noqa
 
 torch.set_num_threads(2)
 C, FEAT, EMB = 64, 24, 16
@@ -129,8 +129,8 @@ def test_checkpoint_reloads_strictly(tmp_path):
     src = ECAPA_TDNN(C, FEAT, EMB, global_context_att=True)
     path = tmp_path / "model.pt"
     torch.save(src.state_dict(), path)
-    dst = load_checkpoint(ECAPA_TDNN(C, FEAT, EMB, global_context_att=True),
-                          str(path))
+    dst = load_checkpoint(str(path),
+                          ECAPA_TDNN(C, FEAT, EMB, global_context_att=True))
     for k, v in src.state_dict().items():
         assert torch.equal(v, dst.state_dict()[k]), k
 
@@ -140,15 +140,15 @@ def test_checkpoint_reloads_strictly(tmp_path):
           if not k.endswith("num_batches_tracked")}
     sd["projection.weight"] = torch.zeros(10, EMB)
     torch.save({"state_dict": sd}, path)
-    load_checkpoint(ECAPA_TDNN(C, FEAT, EMB, global_context_att=True),
-                    str(path))
+    load_checkpoint(str(path),
+                    ECAPA_TDNN(C, FEAT, EMB, global_context_att=True))
 
     # anything else is a real mismatch
     sd["layer1.unexpected"] = torch.zeros(1)
     torch.save(sd, path)
     with pytest.raises(RuntimeError):
-        load_checkpoint(ECAPA_TDNN(C, FEAT, EMB, global_context_att=True),
-                        str(path))
+        load_checkpoint(str(path),
+                        ECAPA_TDNN(C, FEAT, EMB, global_context_att=True))
 
 
 @pytest.mark.parametrize("masked", [False, True])

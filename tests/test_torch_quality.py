@@ -80,7 +80,11 @@ def test_short_smoke_run_reaches_its_result_line(tmp_path, capsys):
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(out) == {"method", "eer_percent", "minDCF", "n_speakers",
                         "train_wall_s", "extract_wall_s",
-                        "bucket_drift_min_cos", "bucket_drift_mean_cos"}
+                        "bucket_drift_min_cos", "bucket_drift_mean_cos",
+                        "plda_eer_percent", "asnorm_eer_percent",
+                        "qmf_eer_percent", "back_end_wall_s"}
+    for key in ("plda", "asnorm", "qmf"):
+        assert 0.0 <= out[f"{key}_eer_percent"] <= 100.0
     assert 0.9 < out["bucket_drift_min_cos"] <= out[
         "bucket_drift_mean_cos"] <= 1.0 + 1e-9
     assert out["method"] == "supervised" and out["n_speakers"] == 3

@@ -48,7 +48,7 @@ from wespeaker_tpu_torch.ops import pooling  # noqa: E402
 from wespeaker_tpu_torch.serving import EmbeddingServer  # noqa: E402
 from wespeaker_tpu_torch.train import make_eval_embed_fn  # noqa: E402
 from wespeaker_tpu_torch.train.composite import build_model  # noqa: E402
-from wespeaker_tpu_torch.utils import weights  # noqa: E402
+from wespeaker_tpu_torch.utils import checkpoint, weights  # noqa: E402
 from wespeaker_tpu_torch.utils.config import (  # noqa: E402
     parse_config_or_kwargs)
 
@@ -224,8 +224,8 @@ def test_redimnet_variables_load_strictly_and_map_back(jax_redimnets,
         assert key in sd, key
     path = tmp_path / "redimnet.pt"
     torch.save(sd, path)
-    weights.load_checkpoint(redimnet.ReDimNet(**CONFIGS["fwse_convatt"]),
-                            str(path))
+    checkpoint.load_checkpoint(str(path),
+                               redimnet.ReDimNet(**CONFIGS["fwse_convatt"]))
     assert list(weights.rules_for(NAME)) == [
         tuple(r) for r in torch_compat.rules_for(NAME)]
 

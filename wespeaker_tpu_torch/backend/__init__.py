@@ -1,6 +1,14 @@
-"""The scoring back end: what is ported of wespeaker_tpu/backend (metrics
-and cosine / AS-Norm scoring). PLDA, calibration and embedding processing
-are not ported yet."""
+"""The scoring back end: counterpart of wespeaker_tpu/backend (metrics,
+cosine / AS-Norm scoring, PLDA, QMF calibration and the embedding
+processing chain)."""
+from wespeaker_tpu_torch.backend.calibration import (  # noqa: F401
+    QMFCalibrator,
+    build_factors,
+    cllr,
+)
+from wespeaker_tpu_torch.backend.embedding_processing import (  # noqa: F401
+    EmbeddingProcessingChain,
+)
 from wespeaker_tpu_torch.backend.metrics import (  # noqa: F401
     compute_metrics,
     eer,
@@ -8,6 +16,7 @@ from wespeaker_tpu_torch.backend.metrics import (  # noqa: F401
     min_dcf,
     pmiss_pfa,
 )
+from wespeaker_tpu_torch.backend.plda import TwoCovPLDA  # noqa: F401
 from wespeaker_tpu_torch.backend.scoring import (  # noqa: F401
     TrialScorer,
     asnorm_scores,

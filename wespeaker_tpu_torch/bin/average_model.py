@@ -1,7 +1,7 @@
 """Average the last N epoch checkpoints.
 
     python -m wespeaker_tpu_torch.bin.average_model --src_path exp/models \
-        --dst_model exp/models/avg_model.pt [--num 5]
+        --dst_model exp/models/avg_model.pt|avg_model.ckpt [--num 5]
 
 Counterpart of wespeaker_tpu/bin/average_model.py (upstream
 wespeaker/bin/average_model.py:48-76) over the port's `model_<n>.pt`
@@ -13,6 +13,11 @@ The result is a model state_dict, which bin/extract.py loads. For the SSL
 trainers `model_<n>.pt` already holds the teacher's backbone
 (bin/train_dino.py, bin/train_contrastive.py), so their recipe averages
 these files too.
+
+Given a `--dst_model` ending in `.ckpt`, it averages the JAX package's
+`model_<n>.ckpt` files instead, as wespeaker_tpu/bin/average_model.py
+does (utils/checkpoint.py::average_checkpoints: every leaf summed in f64,
+then f32), and writes the same bytes.
 """
 
 import argparse
@@ -20,7 +25,9 @@ from typing import Dict, List
 
 import torch
 
-from wespeaker_tpu_torch.utils.checkpoint import find_epoch_checkpoints
+from wespeaker_tpu_torch.utils.checkpoint import (average_checkpoints,
+                                                  find_epoch_checkpoints,
+                                                  save_msgpack_checkpoint)
 from wespeaker_tpu_torch.utils.weights import _unwrap
 
 
@@ -44,10 +51,14 @@ def average_state_dicts(paths: List[str]) -> Dict[str, torch.Tensor]:
 
 
 def average_model(src_dir, dst_model, num: int = 5):
-    paths = find_epoch_checkpoints(src_dir)[-num:]
+    ext = "ckpt" if dst_model.endswith(".ckpt") else "pt"
+    paths = find_epoch_checkpoints(src_dir, ext)[-num:]
     if not paths:
-        raise FileNotFoundError(f"no model_<n>.pt in {src_dir}")
-    torch.save(average_state_dicts(paths), dst_model)
+        raise FileNotFoundError(f"no model_<n>.{ext} in {src_dir}")
+    if ext == "ckpt":
+        save_msgpack_checkpoint(dst_model, average_checkpoints(paths))
+    else:
+        torch.save(average_state_dicts(paths), dst_model)
     print(f"averaged {len(paths)} checkpoints -> {dst_model}")
     return dst_model
 

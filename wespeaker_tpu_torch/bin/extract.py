@@ -17,8 +17,9 @@ and pooling give the batch=1 result), one forward a bucket, and
 only; with `data_type: feat` the list holds kaldi feature matrices
 (scp lines `key ark:offset` or jsonl {"key", "feat"}) and the buckets are
 frame buckets. The checkpoint is a port `.pt` file (a trainer's
-`model_<n>.pt`, `final_model.pt`, an averaged model or a state_dict);
-the JAX package's msgpack checkpoints are not read yet.
+`model_<n>.pt`, `final_model.pt`, an averaged model or a state_dict) or
+the JAX package's msgpack `.ckpt` (its trainers' `model_<n>.ckpt`,
+`avg_model.ckpt`), told apart by content.
 """
 
 import argparse
@@ -45,16 +46,17 @@ from wespeaker_tpu_torch.train.train_step import make_eval_embed_fn
 from wespeaker_tpu_torch.utils.config import parse_config_or_kwargs
 from wespeaker_tpu_torch.utils.eval_device import prepare_eval_placement
 from wespeaker_tpu_torch.utils.kaldi_io import write_vec_ark_scp
-from wespeaker_tpu_torch.utils.weights import load_checkpoint
+from wespeaker_tpu_torch.utils.checkpoint import load_checkpoint
 
 
 def load_model_for_eval(configs: Dict[str, Any], checkpoint_path: str,
                         device: DeviceLike = None) -> nn.Module:
-    """config + `.pt` checkpoint -> the model on `device`, in eval mode.
-    The checkpoint is a model state_dict (port or upstream) or a file the
-    trainer (bin/train.py) wrote, whose model part is read."""
+    """config + checkpoint -> the model on `device`, in eval mode. The
+    checkpoint is a model state_dict (port or upstream), a file the
+    trainer (bin/train.py) wrote, whose model part is read, or a JAX
+    `.ckpt` (its "params" and "batch_stats"), loaded strictly."""
     dev = resolve_device(device)
-    model = load_checkpoint(build_model(configs), checkpoint_path)
+    model = load_checkpoint(checkpoint_path, build_model(configs))
     return model.to(dev).eval()
 
 

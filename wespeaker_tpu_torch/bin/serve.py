@@ -1,10 +1,11 @@
 """Serving CLI: config + checkpoint -> HTTP embedding daemon on the card.
 
     python -m wespeaker_tpu_torch.bin.serve --config conf.yaml \
-        --checkpoint model.pt [--device cuda] [k=v overrides]
+        --checkpoint model.pt|model.ckpt [--device cuda] [k=v overrides]
 
 Counterpart of wespeaker_tpu/bin/serve.py (wespeaker_tpu_torch/serving.py
-holds the batcher and server). The checkpoint is a torch state_dict.
+holds the batcher and server). The checkpoint is a torch state_dict or
+the JAX package's msgpack `.ckpt`.
 """
 
 import argparse

@@ -17,7 +17,11 @@ random cross-speaker pairs. Then it drives the port's CLIs with
 average_model --num 2 over the last epochs' teacher backbones, then
 extract --batch_size 32 --bf16, score and compute_metrics. It prints one
 JSON line {"method", "eer_percent", "minDCF", "n_speakers",
-"train_wall_s", "extract_wall_s"}; chance is 50% EER. `--bucket_drift`
+"train_wall_s", "extract_wall_s"}; chance is 50% EER. The supervised
+method adds the back end (`back_end`): PLDA trained on the training
+list's embeddings (plda_eer_percent), AS-Norm with them as cohort
+(asnorm_eer_percent) and QMF calibration trained on calibration trials
+over the training utterances (qmf_eer_percent), and back_end_wall_s. `--bucket_drift`
 adds how far a padded bucket moves an embedding of the trained model
 (bucket_drift).
 
@@ -36,6 +40,9 @@ memory leak of the TPU client) has no counterpart: one process holds an
 """
 
 import argparse
+import contextlib
+import importlib
+import io
 import json
 import os
 import subprocess
@@ -367,11 +374,99 @@ def smoke(workdir, method="supervised", epochs=None, n_spk=N_SPK,
     result = {"method": method, "eer_percent": eer, "minDCF": mindcf,
               "n_speakers": n_spk, "train_wall_s": round(train_s, 1),
               "extract_wall_s": round(extract_s, 1)}
+    if method == "supervised":
+        result.update(back_end(root, exp, ckpt, emb, dev))
     if drift:
         low, mean = bucket_drift(os.path.join(exp, "config.yaml"), ckpt,
                                  os.path.join(root, "eval.list"), device)
         result.update(bucket_drift_min_cos=low, bucket_drift_mean_cos=mean)
     return result
+
+
+def cli(name, args):
+    """`wespeaker_tpu_torch.bin.<name>.main(args)` in this process; returns
+    what it printed."""
+    print("+", name, " ".join(args), file=sys.stderr, flush=True)
+    module = importlib.import_module(f"wespeaker_tpu_torch.bin.{name}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        module.main(list(args))
+    return out.getvalue()
+
+
+def back_end(root, exp, ckpt, eval_emb, dev):
+    """The supervised smoke's back end, as the recipes run it, in this
+    process through the CLIs' main(): the training list extracted as the
+    eval list is, PLDA trained on the training
+    embeddings (plda_tools train) and scored on the evaluation trials;
+    AS-Norm (score_norm, top 100) with the training embeddings as cohort;
+    QMF (score_calibration, with prep_data wav2dur's durations) trained on
+    prep_data calibration_trial's trials over the training utterances and
+    applied to the evaluation trials. Returns {"plda_eer_percent",
+    "asnorm_eer_percent", "qmf_eer_percent", "back_end_wall_s"}."""
+    from wespeaker_tpu_torch.utils.config import load_yaml
+
+    t0 = time.time()
+    config = os.path.join(exp, "config.yaml")
+    train_emb = os.path.join(root, "train_emb_supervised")
+    cli("extract", ["--config", config, "--checkpoint", ckpt, "--data_list",
+                    os.path.join(root, "train.list"), "--out_prefix",
+                    train_emb, "--batch_size", "32", "--bf16", *dev])
+    embed_dim = str(load_yaml(config)["model_args"]["embed_dim"])
+    scores = os.path.join(exp, "scores")
+    entries = []
+    for name in ("train.list", "eval.list"):
+        with open(os.path.join(root, name)) as f:
+            entries += [json.loads(line) for line in f if line.strip()]
+    with open(os.path.join(root, "wav.scp"), "w") as f:
+        f.write("".join(f"{o['key']} {o['wav']}\n" for o in entries))
+    with open(os.path.join(root, "utt2utt"), "w") as f:
+        f.write("".join(f"{o['key']} {o['key']}\n" for o in entries))
+    plda = os.path.join(exp, "plda.h5")
+    cli("plda_tools", ["train", "--scp_path", train_emb + ".scp",
+                       "--utt2spk", os.path.join(root, "utt2spk"),
+                       "--model_path", plda, "--embed_dim", embed_dim, *dev])
+    cli("plda_tools", ["eval", "--enroll_scp_path", eval_emb + ".scp",
+                       "--enroll_utt2spk", os.path.join(root, "utt2utt"),
+                       "--test_scp_path", eval_emb + ".scp", "--trials",
+                       os.path.join(root, "trials"), "--score_path",
+                       os.path.join(scores, "plda.score"), "--model_path",
+                       plda, *dev])
+    dur, cal_trials = (os.path.join(root, "utt2dur"),
+                       os.path.join(root, "cal_trials"))
+    cli("prep_data", ["wav2dur", "--wav_scp", os.path.join(root, "wav.scp"),
+                      "--out", dur])
+    cli("prep_data", ["calibration_trial", "--utt2spk",
+                      os.path.join(root, "utt2spk"), "--out_trials",
+                      cal_trials])
+    cli("score", ["--exp_dir", exp, "--eval_scp_path", train_emb + ".scp",
+                  *dev, cal_trials])
+    for name, emb in (("cal_trials", train_emb), ("trials", eval_emb)):
+        cli("score_norm", ["--score_norm_method", "asnorm", "--top_n", "100",
+                           "--trial_score_file",
+                           os.path.join(scores, name + ".score"),
+                           "--score_norm_file",
+                           os.path.join(scores, name + ".norm"),
+                           "--cohort_emb_scp", train_emb + ".scp",
+                           "--eval_emb_scp", emb + ".scp", *dev])
+    qmf = os.path.join(exp, "qmf.npz")
+    cli("score_calibration", ["train", "--score_norm_file",
+                              os.path.join(scores, "cal_trials.norm"),
+                              "--save_model_path", qmf, "--wav_dur_scp", dur,
+                              *dev])
+    cli("score_calibration", ["infer", "--score_norm_file",
+                              os.path.join(scores, "trials.norm"),
+                              "--model_path", qmf, "--out_score_file",
+                              os.path.join(scores, "trials.qmf"),
+                              "--wav_dur_scp", dur, *dev])
+    out = {}
+    for key, name in (("plda", "plda.score"), ("asnorm", "trials.norm"),
+                      ("qmf", "trials.qmf")):
+        text = cli("compute_metrics", ["--p_target", "0.01",
+                                       os.path.join(scores, name)])
+        out[f"{key}_eer_percent"] = parse_metrics(text)[0]
+    out["back_end_wall_s"] = round(time.time() - t0, 1)
+    return out
 
 
 def main(argv=None):

@@ -8,7 +8,9 @@ wespeaker/bin/train.py:39-266): config and overrides, spk2id from
 utt2spk, the raw/shard dataset, model and margin head (3x classes under
 speed perturb), iteration-granular LR and margin schedules with
 scale_ratio = batch / 64, fbank and spec-aug on the device, bf16 AMP with
-`enable_amp`, a `checkpoint` (resume) or `model_init` (weights only) load,
+`enable_amp`, a `checkpoint` (resume) or `model_init` (weights only) load, from the
+port's `.pt` or the JAX package's `.ckpt` (a JAX DINO checkpoint's teacher
+backbone for `model_init`, the cnceleb v3_finetune entry),
 a log line every `log_batch_interval` steps, `models/model_<epoch>.pt`
 every `save_epoch_interval` epochs (and the last `num_avg`), the
 `final_model.pt` symlink, and on SIGTERM `preempt_model_<epoch>.pt` after

@@ -145,7 +145,8 @@ def build_embed_fn(configs: dict, checkpoint_path: str,
                    device: DeviceLike = None):
     """config + checkpoint -> (wavs, mask) -> (B, D) numpy embeddings. The
     checkpoint is a torch state_dict (`.pt`, loaded with
-    weights_only=True); the forward runs in f32."""
+    weights_only=True) or a JAX `.ckpt` (bin/extract.py's
+    load_model_for_eval); the forward runs in f32."""
     from wespeaker_tpu_torch.bin.extract import load_model_for_eval
     from wespeaker_tpu_torch.frontend.fbank import FbankConfig
     from wespeaker_tpu_torch.train.train_step import make_eval_embed_fn

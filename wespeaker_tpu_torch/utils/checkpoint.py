@@ -1,21 +1,35 @@
-"""Training checkpoints as torch `.pt` files.
+"""Training checkpoints: the port's torch `.pt` files and the JAX
+package's flax msgpack `.ckpt` files.
 
 Counterpart of wespeaker_tpu/utils/checkpoint.py (upstream
-wespeaker/utils/checkpoint.py). A file holds
-`{"state_dict": model.state_dict(), "projection": head.state_dict()}`;
-`utils.weights.load_checkpoint` reads the model part for evaluation and
-serving. Reading the JAX package's msgpack checkpoints is not ported yet.
+wespeaker/utils/checkpoint.py). A `.pt` file holds
+`{"state_dict": model.state_dict(), "projection": head.state_dict()}`
+(or is a bare model state_dict); a `.ckpt` file is the JAX trainer's tree
+({"params", "batch_stats", "projection"(, "projection_batch_stats")}, or
+the DINO trainer's, whose "params" hold the teacher's backbone), read and
+written by utils/msgpack.py without the msgpack package. `load_checkpoint`
+tells the two apart by content (a torch zip starts with `PK`, a flax file
+with a msgpack map) and loads the model strictly either way: where the
+JAX package's non-strict load keeps the init of a leaf the file lacks,
+the port raises. `save_msgpack_checkpoint` and `average_checkpoints` are
+the JAX package's `save_checkpoint` and `average_checkpoints`: the same
+bytes for the same tree.
 """
 
 import glob
 import os
 import re
-from typing import List, Optional
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
-from wespeaker_tpu_torch.utils.weights import load_checkpoint as _load_model
+from wespeaker_tpu_torch.utils import msgpack
+from wespeaker_tpu_torch.utils.weights import _unwrap, from_jax_checkpoint
+
+# upstream training checkpoints carry the margin head beside the model
+_TRAINING_ONLY_PREFIXES = ("projection.",)
 
 
 def save_checkpoint(path: str, model: nn.Module,
@@ -28,6 +42,50 @@ def save_checkpoint(path: str, model: nn.Module,
     tmp = f"{path}.tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_msgpack_checkpoint(path: str, tree: Mapping[str, Any]) -> None:
+    """A flax variable tree (nested dicts of numpy arrays or tensors) as
+    the JAX package's save_checkpoint writes it."""
+    data = msgpack.serialize(tree)
+    tmp = f"{path}.tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def read_msgpack_checkpoint(path: str) -> Dict[str, Any]:
+    with open(path, "rb") as f:
+        return msgpack.restore(f.read())
+
+
+def checkpoint_format(path: str) -> str:
+    """"torch" or "msgpack", by the file's first bytes."""
+    with open(path, "rb") as f:
+        head = f.read(4)
+    if head[:2] == b"PK":
+        return "torch"
+    if head == b"\x89HDF":  # also a msgpack fixmap's first byte
+        raise ValueError(f"{path} is an HDF5 file, not a checkpoint")
+    if msgpack.is_msgpack_map(head):
+        return "msgpack"
+    raise ValueError(f"{path}: neither a torch zip nor a flax msgpack "
+                     f"checkpoint (starts {head!r})")
+
+
+def read_checkpoint(path: str, model_name: str
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Optional[Dict[str, torch.Tensor]]]:
+    """(the model's state_dict, the margin head's or None) of a `.pt` or
+    `.ckpt` file; `model_name` chooses the flax name rules."""
+    if checkpoint_format(path) == "msgpack":
+        return from_jax_checkpoint(read_msgpack_checkpoint(path),
+                                   model_name)
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    projection = obj.get("projection") if isinstance(obj, Mapping) else None
+    sd = {k: v for k, v in _unwrap(obj).items()
+          if not k.startswith(_TRAINING_ONLY_PREFIXES)}
+    return sd, projection
 
 
 def _load_projection(projection: nn.Module, saved: dict) -> None:
@@ -56,35 +114,85 @@ def _load_projection(projection: nn.Module, saved: dict) -> None:
 
 def load_checkpoint(path: str, model: nn.Module,
                     projection: Optional[nn.Module] = None) -> nn.Module:
-    """Load the model strictly (utils.weights.load_checkpoint) and, when
-    `projection` is given, the head by name."""
-    _load_model(model, path)
+    """Load the model strictly from a `.pt` (port or upstream) or `.ckpt`
+    file and, when `projection` is given, the head by name
+    (_load_projection). Training-only keys of a `.pt` (the margin head)
+    are dropped and BatchNorm counters missing from older ones set to 0,
+    each by name; any other mismatch raises. The model's class name
+    (ECAPA_TDNN, CAMPPlus, Gemini_DF_ResNet, ResNet, ReDimNet) chooses the
+    flax name rules of a `.ckpt`."""
+    sd, saved_head = read_checkpoint(path, type(model).__name__)
+    for key, buf in model.state_dict().items():
+        if key.endswith("num_batches_tracked") and key not in sd:
+            sd[key] = torch.zeros_like(buf)
+    model.load_state_dict(sd, strict=True)
     if projection is not None:
-        obj = torch.load(path, map_location="cpu", weights_only=True)
-        if "projection" not in obj:
+        if saved_head is None:
             raise KeyError(f"{path} holds no projection head")
-        _load_projection(projection, obj["projection"])
+        _load_projection(projection, saved_head)
     return model
 
 
-def find_epoch_checkpoints(model_dir: str) -> List[str]:
-    """model_N.pt files sorted by epoch (average/final/preempt files
-    excluded)."""
+def _flat(tree: Mapping[str, Any], prefix=()):
+    """flax's flatten_dict: the leaves by path, empty dicts dropped."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _f64(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.to(torch.float64).numpy()
+    return np.asarray(leaf, np.float64)
+
+
+def average_checkpoints(paths: List[str]) -> Dict[str, Any]:
+    """The JAX package's average_checkpoints over `.ckpt` files: every
+    leaf summed in f64 in file order, divided by the count, cast to f32."""
+    if not paths:
+        raise ValueError("no checkpoints to average")
+    acc = None
+    for p in paths:
+        flat = dict(_flat(read_msgpack_checkpoint(p)))
+        if acc is None:
+            acc = {k: _f64(v) for k, v in flat.items()}
+        else:
+            for k in acc:
+                acc[k] = acc[k] + _f64(flat[k])
+    out = {}
+    for path, v in acc.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = (v / len(paths)).astype(np.float32)
+    return out
+
+
+_EPOCH_FILE = re.compile(r"model_(\d+)\.(pt|ckpt)")
+_PREEMPT_FILE = re.compile(r"preempt_model_(\d+)\.(pt|ckpt)")
+
+
+def find_epoch_checkpoints(model_dir: str, ext: str = "pt") -> List[str]:
+    """model_N.<ext> files (`pt` or `ckpt`) sorted by epoch
+    (average/final/preempt files excluded)."""
     out = []
-    for p in glob.glob(os.path.join(model_dir, "model_*.pt")):
-        m = re.search(r"(?:^|/)model_(\d+)\.pt$", p)
+    for p in glob.glob(os.path.join(model_dir, f"model_*.{ext}")):
+        m = _EPOCH_FILE.fullmatch(os.path.basename(p))
         if m:
             out.append((int(m.group(1)), p))
     return [p for _, p in sorted(out)]
 
 
 def parse_start_epoch(checkpoint_path: str) -> int:
-    """Epoch to resume at from the file name: `model_N.pt` is a completed
-    epoch N -> N + 1; `preempt_model_N.pt` was saved during epoch N on
-    SIGTERM -> N (the epoch is replayed, upstream train.py:168-175)."""
+    """Epoch to resume at from the file name (`.pt` or `.ckpt`):
+    `model_N` is a completed epoch N -> N + 1; `preempt_model_N` was saved
+    during epoch N on SIGTERM -> N (the epoch is replayed, upstream
+    train.py:168-175)."""
     base = os.path.basename(checkpoint_path)
-    m = re.fullmatch(r"preempt_model_(\d+)\.pt", base)
+    m = _PREEMPT_FILE.fullmatch(base)
     if m:
         return int(m.group(1))
-    m = re.fullmatch(r"model_(\d+)\.pt", base)
+    m = _EPOCH_FILE.fullmatch(base)
     return int(m.group(1)) + 1 if m else 0

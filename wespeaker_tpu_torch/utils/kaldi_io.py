@@ -116,6 +116,22 @@ def read_vec_scp_dict(scp_path: str) -> Dict[str, np.ndarray]:
     return dict(read_vec_scp(scp_path))
 
 
+def read_spk2emb(scp_path: str, utt2spk_path: str) -> Dict[str, np.ndarray]:
+    """speaker -> (n, D) stack of the scp's vectors whose utterance
+    utt2spk lists, in scp order (the back end's training and enrollment
+    sets)."""
+    utt2spk = {}
+    with open(utt2spk_path) as f:
+        for line in f:
+            u, s = line.split()
+            utt2spk[u] = s
+    out: Dict[str, list] = {}
+    for utt, vec in read_vec_scp(scp_path):
+        if utt in utt2spk:
+            out.setdefault(utt2spk[utt], []).append(vec)
+    return {k: np.vstack(v) for k, v in out.items()}
+
+
 def read_vec_ark(ark_path: str) -> Iterator[Tuple[str, np.ndarray]]:
     """Stream sequentially from a binary ark (no scp needed)."""
     size = os.path.getsize(ark_path)

@@ -33,9 +33,21 @@ backbone by the model's rules under `backbone.`, the head under `head.`
 (mlp_<i> and mlp_bn_<i> keep their names; last_layer_v, (in, out) in both,
 is no `kernel` and keeps its layout), and the center.
 
-`load_checkpoint` reads an upstream or port `.pt` state_dict into a model
-with `load_state_dict(strict=True)`; the keys the port has no use for are
-handled by name, not by a lenient load.
+`to_jax_variables` is the exact inverse of `from_jax_variables`, the
+counterpart of torch_compat.torch_to_flax_variables: the names by the
+inverse of the model's rules (`INVERSE_RULES`), each weight of rank 2 to 4
+back to its kernel layout, a weight of rank 1 to a norm's `scale`, the
+running statistics to `batch_stats`; `num_batches_tracked` and ReDimNet's frozen
+backbone.inputs_weights.0 are dropped, since the flax tree keeps neither.
+`from_jax_checkpoint` reads the JAX trainers' checkpoint trees: the
+supervised trainer's {"params", "batch_stats", "projection"(,
+"projection_batch_stats")} (wespeaker_tpu/bin/train.py), and the DINO
+trainer's, whose "params" and "batch_stats" hold the teacher's backbone
+beside "student_params" and "student_stats" (bin/train_dino.py). The
+margin head's `weight` is (out, in) in both packages and keeps its
+layout (`to_jax_projection` writes it back).
+
+utils/checkpoint.py::load_checkpoint reads either format into a model.
 """
 
 import re
@@ -94,9 +106,47 @@ MODEL_RULES = {
     ),
 }
 
-# upstream training checkpoints carry the margin head beside the model
-_TRAINING_ONLY_PREFIXES = ("projection.",)
-
+# the inverse of MODEL_RULES: torch names -> flax names
+INVERSE_RULES = {
+    "ECAPA_TDNN": (
+        (r"\bse_res2block\.(\d+)\b", r"block_\1"),
+        (r"\bconvs\.(\d+)\b", r"convs_\1"),
+        (r"\bbns\.(\d+)\b", r"bns_\1"),
+    ),
+    "CAMPPlus": (
+        (r"\blayer(\d)\.(\d+)\b", r"layer\1_\2"),
+        (r"\bshortcut\.0\b", "shortcut_conv"),
+        (r"\bshortcut\.1\b", "shortcut_bn"),
+        (r"\bout_nonlinear\.batchnorm\b", "out_nonlinear_bn"),
+        (r"\bnonlinear(\d?)\.batchnorm\b", r"nonlinear\1_bn"),
+    ),
+    "Gemini": (
+        (r"\bdownsample_layers\.(\d+)\.(\d+)\b",
+         r"downsample_layers_\1_\2"),
+        (r"\bstages\.(\d+)\.(\d+)\b", r"stages_\1_\2"),
+    ),
+    "ResNet": (
+        (r"\blayer(\d)\.(\d+)\b", r"layer\1_\2"),
+        (r"\bshortcut\.0\b", "shortcut_conv"),
+        (r"\bshortcut\.1\b", "shortcut_bn"),
+    ),
+    "ReDimNet": (
+        (r"\binputs_weights\.(\d+)\b", r"inputs_weights_\1"),
+        (r"\bstem\.(\d+)\b", r"stem_\1"),
+        (r"\bmfa\.(\d+)\b", r"mfa_\1"),
+        (r"\bstage(\d+)\.(\d+)\.conv_block\b", r"stage\1_\2_conv_block"),
+        (r"\bstage(\d+)\.(\d+)\.(\d+)\b", r"stage\1_\2_\3"),
+        (r"\bstage(\d+)\.(\d+)\b", r"stage\1_\2"),
+        (r"\bdwconvs\.(\d+)\b", r"dwconvs_\1"),
+        (r"\bred_dim_conv\.(\d+)\b", r"red_dim_conv_\1"),
+        (r"\btcm\.(\d+)\b", r"tcm_\1"),
+        (r"\bfeed_forward\.intermediate_dense\b",
+         "feed_forward_intermediate_dense"),
+        (r"\bfeed_forward\.output_dense\b", "feed_forward_output_dense"),
+        (r"\bdownsample\.0\b", "downsample_conv"),
+        (r"\bdownsample\.1\b", "downsample_bn"),
+    ),
+}
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
     for k, v in tree.items():
@@ -106,11 +156,16 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield prefix + (k,), v
 
 
+def _family(model_name: str):
+    """The longest `MODEL_RULES` prefix of model_name, or None."""
+    return max((p for p in MODEL_RULES if model_name.startswith(p)),
+               key=len, default=None)
+
+
 def rules_for(model_name: str) -> Tuple[Tuple[str, str], ...]:
     """The name rules of the longest `MODEL_RULES` prefix of model_name;
     none for a model without rules."""
-    best = max((p for p in MODEL_RULES if model_name.startswith(p)),
-               key=len, default=None)
+    best = _family(model_name)
     return MODEL_RULES[best] if best else ()
 
 
@@ -124,6 +179,8 @@ def _torch_key(mods, leaf: str, rules) -> str:
 # flax kernel layout -> torch weight layout, by rank: dense (I, O), conv1d
 # (K, I, O), conv2d (kh, kw, I, O)
 _KERNEL_AXES = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
+# and back
+_WEIGHT_AXES = {n: tuple(np.argsort(p)) for n, p in _KERNEL_AXES.items()}
 
 
 def from_jax_variables(variables: Mapping[str, Any],
@@ -137,7 +194,8 @@ def from_jax_variables(variables: Mapping[str, Any],
     for collection in ("params", "batch_stats"):
         for path, value in _flatten(variables.get(collection, {})):
             *mods, leaf = path
-            arr = np.asarray(value, dtype=np.float32)
+            arr = (_numpy(value) if isinstance(value, torch.Tensor)
+                   else np.asarray(value, dtype=np.float32))
             if leaf == "kernel":
                 arr = arr.transpose(_KERNEL_AXES[arr.ndim])
             key = _torch_key(tuple(mods), leaf, rules)
@@ -151,6 +209,86 @@ def from_jax_variables(variables: Mapping[str, Any],
         # tree does not keep (torch_compat ignores it)
         sd["backbone.inputs_weights.0"] = torch.ones(1, 1, 1, 1)
     return sd
+
+
+def _nest(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def _numpy(value) -> np.ndarray:
+    return value.detach().cpu().to(torch.float32).numpy()
+
+
+def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
+                     model_name: str = "ECAPA_TDNN") -> Dict[str, Any]:
+    """The port's state_dict of the model `model_name` -> the flax
+    {"params", "batch_stats"} tree of numpy f32 arrays that
+    from_jax_variables reads (its exact inverse)."""
+    family = _family(model_name)
+    rules = INVERSE_RULES[family] if family else ()
+    out = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        if key.endswith("num_batches_tracked") or (
+                family == "ReDimNet" and key == "backbone.inputs_weights.0"):
+            continue
+        for pat, repl in rules:
+            key = re.sub(pat, repl, key)
+        *mods, leaf = key.split(".")
+        arr = _numpy(value)
+        collection = "params"
+        if leaf in ("running_mean", "running_var"):
+            collection, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight":
+            leaf, arr = "kernel", arr.transpose(_WEIGHT_AXES[arr.ndim])
+        _nest(out[collection], tuple(mods) + (leaf,),
+              np.ascontiguousarray(arr))
+    return out
+
+
+def to_jax_projection(state_dict: Mapping[str, torch.Tensor]
+                      ) -> Dict[str, Any]:
+    """The margin head's state_dict -> {"projection"(,
+    "projection_batch_stats")} as the JAX trainer saves it: each tensor
+    under its own name and layout (ArcMargin's weight is (out, in) in
+    both), running statistics as batch_stats."""
+    params, stats = {}, {}
+    for key, value in state_dict.items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        *mods, leaf = key.split(".")
+        if leaf in ("running_mean", "running_var"):
+            _nest(stats, tuple(mods) + (leaf[len("running_"):],),
+                  _numpy(value))
+        else:
+            _nest(params, tuple(mods) + (leaf,), _numpy(value))
+    out = {"projection": params}
+    if stats:
+        out["projection_batch_stats"] = stats
+    return out
+
+
+def from_jax_checkpoint(tree: Mapping[str, Any], model_name: str
+                        ) -> Tuple["OrderedDict", Any]:
+    """A JAX trainer's checkpoint tree -> (the model's state_dict, the
+    margin head's state_dict or None). The supervised layout holds
+    "projection" (and "projection_batch_stats" for a head with BN); the
+    DINO layout's "params"/"batch_stats" are the teacher's backbone and
+    its student fields are not read."""
+    if "params" not in tree:
+        raise KeyError(f"no 'params' in the checkpoint: {sorted(tree)}")
+    model = from_jax_variables({"params": tree["params"],
+                                "batch_stats": tree.get("batch_stats") or {}},
+                               model_name)
+    projection = None
+    if "projection" in tree:
+        projection = from_jax_variables(
+            {"params": tree["projection"],
+             "batch_stats": tree.get("projection_batch_stats") or {}}, "")
+    return model, projection
 
 
 def from_jax_dino_state(state: Mapping[str, Any],
@@ -182,18 +320,3 @@ def _unwrap(obj: Any) -> Dict[str, torch.Tensor]:
         if isinstance(obj, Mapping) and isinstance(obj.get(key), Mapping):
             obj = obj[key]
     return {k: v for k, v in obj.items() if isinstance(v, torch.Tensor)}
-
-
-def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
-    """Load a `.pt` state_dict saved by the port or by upstream wespeaker
-    into `model`, strictly. Training-only keys (the margin head) are dropped
-    and BatchNorm counters missing from older checkpoints are set to 0,
-    each by name; any other mismatch raises."""
-    sd = _unwrap(torch.load(path, map_location="cpu", weights_only=True))
-    sd = {k: v for k, v in sd.items()
-          if not k.startswith(_TRAINING_ONLY_PREFIXES)}
-    for key, buf in model.state_dict().items():
-        if key.endswith("num_batches_tracked") and key not in sd:
-            sd[key] = torch.zeros_like(buf)
-    model.load_state_dict(sd, strict=True)
-    return model
