@@ -176,10 +176,13 @@ Phases, each printing one line:
               ResNet34 extraction audio-s/s at B=512 x 2 s bf16; the
               ResNet34 train step's audio-s/s at B=128 bf16, packed and
               native.
- 26. family train  CAMPPlus and Gemini_DF_ResNet114 at their YAMLs' widths
-              with ArcMargin over 17,982 classes: 3 bf16 AMP steps each at
+ 26. family train  CAMPPlus, Gemini_DF_ResNet114 and ReDimNetB2 at their
+              YAMLs' widths (ReDimNetB2: 72-bin fbank, embed 192) with
+              ArcMargin over 17,982 classes: 3 bf16 AMP steps each at
               B=32 x 2 s (dither, spec-aug, SGD); finite losses, no kernel
-              launch;
+              launch; then each family's ms a step after those warm-up
+              steps (CUDA events over 3 steps) and one more step's device
+              ms, launches and busy share (torch.profiler);
  27. pool kernels  the two statistics-pooling kernels (ASTP's softmax-
               weighted mean and std; the masked mean and std) against their
               plain versions: bf16 at ReDimNetB2's pooling shape (B=512,
@@ -290,6 +293,42 @@ Phases, each printing one line:
               card within 1e-4 of the same function in f64 on the CPU,
               relative to max(|LLR|, 1); each step's seconds and the EERs
               (random model, no bar) printed.
+ 37. aug      the recipes' MUSAN/RIR stores, synthetic (24 decaying-noise
+              RIRs of 0.3-1 s; 24 noises keyed noise-, music-, speech-),
+              packed by `python -m wespeaker_tpu_torch.bin.prep_data
+              aug_store`; train/device_aug.py::device_augment on the card
+              against the port's CPU result on the same int16 samples and
+              host choices (attach_device_aug, aug_prob 0.6, reverb rows
+              first), B=128 x 32,240 samples, R=16,000: f32 max abs error
+              <= 1e-4 of the peak, modes 0, 1 and 2 present, mode-0 rows
+              bit-equal; the card's ms a batch (CUDA events) and one
+              call's device ms by kernel (torch.profiler) beside the
+              host's augment_one over the same 128 rows (host clock);
+              the phase's seconds, the stores' among them;
+ 38. recipe train  bin/train.py on the recipe YAMLs unchanged but for the
+              corpus (8 synthetic tar shards, 16 speakers x 8 utterances
+              of 2.5-4 s, and the stores), the epoch and step counts, and the
+              option each run is about. First the host pipeline alone
+              (SpeakerDataset over the shards, one process, ms a batch
+              of 64): without speed perturb and augmentation, with speed
+              perturb, with host augmentation, with the device-aug
+              picks. Then ecapa_tdnn_c512.yaml (full width,
+              B=64, 14 steps) with host augmentation in one process, with
+              min(4, cores - 1) worker processes and with device_aug,
+              rows 4 and 5 once a step and nothing else, each run's wall
+              ms a step over the 8 steps before its last (TrainStep
+              wrapped from the outside: host clock between synchronizes,
+              no profiler), its last step's device ms (torch.profiler)
+              and the busy share of the two, and the device-aug step
+              alone on one held batch (ms a step, device ms and busy
+              share); the same YAML
+              with sphereface2 and arc_margin_intertopk_subcenter (3
+              steps); resnet.yaml with conv_dw_mode packed (B=128, 3
+              steps, row 10 14 times a step); examples/sre/v2/conf/
+              resnet34_sre.yaml (softmax head, its 8 workers, 8 kHz,
+              B=256, 3 steps; the head's BatchNorm statistics carried).
+              Every loss finite, every run's model_0.pt holding the
+              trained model and head; each run's seconds and the phase's.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -324,7 +363,11 @@ from wespeaker_tpu_torch.bin import (  # noqa: E402
 from wespeaker_tpu_torch.bin import train_dino as dino_cli  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import (  # noqa: E402
     iter_wavs_from_list, load_model_for_eval)
-from wespeaker_tpu_torch.data.dataset import eval_batches  # noqa: E402
+from wespeaker_tpu_torch.data.dataset import (  # noqa: E402
+    SpeakerDataset, eval_batches)
+from wespeaker_tpu_torch.data.pipeline import (  # noqa: E402
+    attach_device_aug, augment_one, batch_samples, spk2id_from_utt2spk)
+from wespeaker_tpu_torch.data.store import PackedAudioStore  # noqa: E402
 from wespeaker_tpu_torch.bin import kernel_bounds  # noqa: E402
 from wespeaker_tpu_torch.bin import profile_extract  # noqa: E402
 from wespeaker_tpu_torch.bin.profile_train import (  # noqa: E402
@@ -355,6 +398,8 @@ from wespeaker_tpu_torch.train import (AugConfig,  # noqa: E402
                                        build_train_state, make_eval_embed_fn,
                                        make_train_step)
 from wespeaker_tpu_torch.train.composite import build_model  # noqa: E402
+from wespeaker_tpu_torch.train.device_aug import (  # noqa: E402
+    device_augment)
 from wespeaker_tpu_torch.train.train_step import (  # noqa: E402
     features_from_batch)
 from wespeaker_tpu_torch.utils import checkpoint as ckpt_io  # noqa: E402
@@ -2240,23 +2285,31 @@ def phase_resnet_timing(dev, smi):
 
 
 def phase_family_train(dev):
-    """CAMPPlus (campplus.yaml's width) and Gemini_DF_ResNet114
-    (gemini_dfresnet_adam.yaml's) with an ArcMargin head over NUM_CLASS
+    """CAMPPlus (campplus.yaml's width), Gemini_DF_ResNet114
+    (gemini_dfresnet_adam.yaml's) and ReDimNetB2 (redimnet.yaml's: a
+    72-bin fbank, embed 192) with an ArcMargin head over NUM_CLASS
     classes: 3 bf16 AMP train steps each at B=32 x 2 s, dither and
     spec-aug on, SGD; every loss finite and no kernel launched (training
-    runs layer by layer)."""
+    runs layer by layer, and the pooling kernels are inference-only); then
+    each family's step time after those warm-up steps, by CUDA events over
+    3 more steps."""
+    t_start = time.perf_counter()
     rng = np.random.default_rng(SEED + 31)
     batch = train_batch(rng, TRAINER_BATCH, dev)
     parts = []
-    for name, make, embed in (
-            ("CAMPPlus", lambda: CAMPPlus(80, CAM_EMBED), CAM_EMBED),
+    for name, make, embed, fbank in (
+            ("CAMPPlus", lambda: CAMPPlus(80, CAM_EMBED), CAM_EMBED,
+             FbankConfig(dither=1.0)),
             ("Gemini_DF_ResNet114",
-             lambda: Gemini_DF_ResNet114(80, GEMINI_EMBED), GEMINI_EMBED)):
+             lambda: Gemini_DF_ResNet114(80, GEMINI_EMBED), GEMINI_EMBED,
+             FbankConfig(dither=1.0)),
+            ("ReDimNetB2", lambda: ReDimNetB2(REDIM_FEAT, REDIM_EMBED),
+             REDIM_EMBED, FbankConfig(num_mel_bins=REDIM_FEAT, dither=1.0))):
         model, proj, opt, gen = build_train_state(
             lambda: (make(), ArcMarginProduct(embed, NUM_CLASS)), SGD_CONF,
             seed=SEED, device=dev)
         step = make_train_step(model, proj, opt, lambda s: 0.1,
-                               lambda s: 0.2, FbankConfig(dither=1.0),
+                               lambda s: 0.2, fbank,
                                AugConfig(), compute_dtype=torch.bfloat16,
                                device=dev, generator=gen)
         zero_counts()
@@ -2267,12 +2320,18 @@ def phase_family_train(dev):
         if not all(np.isfinite(losses)) or counts() != NO_LAUNCH:
             raise AssertionError(f"{name} train steps: losses {losses}, "
                                  f"launches {counts()}")
+        ms = cuda_ms(lambda: step(batch), iters=3, warmup=0)
+        if not np.isfinite(float(step(batch)["loss"])):
+            raise AssertionError(f"{name}: a timed step is not finite")
         parts.append(f"{name} losses " + " ".join(f"{v:.4f}" for v in losses)
-                     + f" ({sec:.1f} s with warm-up)")
+                     + f" ({sec:.1f} s with warm-up; {ms:.1f} ms a step "
+                     f"after it; one more step by torch.profiler: "
+                     f"{fmt_device(*device_time(lambda: step(batch)))})")
         del model, proj, opt, step
         torch.cuda.empty_cache()
     print(f"family train: 3 bf16 steps at B={TRAINER_BATCH} x 2 s + ArcMargin "
-          f"{NUM_CLASS}: " + "; ".join(parts))
+          f"{NUM_CLASS}: " + "; ".join(parts)
+          + f"; {time.perf_counter() - t_start:.1f} s")
 
 
 def pool_inputs(rng, b, t, d, dtype, dev, masked=False):
@@ -3394,6 +3453,379 @@ def phase_backend(dev):
           f"{time.perf_counter() - t_start:.1f} s")
 
 
+# the recipes' training stage (examples/voxceleb/v2/run.sh:34-45): packed
+# MUSAN/RIR stores, then bin/train.py on the recipe YAMLs
+V2_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "examples", "voxceleb", "v2", "conf")
+AUG_BATCH, AUG_RIR = 128, 16000   # the aug phase: B x 2 s chunks, R
+# ECAPA runs: steps, then the host-clock window before the last step
+RECIPE_STEPS, RECIPE_TIMED = 14, 8
+
+
+def write_aug_stores(root, rng):
+    """Synthetic RIRs (decaying noise of 0.3-1 s) and MUSAN-like noise
+    (3-8 s; keys noise-, music-, speech-), each a wav.scp packed by
+    `python -m wespeaker_tpu_torch.bin.prep_data aug_store`; returns the
+    two store prefixes."""
+    prefixes = []
+    for kind, keys in (
+            ("rirs", [f"rir{i:02d}" for i in range(24)]),
+            ("musan", [f"{k}-{i:02d}" for k in ("noise", "music", "speech")
+                       for i in range(8)])):
+        d = os.path.join(root, kind)
+        os.makedirs(d)
+        lines = []
+        for key in keys:
+            if kind == "rirs":
+                n = int(rng.uniform(0.3, 1.0) * 16000)
+                wav = rng.normal(0, 0.5, n) * np.exp(
+                    -np.arange(n) / (rng.uniform(0.02, 0.2) * 16000))
+                wav[0] = 1.0  # the direct path
+            else:
+                n = int(rng.uniform(3.0, 8.0) * 16000)
+                tone = np.sin(2 * np.pi * rng.uniform(80, 2000)
+                              * np.arange(n) / 16000)
+                wav = 0.2 * tone + rng.uniform(-0.3, 0.3, n)
+            path = os.path.join(d, f"{key}.wav")
+            write_wav(path, np.clip(wav, -1, 1).astype(np.float32), 16000)
+            lines.append(f"{key} {path}")
+        with open(os.path.join(d, "wav.scp"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+        prefix = os.path.join(root, f"{kind}_store")
+        subprocess.run([sys.executable, "-m",
+                        "wespeaker_tpu_torch.bin.prep_data", "aug_store",
+                        "--wav_scp", os.path.join(d, "wav.scp"),
+                        "--out_prefix", prefix], check=True, timeout=120,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+        prefixes.append(prefix)
+    return tuple(prefixes)
+
+
+def phase_aug(dev, smi, root):
+    """The stores of write_aug_stores under `root`, returned; then
+    device-side reverb/noise augmentation (train/device_aug.py) on the
+    card against the port's CPU result on the same int16 store samples
+    and host choices (data/pipeline.py::attach_device_aug, aug_prob 0.6,
+    reverb rows packed first), B=128 x 32,240 samples, R=16,000: f32 max
+    abs error <= 1e-4 of the peak, modes 0, 1 and 2 present, mode-0 rows
+    bit-equal to the input; the card's step by CUDA events and the host
+    path (augment_one on each row, the choices of the same generator
+    seed) by the host clock."""
+    t_start = time.perf_counter()
+    stores = write_aug_stores(root, np.random.default_rng(SEED + 36))
+    t_stores = time.perf_counter() - t_start
+    reverb, noise = (PackedAudioStore(p) for p in stores)
+    rng = np.random.default_rng(SEED + 37)
+    samples = [{"key": str(i), "label": 0,
+                "wav": (0.3 * np.sin(2 * np.pi * (120 + 3 * i)
+                                     * np.arange(CHUNK_SAMPLES) / 16000)
+                        + rng.uniform(-0.1, 0.1, CHUNK_SAMPLES)).astype(
+                    np.float32)} for i in range(AUG_BATCH)]
+    batch = next(batch_samples(attach_device_aug(
+        [dict(s) for s in samples], reverb, noise, 0.6, AUG_RIR,
+        np.random.default_rng(SEED + 38)), AUG_BATCH))
+    mode = batch["aug_mode"]
+    if not {0, 1, 2} <= set(mode.tolist()):
+        raise AssertionError(f"aug modes {np.bincount(mode)}")
+    names = ("wav", "aug_mode", "aug_rir", "aug_noise", "aug_snr")
+    cpu = device_augment(*[torch.from_numpy(batch[k]) for k in names])
+    args = [torch.from_numpy(batch[k]).to(dev) for k in names]
+    got = device_augment(*args)
+    torch.cuda.synchronize()
+    peak = cpu.abs().max().item()
+    err = (got.cpu() - cpu).abs().max().item()
+    if not torch.isfinite(got).all() or err > 1e-4 * peak:
+        raise AssertionError(f"device_augment: max abs error {err} > 1e-4 "
+                             f"of the peak {peak}")
+    if not torch.equal(got[torch.from_numpy(mode == 0).to(dev)].cpu(),
+                       torch.from_numpy(batch["wav"][mode == 0])):
+        raise AssertionError("device_augment changed a mode-0 row")
+    card_ms = cuda_ms(lambda: device_augment(*args), iters=10, warmup=2)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        device_augment(*args)
+        torch.cuda.synchronize()
+    by_kernel = sorted(((profile_extract._device_us(e) / 1e3, e.key)
+                        for e in prof.key_averages()), reverse=True)
+    by_kernel = [r for r in by_kernel if r[0] > 0]
+    dev_ms = sum(ms for ms, _ in by_kernel)
+    augment_one(samples[0]["wav"], reverb, noise, rng)  # imports scipy
+    host_rng = np.random.default_rng(SEED + 38)
+    t0 = time.perf_counter()
+    for s in samples:
+        if host_rng.uniform() < 0.6:
+            augment_one(s["wav"], reverb, noise, host_rng)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    counts_by_mode = np.bincount(mode, minlength=3)
+    print(f"aug [{smi}]: device_augment B={AUG_BATCH} x {CHUNK_SAMPLES} "
+          f"samples, R={AUG_RIR}, int16 stores (modes none/reverb/noise "
+          f"{counts_by_mode.tolist()}, reverb rows {batch['aug_rir'].shape[0]}"
+          f" convolved): card vs CPU max abs error {err:.3g} (peak "
+          f"{peak:.4f}), mode-0 rows bit-equal; card {card_ms:.3f} ms a "
+          f"batch (CUDA events, 10 calls), one call by torch.profiler "
+          f"{dev_ms:.3f} ms device over {len(by_kernel)} kernels, the "
+          f"largest " + ", ".join(f"{k[:60]} {ms:.3f}"
+                                   for ms, k in by_kernel[:3])
+          + f"; host augment_one over the same {AUG_BATCH} rows (aug_prob "
+          f"0.6, one process) {host_ms:.1f} ms; {t_stores:.1f} s for the "
+          f"stores, {time.perf_counter() - t_start:.1f} s in all")
+    return stores
+
+
+def write_shards(root, rng, n_spk=16, n_utt=8, per_shard=16):
+    """A synthetic corpus as the recipes read it: tar shards of
+    <key>.wav + <key>.spk (PCM16 wavs of 2.5-4 s, a tone per speaker plus
+    noise), shard.list and utt2spk. 8 shards, so that each of
+    resnet34_sre.yaml's 8 workers gets one (a worker with an empty stripe
+    yields nothing and never ends, as in the JAX package)."""
+    import tarfile
+
+    items = []
+    for s in range(n_spk):
+        tone = 2 * np.pi * (150 + 25 * s) / 16000
+        for u in range(n_utt):
+            n = int(rng.uniform(2.5, 4.0) * 16000)
+            wav = (0.3 * np.sin(tone * np.arange(n))
+                   + rng.uniform(-0.1, 0.1, n)).astype(np.float32)
+            path = os.path.join(root, "utt.wav")
+            write_wav(path, wav, 16000)
+            with open(path, "rb") as f:
+                items.append((f"spk{s:02d}-utt{u}", f"spk{s:02d}",
+                              f.read()))
+    shards = []
+    for i in range(0, len(items), per_shard):
+        path = os.path.join(root, f"shard{i // per_shard:03d}.tar")
+        with tarfile.open(path, "w") as tf:
+            for key, spk, data in items[i:i + per_shard]:
+                for name, blob in ((f"{key}.wav", data),
+                                   (f"{key}.spk", spk.encode())):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(blob)
+                    tf.addfile(info, io.BytesIO(blob))
+        shards.append(path)
+    for name, rows in (("shard.list", shards),
+                       ("utt2spk", [f"{k} {s}" for k, s, _ in items])):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(rows) + "\n")
+    return os.path.join(root, "shard.list"), os.path.join(root, "utt2spk")
+
+
+@contextlib.contextmanager
+def step_clock(warm=None, n=1):
+    """Times the trainer's steps from the outside (none with warm None):
+    TrainStep.__call__ is wrapped so that a host-clock window opens when
+    step `warm` ends and closes when step warm + n ends (each edge after a
+    synchronize), the batch fetches between them included, with no
+    profiler running; then torch.profiler (CUDA activity) records the one
+    step after the window for its device time. Yields a dict that gets
+    "ms" (wall per step in the window), "dev_ms" (the profiled step's
+    device kernel time), "busy" (dev_ms / ms) and "losses" (every step's
+    loss tensor); the run needs warm + n + 1 steps."""
+    from wespeaker_tpu_torch.train import train_step as ts
+
+    out = {"losses": []}
+    call = ts.TrainStep.__call__
+    state = {}
+
+    def timed(self, batch):
+        metrics = call(self, batch)
+        out["losses"].append(metrics["loss"])
+        if warm is None:
+            pass
+        elif self.step == warm:
+            torch.cuda.synchronize()
+            state["t0"] = time.perf_counter()
+        elif self.step == warm + n:
+            torch.cuda.synchronize()
+            out["ms"] = (time.perf_counter() - state["t0"]) * 1e3 / n
+            state["prof"] = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            state["prof"].start()
+        elif self.step == warm + n + 1:
+            torch.cuda.synchronize()
+            state["prof"].stop()
+            out["dev_ms"] = sum(profile_extract._device_us(e) for e in
+                                state["prof"].key_averages()) / 1e3
+            out["busy"] = out["dev_ms"] / out["ms"]
+        return metrics
+
+    ts.TrainStep.__call__ = timed
+    try:
+        yield out
+    finally:
+        ts.TrainStep.__call__ = call
+
+
+def run_recipe(conf, over, steps, batch, timed=0):
+    """bin/train.py on a recipe YAML with overrides; the step count set by
+    samples_per_epoch over one epoch. Checks every loss finite, the
+    checkpoint written and loaded with its head; -> (TrainStep, the
+    launches during the run, the step clock's dict)."""
+    over = list(over) + ["num_epochs=1", f"dataset_args.batch_size={batch}",
+                         f"samples_per_epoch={steps * batch}"]
+    zero_counts()
+    t0 = time.perf_counter()
+    with step_clock(steps - timed - 1 if timed else None, timed) as clock:
+        step = train_cli.train(conf, over, device="cuda")
+    torch.cuda.synchronize()
+    clock["s"] = time.perf_counter() - t0
+    launches = counts()
+    losses = [float(v) for v in clock["losses"]]
+    if step.step != steps or len(losses) != steps \
+            or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{conf}: {step.step} steps, losses {losses}")
+    exp = parse_config_or_kwargs(conf, over)["exp_dir"]
+    path = os.path.join(exp, "models", "model_0.pt")
+    saved = torch.load(path, map_location="cpu", weights_only=True)
+    for part, mod in (("state_dict", step.model),
+                      ("projection", step.projection)):
+        for k, v in mod.state_dict().items():
+            if not torch.equal(saved[part][k], v.cpu()):
+                raise AssertionError(f"{path}: {part} {k} differs")
+    clock["losses"] = losses
+    return step, launches, clock
+
+
+def host_pipeline_ms(conf, shard_list, utt2spk, stores, extra, n=4):
+    """ms a batch of the recipe's host pipeline alone (SpeakerDataset over
+    the shards, one process, no training) with the dataset_args changes
+    `extra`: the mean over n batches after one warm-up batch."""
+    configs = load_yaml(conf)
+    args = {**configs["dataset_args"], **extra}
+    ds = SpeakerDataset("shard", shard_list, args,
+                        spk2id_from_utt2spk(utt2spk),
+                        reverb_store_prefix=stores[0],
+                        noise_store_prefix=stores[1], seed=SEED)
+    it = ds.batches(args["batch_size"])
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        next(it)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def phase_recipe_train(dev, smi, stores):
+    """The recipes' training stage on the card: the stores of
+    write_aug_stores, a shard corpus, bin/train.py on the YAMLs unchanged
+    but for the corpus paths, the epoch and step counts, the batch size
+    and the options the phase is about (num_workers, device_aug,
+    conv_dw_mode, project_type); see the module docstring (phase 38)."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 39)
+    parts, timings = [], {}
+    with tempfile.TemporaryDirectory() as root:
+        shard_list, utt2spk = write_shards(root, rng)
+        with open(shard_list) as f:
+            n_shards = len(f.read().split())
+        corpus = [f"train_data={shard_list}", f"utt2spk={utt2spk}",
+                  f"reverb_data={stores[0]}", f"noise_data={stores[1]}",
+                  "data_type=shard"]
+        ecapa = os.path.join(V2_CONF, "ecapa_tdnn_c512.yaml")
+        host = {name: host_pipeline_ms(ecapa, shard_list, utt2spk, stores,
+                                       extra)
+                for name, extra in (
+                    ("parse, filter, shuffle, chunk",
+                     {"speed_perturb": False, "aug_prob": 0.0}),
+                    ("+ speed perturb", {"aug_prob": 0.0}),
+                    ("+ host aug", {}),
+                    ("+ device-aug picks", {"device_aug": True}))}
+        parts.append("host pipeline alone, ms a batch of 64 in one "
+                     "process: " + ", ".join(f"{k} {v:.1f}"
+                                              for k, v in host.items()))
+        workers = max(1, min(4, (os.cpu_count() or 2) - 1))
+        for name, extra in (
+                ("host aug, one process", ["dataloader_args.num_workers=0"]),
+                (f"host aug, {workers} workers",
+                 [f"dataloader_args.num_workers={workers}"]),
+                ("device aug", ["dataloader_args.num_workers=0",
+                                "dataset_args.device_aug=true"])):
+            step, launches, clock = run_recipe(
+                ecapa,
+                corpus + extra + [f"exp_dir={root}/ecapa_{len(timings)}"],
+                RECIPE_STEPS, 64, timed=RECIPE_TIMED)
+            want = dict(NO_LAUNCH, train_fwd=RECIPE_STEPS,
+                        train_bwd=RECIPE_STEPS)
+            if launches != want:
+                raise AssertionError(f"ecapa {name}: launches {launches}, "
+                                     f"want {want}")
+            timings[name] = (clock["ms"], clock["busy"])
+            parts.append(f"ECAPA_TDNN_GLOB_c512 {name}: {RECIPE_STEPS} "
+                         f"steps, rows 4/5 x{launches['train_fwd']}, last "
+                         f"loss {clock['losses'][-1]:.4f}, "
+                         f"{clock['ms']:.1f} ms a step over {RECIPE_TIMED} "
+                         f"steps before the last (host clock, no profiler),"
+                         f" the last step {clock['dev_ms']:.3f} ms device "
+                         f"(torch.profiler), {100 * clock['busy']:.1f}% "
+                         f"device-busy ({clock['s']:.1f} s)")
+        # the same step without its pipeline: one device-aug batch, held
+        args = {**load_yaml(ecapa)["dataset_args"], "device_aug": True}
+        fixed = next(SpeakerDataset(
+            "shard", shard_list, args, spk2id_from_utt2spk(utt2spk),
+            reverb_store_prefix=stores[0], noise_store_prefix=stores[1],
+            seed=SEED).batches(args["batch_size"]))
+        for _ in range(2):
+            step(fixed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(RECIPE_TIMED):
+            step(fixed)
+        torch.cuda.synchronize()
+        alone = (time.perf_counter() - t0) * 1e3 / RECIPE_TIMED
+        timings["step alone"] = (alone, None)
+        parts.append(f"the device-aug step alone on a held batch: "
+                     f"{alone:.1f} ms a step (host clock over "
+                     f"{RECIPE_TIMED}); one more by torch.profiler: "
+                     f"{fmt_device(*device_time(lambda: step(fixed)))}")
+        del step
+        for ptype in ("sphereface2", "arc_margin_intertopk_subcenter"):
+            step, launches, clock = run_recipe(
+                ecapa, corpus + ["dataloader_args.num_workers=0",
+                                 f"projection_args.project_type={ptype}",
+                                 f"exp_dir={root}/ecapa_{ptype}"], 3, 64)
+            if launches["train_fwd"] != 3 or launches["train_bwd"] != 3:
+                raise AssertionError(f"{ptype}: launches {launches}")
+            parts.append(f"ECAPA {ptype}: losses "
+                         + " ".join(f"{v:.3f}" for v in clock["losses"])
+                         + f" ({clock['s']:.1f} s)")
+            del step
+        step, launches, clock = run_recipe(
+            os.path.join(V2_CONF, "resnet.yaml"),
+            corpus + ["conv_dw_mode=packed", f"exp_dir={root}/resnet"],
+            3, 128)
+        if launches != dict(NO_LAUNCH, dw=3 * DW_PER_STEP):
+            raise AssertionError(f"resnet.yaml packed: launches {launches}")
+        parts.append(f"resnet.yaml packed: 3 steps at B=128, row 10 "
+                     f"x{launches['dw']}, losses "
+                     + " ".join(f"{v:.3f}" for v in clock["losses"])
+                     + f" ({clock['s']:.1f} s)")
+        del step
+        sre = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "sre", "v2", "conf",
+                           "resnet34_sre.yaml")
+        step, launches, clock = run_recipe(
+            sre, corpus + [f"exp_dir={root}/sre"], 3, 256)
+        bn = step.projection.trans_bn
+        if int(bn.num_batches_tracked) != 3 or torch.all(
+                bn.running_var == 1):
+            raise AssertionError("resnet34_sre: the head's BatchNorm "
+                                 "statistics were not carried")
+        sre_workers = load_yaml(sre)["dataloader_args"]["num_workers"]
+        if n_shards < sre_workers:
+            raise AssertionError(f"{n_shards} shards for {sre_workers} "
+                                 "workers: some would idle")
+        parts.append(f"resnet34_sre.yaml (softmax head, {sre_workers} "
+                     f"workers, 8 kHz): 3 steps at B=256, losses "
+                     + " ".join(f"{v:.3f}" for v in clock["losses"])
+                     + f", head BN tracked {int(bn.num_batches_tracked)} "
+                     f"({clock['s']:.1f} s)")
+        del step
+    torch.cuda.empty_cache()
+    print(f"recipe train [{smi}]: " + "; ".join(parts)
+          + f"; {time.perf_counter() - t_start:.1f} s")
+    return timings
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -3458,6 +3890,8 @@ def main():
         phase_contrastive(dev, raw, utt2spk, d)
     phase_quality(dev)
     phase_backend(dev)
+    with tempfile.TemporaryDirectory() as d:
+        phase_recipe_train(dev, smi, phase_aug(dev, smi, d))
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),

@@ -18,7 +18,10 @@ utils.weights.from_jax_variables.
     encoder is that move alone, and its value is held at 1e-4 only where
     it does not start at zero. The port's fused=True is paired with JAX's
     fused_tail=True in interpret mode. The LR is small for the reason
-    test_torch_train.py gives (see LR below).
+    test_torch_train.py gives (see LR below);
+  - twenty MoCo steps, each from the JAX state before it (loss and queue
+    within 1e-4), and a free run whose drift from JAX stays within 3x the
+    JAX package's own two paths' drift (the test's docstring).
 """
 
 import numpy as np
@@ -215,3 +218,112 @@ def test_two_simclr_steps_match_jax():
         if name != B2:
             _norm_close(p.detach(), want[name], 2e-3, name)
     _check_momentum(model, opt, state.opt_state)
+
+
+# twenty steps on one cosine schedule: the per-step comparison of the
+# open fault "the SSL smokes trail the JAX package's runs" (ROADMAP.md
+# Queue 3)
+LR20 = (0.005, 0.001, 20, 1)
+
+
+def _moco_state(variables, tx, K):
+    return JC.MoCoState(
+        step=jnp.zeros((), jnp.int32), query_params=variables["params"],
+        key_params=variables["params"],
+        batch_stats=variables["batch_stats"],
+        key_stats=variables["batch_stats"],
+        queue=JC.l2norm(jax.random.normal(jax.random.PRNGKey(1),
+                                          (K, EMB))),
+        queue_ptr=jnp.zeros((), jnp.int32),
+        opt_state=tx.init(variables["params"]), rng=jax.random.PRNGKey(2))
+
+
+def _sync_moco(step, opt, state):
+    """The port's step set to the JAX state: both encoders, the queue and
+    its pointer, the momentum buffers and the step count."""
+    step.encoder.load_state_dict(from_jax_variables(
+        {"params": state.query_params, "batch_stats": state.batch_stats}))
+    step.key_encoder.load_state_dict(from_jax_variables(
+        {"params": state.key_params, "batch_stats": state.key_stats}))
+    step.queue = torch.from_numpy(np.array(state.queue))
+    step.queue_ptr = int(state.queue_ptr)
+    step.step = int(state.step)
+    trace = from_jax_variables({"params": _trace(state.opt_state)})
+    for name, p in step.encoder.named_parameters():
+        opt.state[p]["momentum_buffer"] = trace[name].clone()
+
+
+def test_twenty_moco_steps_match_jax_step_by_step():
+    """Twenty MoCo steps in f32 (features given, so no dither), the queue
+    (K=16) wrapping five times, the LR on its cosine. Each step of the
+    port, started from the JAX package's state before that step, gives
+    its loss within 1e-4, its queue within 1e-4 of its largest magnitude,
+    the same accuracy and pointer. Run freely from the same init, the
+    port drifts from the JAX run as the JAX package's own two paths
+    (fused_tail True and False, the same math) drift from each other: at
+    B=4 each step amplifies rounding ~3-10x. Its largest loss and queue
+    deviations over the 20 steps must stay within 3x the JAX paths'
+    (printed with -s)."""
+    variables, model, encode_fn = _encoders()
+    _, free_model, _ = _encoders()
+    ecapa = dict(channels=CH, feat_dim=FEAT, embed_dim=EMB,
+                 global_context_att=True, fused_block=False)
+    unfused = JECAPA(**ecapa, fused_tail=False)
+
+    def encode_unfused(params, stats, feats, train):
+        v = {"params": params, "batch_stats": stats}
+        if train:
+            emb, mut = unfused.apply(v, feats, train=True,
+                                     mutable=["batch_stats"])
+            return emb, mut["batch_stats"]
+        return unfused.apply(v, feats, train=False), stats
+
+    tx = optax.inject_hyperparams(optax.sgd)(learning_rate=0.0,
+                                             momentum=0.9)
+    K, m = 16, 0.9
+    from wespeaker_tpu.ssl.dino import cosine_scheduler as jcos
+
+    from wespeaker_tpu_torch.ssl.dino import cosine_scheduler
+    jstep = jax.jit(JC.make_moco_train_step(encode_fn, tx, jcos(*LR20),
+                                            m=m))
+    jstep_unfused = jax.jit(JC.make_moco_train_step(
+        encode_unfused, tx, jcos(*LR20), m=m))
+    state, state_u = (_moco_state(variables, tx, K) for _ in range(2))
+    steps = []
+    for mod in (model, free_model):
+        opt = torch.optim.SGD(mod.parameters(), lr=0.0, momentum=0.9)
+        steps.append((C.MoCoTrainStep(mod, opt, cosine_scheduler(*LR20),
+                                      torch.from_numpy(np.array(
+                                          state.queue)), m=m), opt))
+    (forced, forced_opt), (free, _) = steps
+    rng = np.random.default_rng(7)
+    drift = {"port": [], "jax": []}
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / np.abs(b).max())
+
+    for i in range(20):
+        batch = {k: rng.standard_normal((B, T, FEAT)).astype(np.float32)
+                 for k in ("q_feat", "k_feat")}
+        _sync_moco(forced, forced_opt, state)
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        state, jm = jstep(state, jbatch)
+        state_u, jm_u = jstep_unfused(state_u, jbatch)
+        tm, fm = forced(batch), free(batch)
+        _rel_close(float(tm["loss"]), float(jm["loss"]), 1e-4,
+                   f"step {i} loss")
+        _rel_close(forced.queue, state.queue, 1e-4, f"step {i} queue")
+        assert float(tm["acc"]) == float(jm["acc"]), i
+        assert forced.queue_ptr == int(state.queue_ptr) == (
+            B * (i + 1)) % K
+        drift["port"].append((rel(float(fm["loss"]), float(jm["loss"])),
+                              rel(free.queue, state.queue)))
+        drift["jax"].append((rel(float(jm_u["loss"]), float(jm["loss"])),
+                             rel(state_u.queue, state.queue)))
+    print("moco free-run (loss, queue) deviations from JAX fused_tail=True,"
+          " per step:", drift)
+    for j, what in enumerate(("loss", "queue")):
+        port = max(d[j] for d in drift["port"])
+        ref = max(d[j] for d in drift["jax"])
+        assert port <= 3 * max(ref, 1e-6), (what, port, ref)

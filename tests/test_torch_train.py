@@ -266,8 +266,9 @@ def test_dataset_raw_matches_jax(tmp_path):
         np.testing.assert_array_equal(g["wav"], w["wav"])
         labels.update(g["label"].tolist())
     assert max(labels) >= 3  # speed perturb relabelled some utterances
-    with pytest.raises(NotImplementedError, match="not ported"):
-        SpeakerDataset("feat", raw, conf, spk2id)
+    # `feat` is ported (tests/test_torch_data_aug.py); an unknown type raises
+    with pytest.raises(ValueError, match="data_type"):
+        SpeakerDataset("kaldi", raw, conf, spk2id)
 
 
 def _tiny_config(tmp_path, raw, utt2spk):
@@ -326,15 +327,15 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     raw, utt2spk = _corpus(str(tmp_path / "data"), n_spk=2, n_utt=1)
     conf = _tiny_config(tmp_path, raw, utt2spk)
     for ov in ("distributed_args={num_processes: 2}",
-               "parallel_args={model: 2}", "reverb_data=rirs",
-               "dataloader_args={num_workers: 2}"):
+               "parallel_args={model: 2}", "profile_args={start_step: 1}"):
         with pytest.raises(NotImplementedError, match="not ported"):
             train_cli.train(conf, [ov], device="cpu")
     # conv_dw_mode is ported (packed or native); any other mode raises
     with pytest.raises(ValueError, match="native|packed"):
         train_cli.train(conf, ["conv_dw_mode=fast"], device="cpu")
+    # every head is ported; a non-fbank frontend is not
     with pytest.raises(KeyError, match="not ported"):
-        train_cli.train(conf, ["projection_args={project_type: softmax}"],
+        train_cli.train(conf, ["dataset_args.frontend=whisper"],
                         device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

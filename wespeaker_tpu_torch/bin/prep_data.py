@@ -1,5 +1,10 @@
-"""Data preparation tools: the ones the scoring back end needs.
+"""Data preparation tools: the augmentation stores, feature lists and the
+ones the scoring back end needs.
 
+    python -m wespeaker_tpu_torch.bin.prep_data aug_store --wav_scp \
+        musan/wav.scp --out_prefix musan/store [--max_duration_s S]
+    python -m wespeaker_tpu_torch.bin.prep_data feat --feat_scp feats.scp \
+        --utt2spk utt2spk --out_list feat.list
     python -m wespeaker_tpu_torch.bin.prep_data wav2dur --wav_scp wav.scp \
         --out utt2dur
     python -m wespeaker_tpu_torch.bin.prep_data vector_mean \
@@ -7,12 +12,13 @@
     python -m wespeaker_tpu_torch.bin.prep_data calibration_trial \
         --utt2spk utt2spk --out_trials cal_trials
 
-Counterpart of the back-end subcommands of wespeaker_tpu/bin/prep_data.py
-(upstream tools/wav2dur.py, tools/vector_mean.py,
-tools/generate_calibration_trial.py): the same files, line for line. These
-are file tools on the host and take no `--device`. The list, shard,
-packed-store and feature-list tools (`raw`, `shard`, `aug_store`,
-`feat`) are not ported yet (ROADMAP.md Queue 1 item 8) and raise.
+Counterpart of wespeaker_tpu/bin/prep_data.py (upstream tools/make_lmdb.py,
+tools/make_feat_list.py, tools/wav2dur.py, tools/vector_mean.py,
+tools/generate_calibration_trial.py): the same files, line for line;
+`aug_store` writes the packed MUSAN/RIR store of data/store.py that the
+trainers' `noise_data` / `reverb_data` name. These are file tools on the
+host and take no `--device`. The list and shard tools (`raw`, `shard`)
+are not ported yet (ROADMAP.md Queue 1 item 8) and raise.
 """
 
 import argparse
@@ -21,10 +27,11 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from wespeaker_tpu_torch.data.store import build_packed_store
 from wespeaker_tpu_torch.utils.kaldi_io import (read_vec_scp_dict,
                                                 write_vec_ark_scp)
 
-UNPORTED = ("raw", "shard", "aug_store", "feat")
+UNPORTED = ("raw", "shard")
 
 
 def read_scp(path: str) -> List[Tuple[str, str]]:
@@ -39,6 +46,26 @@ def read_scp(path: str) -> List[Tuple[str, str]]:
 
 def read_utt2spk(path: str) -> Dict[str, str]:
     return dict(read_scp(path))
+
+
+def make_aug_store(wav_scp, out_prefix, sample_rate=16000,
+                   max_duration_s=None):
+    """A MUSAN or RIR wav.scp -> the packed store <out_prefix>.bin /
+    .idx.npz (data/store.py; upstream tools/make_lmdb.py)."""
+    return build_packed_store(read_scp(wav_scp), out_prefix, sample_rate,
+                              max_duration_s)
+
+
+def make_feat_list(feat_scp, utt2spk, out_list):
+    """feats.scp + utt2spk -> the feature list of `data_type: feat`
+    (upstream tools/make_feat_list.py): the scp lines in order, each key
+    required to have a speaker."""
+    u2s = read_utt2spk(utt2spk)
+    with open(out_list, "w") as fout:
+        for key, path in read_scp(feat_scp):
+            if key not in u2s:
+                raise KeyError(f"{key} missing from utt2spk")
+            fout.write(f"{key} {path}\n")
 
 
 def wav2dur(wav_scp, out_path):
@@ -102,6 +129,14 @@ def generate_calibration_trial(utt2spk, out_trials, num_target=1000,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="cmd", required=True)
+    a = sub.add_parser("aug_store")
+    a.add_argument("--wav_scp", required=True)
+    a.add_argument("--out_prefix", required=True)
+    a.add_argument("--max_duration_s", type=float, default=None)
+    fl = sub.add_parser("feat")
+    fl.add_argument("--feat_scp", required=True)
+    fl.add_argument("--utt2spk", required=True)
+    fl.add_argument("--out_list", required=True)
     d = sub.add_parser("wav2dur")
     d.add_argument("--wav_scp", required=True)
     d.add_argument("--out", required=True)
@@ -121,7 +156,12 @@ def main(argv=None):
             "item 8)")
     if rest:
         ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.cmd == "wav2dur":
+    if args.cmd == "aug_store":
+        make_aug_store(args.wav_scp, args.out_prefix,
+                       max_duration_s=args.max_duration_s)
+    elif args.cmd == "feat":
+        make_feat_list(args.feat_scp, args.utt2spk, args.out_list)
+    elif args.cmd == "wav2dur":
         wav2dur(args.wav_scp, args.out)
     elif args.cmd == "vector_mean":
         vector_mean(args.spk2utt, args.xvector_scp, args.out_prefix)

@@ -5,8 +5,14 @@
 
 Counterpart of wespeaker_tpu/bin/train.py (upstream
 wespeaker/bin/train.py:39-266): config and overrides, spk2id from
-utt2spk, the raw/shard dataset, model and margin head (3x classes under
-speed perturb), iteration-granular LR and margin schedules with
+utt2spk, the raw/shard/feat dataset with the recipes' MUSAN/RIR stores
+(`noise_data`, `reverb_data`: packed stores from `bin/prep_data.py
+aug_store`; `aug_prob` of the chunks augmented on the host or, with
+`dataset_args.device_aug`, on the card), `dataloader_args.num_workers`
+spawned worker processes (data/dataset.py::MPPrefetcher; 0 is one
+thread), the model and any head of models/projections.py (3x classes
+under speed perturb; `do_lm` keeps them), iteration-granular LR and
+margin schedules with
 scale_ratio = batch / 64, fbank and spec-aug on the device, bf16 AMP with
 `enable_amp`, a `checkpoint` (resume) or `model_init` (weights only) load, from the
 port's `.pt` or the JAX package's `.ckpt` (a JAX DINO checkpoint's teacher
@@ -21,9 +27,8 @@ the JAX trainer does: packed computes the filter gradient of every
 eligible 3x3 conv (stride 1, Ci and Co <= 64) with the tap-packed kernel.
 
 Not ported yet, and refused rather than dropped: `distributed_args`
-(multi-process training), a model axis > 1, non-fbank frontends,
-`reverb_data` / `noise_data`, `profile_args`, `dataloader_args.num_workers`
-> 0, the `feat` data type and every head but arc_margin.
+(multi-card training) and a model axis > 1 (ROADMAP.md Queue 1 item 4,
+DDP), non-fbank frontends (item 7) and `profile_args` (item 8).
 """
 
 import argparse
@@ -36,13 +41,14 @@ import time
 
 import torch
 
-from wespeaker_tpu_torch.data.dataset import Prefetcher, SpeakerDataset
+from wespeaker_tpu_torch.data.dataset import (MPPrefetcher, Prefetcher,
+                                              SpeakerDataset)
 from wespeaker_tpu_torch.data.pipeline import spk2id_from_utt2spk
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig
 from wespeaker_tpu_torch.models.projections import get_projection
 from wespeaker_tpu_torch.ops.conv_dw_pack import set_conv_dw_mode
-from wespeaker_tpu_torch.train.composite import build_model
+from wespeaker_tpu_torch.train.composite import build_model, jax_init_
 from wespeaker_tpu_torch.train.optim import lr_scale_ratio
 from wespeaker_tpu_torch.train.train_step import (AugConfig,
                                                   build_train_state,
@@ -72,14 +78,11 @@ def setup_logger(exp_dir):
 
 def _refuse_unported(configs):
     unported = {
-        "distributed_args": bool(configs.get("distributed_args")),
-        "parallel_args.model > 1":
+        "distributed_args (DDP, ROADMAP.md Queue 1 item 4)":
+            bool(configs.get("distributed_args")),
+        "parallel_args.model > 1 (Queue 1 item 4)":
             configs.get("parallel_args", {}).get("model", 1) > 1,
-        "reverb_data / noise_data":
-            bool(configs.get("reverb_data") or configs.get("noise_data")),
-        "profile_args": bool(configs.get("profile_args")),
-        "dataloader_args.num_workers > 0 (multi-process prefetch)":
-            configs.get("dataloader_args", {}).get("num_workers", 0) > 0,
+        "profile_args (Queue 1 item 8)": bool(configs.get("profile_args")),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -93,7 +96,10 @@ def build_projection(configs, num_class):
     proj_conf["num_class"] = num_class
     proj_conf.setdefault("scale", 32.0)
     proj_conf.setdefault("easy_margin", False)
-    return get_projection(proj_conf)
+    proj_conf.setdefault("do_lm", configs.get("do_lm", False))
+    # the Linear head's Dense starts as flax's; the margin heads hold no
+    # Linear and keep their own draws
+    return jax_init_(get_projection(proj_conf))
 
 
 def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
@@ -113,15 +119,22 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
                                  else configs["utt2spk"])
     dataset_args = configs["dataset_args"]
     lm_keep_3x = False
-    if configs.get("do_lm") and dataset_args.get("speed_perturb", True):
+    if configs.get("do_lm") and configs["data_type"] != "feat" \
+            and dataset_args.get("speed_perturb", True):
         # large-margin fine-tune from a speed-perturbed checkpoint: keep the
         # 3x classifier rows, train without speed perturb
         logger.info("do_lm: speed perturb disabled, classifier keeps 3x rows")
         dataset_args = {**dataset_args, "speed_perturb": False}
         lm_keep_3x = True
-    dataset = SpeakerDataset(configs["data_type"], configs["train_data"],
-                             dataset_args, spk2id,
-                             seed=configs.get("seed", 42))
+    if configs["data_type"] == "feat":
+        # the feat parser joins scp rows to speakers itself
+        dataset_args = {**dataset_args, "utt2spk": configs["utt2spk"]}
+    ds_args = (configs["data_type"], configs["train_data"], dataset_args,
+               spk2id)
+    ds_kwargs = dict(reverb_store_prefix=configs.get("reverb_data"),
+                     noise_store_prefix=configs.get("noise_data"),
+                     seed=configs.get("seed", 42))
+    dataset = SpeakerDataset(*ds_args, **ds_kwargs)
     num_class = dataset.num_classes() * (3 if lm_keep_3x else 1)
     logger.info(f"speakers: {len(spk2id)} classes: {num_class} device: "
                 f"{dev}")
@@ -195,12 +208,12 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
     dump_yaml({**configs, "num_class": num_class, "epoch_iter": epoch_iter},
               os.path.join(exp_dir, "config.yaml"))
 
-    batches = iter(Prefetcher(dataset.batches(batch_size)))
-
     log_interval = configs.get("log_batch_interval", 100)
     save_interval = configs.get("save_epoch_interval", 1)
     num_avg = configs.get("num_avg", 1)
-    with _sigterm_event() as preempted:
+    with _sigterm_event() as preempted, _batches(
+            ds_args, ds_kwargs, dataset, batch_size,
+            configs.get("dataloader_args", {})) as batches:
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             for it in range(epoch_iter):
@@ -234,6 +247,24 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
             os.remove(final)
         os.symlink(os.path.basename(last), final)
     return step
+
+
+@contextlib.contextmanager
+def _batches(ds_args, ds_kwargs, dataset, batch_size, loader_args):
+    """The trainer's batch iterator: `num_workers` spawned worker processes
+    (MPPrefetcher, ended on exit) or, with none, one thread over
+    `dataset`."""
+    workers = loader_args.get("num_workers", 0)
+    if workers <= 0:
+        yield iter(Prefetcher(dataset.batches(batch_size)))
+        return
+    prefetch = MPPrefetcher(ds_args, ds_kwargs, batch_size,
+                            num_workers=workers,
+                            depth=loader_args.get("prefetch", 4))
+    try:
+        yield iter(prefetch)
+    finally:
+        prefetch.close()
 
 
 @contextlib.contextmanager

@@ -15,8 +15,10 @@ with `enable_amp`. The config is dumped to exp_dir/config.yaml and each
 epoch writes `models/model_<epoch>.pt` ({"state_dict": the query / SimCLR
 encoder}), which bin/extract.py::load_model_for_eval loads.
 
-Refused as in bin/train_dino.py: `distributed_args`, `reverb_data` /
-`noise_data`, `dataloader_args.num_workers` > 0.
+`reverb_data` / `noise_data` augment each view on its own, as in
+bin/train_dino.py, which also refuses for both trainers what they do not
+run (`refuse_unported`: `distributed_args`, `dataloader_args.num_workers`
+> 0).
 """
 
 import argparse

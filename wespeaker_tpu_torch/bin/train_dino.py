@@ -23,9 +23,14 @@ bin/extract.py::load_model_for_eval loads) and `models/trainer_state.pt`
 continues from it, and `stop_epoch` (exclusive) ends the run early
 without compressing the schedules.
 
-Not ported yet, and refused: `distributed_args`, `reverb_data` /
-`noise_data` and `dataloader_args.num_workers` > 0. Without a store the
-recipe's `aug_prob` leaves the views unaugmented, as in the JAX package.
+`reverb_data` / `noise_data` (packed stores, `bin/prep_data.py
+aug_store`) augment each view on its own with probability `aug_prob`
+(data/pipeline.py::make_crop_aug); without a store the views go
+unaugmented, as in the JAX package.
+
+Not ported yet, and refused: `distributed_args` (DDP, ROADMAP.md Queue 1
+item 4). `dataloader_args.num_workers` > 0 is refused too: the JAX
+package's SSL trainers take no worker processes either.
 """
 
 import argparse
@@ -50,12 +55,12 @@ from wespeaker_tpu_torch.utils.config import dump_yaml, parse_config_or_kwargs
 
 
 def refuse_unported(configs):
-    """The options of the SSL trainers that the port does not run yet."""
+    """The options of the SSL trainers that the port does not run."""
     unported = {
-        "distributed_args": bool(configs.get("distributed_args")),
-        "reverb_data / noise_data":
-            bool(configs.get("reverb_data") or configs.get("noise_data")),
-        "dataloader_args.num_workers > 0 (multi-process prefetch)":
+        "distributed_args (DDP, ROADMAP.md Queue 1 item 4)":
+            bool(configs.get("distributed_args")),
+        "dataloader_args.num_workers > 0 (the SSL trainers prefetch in "
+        "one thread, as the JAX package's do)":
             configs.get("dataloader_args", {}).get("num_workers", 0) > 0,
     }
     bad = [k for k, v in unported.items() if v]
@@ -66,14 +71,17 @@ def refuse_unported(configs):
 def ssl_dataset(configs):
     """The trainers' dataset: whole utterances (each view is cropped from
     the whole and augmented on its own), no speed perturb; and the
-    per-view aug_fn."""
+    per-view aug_fn over the config's stores (None without one)."""
     ds_args = dict(configs["dataset_args"])
     ds_args["speed_perturb"] = False
     ds_args["defer_chunk_aug"] = True
     dataset = SpeakerDataset(configs["data_type"], configs["train_data"],
                              ds_args, spk2id_from_utt2spk(configs["utt2spk"]),
+                             reverb_store_prefix=configs.get("reverb_data"),
+                             noise_store_prefix=configs.get("noise_data"),
                              seed=configs.get("seed", 42))
-    return dataset, make_crop_aug(None, None, ds_args.get("aug_prob", 0.6))
+    return dataset, make_crop_aug(dataset.reverb, dataset.noise,
+                                  ds_args.get("aug_prob", 0.6))
 
 
 def epoch_iters(configs, batch: int) -> int:

@@ -2,64 +2,89 @@
 
 Counterpart of wespeaker_tpu/data/dataset.py (upstream
 wespeaker/dataset/dataset.py:136-273): the processor chain of
-data/pipeline.py for `raw` and `shard` lists, repeated without end with a
-reshuffle per epoch, yielding fixed-shape numpy batches for the train
-step, and a one-thread prefetcher. With `defer_chunk_aug` (the SSL
-trainers' setting) an epoch is the stream of whole utterances, neither
-chunked nor augmented, which ssl/dataset.py crops into views. Not ported
-yet, and refused: the `feat` data type and the host half of device-side
-augmentation. Reverb/noise augmentation (the packed audio stores), the
-per-rank and per-worker split and the multi-process prefetcher are not
-ported either (the trainers refuse their options).
+data/pipeline.py for `raw`, `shard` and `feat` lists, repeated without
+end with a reshuffle per epoch, yielding fixed-shape numpy batches for the
+train step. MUSAN noise and RIR stores (data/store.py) feed the reverb and
+noise augmentation, on the host or, with `device_aug`, picked on the host
+and applied on the card. `rank` / `world_size` and `worker_id` /
+`num_workers` stripe the list as the JAX package does, with its seeds.
+With `defer_chunk_aug` (the SSL trainers' setting) an epoch is the stream
+of whole utterances, neither chunked nor augmented, which ssl/dataset.py
+crops into views.
+
+Two prefetchers feed the trainer: `Prefetcher`, one thread over one
+dataset, and `MPPrefetcher`, spawned worker processes that each run the
+whole host pipeline on their stripe of the list. The workers import only
+numpy modules of this package (data/, no torch), and a worker that fails
+or dies raises in the consumer.
 
 `eval_batches` and `eval_feat_batches` are the extraction side: whole
 utterances or feature matrices sorted by length into padded buckets with
 validity masks, bit-identical to the JAX package's.
 """
 
+import contextlib
 import queue
+import sys
 import threading
 from typing import Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
 from wespeaker_tpu_torch.data import pipeline as P
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet")
+from wespeaker_tpu_torch.data.store import PackedAudioStore
 
 
 class SpeakerDataset:
-    """Iterable over fixed-shape training batches, for one process: the
-    trainer refuses distributed and multi-worker runs, so every list is
-    this process's."""
+    """Iterable over fixed-shape training batches."""
 
     def __init__(self, data_type: str, data_list_file: str, configs: Dict,
-                 spk2id: Dict[str, int], seed: int = 42):
-        if data_type == "feat":
-            raise _not_ported("data_type feat")
-        if data_type not in ("shard", "raw"):
+                 spk2id: Dict[str, int], reverb_store_prefix: str = None,
+                 noise_store_prefix: str = None, rank: int = 0,
+                 world_size: int = 1, seed: int = 42, worker_id: int = 0,
+                 num_workers: int = 1):
+        if data_type not in ("shard", "raw", "feat"):
             raise ValueError(f"unknown data_type {data_type}")
-        if configs.get("device_aug", False):
-            raise _not_ported("device_aug")
-        if configs.get("speed_perturb_mode", "random") != "random":
-            raise _not_ported("speed_perturb_mode "
-                              f"{configs['speed_perturb_mode']}")
+        mode = configs.get("speed_perturb_mode", "random")
+        if mode not in ("random", "expanded"):
+            raise ValueError(f"unknown speed_perturb_mode {mode}")
         self.data_type = data_type
         self.lists = P.read_lists(data_list_file)
         self.configs = configs
         self.spk2id = spk2id
+        self.rank = rank
+        self.world_size = world_size
         self.seed = seed
+        self.worker_id = worker_id
+        self.num_workers = num_workers
+        self.reverb = (PackedAudioStore(reverb_store_prefix)
+                       if reverb_store_prefix else None)
+        self.noise = (PackedAudioStore(noise_store_prefix)
+                      if noise_store_prefix else None)
 
     def _epoch_iter(self, epoch: int) -> Iterator[dict]:
         cfg = self.configs
-        rng = np.random.default_rng(self.seed + 1000 * epoch)
+        rng = np.random.default_rng(self.seed + 1000 * epoch + self.rank
+                                    + 7919 * self.worker_id)
         lists = P.distributed_shard(self.lists, epoch=epoch,
                                     shuffle=cfg.get("shuffle", True),
-                                    seed=self.seed)
-        data = (P.parse_shard(lists) if self.data_type == "shard"
-                else P.parse_raw(lists))
+                                    seed=self.seed, rank=self.rank,
+                                    world_size=self.world_size)
+        if self.num_workers > 1:
+            # the worker's stripe of the rank's (upstream dataset.py:94-100)
+            lists = lists[self.worker_id::self.num_workers]
+        feat_mode = self.data_type == "feat"
+        if self.data_type == "shard":
+            data = P.parse_shard(lists)
+        elif self.data_type == "raw":
+            data = P.parse_raw(lists)
+        else:
+            utt2spk = {}
+            with open(cfg["utt2spk"]) as f:
+                for line in f:
+                    u, s = line.split()
+                    utt2spk[u] = s
+            data = P.parse_feat(lists, utt2spk)
         fbank_args = cfg.get("fbank_args", {})
         if cfg.get("filter", True):
             # upstream order: filter right after parse, before speed
@@ -67,43 +92,162 @@ class SpeakerDataset:
             data = P.filter_and_cap(
                 data, cfg.get("filter_args", {}).get("min_num_frames", 100),
                 cfg.get("filter_args", {}).get("max_num_frames", 800),
-                fbank_args.get("frame_shift", 10), rng)
-        data = P.resample(data, cfg.get("resample_rate", 16000))
+                fbank_args.get("frame_shift", 10), rng, feat_mode)
+        if not feat_mode:
+            data = P.resample(data, cfg.get("resample_rate", 16000))
         if cfg.get("shuffle", True):
             data = P.local_shuffle(
                 data, cfg.get("shuffle_args", {}).get("shuffle_size", 2500),
                 rng)
         data = P.spk_to_id(data, self.spk2id)
-        if cfg.get("speed_perturb", True):
-            data = P.speed_perturb(data, len(self.spk2id), rng)
+        if not feat_mode and cfg.get("speed_perturb", True):
+            if cfg.get("speed_perturb_mode", "random") == "expanded":
+                data = P.speed_perturb_expand(data, len(self.spk2id))
+            else:
+                data = P.speed_perturb(data, len(self.spk2id), rng)
         if cfg.get("defer_chunk_aug", False):
             # SSL multi-crop: the trainer crops each utterance into views
             # and augments each view on its own (ssl/dataset.py)
             return data
         num_frms = cfg.get("num_frms", 200)
-        sr = cfg.get("resample_rate", 16000)
-        chunk_len = ((num_frms - 1) * fbank_args.get("frame_shift", 10)
-                     + fbank_args.get("frame_length", 25)) * sr // 1000
-        return P.random_chunk(data, chunk_len, rng)
+        if feat_mode:
+            chunk_len = num_frms
+        else:
+            sr = cfg.get("resample_rate", 16000)
+            chunk_len = ((num_frms - 1) * fbank_args.get("frame_shift", 10)
+                         + fbank_args.get("frame_length", 25)) * sr // 1000
+        data = P.random_chunk(data, chunk_len, rng, feat_mode)
+        aug_prob = cfg.get("aug_prob", 0.6)
+        if not feat_mode and aug_prob > 0 and (self.reverb or self.noise):
+            if cfg.get("device_aug", False):
+                # the host picks; the card convolves and mixes
+                data = P.attach_device_aug(
+                    data, self.reverb, self.noise, aug_prob,
+                    cfg.get("device_aug_rir_samples", 16000), rng)
+            else:
+                data = P.add_reverb_noise(data, self.reverb, self.noise,
+                                          aug_prob, rng)
+        return data
 
-    def batches(self, batch_size: int) -> Iterator[dict]:
-        """Batches from one endless sample stream spanning epochs, so a
-        partial batch at an epoch boundary carries over instead of being
-        dropped."""
+    def batches(self, batch_size: int, max_epochs: Optional[int] = None
+                ) -> Iterator[dict]:
+        """Batches from one sample stream spanning epochs (endless unless
+        max_epochs is reached), so a partial batch at an epoch boundary
+        carries over instead of being dropped: a worker's stripe may hold
+        fewer utterances than a batch. An empty stripe yields nothing and
+        never ends, as in the JAX package."""
 
         def stream():
             epoch = 0
             while True:
                 yield from self._epoch_iter(epoch)
                 epoch += 1
+                if max_epochs and epoch >= max_epochs:
+                    return
 
-        yield from P.batch_samples(stream(), batch_size)
+        yield from P.batch_samples(stream(), batch_size,
+                                   self.data_type == "feat")
 
     def num_classes(self) -> int:
         n = len(self.spk2id)
-        if self.configs.get("speed_perturb", True):
+        if self.configs.get("speed_perturb", True) \
+                and self.data_type != "feat":
             return n * 3  # perturbed speeds are new classes
         return n
+
+
+def _mp_worker(q, ds_args, ds_kwargs, batch_size, max_epochs):
+    """A spawned worker: the whole host pipeline on its stripe, whole
+    batches to the queue, then "done"; an exception goes to the consumer
+    as its traceback before the worker exits with it. It imports the numpy
+    modules of data/ only."""
+    try:
+        ds = SpeakerDataset(*ds_args, **ds_kwargs)
+        for b in ds.batches(batch_size, max_epochs):
+            q.put(("batch", b))
+    except BaseException:
+        import traceback
+        q.put(("error", traceback.format_exc()))
+        raise
+    q.put(("done", None))
+
+
+@contextlib.contextmanager
+def _main_hidden():
+    """Hide the parent's __main__ from multiprocessing while workers are
+    spawned: a spawned child re-imports it (by its __spec__, else its
+    __file__), which for a trainer means torch and the models, seconds a
+    worker. The workers need only data/, so they start without it."""
+    main = sys.modules["__main__"]
+    saved = {k: main.__dict__[k] for k in ("__spec__", "__file__")
+             if k in main.__dict__}
+    main.__spec__ = None
+    main.__dict__.pop("__file__", None)
+    try:
+        yield
+    finally:
+        main.__dict__.pop("__spec__", None)
+        main.__dict__.update(saved)
+
+
+class MPPrefetcher:
+    """Multi-process batch prefetch: `num_workers` spawned processes, each
+    a SpeakerDataset(*ds_args, **ds_kwargs) on its stripe
+    lists[worker_id::num_workers] of the rank's list (upstream's
+    DataLoader workers, dataset.py:94-100), each with its own stores and
+    file handles, each shipping whole fixed-shape batches. Batches arrive
+    in no fixed order across workers. A worker's exception is raised here
+    as RuntimeError with its traceback; a worker that dies without a word
+    (killed by the OS) is found by a poll every 60 s and raised the same
+    way. The workers import this module and its numpy code only, not the
+    parent's __main__. close() ends the workers."""
+
+    POLL_S = 60
+
+    def __init__(self, ds_args, ds_kwargs, batch_size, num_workers: int = 4,
+                 depth: int = 4, max_epochs=None):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.q = ctx.Queue(maxsize=max(2, depth) * num_workers)
+        self.procs = []
+        with _main_hidden():
+            for w in range(num_workers):
+                kw = dict(ds_kwargs, worker_id=w, num_workers=num_workers)
+                p = ctx.Process(target=_mp_worker,
+                                args=(self.q, ds_args, kw, batch_size,
+                                      max_epochs),
+                                daemon=True)
+                p.start()
+                self.procs.append(p)
+
+    def __iter__(self):
+        live = len(self.procs)
+        while live:
+            try:
+                kind, payload = self.q.get(timeout=self.POLL_S)
+            except queue.Empty:
+                dead = [p.exitcode for p in self.procs
+                        if not p.is_alive() and p.exitcode != 0]
+                if dead and self.q.empty():
+                    self.close()
+                    raise RuntimeError(
+                        f"data worker(s) died with exit codes {dead}")
+                continue
+            if kind == "done":
+                live -= 1
+            elif kind == "error":
+                self.close()
+                raise RuntimeError(f"data worker failed:\n{payload}")
+            else:
+                yield payload
+        self.close()
+
+    def close(self):
+        for p in self.procs:
+            if p.is_alive():
+                p.terminate()
+        for p in self.procs:
+            p.join(timeout=5)
 
 
 class Prefetcher:

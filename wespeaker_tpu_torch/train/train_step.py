@@ -2,8 +2,9 @@
 
 Counterpart of wespeaker_tpu/train/train_step.py. One step is
 
-    wav chunk -> x 2^15 + dither -> fbank -> CMVN -> spec-aug -> speaker
-    model -> margin head -> cross-entropy -> backward -> optimizer step
+    wav chunk (-> reverb/noise on the card) -> x 2^15 + dither -> fbank
+    -> CMVN -> spec-aug -> speaker model -> head -> loss -> backward ->
+    optimizer step
 
 with the LR and margin schedules evaluated on the host from the step
 counter. AMP is the JAX package's (`amp_cast`): parameters stay f32, the
@@ -11,7 +12,13 @@ modules cast them to the activation type (models/layers.py), and their
 gradients come back f32; features are computed in f32 and only then cast
 to the compute type, so no autocast region is needed. Random numbers
 (dither, spec-aug) come from an explicit torch.Generator on the device;
-they are not JAX's numbers, only the same distributions.
+they are not JAX's numbers, only the same distributions. A `feat` batch
+(precomputed features) skips the fbank: CMVN and spec-aug only. A batch
+with the device-aug fields of data/pipeline.py::attach_device_aug is
+augmented on its device first (train/device_aug.py). The loss is the
+head's own where it returns (logits, loss) (SphereFace2), else softmax
+cross-entropy; a head with BatchNorm (the Linear head) runs in train mode
+and keeps its running statistics.
 """
 
 import dataclasses
@@ -26,6 +33,7 @@ from wespeaker_tpu_torch.device import DeviceLike, resolve_device
 from wespeaker_tpu_torch.frontend.fbank import (FbankConfig, apply_cmvn,
                                                 compute_fbank)
 from wespeaker_tpu_torch.train.composite import _sample_to_frame_mask
+from wespeaker_tpu_torch.train.device_aug import device_augment
 from wespeaker_tpu_torch.train.optim import make_optimizer
 
 
@@ -100,14 +108,28 @@ def features_from_batch(batch: Dict[str, Any], fbank_cfg: FbankConfig,
                         aug: Optional[AugConfig],
                         generator: Optional[torch.Generator], train: bool,
                         device: torch.device) -> torch.Tensor:
-    """{'wav': (B, N) in [-1, 1]} -> (B, T, F) f32 normalised features. In
-    training, dither is added to the waveform (after x 2^15) so the fused
-    DFT-conv fbank stays usable, then spec-aug follows CMVN."""
-    wav = _on(batch["wav"], device) * (1 << 15)
-    if train and fbank_cfg.dither != 0.0:
-        wav = dither_wav(wav, fbank_cfg.dither, generator)
-        fbank_cfg = dataclasses.replace(fbank_cfg, dither=0.0)
-    feat = apply_cmvn(compute_fbank(wav, fbank_cfg))
+    """{'wav': (B, N) in [-1, 1]} or {'feat': (B, T, F)} -> (B, T, F) f32
+    normalised features. In training a wav batch with the device-aug
+    fields (`aug_mode`, `aug_rir`, `aug_noise`, `aug_snr`) is augmented
+    first (device_augment, one block), then dither is added to the
+    waveform (after x 2^15) so the fused DFT-conv fbank stays usable;
+    spec-aug follows CMVN."""
+    if "feat" in batch:
+        feat = _on(batch["feat"], device)
+    else:
+        wav = _on(batch["wav"], device)
+        if train and "aug_mode" in batch:
+            # the store's int16 stays int16 until the card converts it
+            wav = device_augment(
+                wav, *(_on(batch[k], device, dtype=None)
+                       for k in ("aug_mode", "aug_rir", "aug_noise")),
+                _on(batch["aug_snr"], device))
+        wav = wav * (1 << 15)
+        if train and fbank_cfg.dither != 0.0:
+            wav = dither_wav(wav, fbank_cfg.dither, generator)
+            fbank_cfg = dataclasses.replace(fbank_cfg, dither=0.0)
+        feat = compute_fbank(wav, fbank_cfg)
+    feat = apply_cmvn(feat)
     if train and aug is not None and aug.spec_aug:
         feat = spec_aug_batch(generator, feat, aug)
     return feat
@@ -143,8 +165,11 @@ class TrainStep:
         feat = features_from_batch(batch, self.fbank_cfg, self.aug,
                                    self.generator, True, self.device)
         embed = self.model(feat.to(self.compute_dtype)).float()
-        logits = self.projection(embed, label, margin)
-        loss = F.cross_entropy(logits, label)
+        out = self.projection(embed, label, margin)
+        if isinstance(out, tuple):
+            logits, loss = out
+        else:
+            logits, loss = out, F.cross_entropy(out, label)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         self.optimizer.step()

@@ -43,9 +43,11 @@ backbone.inputs_weights.0 are dropped, since the flax tree keeps neither.
 supervised trainer's {"params", "batch_stats", "projection"(,
 "projection_batch_stats")} (wespeaker_tpu/bin/train.py), and the DINO
 trainer's, whose "params" and "batch_stats" hold the teacher's backbone
-beside "student_params" and "student_stats" (bin/train_dino.py). The
-margin head's `weight` is (out, in) in both packages and keeps its
-layout (`to_jax_projection` writes it back).
+beside "student_params" and "student_stats" (bin/train_dino.py). Every
+head of models/projections.py crosses: the margin heads' `weight` is
+(rows, in) in both packages and keeps its layout, the Linear head's
+BatchNorm and Dense take the model's rules (`to_jax_projection` writes
+them back).
 
 utils/checkpoint.py::load_checkpoint reads either format into a model.
 """
@@ -251,20 +253,26 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
 
 def to_jax_projection(state_dict: Mapping[str, torch.Tensor]
                       ) -> Dict[str, Any]:
-    """The margin head's state_dict -> {"projection"(,
-    "projection_batch_stats")} as the JAX trainer saves it: each tensor
-    under its own name and layout (ArcMargin's weight is (out, in) in
-    both), running statistics as batch_stats."""
+    """The head's state_dict -> {"projection"(, "projection_batch_stats")}
+    as the JAX trainer saves it. The margin heads' own tensors (`weight`
+    (rows, in), SphereFace2's `bias` (1, 1)) keep their names and layouts
+    in both packages; a submodule's (the Linear head's `trans_bn`,
+    `trans_linear`) take flax's: a norm's weight is its `scale`, a dense
+    weight its (in, out) `kernel`, running statistics `batch_stats`. The
+    inverse of from_jax_checkpoint's head."""
     params, stats = {}, {}
     for key, value in state_dict.items():
         if key.endswith("num_batches_tracked"):
             continue
         *mods, leaf = key.split(".")
+        arr = _numpy(value)
         if leaf in ("running_mean", "running_var"):
-            _nest(stats, tuple(mods) + (leaf[len("running_"):],),
-                  _numpy(value))
-        else:
-            _nest(params, tuple(mods) + (leaf,), _numpy(value))
+            _nest(stats, tuple(mods) + (leaf[len("running_"):],), arr)
+            continue
+        if mods and leaf == "weight":
+            leaf, arr = (("scale", arr) if arr.ndim == 1 else
+                         ("kernel", arr.transpose(_WEIGHT_AXES[arr.ndim])))
+        _nest(params, tuple(mods) + (leaf,), np.ascontiguousarray(arr))
     out = {"projection": params}
     if stats:
         out["projection_batch_stats"] = stats
