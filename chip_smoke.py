@@ -274,7 +274,54 @@ Phases, each printing one line:
               training list extracted, PLDA, AS-Norm and QMF through
               bin/plda_tools.py, bin/score_norm.py, bin/prep_data.py and
               bin/score_calibration.py, their EERs printed without a bar.
- 36. backend  the SRE recipes' back end on examples/sre/v2/conf/
+ 36. diar     diarization on the quality phase's trained ECAPA_TDNN
+              (C=256) and checkpoint: a recording of 6 of its corpus's
+              speakers, their 2 held-out 3 s evaluation utterances in 12
+              alternating turns with 0.3 s of silence (16 kHz); the turns
+              are the oracle SAD and the reference RTTM.
+              bin/diarize.py --bf16 (batch 64) with spectral clustering,
+              the count estimated and then num_spks 6, and with
+              UMAP+HDBSCAN: row 2 once a batch and nothing else (the SE
+              blocks take the layers at this width); each run again
+              through diarize_wav on the plain path (fused=False, plain
+              pooling, f32, no launch): the kernel path's hypothesis
+              within DER 0.05 of the plain path's; the window embeddings
+              of the bf16 kernel path against the f32 plain path, and of
+              the kernel path against the plain path in one type (bf16,
+              f32), at cosine >= 0.9999; each run's DER against the turns
+              printed
+              without a bar; an EmbeddingServer from the same YAML and
+              checkpoint answers /diarize with the segments of
+              diarize_wav in-process on the same model (energy VAD,
+              spectral, f32 kernel path); cli/speaker.py's Speaker on a
+              model directory (config.yaml, final_model.pt): diarize,
+              compute_similarity, register of the 6 speakers and
+              recognize of their other utterances (printed, no bar);
+ 37. diar full  diarization at full width: ECAPA_TDNN_GLOB_c512 as
+              examples/voxceleb/v2/conf/ecapa_tdnn_c512.yaml (the
+              voxconverse v2 recipe's default model), random weights from
+              the seed, BN statistics from synthetic voices; 30 minutes of
+              6 formant speakers (bin/smoke_quality.py's voices, drawn on
+              the card for any length), turns of 2-8 s, gaps of 0.2-1 s,
+              oracle SAD, bf16, batch 64: per clusterer (spectral with
+              the count estimated, UMAP) bin/diarize.py --bf16, row 1
+              three times a batch and row 2 once, nothing else, its DER
+              against the turns printed without a bar (random weights)
+              and its seconds (the model's load and the first calls
+              included); then diarize_wav in-process, warm, with a `mark`
+              that times each of its stages (fbank, embedding, then
+              spectral's affinity, eigh, k-means or UMAP's graph+init,
+              layout of 500 epochs, HDBSCAN, PAHC, then merge; the
+              embedding's ms between CUDA events too) and its seconds
+              over the recording's (the real-time factor); then on the
+              plain path (fused=False, plain pooling, f32, no launch):
+              the spectral hypothesis of bin/diarize.py within DER 0.05
+              of the plain path's (UMAP's printed, no bar); the window
+              embeddings of the kernel path (bf16 and f32) against the
+              plain path at cosine >= 0.9999, as in diar; the
+              Laplacian's eigh on the card against scipy's on the host,
+              timed, with the same eigengap count;
+ 38. backend  the SRE recipes' back end on examples/sre/v2/conf/
               resnet34_sre.yaml (ResNet34, 8 kHz, fbank 40, embed 256,
               TSTP) at full width: a seeded port model (BN statistics
               from synthetic voices) mapped to flax trees
@@ -293,7 +340,7 @@ Phases, each printing one line:
               card within 1e-4 of the same function in f64 on the CPU,
               relative to max(|LLR|, 1); each step's seconds and the EERs
               (random model, no bar) printed.
- 37. aug      the recipes' MUSAN/RIR stores, synthetic (24 decaying-noise
+ 39. aug      the recipes' MUSAN/RIR stores, synthetic (24 decaying-noise
               RIRs of 0.3-1 s; 24 noises keyed noise-, music-, speech-),
               packed by `python -m wespeaker_tpu_torch.bin.prep_data
               aug_store`; train/device_aug.py::device_augment on the card
@@ -305,7 +352,7 @@ Phases, each printing one line:
               call's device ms by kernel (torch.profiler) beside the
               host's augment_one over the same 128 rows (host clock);
               the phase's seconds, the stores' among them;
- 38. recipe train  bin/train.py on the recipe YAMLs unchanged but for the
+ 40. recipe train  bin/train.py on the recipe YAMLs unchanged but for the
               corpus (8 synthetic tar shards, 16 speakers x 8 utterances
               of 2.5-4 s, and the stores), the epoch and step counts, and the
               option each run is about. First the host pipeline alone
@@ -340,6 +387,7 @@ import copy
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -347,6 +395,7 @@ import time
 import urllib.request
 
 import numpy as np
+import scipy.linalg
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -361,8 +410,14 @@ from wespeaker_tpu_torch.bin import (  # noqa: E402
 from wespeaker_tpu_torch.bin import (  # noqa: E402
     train_contrastive as contrastive_cli)
 from wespeaker_tpu_torch.bin import train_dino as dino_cli  # noqa: E402
+from wespeaker_tpu_torch.bin import diarize as diarize_cli  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import (  # noqa: E402
-    iter_wavs_from_list, load_model_for_eval)
+    fbank_config, iter_wavs_from_list, load_model_for_eval)
+from wespeaker_tpu_torch.cli.speaker import Speaker  # noqa: E402
+from wespeaker_tpu_torch.diar import pipeline as diar_pipe  # noqa: E402
+from wespeaker_tpu_torch.diar import rttm as rttm_mod  # noqa: E402
+from wespeaker_tpu_torch.diar import (  # noqa: E402
+    spectral_clusterer as spectral)
 from wespeaker_tpu_torch.data.dataset import (  # noqa: E402
     SpeakerDataset, eval_batches)
 from wespeaker_tpu_torch.data.pipeline import (  # noqa: E402
@@ -376,7 +431,7 @@ from wespeaker_tpu_torch.bin.kernel_bounds import (  # noqa: E402
     PEAK_F32_FLOPS, bound, cam_dense_block, inv_bottleneck_stage,
     masked_stats, softmax_stats)
 from wespeaker_tpu_torch.bin.time_kernels import graph_ms  # noqa: E402
-from wespeaker_tpu_torch.data.wav_io import write_wav  # noqa: E402
+from wespeaker_tpu_torch.data.wav_io import read_wav, write_wav  # noqa: E402
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
 from wespeaker_tpu_torch.models.campplus import CAMPPlus  # noqa: E402
 from wespeaker_tpu_torch.models.ecapa_tdnn import (  # noqa: E402
@@ -3111,7 +3166,7 @@ QUALITY_SPK = 12
 QUALITY_BATCH = 8  # extraction batch: 24 evaluation utterances in 3
 
 
-def phase_quality(dev):
+def phase_quality(dev, root):
     """The quality smoke's chain on its own model at 12 speakers: the
     corpus of bin/smoke_quality.py, then in this process bin/train.py
     (its supervised config: ECAPA_TDNN at 256 channels, bf16, batch 64 x
@@ -3123,75 +3178,75 @@ def phase_quality(dev):
     make_eval_embed_fn's plain path (fused=False, plain pooling, bf16) on
     the same checkpoint and buckets at cosine >= 0.9999; each score within
     1e-5 of a numpy f64 cosine over the ark. The EER is printed, held to
-    no bar (two short epochs)."""
+    no bar (two short epochs). Its corpus, config and checkpoint stay
+    under `root` for the diar phase."""
     t_start = time.perf_counter()
-    with tempfile.TemporaryDirectory() as root:
-        smoke_quality.make_corpus(root, n_spk=QUALITY_SPK)
-        cfg, exp = smoke_quality.write_config(root, "supervised")
-        zero_counts()
-        step = train_cli.train(cfg, ["num_epochs=2", "samples_per_epoch=1280",
-                                     "log_batch_interval=10"], device=dev)
-        torch.cuda.synchronize()
-        train_launches = counts()
-        want = dict(NO_LAUNCH, train_fwd=step.step, train_bwd=step.step)
-        if step.step != 40 or train_launches != want:
-            raise AssertionError(f"quality training: {step.step} steps, "
-                                 f"launches {train_launches}, want 40 and "
-                                 f"{want}")
-        del step
-        configs = load_yaml(os.path.join(exp, "config.yaml"))
-        ckpt = os.path.join(exp, "models", "final_model.pt")
-        eval_list = os.path.join(root, "eval.list")
-        batches = list(eval_batches(iter_wavs_from_list(eval_list),
-                                    batch_size=QUALITY_BATCH))
-        zero_counts()
-        scp = extract_cli.extract(os.path.join(exp, "config.yaml"), ckpt,
-                                  eval_list, os.path.join(root, "emb"),
-                                  batch_size=QUALITY_BATCH, bf16=True,
-                                  device=dev)
-        torch.cuda.synchronize()
-        extract_launches = counts()
-        if extract_launches != dict(NO_LAUNCH, tail=len(batches)):
-            raise AssertionError(f"quality extraction: launches "
-                                 f"{extract_launches}, want tail "
-                                 f"{len(batches)} (one a batch), no other")
-        emb = read_vec_scp_dict(scp)
-        model = load_model_for_eval(configs, ckpt, device=dev)
-        route = {b.eval_route for b in (model.layer2, model.layer3,
-                                        model.layer4)}
-        plain = make_eval_embed_fn(
-            set_pooling_fused(model.set_fused(False), False), FbankConfig(),
-            compute_dtype=torch.bfloat16, device=dev)
-        cos = []
-        for batch in batches:
-            want_emb = plain({"wav": batch["wav"], "mask": batch["mask"]})
-            got = torch.as_tensor(np.stack([emb[k] for k in batch["key"]]),
-                                  device=dev)
-            cos.append(row_cosines(got, want_emb).min().item())
-        if min(cos) < 0.9999 or len(emb) != 2 * QUALITY_SPK:
-            raise AssertionError(f"quality: {len(emb)} embeddings, kernel "
-                                 f"vs plain path cosine {min(cos)}")
-        trials = os.path.join(root, "trials")
-        score_file = score_cli.score(exp, scp, trials=[trials],
-                                     device=dev)[0]
-        score_err = 0.0
-        with open(score_file) as f:
-            lines = [ln.split() for ln in f]
-        for a, b, s_, _ in lines:
-            ea, eb = emb[a].astype(np.float64), emb[b].astype(np.float64)
-            ref = ea @ eb / (np.linalg.norm(ea) * np.linalg.norm(eb))
-            score_err = max(score_err, abs(float(s_) - ref))
-        if score_err > 1e-5:
-            raise AssertionError(f"quality: score vs f64 cosine {score_err}")
-        printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):
-            eer, _, mindcf = metrics_cli.metrics_for_file(score_file)
-        t_back = time.perf_counter()
-        with contextlib.redirect_stderr(io.StringIO()):
-            back = smoke_quality.back_end(root, exp, ckpt,
-                                          os.path.join(root, "emb"),
-                                          ["--device", str(dev.type)])
-        back_s = time.perf_counter() - t_back
+    smoke_quality.make_corpus(root, n_spk=QUALITY_SPK)
+    cfg, exp = smoke_quality.write_config(root, "supervised")
+    zero_counts()
+    step = train_cli.train(cfg, ["num_epochs=2", "samples_per_epoch=1280",
+                                 "log_batch_interval=10"], device=dev)
+    torch.cuda.synchronize()
+    train_launches = counts()
+    want = dict(NO_LAUNCH, train_fwd=step.step, train_bwd=step.step)
+    if step.step != 40 or train_launches != want:
+        raise AssertionError(f"quality training: {step.step} steps, "
+                             f"launches {train_launches}, want 40 and "
+                             f"{want}")
+    del step
+    configs = load_yaml(os.path.join(exp, "config.yaml"))
+    ckpt = os.path.join(exp, "models", "final_model.pt")
+    eval_list = os.path.join(root, "eval.list")
+    batches = list(eval_batches(iter_wavs_from_list(eval_list),
+                                batch_size=QUALITY_BATCH))
+    zero_counts()
+    scp = extract_cli.extract(os.path.join(exp, "config.yaml"), ckpt,
+                              eval_list, os.path.join(root, "emb"),
+                              batch_size=QUALITY_BATCH, bf16=True,
+                              device=dev)
+    torch.cuda.synchronize()
+    extract_launches = counts()
+    if extract_launches != dict(NO_LAUNCH, tail=len(batches)):
+        raise AssertionError(f"quality extraction: launches "
+                             f"{extract_launches}, want tail "
+                             f"{len(batches)} (one a batch), no other")
+    emb = read_vec_scp_dict(scp)
+    model = load_model_for_eval(configs, ckpt, device=dev)
+    route = {b.eval_route for b in (model.layer2, model.layer3,
+                                    model.layer4)}
+    plain = make_eval_embed_fn(
+        set_pooling_fused(model.set_fused(False), False), FbankConfig(),
+        compute_dtype=torch.bfloat16, device=dev)
+    cos = []
+    for batch in batches:
+        want_emb = plain({"wav": batch["wav"], "mask": batch["mask"]})
+        got = torch.as_tensor(np.stack([emb[k] for k in batch["key"]]),
+                              device=dev)
+        cos.append(row_cosines(got, want_emb).min().item())
+    if min(cos) < 0.9999 or len(emb) != 2 * QUALITY_SPK:
+        raise AssertionError(f"quality: {len(emb)} embeddings, kernel "
+                             f"vs plain path cosine {min(cos)}")
+    trials = os.path.join(root, "trials")
+    score_file = score_cli.score(exp, scp, trials=[trials],
+                                 device=dev)[0]
+    score_err = 0.0
+    with open(score_file) as f:
+        lines = [ln.split() for ln in f]
+    for a, b, s_, _ in lines:
+        ea, eb = emb[a].astype(np.float64), emb[b].astype(np.float64)
+        ref = ea @ eb / (np.linalg.norm(ea) * np.linalg.norm(eb))
+        score_err = max(score_err, abs(float(s_) - ref))
+    if score_err > 1e-5:
+        raise AssertionError(f"quality: score vs f64 cosine {score_err}")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        eer, _, mindcf = metrics_cli.metrics_for_file(score_file)
+    t_back = time.perf_counter()
+    with contextlib.redirect_stderr(io.StringIO()):
+        back = smoke_quality.back_end(root, exp, ckpt,
+                                      os.path.join(root, "emb"),
+                                      ["--device", str(dev.type)])
+    back_s = time.perf_counter() - t_back
     print(f"quality: bin/smoke_quality.py's corpus at {QUALITY_SPK} speakers "
           f"and supervised config (ECAPA_TDNN C={SMOKE_C}, SE route "
           f"{sorted(route)}), bin/train.py 2 epochs of 20 steps bf16 B=64: "
@@ -3207,6 +3262,369 @@ def phase_quality(dev):
           f"{back['asnorm_eer_percent']:.3f}%, QMF "
           f"{back['qmf_eer_percent']:.3f}% (no bar); "
           f"{time.perf_counter() - t_start:.1f} s")
+
+
+DIAR_SPK = 6          # speakers of the diar phase's recording
+DIAR_GAP = 0.3        # seconds of silence between its turns
+DIAR_BATCH = 64       # bin/diarize.py's default batch
+DIAR_SR = 16000
+DIAR_FULL_SECONDS = 30 * 60
+DIAR_C512 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "examples", "voxceleb", "v2", "conf",
+                         "ecapa_tdnn_c512.yaml")
+
+
+def diar_files(root, wav, turns):
+    """rec.wav (PCM16), wav.scp and ref.rttm (the turns, which are also
+    the oracle SAD) under root; returns (wav read back, scp, rttm)."""
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, "rec.wav")
+    write_wav(path, wav, DIAR_SR)
+    scp, ref = os.path.join(root, "wav.scp"), os.path.join(root, "ref.rttm")
+    with open(scp, "w") as f:
+        f.write(f"rec {path}\n")
+    with open(ref, "w") as f:
+        f.writelines(f"SPEAKER rec 1 {b:.3f} {e - b:.3f} <NA> <NA> {s} "
+                     "<NA> <NA>\n" for b, e, s in turns)
+    return read_wav(path)[0], scp, ref
+
+
+def diar_cli_run(cfg, ckpt, scp, ref, out, clusterer, num_spks=None):
+    """bin/diarize.py --bf16 with the oracle SAD; (hypothesis, DER against
+    the turns, launches, seconds)."""
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, der = diarize_cli.diarize(cfg, ckpt, scp, out, sad_rttm=ref,
+                                     clusterer=clusterer, num_spks=num_spks,
+                                     ref_rttm=ref, batch_size=DIAR_BATCH,
+                                     bf16=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return rttm_mod.read_rttm(out), der, counts(), secs
+
+
+def hyp_of(merged):
+    return {"rec": [(b, e, lab) for _, b, e, lab in merged]}
+
+
+def phase_diar(dev, root):
+    """Diarization on the quality phase's trained ECAPA_TDNN (C=256) and
+    checkpoint; see the module docstring (phase 36)."""
+    t_start = time.perf_counter()
+    exp = os.path.join(root, "exp")
+    cfg, ckpt = (os.path.join(exp, "config.yaml"),
+                 os.path.join(exp, "models", "final_model.pt"))
+    configs = load_yaml(cfg)
+    fbank_cfg = fbank_config(configs)
+    with open(os.path.join(root, "eval.list")) as f:
+        entries = [json.loads(ln) for ln in f if ln.strip()]
+    spks = sorted({e["spk"] for e in entries})[:DIAR_SPK]
+    utts = {s: sorted(e["wav"] for e in entries if e["spk"] == s)
+            for s in spks}
+    parts, turns, cur = [], [], 0.0
+    gap = np.zeros(int(DIAR_GAP * DIAR_SR), np.float32)
+    for u in range(2):
+        for s in spks:
+            w = read_wav(utts[s][u])[0]
+            parts += [w, gap]
+            turns.append((cur, cur + len(w) / DIAR_SR, s))
+            cur += (len(w) + len(gap)) / DIAR_SR
+    wav, scp, ref = diar_files(os.path.join(root, "diar"),
+                               np.concatenate(parts), turns)
+    sad = rttm_mod.oracle_sad(ref)["rec"]
+    truth = rttm_mod.read_rttm(ref)
+    ids, windows = diar_pipe.segment_windows("rec", wav, DIAR_SR, sad,
+                                             fbank_cfg, device=dev)
+    n_batches = -(-len(ids) // DIAR_BATCH)
+
+    kernel = load_model_for_eval(configs, ckpt, device=dev)
+    plain = set_pooling_fused(
+        load_model_for_eval(configs, ckpt, device=dev).set_fused(False),
+        False)
+    runs = (("spectral", None), ("spectral", DIAR_SPK), ("umap", None))
+    report = []
+    for clusterer, k in runs:
+        hyp, der, got, _ = diar_cli_run(
+            cfg, ckpt, scp, ref, os.path.join(root, "diar", "out.rttm"),
+            clusterer, k)
+        if got != dict(NO_LAUNCH, tail=n_batches):
+            raise AssertionError(f"diar {clusterer} {k}: launches {got}, "
+                                 f"want tail={n_batches} (one a batch), "
+                                 "no other")
+        zero_counts()
+        merged, _ = diar_pipe.diarize_wav(
+            "rec", wav, DIAR_SR, diar_pipe.model_embedder(plain),
+            sad_segments=sad, fbank_cfg=fbank_cfg, clusterer=clusterer,
+            num_spks=k, batch_size=DIAR_BATCH, device=dev)
+        torch.cuda.synchronize()
+        if counts() != NO_LAUNCH:
+            raise AssertionError(f"diar plain path launched {counts()}")
+        plain_hyp = hyp_of(merged)
+        vs_plain = rttm_mod.compute_der(plain_hyp, hyp)
+        if vs_plain > 0.05:
+            raise AssertionError(f"diar {clusterer} {k}: DER of the kernel "
+                                 f"path against the plain path {vs_plain}")
+        report.append(
+            f"{clusterer}{'' if k is None else f' num_spks {k}'}: "
+            f"{len({s for *_, s in hyp['rec']})} speakers, DER kernel "
+            f"{100 * der:.2f}% plain "
+            f"{100 * rttm_mod.compute_der(truth, plain_hyp):.2f}% (no bar), "
+            f"kernel vs plain {100 * vs_plain:.2f}%")
+
+    embs = {}
+    for name, model, dtype in (("kernel bf16", kernel, torch.bfloat16),
+                               ("kernel f32", kernel, torch.float32),
+                               ("plain bf16", plain, torch.bfloat16),
+                               ("plain f32", plain, torch.float32)):
+        embs[name] = diar_pipe.embed_windows(
+            windows, diar_pipe.model_embedder(model, dtype), DIAR_BATCH)
+    cos = {(a, b): row_cosines(embs[a], embs[b]).min().item()
+           for a, b in (("kernel bf16", "plain f32"),
+                        ("kernel bf16", "plain bf16"),
+                        ("kernel f32", "plain f32"))}
+    if min(cos.values()) < 0.9999:
+        raise AssertionError(f"diar window embeddings: {cos}")
+
+    server = EmbeddingServer(configs, ckpt, port=0, device=dev).start()
+    try:
+        zero_counts()
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/diarize",
+            data=open(os.path.join(root, "diar", "rec.wav"), "rb").read(),
+            headers={"Content-Type": "audio/wav"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            reply = json.load(r)["segments"]
+        torch.cuda.synchronize()
+        served = counts()
+    finally:
+        server.close()
+    merged, _ = diar_pipe.diarize_wav(
+        "utt", wav, DIAR_SR, diar_pipe.model_embedder(kernel),
+        fbank_cfg=fbank_cfg, device=dev)
+    want = [{"begin": round(b, 3), "end": round(e, 3), "speaker": int(lab)}
+            for _, b, e, lab in merged]
+    if reply != want or served["tail"] < 1 or served["se"]:
+        raise AssertionError(f"diar /diarize: reply {reply[:3]}..., "
+                             f"in-process {want[:3]}..., launches {served}")
+
+    model_dir = os.path.join(root, "speaker_model")
+    os.makedirs(model_dir, exist_ok=True)
+    shutil.copy(cfg, model_dir)
+    shutil.copy(ckpt, model_dir)
+    spk = Speaker(model_dir, device=dev)
+    spk_der = rttm_mod.compute_der(truth, hyp_of(spk.diarize(
+        os.path.join(root, "diar", "rec.wav"), "rec")))
+    same = spk.compute_similarity(utts[spks[0]][0], utts[spks[0]][1])
+    other = spk.compute_similarity(utts[spks[0]][0], utts[spks[1]][0])
+    for s in spks:
+        spk.register(s, utts[s][0])
+    found = [spk.recognize(utts[s][1]) for s in spks]
+    if not all(r["name"] in spks and 0.0 <= r["confidence"] <= 1.0
+               for r in found):
+        raise AssertionError(f"diar Speaker.recognize: {found}")
+    print(f"diar: {DIAR_SPK} of the quality corpus's speakers x 2 held-out "
+          f"3 s utterances in {len(turns)} turns with {DIAR_GAP} s gaps "
+          f"({cur:.1f} s), quality checkpoint (ECAPA_TDNN C={SMOKE_C}), "
+          f"{len(ids)} windows; bin/diarize.py --bf16 oracle SAD, "
+          f"launches tail={n_batches} se=0 a run; " + "; ".join(report)
+          + "; window embeddings min cosine "
+          + ", ".join(f"{a} vs {b} {c:.7f}" for (a, b), c in cos.items())
+          + f"; /diarize {len(reply)} segments equal to diarize_wav "
+          f"in-process (tail={served['tail']}); Speaker: diarize DER "
+          f"{100 * spk_der:.2f}% (umap, energy VAD, no bar), similarity "
+          f"same speaker {same:.4f} other {other:.4f}, recognize "
+          f"{sum(r['name'] == s for r, s in zip(found, spks))}/{DIAR_SPK} "
+          f"after registering {DIAR_SPK} (no bar); "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+
+def formant_turn(voice, n, rng, gen, dev):
+    """n samples of one formant speaker (bin/smoke_quality.py's
+    synth_utterance, for any length and on the card): a harmonic source
+    with the speaker's formant envelope and tilt, this turn's f0 jitter
+    and vibrato, syllabic modulation and breath noise."""
+    formants, bandwidths, f0_base, tilt = voice
+    t = torch.arange(n, device=dev, dtype=torch.float64) / DIAR_SR
+    f0 = f0_base * (1.0 + 0.04 * rng.standard_normal()
+                    + 0.02 * torch.sin(2 * np.pi * rng.uniform(1, 4) * t))
+    phase = 2 * np.pi * torch.cumsum(f0, 0) / DIAR_SR
+    h = np.arange(1, 40)
+    h = h[h * f0_base <= DIAR_SR / 2 - 200]
+    freq = h * f0_base
+    gain = sum(b ** 2 / ((freq - fm) ** 2 + b ** 2)
+               for fm, b in zip(formants, bandwidths))
+    gain = gain * (freq / 500.0) ** tilt
+    offs = rng.uniform(0, 2 * np.pi, len(h))
+    sig = (torch.as_tensor(gain, device=dev)[:, None] * torch.sin(
+        torch.as_tensor(h, device=dev, dtype=torch.float64)[:, None]
+        * phase[None] + torch.as_tensor(offs, device=dev)[:, None])).sum(0)
+    am = 0.55 + 0.45 * torch.clamp(torch.sin(
+        2 * np.pi * rng.uniform(2, 5) * t + rng.uniform(0, 6)), min=0)
+    sig = sig * am / (sig.abs().max() + 1e-9)
+    noise = torch.randn(n, generator=gen, device=dev, dtype=torch.float64)
+    return (0.3 * sig + 0.005 * noise).float().cpu().numpy()
+
+
+def diar_full_recording(rng, dev):
+    """DIAR_FULL_SECONDS of DIAR_SPK formant speakers (their formants,
+    bandwidths, f0 and tilt drawn as bin/smoke_quality.py draws them),
+    turns of 2-8 s by a random speaker other than the last, gaps of
+    0.2-1 s; (wav, turns)."""
+    voices = [(np.sort(rng.uniform([250, 800, 1800, 2800],
+                                   [750, 1700, 2700, 3600])),
+               rng.uniform(60, 140, 4), rng.uniform(80, 260),
+               rng.uniform(-0.8, 0.8)) for _ in range(DIAR_SPK)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    parts, turns, cur, last = [], [], 0, -1
+    while True:
+        n = int(rng.uniform(2, 8) * DIAR_SR)
+        gap = int(rng.uniform(0.2, 1.0) * DIAR_SR)
+        if cur + n > DIAR_FULL_SECONDS * DIAR_SR:
+            break
+        s = int(rng.choice([i for i in range(DIAR_SPK) if i != last]))
+        parts += [formant_turn(voices[s], n, rng, gen, dev),
+                  np.zeros(gap, np.float32)]
+        turns.append((cur / DIAR_SR, (cur + n) / DIAR_SR, f"spk{s}"))
+        cur, last = cur + n + gap, s
+    wav = np.zeros(DIAR_FULL_SECONDS * DIAR_SR, np.float32)
+    joined = np.concatenate(parts)[:len(wav)]
+    wav[:len(joined)] = joined
+    return wav, turns
+
+
+class StageClock:
+    """diarize_wav's `mark`: each stage's seconds by the host clock, the
+    card synchronized at its end, and the device ms between CUDA events
+    recorded at the marks."""
+
+    def __init__(self):
+        self.secs, self.device_ms = {}, {}
+        self.event = torch.cuda.Event(enable_timing=True)
+        self.event.record()
+        self.t0 = self.start = time.perf_counter()
+
+    def __call__(self, stage):
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        self.secs[stage] = now - self.t0
+        self.device_ms[stage] = self.event.elapsed_time(event)
+        self.event, self.t0 = event, now
+
+    def total(self):
+        return self.t0 - self.start
+
+
+def phase_diar_full(dev, smi):
+    """Diarization at full width; see the module docstring (phase 37)."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 30)
+    with tempfile.TemporaryDirectory() as root:
+        wav, turns = diar_full_recording(rng, dev)
+        wav, scp, ref = diar_files(root, wav, turns)
+        configs = load_yaml(DIAR_C512)
+        torch.manual_seed(SEED)
+        model = randomised_bn(build_model(configs), dev, calibrate=True)
+        ckpt = os.path.join(root, "model.pt")
+        torch.save(model.state_dict(), ckpt)
+        setup_s = time.perf_counter() - t_start
+        fbank_cfg = fbank_config(configs)
+        sad = rttm_mod.oracle_sad(ref)["rec"]
+        ids, windows = diar_pipe.segment_windows("rec", wav, DIAR_SR, sad,
+                                                 fbank_cfg, device=dev)
+        n = len(ids)
+        n_batches = -(-n // DIAR_BATCH)
+        plain = set_pooling_fused(
+            load_model_for_eval(configs, ckpt, device=dev).set_fused(False),
+            False)
+
+        def in_process(net, dtype, clusterer, mark=None):
+            merged, _ = diar_pipe.diarize_wav(
+                "rec", wav, DIAR_SR, diar_pipe.model_embedder(net, dtype),
+                sad_segments=sad, fbank_cfg=fbank_cfg, clusterer=clusterer,
+                batch_size=DIAR_BATCH, device=dev, mark=mark)
+            return hyp_of(merged)
+
+        runs, clocks = [], {}
+        for clusterer in ("spectral", "umap"):
+            hyp, der, got, wall = diar_cli_run(
+                DIAR_C512, ckpt, scp, ref, os.path.join(root, "out.rttm"),
+                clusterer)
+            want = dict(NO_LAUNCH, se=3 * n_batches, tail=n_batches)
+            if got != want:
+                raise AssertionError(f"diar full {clusterer}: launches "
+                                     f"{got}, want {want}")
+            clocks[clusterer] = clock = StageClock()
+            in_process(model, torch.bfloat16, clusterer, clock)
+            zero_counts()
+            plain_hyp = in_process(plain, torch.float32, clusterer)
+            torch.cuda.synchronize()
+            if counts() != NO_LAUNCH:
+                raise AssertionError(f"diar full plain path launched "
+                                     f"{counts()}")
+            vs_plain = rttm_mod.compute_der(plain_hyp, hyp)
+            if clusterer == "spectral" and vs_plain > 0.05:
+                raise AssertionError(f"diar full spectral: DER of the kernel "
+                                     f"path against the plain path "
+                                     f"{vs_plain}")
+            runs.append(
+                f"{clusterer}: {len({s for *_, s in hyp['rec']})} speakers, "
+                f"DER {100 * der:.2f}% (random weights, no bar), kernel vs "
+                f"plain f32 {100 * vs_plain:.2f}%"
+                + ("" if clusterer == "spectral" else " (no bar)")
+                + f", bin/diarize.py {wall:.2f} s, RTF "
+                f"{clock.total() / DIAR_FULL_SECONDS:.5f} in-process")
+
+        embs = {}
+        for name, net, dtype in (("kernel bf16", model, torch.bfloat16),
+                                 ("kernel f32", model, torch.float32),
+                                 ("plain bf16", plain, torch.bfloat16),
+                                 ("plain f32", plain, torch.float32)):
+            embs[name] = diar_pipe.embed_windows(
+                windows, diar_pipe.model_embedder(net, dtype), DIAR_BATCH)
+        cos = {(a, b): row_cosines(embs[a], embs[b]).min().item()
+               for a, b in (("kernel bf16", "plain f32"),
+                            ("kernel bf16", "plain bf16"),
+                            ("kernel f32", "plain f32"))}
+        if min(cos.values()) < 0.9999:
+            raise AssertionError(f"diar full window embeddings: {cos}")
+        neighbours = row_cosines(embs["plain f32"][:-1],
+                                 embs["plain f32"][1:]).mean().item()
+
+        lap = spectral.laplacian(embs["kernel bf16"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, _ = spectral.eigh(lap)
+        card_eigh = time.perf_counter() - t0
+        host_lap = lap.cpu().numpy()
+        t0 = time.perf_counter()
+        host_vals, _ = scipy.linalg.eigh(host_lap)
+        host_eigh = time.perf_counter() - t0
+        k = spectral.num_speakers(vals)
+        if k != spectral.num_speakers(host_vals):
+            raise AssertionError("diar full: the eigengap count differs "
+                                 "between the card's and the host's eigh")
+    stages = "; ".join(
+        f"{c}: " + ", ".join(f"{k_} {v:.3f}" for k_, v in clock.secs.items())
+        for c, clock in clocks.items())
+    device_ms = clocks["spectral"].device_ms
+    print(f"diar full: ECAPA_TDNN_GLOB_c512 (ecapa_tdnn_c512.yaml, random "
+          f"weights, BN statistics from synthetic voices), "
+          f"{DIAR_FULL_SECONDS / 60:.0f} min of {DIAR_SPK} formant "
+          f"speakers in {len(turns)} turns, oracle SAD, {n} windows in "
+          f"{n_batches} batches of {DIAR_BATCH}, bf16 (set-up {setup_s:.1f} "
+          f"s): launches a run se={3 * n_batches} tail={n_batches}; "
+          + "; ".join(runs) + "; window embeddings min cosine "
+          + ", ".join(f"{a} vs {b} {c:.7f}" for (a, b), c in cos.items())
+          + f" (neighbouring windows {neighbours:.4f}); diarize_wav's "
+          f"stage seconds, warm: {stages} (fbank "
+          f"{device_ms['fbank']:.1f} ms, embedding "
+          f"{device_ms['embedding']:.1f} ms between CUDA events); eigh of "
+          f"the spectral Laplacian on the card {card_eigh:.3f} s, scipy's "
+          f"on the host {host_eigh:.3f} s, eigengap count {k} on both; "
+          f"{smi}; {time.perf_counter() - t_start:.1f} s")
 
 
 BACKEND_SPK, BACKEND_UTT, BACKEND_TRAIN_SPK = 128, 4, 112
@@ -3290,7 +3708,7 @@ def perturbed(sd, rng, scale=0.01):
 
 def phase_backend(dev):
     """Checkpoint interop and the SRE back end at full width; see the
-    module docstring (phase 36)."""
+    module docstring (phase 38)."""
     secs = {}
     t_start = t0 = time.perf_counter()
 
@@ -3710,7 +4128,7 @@ def phase_recipe_train(dev, smi, stores):
     write_aug_stores, a shard corpus, bin/train.py on the YAMLs unchanged
     but for the corpus paths, the epoch and step counts, the batch size
     and the options the phase is about (num_workers, device_aug,
-    conv_dw_mode, project_type); see the module docstring (phase 38)."""
+    conv_dw_mode, project_type); see the module docstring (phase 40)."""
     t_start = time.perf_counter()
     rng = np.random.default_rng(SEED + 39)
     parts, timings = [], {}
@@ -3888,7 +4306,10 @@ def main():
         raw, utt2spk = ssl_corpus(d)
         phase_dino_trainer(dev, raw, utt2spk, d)
         phase_contrastive(dev, raw, utt2spk, d)
-    phase_quality(dev)
+    with tempfile.TemporaryDirectory() as d:
+        phase_quality(dev, d)
+        phase_diar(dev, d)
+    phase_diar_full(dev, smi)
     phase_backend(dev)
     with tempfile.TemporaryDirectory() as d:
         phase_recipe_train(dev, smi, phase_aug(dev, smi, d))

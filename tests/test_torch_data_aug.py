@@ -25,6 +25,7 @@ import pytest
 import torch
 
 jax = pytest.importorskip("jax")
+pytest.importorskip("flax")  # the JAX package's train/ needs both
 import jax.numpy as jnp  # noqa: E402
 
 from wespeaker_tpu.data import dataset as jds  # noqa: E402

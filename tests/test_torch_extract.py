@@ -251,6 +251,6 @@ def test_extract_refusals_and_precision(corpus, monkeypatch):
     assert model.weight.dtype == torch.float32  # cast per call, not here
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         eval_device.prepare_eval_placement(model, data_parallel=True,
                                            device="cuda")

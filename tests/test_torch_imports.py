@@ -1,8 +1,8 @@
 """The port stands alone: no file of wespeaker_tpu_torch/, nor
-chip_smoke.py, imports JAX, flax, optax or the JAX package, nor msgpack or
-h5py, which the card's machine lacks; and its entry
-points refuse to run when no card is present unless the caller asks for
-the CPU."""
+chip_smoke.py, imports JAX, flax, optax or the JAX package, nor msgpack,
+h5py, scikit-learn, umap-learn or hdbscan, which the card's machine lacks;
+and its entry points refuse to run when no card is present unless the
+caller asks for the CPU."""
 
 import ast
 import pathlib
@@ -12,9 +12,9 @@ import pytest
 import torch
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-# the card's machine has neither msgpack nor h5py
+# the card's machine has none of msgpack, h5py, sklearn, umap and hdbscan
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "wespeaker_tpu", "msgpack",
-             "h5py")
+             "h5py", "sklearn", "umap", "hdbscan")
 
 
 def _port_files():
@@ -56,7 +56,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "utils/msgpack.py", "backend/plda.py", "backend/calibration.py",
             "backend/embedding_processing.py", "bin/plda_tools.py",
             "bin/embd_proc.py", "bin/score_calibration.py",
-            "bin/prep_data.py"} <= names
+            "bin/prep_data.py", "diar/subsegment.py", "diar/rttm.py",
+            "diar/vad.py", "diar/spectral_clusterer.py", "diar/density.py",
+            "diar/manifold.py", "diar/umap_clusterer.py",
+            "diar/pipeline.py", "bin/diarize.py", "cli/speaker.py"} <= names
     bad = []
     for path in files:
         for name in _imported(ast.parse(path.read_text(), str(path))):
@@ -100,6 +103,27 @@ def test_entry_points_raise_without_a_card(no_card, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         TrialScorer({"a": np.ones(4, np.float32)})
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_diarization_entry_points_raise_without_a_card(no_card, tmp_path):
+    from wespeaker_tpu_torch.bin import diarize
+    from wespeaker_tpu_torch.cli.speaker import Speaker
+    from wespeaker_tpu_torch.diar.pipeline import diarize_wav
+    from wespeaker_tpu_torch.serving import build_embed_fn
+
+    cfg = tmp_path / "config.yaml"
+    cfg.write_text("model: ECAPA_TDNN\nmodel_args: {channels: 64}\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        diarize.main(["--config", str(cfg), "--checkpoint", "none.pt",
+                      "--wav_scp", "none.scp", "--out_rttm", "out.rttm"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_embed_fn({}, "none.pt")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Speaker(str(tmp_path))
+    wav = np.zeros(16000, np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        diarize_wav("u", wav, 16000, lambda b: b.mean(1),
+                    sad_segments=[(0.0, 1.0)])
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

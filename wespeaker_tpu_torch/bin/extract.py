@@ -60,6 +60,19 @@ def load_model_for_eval(configs: Dict[str, Any], checkpoint_path: str,
     return model.to(dev).eval()
 
 
+def fbank_config(configs: Dict[str, Any]) -> FbankConfig:
+    """The evaluation fbank of a training config: its fbank_args and
+    resample_rate, dither 0."""
+    dataset_args = configs.get("dataset_args", {})
+    fbank_args = dataset_args.get("fbank_args", {})
+    return FbankConfig(
+        num_mel_bins=fbank_args.get(
+            "num_mel_bins", configs["model_args"].get("feat_dim", 80)),
+        frame_length_ms=fbank_args.get("frame_length", 25),
+        frame_shift_ms=fbank_args.get("frame_shift", 10),
+        sample_rate=dataset_args.get("resample_rate", 16000), dither=0.0)
+
+
 def _load_entry(obj, target_rate):
     """(key, mono f32 wav at target_rate) of one list entry; its "vad"
     segments [[start, end], ...] in seconds are cut and joined."""
@@ -181,15 +194,8 @@ def _extract_inner(configs, checkpoint_path, data_list, out_prefix,
     model = load_model_for_eval(configs, checkpoint_path, device=dev)
     model, compute_dtype = prepare_eval_placement(model, bf16, data_parallel,
                                                   device=dev)
-    dataset_args = configs.get("dataset_args", {})
-    fbank_args = dataset_args.get("fbank_args", {})
-    rate = dataset_args.get("resample_rate", 16000)
-    fbank_cfg = FbankConfig(
-        num_mel_bins=fbank_args.get("num_mel_bins",
-                                    configs["model_args"].get("feat_dim", 80)),
-        frame_length_ms=fbank_args.get("frame_length", 25),
-        frame_shift_ms=fbank_args.get("frame_shift", 10),
-        sample_rate=rate, dither=0.0)
+    fbank_cfg = fbank_config(configs)
+    rate = fbank_cfg.sample_rate
     feat_mode = configs.get("data_type") == "feat"
     embed_fn = make_eval_embed_fn(model, fbank_cfg,
                                   compute_dtype=compute_dtype, device=dev,

@@ -33,8 +33,8 @@ def main(argv=None):
     server = EmbeddingServer(configs, args.checkpoint, host=args.host,
                              port=args.port, max_batch=args.max_batch,
                              max_wait_ms=args.max_wait_ms, device=args.device)
-    logging.info("serving on %s:%d (POST /embed, /similarity; GET /health)",
-                 args.host, server.port)
+    logging.info("serving on %s:%d (POST /embed, /diarize, /similarity; "
+                 "GET /health)", args.host, server.port)
     try:
         server.httpd.serve_forever()
     except KeyboardInterrupt:

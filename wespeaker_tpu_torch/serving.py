@@ -11,9 +11,12 @@ Endpoints:
   POST /embed               -> {"embedding": [...]} ; body is a RIFF wav
                                (Content-Type audio/wav) or JSON
                                {"wav": [...float], "sample_rate": 16000}
+  POST /diarize             -> {"segments": [{"begin", "end", "speaker"}]}
+                               ; body as /embed: energy VAD, sliding-window
+                               embeddings, spectral clustering
+                               (diar/pipeline.py::diarize_wav)
   POST /similarity          -> {"similarity": s} ; JSON {"wav1": .., "wav2"}
                                cosine mapped to [0, 1]
-The JAX server's /diarize is not ported yet (no diarization pipeline).
 """
 
 import json
@@ -143,31 +146,32 @@ class DynamicBatcher:
 
 def build_embed_fn(configs: dict, checkpoint_path: str,
                    device: DeviceLike = None):
-    """config + checkpoint -> (wavs, mask) -> (B, D) numpy embeddings. The
-    checkpoint is a torch state_dict (`.pt`, loaded with
-    weights_only=True) or a JAX `.ckpt` (bin/extract.py's
-    load_model_for_eval); the forward runs in f32."""
-    from wespeaker_tpu_torch.bin.extract import load_model_for_eval
-    from wespeaker_tpu_torch.frontend.fbank import FbankConfig
+    """config + checkpoint -> (embed, diarize) from one model, as the JAX
+    package's build_embed_fn returns them. embed: (wavs, mask) -> (B, D)
+    numpy embeddings; diarize: (wav, sr) -> merged segments [(utt, begin,
+    end, label)] (diar/pipeline.py::diarize_wav: energy VAD, spectral
+    clustering with the count estimated). The checkpoint is a
+    torch state_dict (`.pt`, loaded with weights_only=True) or a JAX
+    `.ckpt` (bin/extract.py's load_model_for_eval); both run in f32."""
+    from wespeaker_tpu_torch.bin.extract import (fbank_config,
+                                                 load_model_for_eval)
+    from wespeaker_tpu_torch.diar.pipeline import diarize_wav, model_embedder
     from wespeaker_tpu_torch.train.train_step import make_eval_embed_fn
 
     dev = resolve_device(device)
     model = load_model_for_eval(configs, checkpoint_path, dev)
-    dataset_args = configs.get("dataset_args", {})
-    fbank_args = dataset_args.get("fbank_args", {})
-    fbank_cfg = FbankConfig(
-        num_mel_bins=fbank_args.get(
-            "num_mel_bins", configs["model_args"].get("feat_dim", 80)),
-        frame_length_ms=fbank_args.get("frame_length", 25),
-        frame_shift_ms=fbank_args.get("frame_shift", 10),
-        sample_rate=dataset_args.get("resample_rate", 16000),
-        dither=0.0)
+    fbank_cfg = fbank_config(configs)
     fn = make_eval_embed_fn(model, fbank_cfg, device=dev)
+    embed_windows = model_embedder(model)
 
     def embed(wavs, mask):
         return fn({"wav": wavs, "mask": mask}).cpu().numpy()
 
-    return embed
+    def diarize(wav, sr):
+        return diarize_wav("utt", wav, sr, embed_windows,
+                           fbank_cfg=fbank_cfg, device=dev)[0]
+
+    return embed, diarize
 
 
 def _decode_wav_body(body: bytes, content_type: str, default_sr: int):
@@ -183,7 +187,8 @@ def _decode_wav_body(body: bytes, content_type: str, default_sr: int):
 
 
 def make_server(batcher: DynamicBatcher, host: str = "127.0.0.1",
-                port: int = 8086, resample_rate: int = 16000):
+                port: int = 8086, resample_rate: int = 16000,
+                diarize_fn: Optional[Callable] = None):
     def to_model_rate(wav, sr):
         wav = np.asarray(wav, np.float32)
         if sr == resample_rate:
@@ -224,6 +229,19 @@ def make_server(batcher: DynamicBatcher, host: str = "127.0.0.1",
                     wav, sr = _decode_wav_body(body, ctype, resample_rate)
                     emb = batcher.embed(to_model_rate(wav, sr))
                     self._reply(200, {"embedding": emb.tolist()})
+                elif self.path == "/diarize":
+                    if diarize_fn is None:
+                        self._reply(501, {"error": "no diarization function "
+                                          "was given to this server"})
+                        return
+                    wav, sr = _decode_wav_body(body, ctype, resample_rate)
+                    merged = diarize_fn(to_model_rate(wav, sr),
+                                        resample_rate)
+                    self._reply(200, {"segments": [
+                        {"begin": round(float(b), 3),
+                         "end": round(float(e), 3),
+                         "speaker": int(lab)}
+                        for (_, b, e, lab) in merged]})
                 elif self.path == "/similarity":
                     obj = json.loads(body)
                     sr = int(obj.get("sample_rate", resample_rate))
@@ -258,15 +276,17 @@ class EmbeddingServer:
                  embed_fn: Optional[Callable] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
+        diarize_fn = None  # a caller's embed_fn comes without one
         if embed_fn is None:
-            embed_fn = build_embed_fn(configs, checkpoint_path, self.device)
+            embed_fn, diarize_fn = build_embed_fn(configs, checkpoint_path,
+                                                  self.device)
         rate = configs.get("dataset_args", {}).get("resample_rate", 16000)
         self.batcher = DynamicBatcher(
             embed_fn, max_batch=max_batch, max_wait_ms=max_wait_ms,
             quantum_samples=rate, max_samples=rate * 120,
             min_samples=int(rate * 0.025))
         self.httpd = make_server(self.batcher, host, port,
-                                 resample_rate=rate)
+                                 resample_rate=rate, diarize_fn=diarize_fn)
         self.port = self.httpd.server_address[1]
         self._thread = None
 

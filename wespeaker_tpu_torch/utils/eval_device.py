@@ -6,7 +6,7 @@ the JAX package:
   layer and kernel casts its weights to the activations' type per call
   (models/layers.py), where JAX casts the weight tree once.
 - data_parallel over more than one visible card is refused (multi-card
-  data parallelism is not ported; ROADMAP Queue 1 item 5, DDP). With one
+  data parallelism is not ported; ROADMAP Queue 1 item 4, DDP). With one
   card it changes nothing, as in JAX.
 """
 
@@ -30,7 +30,7 @@ def prepare_eval_placement(model: nn.Module, bf16: bool = False,
     if data_parallel and n_dev > 1:
         raise NotImplementedError(
             f"data_parallel over {n_dev} cards is not ported yet (multi-card "
-            "data parallelism, ROADMAP Queue 1 item 5: DDP); stripe the list "
+            "data parallelism, ROADMAP Queue 1 item 4: DDP); stripe the list "
             "over processes with num_splits / split_index, one card each")
     compute_dtype = torch.bfloat16 if bf16 else torch.float32
     return model.to(dev).eval(), compute_dtype
