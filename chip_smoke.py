@@ -144,7 +144,10 @@ Phases, each printing one line:
  21. dw kernels  dw_pack (the tap-packed 3x3 filter gradient) against its
               plain version at ResNet34's three packed shapes at B=128 x
               200 frames (the stem 80 x 200, 1 -> 32; layer1 80 x 200,
-              32 -> 32; layer2 40 x 100, 64 -> 64): bf16 (cosine >= 0.9999)
+              32 -> 32; layer2 40 x 100, 64 -> 64) and the zoo's five
+              (ZOO_DW: ERes2Net34's and Res2Net34's 16 -> 16 and
+              ERes2Net34_aug's 24 -> 24 at 80 x 200, the 1 -> 64 stem,
+              48 -> 48 at 40 x 100, 64 -> 64 at 20 x 50): bf16 (cosine >= 0.9999)
               and f32 (TF32 off, error <= 1e-4 of the largest magnitude),
               two calls bit-identical; the same at eight edge shapes
               (Ci -> Co 1 -> 32, 8 -> 24, 48 -> 48, 64 -> 64; W of 1, 17
@@ -186,8 +189,9 @@ Phases, each printing one line:
  27. pool kernels  the two statistics-pooling kernels (ASTP's softmax-
               weighted mean and std; the masked mean and std) against their
               plain versions: bf16 at ReDimNetB2's pooling shape (B=512,
-              T=200, D=1152) and ResNet34's TSTP shape (T'=25, D=2560)
-              (cosine >= 0.9999 per output), f32 at T=198, D=600, B=3 with
+              T=200, D=1152), ResNet34's TSTP shape (T'=25, D=2560),
+              ERes2Net34's (T'=25, D=5120) and the x-vector's (T'=186,
+              D=1500) (cosine >= 0.9999 per output), f32 at T=198, D=600, B=3 with
               a ragged mask and an utterance with no valid frame (within
               1e-4 of the largest magnitude), the masked stats at ddof 0
               and 1; the masked stats at its edges: T = 1, one valid frame
@@ -376,6 +380,44 @@ Phases, each printing one line:
               B=256, 3 steps; the head's BatchNorm statistics carried).
               Every loss finite, every run's model_0.pt holding the
               trained model and head; each run's seconds and the phase's.
+ 41. zoo slice  the rest of the model zoo at the recipes' widths with
+              random weights from SEED (ZOO: ERes2Net34_Base as
+              eres2net.yaml, Res2Net34_Base as res2net.yaml,
+              REPVGG_TINY_A0 as repvgg.yaml, XVEC as xvec.yaml,
+              XI_VEC_ECAPA_TDNN_c512 as xi_vector.yaml, ReDimNet2B6 as
+              redimnet2.yaml's model on a 72-bin fbank, SimAM_ResNet34_ASP
+              at its defaults), B=64 x 2 s: each model's launches a
+              forward (rows 7; 6 and 7; 1 three times; none for SimAM's
+              plain ASP), the kernel route against the plain route
+              (set_pooling_fused False, ECAPA's set_fused(False)) in bf16
+              (cosine >= 0.9999) and f32 (>= 0.99999), f32 on the card
+              against the CPU on a copy whose BN statistics come from
+              synthetic voices (>= 0.9999), and the frame features' shape;
+ 42. zoo serving  an EmbeddingServer from eres2net.yaml and a .pt of the
+              calibrated ERes2Net34_Base: three waves of /embed in buckets
+              of 1, 2 and 3 s, each reply against the request padded to
+              its bucket (cosine >= 0.99999), row 7 once a batch;
+ 43. zoo train  bin/train.py on eres2net.yaml unchanged but for the
+              corpus (write_shards and the aug phase's stores), 3 steps
+              and conv_dw_mode packed, at B=128: row 10 27 times a step,
+              the second step's wall ms and the third's device ms, the
+              extractor on model_0.pt; redimnet2.yaml unchanged but for
+              the corpus and 2 steps at B=32 (its tfmel frontend and
+              sphereface2 head; no kernel), the extractor through tfmel
+              on its model_0.pt (rows 6 and 7 once); 3 bf16 steps
+              in-process at B=32 for
+              the other six (ReDimNet2B6 with sphereface2, the rest
+              ArcMargin), every loss finite and no kernel launched; one
+              ERes2Net34_Base step packed and one native from the same
+              weights in bf16 and f32 (loss within 1e-3, each layer's
+              update at cosine >= 0.999);
+ 44. repvgg deploy  repvgg.yaml through bin/train.py (3 steps at B=64),
+              bin/convert_repvgg.py on its model_0.pt, bin/extract.py in
+              f32 over 8 utterances with the train form and with
+              model_args.deploy=true: cosine >= 0.99999;
+ 45. zoo timing  ERes2Net34_Base and XVEC extraction at B=512 x 2 s bf16
+              with row 7 and then with plain pooling (CUDA events, 5
+              calls after 2), with the card's name and power limit.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -411,6 +453,7 @@ from wespeaker_tpu_torch.bin import (  # noqa: E402
     train_contrastive as contrastive_cli)
 from wespeaker_tpu_torch.bin import train_dino as dino_cli  # noqa: E402
 from wespeaker_tpu_torch.bin import diarize as diarize_cli  # noqa: E402
+from wespeaker_tpu_torch.bin import convert_repvgg  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import (  # noqa: E402
     fbank_config, iter_wavs_from_list, load_model_for_eval)
 from wespeaker_tpu_torch.cli.speaker import Speaker  # noqa: E402
@@ -436,12 +479,21 @@ from wespeaker_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
 from wespeaker_tpu_torch.models.campplus import CAMPPlus  # noqa: E402
 from wespeaker_tpu_torch.models.ecapa_tdnn import (  # noqa: E402
     ECAPA_TDNN_GLOB_c512)
+from wespeaker_tpu_torch.models.eres2net import ERes2Net34_Base  # noqa
+from wespeaker_tpu_torch.models.redimnet2 import ReDimNet2B6  # noqa: E402
+from wespeaker_tpu_torch.models.repvgg import REPVGG_TINY_A0  # noqa: E402
+from wespeaker_tpu_torch.models.res2net import Res2Net34_Base  # noqa: E402
+from wespeaker_tpu_torch.models.samresnet import (  # noqa: E402
+    SimAM_ResNet34_ASP)
+from wespeaker_tpu_torch.models.tdnn import XVEC  # noqa: E402
+from wespeaker_tpu_torch.models.xi_vector import (  # noqa: E402
+    XI_VEC_ECAPA_TDNN_c512)
 from wespeaker_tpu_torch.models.gemini_dfresnet import (  # noqa: E402
     Gemini_DF_ResNet114, folded_stage)
 from wespeaker_tpu_torch.models.pooling_layers import (  # noqa: E402
     set_pooling_fused)
 from wespeaker_tpu_torch.models.projections import (  # noqa: E402
-    ArcMarginProduct)
+    ArcMarginProduct, get_projection)
 from wespeaker_tpu_torch.models.redimnet import ReDimNetB2  # noqa: E402
 from wespeaker_tpu_torch.models.resnet import ResNet34  # noqa: E402
 from wespeaker_tpu_torch.ops import (_build, cam_block,  # noqa: E402
@@ -452,7 +504,8 @@ from wespeaker_tpu_torch.serving import EmbeddingServer  # noqa: E402
 from wespeaker_tpu_torch.train import (AugConfig,  # noqa: E402
                                        build_train_state, make_eval_embed_fn,
                                        make_train_step)
-from wespeaker_tpu_torch.train.composite import build_model  # noqa: E402
+from wespeaker_tpu_torch.train.composite import (  # noqa: E402
+    build_model, featurizers)
 from wespeaker_tpu_torch.train.device_aug import (  # noqa: E402
     device_augment)
 from wespeaker_tpu_torch.train.train_step import (  # noqa: E402
@@ -1292,16 +1345,25 @@ def randomised_bn(model, dev, calibrate, fbank=FbankConfig()):
                 m.bias.normal_(0.0, 0.1, generator=g)
     model = model.to(dev)
     if calibrate:
-        rng = np.random.default_rng(SEED + 20)
-        wav = np.stack([voice(rng, CHUNK_SAMPLES) for _ in range(16)])
-        feat = features_from_batch({"wav": wav}, fbank, None, None, False,
-                                   dev)
-        for m in bns:
-            m.momentum = 1.0  # running statistics := this batch's
-        with torch.no_grad():
-            model.train()(feat)
-        for m in bns:
-            m.momentum = 0.1
+        calibrate_bn(model, dev, fbank)
+    return model.eval()
+
+
+def calibrate_bn(model, dev, fbank=FbankConfig()):
+    """Set `model`'s BN running statistics to those of one train-mode
+    forward over 16 seeded synthetic voices (features by `fbank`); the
+    model is left in eval mode."""
+    bns = [m for m in model.modules()
+           if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    rng = np.random.default_rng(SEED + 20)
+    wav = np.stack([voice(rng, CHUNK_SAMPLES) for _ in range(16)])
+    feat = features_from_batch({"wav": wav}, fbank, None, None, False, dev)
+    for m in bns:
+        m.momentum = 1.0  # running statistics := this batch's
+    with torch.no_grad():
+        model.train()(feat)
+    for m in bns:
+        m.momentum = 0.1
     return model.eval()
 
 
@@ -1940,14 +2002,14 @@ def dw_inputs(rng, b, h, w, ci, co, dtype, dev):
 
 
 def phase_dw_kernels(dev):
-    """dw_pack against its plain version at ResNet34's three packed shapes,
-    B=128 x 200 frames, and at DW_EDGES: bf16 by cosine, f32 within 1e-4
+    """dw_pack against its plain version at ResNet34's three packed shapes
+    and the zoo's five (ZOO_DW), B=128 x 200 frames, and at DW_EDGES: bf16 by cosine, f32 within 1e-4
     of the largest magnitude; two calls bit-identical; ineligible shapes
     raise."""
     rng = np.random.default_rng(SEED + 24)
     errs, parts = [], []
     for dtype in (torch.bfloat16, torch.float32):
-        for h, w, ci, co, _ in RESNET_DW:
+        for h, w, ci, co in [s[:4] for s in RESNET_DW] + list(ZOO_DW):
             x, dy = dw_inputs(rng, RESNET_BATCH, h, w, ci, co, dtype, dev)
             got = conv_dw_pack.dw_pack(x, dy)
             again = conv_dw_pack.dw_pack(x, dy)
@@ -2154,20 +2216,23 @@ def phase_resnet_train(dev):
         raise AssertionError(f"packed and native steps disagree in {bad}")
 
 
-def compare_dw_modes(dev, batch, dtype):
+def compare_dw_modes(dev, batch, dtype, modules=resnet_train_modules,
+                     per_step=DW_PER_STEP):
     """One step with conv_dw_mode packed and one native from the seeded
-    weights, dither 0. Returns the loss's relative difference, the three
-    lowest update cosines per layer and the lowest per tensor."""
+    weights of `modules(dev)` (ResNet34's by default), dither 0, the packed
+    step launching row 10 `per_step` times. Returns the loss's relative
+    difference, the three lowest update cosines per layer and the lowest
+    per tensor."""
     updates, loss = {}, {}
     for mode in ("packed", "native"):
-        model, proj, opt, _ = resnet_train_modules(dev)
+        model, proj, opt, _ = modules(dev)
         start = {n: p.detach().clone() for n, p in model.named_parameters()}
         one = resnet_step(model, proj, opt, dtype, dev)
         conv_dw_pack.set_conv_dw_mode(mode)
         try:
             zero_counts()
             loss[mode] = float(one(batch)["loss"])
-            want = DW_PER_STEP if mode == "packed" else 0
+            want = per_step if mode == "packed" else 0
             if counts() != dict(NO_LAUNCH, dw=want):
                 raise AssertionError(f"{mode} step launches {counts()}")
         finally:
@@ -2428,8 +2493,9 @@ def stats_compare(got, want, dtype):
 
 def phase_pool_kernels(dev):
     """Rows 6 and 7 against their plain versions: at ReDimNetB2's pooling
-    shape (B=512, T=200, D=1152) and ResNet34's TSTP shape (T'=25,
-    D=2560) in bf16, and in f32 at T=198, D=600, B=3 with a ragged mask
+    shape (B=512, T=200, D=1152), ResNet34's TSTP shape (T'=25,
+    D=2560), ERes2Net34's (T'=25, D=5120) and the x-vector's (T'=186,
+    D=1500) in bf16, and in f32 at T=198, D=600, B=3 with a ragged mask
     whose last utterance has no valid frame; the masked stats at ddof 0
     and 1; and the masked stats' edges (T = 1, count <= ddof, D = 7 and
     600, f32 with mean 1e3 and std 1e-2, 65,536 utterances). Inputs that
@@ -2438,7 +2504,8 @@ def phase_pool_kernels(dev):
     errs, parts = {}, []
     cases = ((torch.bfloat16, B, T, REDIM_D, False),
              (torch.bfloat16, B, *RESNET_TSTP, False),
-             (torch.float32, 3, 198, 600, True))
+             (torch.float32, 3, 198, 600, True),
+             *((torch.bfloat16, B, t, d, False) for t, d in ZOO_TSTP))
     for dtype, b, t, d, masked in cases:
         logits, x, mask = pool_inputs(rng, b, t, d, dtype, dev, masked)
         got = pooling.fused_softmax_stats(logits, x, mask)
@@ -4244,6 +4311,385 @@ def phase_recipe_train(dev, smi, stores):
     return timings
 
 
+# ---- the rest of the model zoo (ERes2Net, Res2Net, RepVGG, the x-vector,
+# the xi-vector, SimAM-ResNet, ReDimNet2) ----
+
+def _launches(**want):
+    return dict(NO_LAUNCH, **want)
+
+
+# (name, constructor at its recipe's width, fbank bins, embed, the kernel
+# launches of one eval forward); the recipes: examples/voxceleb/v2/conf/
+# eres2net.yaml, res2net.yaml, repvgg.yaml, xvec.yaml, xi_vector.yaml,
+# redimnet2.yaml, and SimAM_ResNet34_ASP at its constructor's defaults
+ZOO = (("ERes2Net34_Base", lambda: ERes2Net34_Base(80, 512), 80, 512,
+        _launches(masked=1)),
+       ("Res2Net34_Base", lambda: Res2Net34_Base(80, 256), 80, 256,
+        _launches(masked=1)),
+       ("REPVGG_TINY_A0", lambda: REPVGG_TINY_A0(80, 256), 80, 256,
+        _launches(masked=1)),
+       ("XVEC", lambda: XVEC(80, embed_dim=512), 80, 512, _launches(masked=1)),
+       ("XI_VEC_ECAPA_TDNN_c512", lambda: XI_VEC_ECAPA_TDNN_c512(80, 192),
+        80, 192, _launches(se=3)),
+       ("ReDimNet2B6", lambda: ReDimNet2B6(72, 192), 72, 192,
+        _launches(softmax=1, masked=1)),
+       ("SimAM_ResNet34_ASP", lambda: SimAM_ResNet34_ASP(), 80, 256,
+        NO_LAUNCH))
+# ERes2Net34_Base's packed dW calls a train step: the stem (1 -> 32) and
+# the Res2 convs of layers 1-3 (3 x 2 at width 16, 4 x 2 at 32, 6 x 2 at
+# 64: conv2_1 and convs.0); layer 4's width 128 is not eligible
+ERES_DW_PER_STEP = 1 + 6 + 8 + 12
+# row 10's new shapes at B=128 x 200 frames, (H, W, Ci, Co): ERes2Net34's
+# and Res2Net34's width-16 Res2 convs, ERes2Net34_aug's width-24 ones and
+# its 1 -> 64 stem (SimAM-ResNet34's too), the width-48 layer2 convs of
+# ERes2Net34_aug and the 64-wide convs at layer3's 20 x 50 map
+ZOO_DW = ((80, 200, 16, 16), (80, 200, 24, 24), (80, 200, 1, 64),
+          (40, 100, 48, 48), (20, 50, 64, 64))
+# the TSTP widths of row 7 on the new paths, (T', D) at 200 frames:
+# ERes2Net34 and Res2Net34 (64 x 8 x 10), the x-vector (186 frames x 1500)
+ZOO_TSTP = ((25, 5120), (186, 1500))
+
+
+def zoo_model(make, feat, dev, calibrate):
+    """A zoo model with torch's default init from SEED and randomised (or,
+    with `calibrate`, synthetic-voice) BN statistics."""
+    torch.manual_seed(SEED)
+    return randomised_bn(make(), dev, calibrate,
+                         FbankConfig(num_mel_bins=feat))
+
+
+def set_plain(model, plain):
+    """The plain route (pooling and ECAPA blocks layer by layer) or the
+    kernel route."""
+    set_pooling_fused(model, False if plain else None)
+    if hasattr(model, "set_fused"):
+        model.set_fused(not plain)
+    return model
+
+
+def phase_zoo_slice(dev):
+    """Each zoo model at full width: its launches, the kernel route against
+    the plain route in bf16 and f32, f32 on the card against the CPU on a
+    calibrated copy, and its frame features' shape."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 40)
+    wav = torch.as_tensor(np.stack([voice(rng, CHUNK_SAMPLES)
+                                    for _ in range(SLICE_BATCH)]), device=dev)
+    parts = []
+    for name, make, feat, embed, want in ZOO:
+        fb = FbankConfig(num_mel_bins=feat)
+        model = zoo_model(make, feat, dev, calibrate=False)
+        cos = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            fn = make_eval_embed_fn(model, fb, compute_dtype=dtype,
+                                    fbank_conv_dtype=dtype, device=dev)
+            zero_counts()
+            emb = fn({"wav": wav})
+            torch.cuda.synchronize()
+            if counts() != want:
+                raise AssertionError(f"{name} {dtype}: launches {counts()}, "
+                                     f"want {want}")
+            set_plain(model, True)
+            plain = fn({"wav": wav})
+            set_plain(model, False)
+            if emb.shape != (SLICE_BATCH, embed) or not torch.isfinite(
+                    emb).all():
+                raise AssertionError(f"{name}: embeddings {emb.shape}")
+            cos[dtype] = row_cosines(emb, plain).min().item()
+        if cos[torch.bfloat16] < 0.9999 or cos[torch.float32] < 0.99999:
+            raise AssertionError(f"{name}: kernel vs plain route {cos}")
+        with torch.inference_mode():
+            feats = features_from_batch({"wav": wav[:2]}, fb, None, None,
+                                        False, dev)
+            frame = tuple(model(feats, return_frame_feat=True).shape)
+        del model
+        cal = zoo_model(make, feat, dev, calibrate=True)
+        cpu_model = copy.deepcopy(cal).cpu()
+        emb32 = make_eval_embed_fn(cal, fb, device=dev)({"wav": wav[:4]})
+        cpu = make_eval_embed_fn(cpu_model, fb, device="cpu")(
+            {"wav": wav[:4].cpu()})
+        cos32 = row_cosines(emb32.cpu(), cpu).min().item()
+        err32 = (emb32.cpu() - cpu).abs().max().item()
+        cross = row_cosines(emb32[:-1], emb32[1:]).mean().item()
+        if cos32 < 0.9999:
+            raise AssertionError(f"{name}: f32 card vs CPU cosine {cos32}")
+        launched = " ".join(f"{k}={v}" for k, v in want.items() if v) \
+            or "none"
+        parts.append(f"{name} (feat {feat}, embed {embed}) launches "
+                     f"{launched}; kernel vs plain min cosine bf16 "
+                     f"{cos[torch.bfloat16]:.7f} f32 "
+                     f"{cos[torch.float32]:.7f}; calibrated f32 card vs "
+                     f"CPU {cos32:.7f} (max abs err {err32:.3g}, between "
+                     f"utterances {cross:.4f}); frame features {frame}")
+        del cal, cpu_model
+        torch.cuda.empty_cache()
+    print(f"zoo slice: B={SLICE_BATCH} x {CHUNK_SAMPLES} samples, one "
+          "forward a type: " + "; ".join(parts)
+          + f"; {time.perf_counter() - t_start:.1f} s")
+
+
+def phase_zoo_serving(dev):
+    """A server from eres2net.yaml and a .pt of the calibrated
+    ERes2Net34_Base: three waves of concurrent /embed requests in buckets
+    of 1, 2 and 3 s; each reply against the same request padded and
+    masked to its bucket (cosine >= 0.99999)."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 41)
+    wavs = [voice(rng, n) for n in (12000, 16000, 20800, 27200, 32000,
+                                    35200, 41600, 48000)]
+    model = zoo_model(ZOO[0][1], 80, dev, calibrate=True)
+    with open(os.path.join(V2_CONF, "eres2net.yaml")) as f:
+        yaml_text = f.read()
+    embs, served, launches = serve_waves(
+        model, dev, [wavs[:2], wavs[2:5], wavs[5:]], yaml_text)
+    if launches != dict(NO_LAUNCH, masked=len(served)):
+        raise AssertionError(f"ERes2Net serving launches {launches} for "
+                             f"{len(served)} batches")
+    if sorted({n for _, n in served}) != [16000, 32000, 48000]:
+        raise AssertionError(f"served buckets {served}")
+    fn = make_eval_embed_fn(model, FbankConfig(), device=dev)
+    bucket = []
+    for w in wavs:
+        n = -(-len(w) // 16000) * 16000
+        padded, mask = np.zeros((1, n), np.float32), np.zeros((1, n),
+                                                              np.float32)
+        padded[0, :len(w)], mask[0, :len(w)] = w, 1.0
+        bucket.append(fn({"wav": padded, "mask": mask}).cpu())
+    vs_bucket = row_cosines(embs, torch.cat(bucket))
+    if vs_bucket.min().item() < 0.99999:
+        raise AssertionError(f"ERes2Net served replies vs bucket "
+                             f"{vs_bucket}")
+    print(f"zoo serving: ERes2Net34_Base from eres2net.yaml + .pt (BN "
+          f"statistics from synthetic voices), {len(wavs)} /embed "
+          f"(0.75-3 s) in three concurrent waves; batches {served}, "
+          f"launches masked={launches['masked']}; min cosine vs the bucket "
+          f"embedded directly {vs_bucket.min().item():.7f}; "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+
+def zoo_modules(make, embed, head, dev):
+    return build_train_state(
+        lambda: (make(), get_projection({
+            "project_type": head, "embed_dim": embed,
+            "num_class": NUM_CLASS, "scale": 32.0})),
+        RESNET_SGD, seed=SEED, device=dev)
+
+
+def phase_zoo_train(dev, root, corpus):
+    """bin/train.py on eres2net.yaml with conv_dw_mode packed (B=128, 3
+    steps), the extractor on its checkpoint; 3 bf16 steps in-process for
+    the other six models (B=32, ReDimNet2B6 with its sphereface2 head);
+    one step packed against one native for ERes2Net34_Base in bf16 and
+    f32 at B=32 (loss within 1e-3 relative, each layer's update at cosine
+    >= 0.999)."""
+    t_start = time.perf_counter()
+    parts = []
+    exp = os.path.join(root, "eres2net")
+    step, launches, clock = run_recipe(
+        os.path.join(V2_CONF, "eres2net.yaml"),
+        corpus + ["conv_dw_mode=packed", f"exp_dir={exp}"], 3, RESNET_BATCH,
+        timed=1)
+    conv_dw_pack.set_conv_dw_mode("native")
+    if launches != dict(NO_LAUNCH, dw=3 * ERES_DW_PER_STEP):
+        raise AssertionError(f"eres2net.yaml packed: launches {launches}, "
+                             f"want dw={3 * ERES_DW_PER_STEP}")
+    del step
+    loaded = load_model_for_eval(load_yaml(os.path.join(exp, "config.yaml")),
+                                 os.path.join(exp, "models", "model_0.pt"),
+                                 device=dev)
+    emb = make_eval_embed_fn(loaded, FbankConfig(), device=dev)(
+        {"wav": np.random.default_rng(SEED + 42).uniform(
+            -0.5, 0.5, (1, 48000)).astype(np.float32)})
+    if emb.shape != (1, 512) or not torch.isfinite(emb).all():
+        raise AssertionError(f"eres2net.yaml checkpoint embedding {emb}")
+    del loaded
+    parts.append(f"bin/train.py eres2net.yaml conv_dw_mode packed bf16 "
+                 f"B={RESNET_BATCH}: 3 steps, row 10 "
+                 f"{launches['dw'] // 3} a step, losses "
+                 + " ".join(f"{v:.3f}" for v in clock["losses"])
+                 + f", {clock['ms']:.1f} ms the second step (host clock), "
+                 f"the third {clock['dev_ms']:.2f} ms device "
+                 f"({clock['s']:.1f} s with start-up); the extractor on "
+                 f"model_0.pt gave a (1, 512) embedding")
+    # redimnet2.yaml unchanged: its tfmel frontend and sphereface2 head
+    exp = os.path.join(root, "redimnet2")
+    step, launches, clock = run_recipe(
+        os.path.join(V2_CONF, "redimnet2.yaml"),
+        corpus + [f"exp_dir={exp}"], 2, TRAINER_BATCH)
+    if launches != NO_LAUNCH or step.featurize_fn is None:
+        raise AssertionError(f"redimnet2.yaml: launches {launches}, "
+                             "want none, through the tfmel hook")
+    del step
+    configs = load_yaml(os.path.join(exp, "config.yaml"))
+    loaded = load_model_for_eval(configs, os.path.join(
+        exp, "models", "model_0.pt"), device=dev)
+    zero_counts()
+    emb = make_eval_embed_fn(loaded, FbankConfig(), device=dev,
+                             featurize_fn=featurizers(configs)[1])(
+        {"wav": np.random.default_rng(SEED + 47).uniform(
+            -0.5, 0.5, (2, 48000)).astype(np.float32)})
+    torch.cuda.synchronize()
+    if emb.shape != (2, 192) or not torch.isfinite(emb).all() or \
+            counts() != dict(NO_LAUNCH, softmax=1, masked=1):
+        raise AssertionError(f"redimnet2.yaml checkpoint: {emb.shape}, "
+                             f"launches {counts()}")
+    del loaded
+    parts.append(f"bin/train.py redimnet2.yaml (tfmel frontend, "
+                 f"sphereface2) B={TRAINER_BATCH}: 2 steps, losses "
+                 + " ".join(f"{v:.3f}" for v in clock["losses"])
+                 + f" ({clock['s']:.1f} s); the extractor through tfmel "
+                 "on model_0.pt gave (2, 192), rows 6 and 7 once")
+    rng = np.random.default_rng(SEED + 43)
+    batch = train_batch(rng, TRAINER_BATCH, dev)
+    for name, make, feat, embed, _ in ZOO[1:]:
+        head = "sphereface2" if name.startswith("ReDimNet2") else "arc_margin"
+        model, proj, opt, gen = zoo_modules(make, embed, head, dev)
+        one = make_train_step(model, proj, opt, lambda s: 0.1, lambda s: 0.2,
+                              FbankConfig(num_mel_bins=feat, dither=1.0),
+                              AugConfig(), compute_dtype=torch.bfloat16,
+                              device=dev, generator=gen)
+        zero_counts()
+        t0 = time.perf_counter()
+        losses = [float(one(batch)["loss"]) for _ in range(3)]
+        sec = time.perf_counter() - t0
+        if not all(np.isfinite(losses)) or counts() != NO_LAUNCH:
+            raise AssertionError(f"{name} train steps: losses {losses}, "
+                                 f"launches {counts()}")
+        parts.append(f"{name} + {head} losses "
+                     + " ".join(f"{v:.3f}" for v in losses)
+                     + f" ({sec:.1f} s)")
+        del model, proj, opt, one
+        torch.cuda.empty_cache()
+    bad = []
+    for dtype in (torch.bfloat16, torch.float32):
+        rel, worst, _ = compare_dw_modes(
+            dev, batch, dtype, lambda d: zoo_modules(ZOO[0][1], 512,
+                                                     "arc_margin", d),
+            ERES_DW_PER_STEP)
+        parts.append(f"ERes2Net34_Base packed vs native {str(dtype)[6:]} "
+                     f"B={TRAINER_BATCH}: loss rel {rel:.2e}, update cosine "
+                     "per layer lowest "
+                     + ", ".join(f"{n} {c:.6f}" for n, c in worst))
+        if rel > 1e-3 or worst[0][1] < 0.999:
+            bad.append(str(dtype))
+    torch.cuda.empty_cache()
+    print("zoo train: " + "; ".join(parts)
+          + f"; {time.perf_counter() - t_start:.1f} s")
+    if bad:
+        raise AssertionError(f"ERes2Net packed and native steps disagree "
+                             f"in {bad}")
+    return launches
+
+
+def phase_repvgg_deploy(dev, root, corpus):
+    """repvgg.yaml: bin/train.py (3 steps); its model_0.pt with BN
+    statistics from synthetic voices (three steps leave them near their
+    init, and 33 unnormalised three-branch blocks then give embeddings of
+    ~1e9), saved as a .pt; bin/convert_repvgg.py on it, bin/extract.py
+    with the train form and with `deploy: true` in f32 over 8 utterances,
+    one batch and so one row 7 launch each. Deploy against train form at
+    cosine >= 0.99999; and, since three steps leave the utterances'
+    embeddings nearly collinear (neighbours at cosine ~0.9997) so that
+    the cosine bar alone cannot tell a wrong fusion, each utterance's
+    deploy error within 1e-3 of the nearest distance between two
+    utterances' train-form embeddings."""
+    t_start = time.perf_counter()
+    exp = os.path.join(root, "repvgg")
+    step, _, clock = run_recipe(os.path.join(V2_CONF, "repvgg.yaml"),
+                                corpus + [f"exp_dir={exp}"], 3, 64)
+    del step
+    config = os.path.join(exp, "config.yaml")
+    model = load_model_for_eval(load_yaml(config), os.path.join(
+        exp, "models", "model_0.pt"), device=dev)
+    trained = os.path.join(exp, "models", "calibrated.pt")
+    torch.save(calibrate_bn(model, dev).state_dict(), trained)
+    del model
+    rng = np.random.default_rng(SEED + 44)
+    eval_list = os.path.join(root, "repvgg_eval.list")
+    with open(eval_list, "w") as f:
+        for i in range(8):
+            path = os.path.join(root, f"rep{i}.wav")
+            write_wav(path, voice(rng, int(rng.uniform(1.5, 3.0) * 16000)),
+                      16000)
+            f.write(json.dumps({"key": f"rep{i}", "wav": path}) + "\n")
+    deployed = os.path.join(exp, "models", "deploy.pt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        convert_repvgg.main(["--checkpoint", trained, "--save_path",
+                             deployed])
+    embs, launches = {}, {}
+    for form, ckpt, over in (("train", trained, []),
+                             ("deploy", deployed, ["model_args.deploy=true"])):
+        zero_counts()
+        extract_cli.main(["--config", config, "--checkpoint", ckpt,
+                          "--data_list", eval_list, "--out_prefix",
+                          os.path.join(root, f"rep_{form}"),
+                          "--batch_size", "8"] + over)
+        torch.cuda.synchronize()
+        launches[form] = counts()["masked"]
+        embs[form] = read_vec_scp_dict(os.path.join(root,
+                                                    f"rep_{form}.scp"))
+    keys = sorted(embs["train"])
+    got = torch.tensor(np.stack([embs["deploy"][k] for k in keys]))
+    want = torch.tensor(np.stack([embs["train"][k] for k in keys]))
+    cos = row_cosines(got, want).min().item()
+    cross = row_cosines(want[:-1], want[1:]).mean().item()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    dist = torch.cdist(want, want).fill_diagonal_(torch.inf)
+    apart = (got - want).norm(dim=1).max().item() / dist.min().item()
+    print(f"repvgg deploy: repvgg.yaml 3 steps at B=64 (losses "
+          + " ".join(f"{v:.3f}" for v in clock["losses"])
+          + f"), BN statistics from synthetic voices, bin/convert_repvgg.py, "
+          f"bin/extract.py f32 over 8 utterances of 1.5-3 s: deploy vs train "
+          f"form min cosine {cos:.7f} (max abs err {rel:.3g} of the largest "
+          f"magnitude {want.abs().max().item():.3g}; train form between "
+          f"neighbouring utterances {cross:.4f}; largest deploy error "
+          f"{apart:.3g} of the nearest distance between two utterances); "
+          f"row 7 launches train "
+          f"{launches['train']} deploy {launches['deploy']}; "
+          f"{time.perf_counter() - t_start:.1f} s")
+    if len(keys) != 8 or cos < 0.99999:
+        raise AssertionError(f"RepVGG deploy vs train form: {len(keys)} "
+                             f"keys, min cosine {cos}")
+    if not apart <= 1e-3:
+        raise AssertionError(f"RepVGG deploy error {apart} of the nearest "
+                             "distance between two utterances, want <= 1e-3")
+    if launches != {"train": 1, "deploy": 1}:
+        raise AssertionError(f"RepVGG extraction: row 7 launches "
+                             f"{launches}, want one a batch")
+
+
+def phase_zoo_timing(dev, smi):
+    """ERes2Net34_Base and XVEC extraction at B=512 x 2 s bf16, with row 7
+    (the kernel route) and then without it (plain pooling): audio-s/s
+    from CUDA events over 5 calls after 2."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 45)
+    wav = torch.as_tensor(rng.uniform(-0.5, 0.5, (B, CHUNK_SAMPLES)).astype(
+        np.float32), device=dev)
+    io_t = torch.bfloat16
+    parts, out = [], {}
+    for name, make, feat, _, _ in (ZOO[0], ZOO[3]):
+        model = zoo_model(make, feat, dev, calibrate=False)
+        embed = make_eval_embed_fn(model, FbankConfig(num_mel_bins=feat),
+                                   compute_dtype=io_t, fbank_conv_dtype=io_t,
+                                   device=dev)
+        rates = {}
+        for route in ("row 7", "plain pooling"):
+            set_pooling_fused(model, False if route == "plain pooling"
+                              else None)
+            ms = cuda_ms(lambda: embed({"wav": wav}), iters=5, warmup=2)
+            rates[route] = (B * CHUNK_SECONDS / (ms / 1e3), ms)
+        out[name] = rates
+        parts.append(f"{name} " + ", ".join(
+            f"{k} {v[0]:.1f} audio-s/s ({v[1]:.2f} ms/batch)"
+            for k, v in rates.items()))
+        del model, embed
+        torch.cuda.empty_cache()
+    print(f"zoo timing [{smi}] extraction B={B} x 2 s bf16: "
+          + "; ".join(parts) + f"; {time.perf_counter() - t_start:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4312,7 +4758,22 @@ def main():
     phase_diar_full(dev, smi)
     phase_backend(dev)
     with tempfile.TemporaryDirectory() as d:
-        phase_recipe_train(dev, smi, phase_aug(dev, smi, d))
+        stores = phase_aug(dev, smi, d)
+        phase_recipe_train(dev, smi, stores)
+        t_zoo = time.perf_counter()
+        phase_zoo_slice(dev)
+        phase_zoo_serving(dev)
+        root = os.path.join(d, "zoo")
+        os.makedirs(root)
+        shard_list, utt2spk = write_shards(root, np.random.default_rng(
+            SEED + 46))
+        corpus = [f"train_data={shard_list}", f"utt2spk={utt2spk}",
+                  f"reverb_data={stores[0]}", f"noise_data={stores[1]}",
+                  "data_type=shard"]
+        phase_zoo_train(dev, root, corpus)
+        phase_repvgg_deploy(dev, root, corpus)
+        phase_zoo_timing(dev, smi)
+        print(f"zoo phases: {time.perf_counter() - t_zoo:.1f} s")
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),

@@ -17,6 +17,7 @@ against the JAX package on the same numpy inputs, in f32 on the CPU.
   0.99999, the bound of the JAX package's own fused-vs-standard test
   (tests/test_pallas_ops.py::test_fused_cam_dense_block_module_matches_standard):
   sums in another order compound through 52 dense layers.
+  `return_frame_feat` (the trunk's frame features) at the same bound.
 - Extraction (`make_eval_embed_fn`) within 1e-4 relative.
 """
 
@@ -267,6 +268,23 @@ def test_campplus_matches_jax(jax_campplus, t, masked):
     _model_close(got, got_layers)
 
 
+def test_campplus_frame_features_match_jax(jax_campplus):
+    """return_frame_feat: the trunk's frame features after out_nonlinear,
+    (B, T', C) at T' = T / 2, masked, at the whole model's bound."""
+    jmodel, variables, _ = jax_campplus
+    x = np.random.default_rng(9).normal(size=(2, 64, FEAT)).astype(
+        np.float32)
+    mask = _ragged_mask(2, 64)
+    want = np.asarray(jax.jit(lambda v, x, m: jmodel.apply(
+        v, x, mask=m, return_frame_feat=True))(
+            variables, jnp.asarray(x), jnp.asarray(mask)))
+    with torch.no_grad():
+        got = _port(variables)(torch.from_numpy(x), torch.from_numpy(mask),
+                               return_frame_feat=True).numpy()
+    assert got.shape == want.shape == (2, 32, 512)
+    _model_close(got, want)
+
+
 def test_campplus_train_mode_matches_flax(jax_campplus):
     """A train-mode forward: the output (batch statistics) and every
     running statistic after flax's momentum update, the FCM's 2-D
@@ -381,15 +399,12 @@ def test_campplus_variables_load_strictly_and_map_back(jax_campplus):
                                   "ECAPA_TDNN_GLOB_c512"])
 def test_rules_are_chosen_by_model_name(name):
     """The port's own copy of the name rules is the JAX package's, chosen
-    by the model's name (the JAX ECAPA list also carries the XI pooling
-    rules, which the port has no module for)."""
+    by the model's name (the ECAPA list with the XI pooling's rules)."""
     got = weights.rules_for(name)
     want = [tuple(r) for r in torch_compat.rules_for(name)]
-    assert got and set(got) <= set(want)
-    if name == "CAMPPlus":
-        assert list(got) == want
-    # a model the port has no rules for (ResNet has them since its port)
-    assert weights.rules_for("ERes2Net34") == ()
+    assert got and list(got) == want
+    # a model the port has no rules for (the neural-frontend families)
+    assert weights.rules_for("whisper_PMFA") == ()
 
 
 def test_ecapa_conversion_is_unchanged():

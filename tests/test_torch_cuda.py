@@ -162,6 +162,29 @@ def test_ecapa_kernel_path_matches_plain_path(cuda):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+def test_xi_vector_ecapa_runs_the_block_kernel(cuda):
+    """XI_VEC_ECAPA_TDNN_c512 in eval: the three SE-Res2 blocks on their
+    kernel and no tail kernel (the tail fuses for ASTP only), against the
+    layer-by-layer path, f32 with a ragged mask."""
+    from wespeaker_tpu_torch.models.xi_vector import XI_VEC_ECAPA_TDNN_c512
+
+    torch.manual_seed(0)
+    model = XI_VEC_ECAPA_TDNN_c512(80, 192).to(cuda).eval()
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((3, 150, 80)).astype(np.float32),
+                        device=cuda)
+    mask = torch.ones(3, 150, device=cuda)
+    mask[1, 100:] = 0
+    with torch.inference_mode():
+        s0 = se_block.fused_se_res2_block.launches
+        t0 = mfa_astp.fused_mfa_astp.launches
+        got = model(x, mask)
+        assert se_block.fused_se_res2_block.launches == s0 + 3
+        assert mfa_astp.fused_mfa_astp.launches == t0
+        want = model.set_fused(False)(x, mask)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
 def test_ecapa_256_takes_the_layers_and_the_tail_kernel(cuda):
     """ECAPA_TDNN at 256 channels (the quality smoke's model) in bf16 eval:
     its SE blocks (group width 32) run layer by layer, as the JAX width
@@ -581,7 +604,16 @@ DW_CASES = [(torch.bfloat16, 2, 80, 200, 1, 32),
             (torch.bfloat16, 3, 5, 17, 64, 64),
             (torch.bfloat16, 2, 1, 17, 1, 32),
             (torch.float32, 2, 9, 17, 8, 24),
-            (torch.float32, 1, 1, 250, 64, 64)]
+            (torch.float32, 1, 1, 250, 64, 64),
+            # ERes2Net34's and Res2Net34's Res2 convs of widths 16 (layer1)
+            # and 24 (ERes2Net34_aug's layer1), the 1 -> 64 stem of
+            # ERes2Net34_aug, SimAM-ResNet34 and the RepVGGs' 64-wide stages
+            (torch.bfloat16, 2, 80, 200, 16, 16),
+            (torch.bfloat16, 2, 80, 200, 24, 24),
+            (torch.bfloat16, 2, 80, 200, 1, 64),
+            (torch.float32, 2, 40, 100, 16, 16),
+            (torch.float32, 2, 40, 100, 24, 24),
+            (torch.float32, 2, 80, 200, 1, 64)]
 
 
 @pytest.mark.parametrize("dtype,b,h,w,ci,co", DW_CASES)
@@ -741,7 +773,13 @@ MASKED_CASES = [c + (0.0,) for c in POOL_CASES] + [
     (torch.bfloat16, 5, 9, 7, False, 0.0),
     (torch.bfloat16, 3, 30, 600, False, 0.0),
     (torch.float32, 4, 200, 256, True, 1e3),
-    (torch.bfloat16, 65536, 2, 8, False, 0.0)]
+    (torch.bfloat16, 65536, 2, 8, False, 0.0),
+    # the TSTP widths of ERes2Net34 and Res2Net34 (8 x 64 x 10 = 5120 at
+    # T' = 25) and of the x-vector (1500 at 200 - 14 = 186 frames)
+    (torch.bfloat16, 8, 25, 5120, True, 0.0),
+    (torch.float32, 8, 25, 5120, False, 0.0),
+    (torch.bfloat16, 8, 186, 1500, True, 0.0),
+    (torch.float32, 8, 186, 1500, True, 0.0)]
 
 
 @pytest.mark.parametrize("ddof", [0, 1])

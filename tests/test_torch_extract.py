@@ -17,7 +17,8 @@ the CPU.
   msgpack save_checkpoint), embeddings compared by key within 1e-4 of the
   largest magnitude (both write in bucket order), in wav and feat modes,
   linear and pow2 buckets, and each stripe of num_splits=2.
-- Refusals: `featurize_fn`, `data_parallel` over more than one card, an
+- A `featurize_fn` (a non-fbank frontend's hook) replaces the fbank and
+  CMVN. Refusals: `data_parallel` over more than one card, an
   unknown `precision`; `precision="float32"` turns TF32 off inside the
   call only.
 """
@@ -161,8 +162,15 @@ def test_feature_input_matches_jax():
         {"feat": feat, "mask": mask}).numpy()
     assert got.shape == (3, EMB)
     _close(got, want, 1e-5)
-    with pytest.raises(NotImplementedError, match="featurize_fn"):
-        make_eval_embed_fn(model, device="cpu", featurize_fn=lambda b: b)
+    # a frontend hook (train/composite.py::featurizers) takes the place of
+    # the fbank and CMVN: handed the CMVN'd features, it gives the same
+    from wespeaker_tpu_torch.frontend import apply_cmvn
+    normed = apply_cmvn(torch.from_numpy(feat),
+                        mask=torch.from_numpy(mask)).numpy()
+    hooked = make_eval_embed_fn(model, device="cpu",
+                                featurize_fn=lambda wav, m: (wav, m))(
+        {"wav": normed, "mask": mask}).numpy()
+    np.testing.assert_array_equal(hooked, got)
 
 
 @pytest.fixture(scope="module")

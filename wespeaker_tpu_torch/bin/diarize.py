@@ -20,6 +20,7 @@ bfloat16 (utils/eval_device.py), through the model's kernels.
 import argparse
 
 from wespeaker_tpu_torch.bin.extract import fbank_config, load_model_for_eval
+from wespeaker_tpu_torch.train.composite import frontend_type
 from wespeaker_tpu_torch.data.pipeline import resample_array
 from wespeaker_tpu_torch.data.wav_io import read_wav
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
@@ -40,6 +41,9 @@ def diarize(config, checkpoint_path, wav_scp, out_rttm, sad_rttm=None,
     (out_rttm, DER against ref_rttm or None). Runs on the card unless the
     caller passes device="cpu"."""
     configs = parse_config_or_kwargs(config, overrides, **kwargs)
+    if frontend_type(configs) != "fbank":
+        raise ValueError("diarization windows are fbank; the "
+                         f"{frontend_type(configs)} frontend is not")
     dev = resolve_device(device)
     model = load_model_for_eval(configs, checkpoint_path, device=dev)
     model, compute_dtype = prepare_eval_placement(model, bf16, data_parallel,

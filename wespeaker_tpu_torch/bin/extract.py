@@ -19,7 +19,9 @@ only; with `data_type: feat` the list holds kaldi feature matrices
 frame buckets. The checkpoint is a port `.pt` file (a trainer's
 `model_<n>.pt`, `final_model.pt`, an averaged model or a state_dict) or
 the JAX package's msgpack `.ckpt` (its trainers' `model_<n>.ckpt`,
-`avg_model.ckpt`), told apart by content.
+`avg_model.ckpt`), told apart by content. A config with
+`dataset_args.frontend: tfmel` embeds through that frontend
+(train/composite.py::featurizers) instead of the fbank.
 """
 
 import argparse
@@ -40,8 +42,9 @@ from wespeaker_tpu_torch.data.pipeline import (read_audio_any,
                                                read_vec_scp_iterlines,
                                                resample_array)
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
-from wespeaker_tpu_torch.frontend.fbank import FbankConfig
-from wespeaker_tpu_torch.train.composite import build_model
+from wespeaker_tpu_torch.frontend.fbank import FbankConfig, no_tf32
+from wespeaker_tpu_torch.train.composite import (build_model, featurizers,
+                                                 frontend_type)
 from wespeaker_tpu_torch.train.train_step import make_eval_embed_fn
 from wespeaker_tpu_torch.utils.config import parse_config_or_kwargs
 from wespeaker_tpu_torch.utils.eval_device import prepare_eval_placement
@@ -155,15 +158,8 @@ def matmul_precision(precision: str):
     if precision == "default":
         yield
         return
-    old = (torch.backends.cuda.matmul.allow_tf32,
-           torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with no_tf32(matmul=True, cudnn=True):
         yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = old
 
 
 def extract(config, checkpoint_path, data_list, out_prefix, batch_size=8,
@@ -197,9 +193,14 @@ def _extract_inner(configs, checkpoint_path, data_list, out_prefix,
     fbank_cfg = fbank_config(configs)
     rate = fbank_cfg.sample_rate
     feat_mode = configs.get("data_type") == "feat"
+    featurize_eval = featurizers(configs)[1]
+    if feat_mode and featurize_eval is not None:
+        raise ValueError("data_type feat holds fbank matrices; the "
+                         f"{frontend_type(configs)} frontend reads wavs")
     embed_fn = make_eval_embed_fn(model, fbank_cfg,
                                   compute_dtype=compute_dtype, device=dev,
-                                  from_wav=not feat_mode)
+                                  from_wav=not feat_mode,
+                                  featurize_fn=featurize_eval)
     if feat_mode:
         batches = eval_feat_batches(
             iter_feats_from_list(data_list, num_splits, split_index),

@@ -13,7 +13,8 @@ spawned worker processes (data/dataset.py::MPPrefetcher; 0 is one
 thread), the model and any head of models/projections.py (3x classes
 under speed perturb; `do_lm` keeps them), iteration-granular LR and
 margin schedules with
-scale_ratio = batch / 64, fbank and spec-aug on the device, bf16 AMP with
+scale_ratio = batch / 64, fbank and spec-aug on the device (or the tfmel
+frontend with its own masks, train/composite.py::featurizers), bf16 AMP with
 `enable_amp`, a `checkpoint` (resume) or `model_init` (weights only) load, from the
 port's `.pt` or the JAX package's `.ckpt` (a JAX DINO checkpoint's teacher
 backbone for `model_init`, the cnceleb v3_finetune entry),
@@ -28,7 +29,7 @@ eligible 3x3 conv (stride 1, Ci and Co <= 64) with the tap-packed kernel.
 
 Not ported yet, and refused rather than dropped: `distributed_args`
 (multi-card training) and a model axis > 1 (ROADMAP.md Queue 1 item 4,
-DDP), non-fbank frontends (item 7) and `profile_args` (item 8).
+DDP), the neural frontends (item 7) and `profile_args` (item 8).
 """
 
 import argparse
@@ -48,7 +49,8 @@ from wespeaker_tpu_torch.device import DeviceLike, resolve_device
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig
 from wespeaker_tpu_torch.models.projections import get_projection
 from wespeaker_tpu_torch.ops.conv_dw_pack import set_conv_dw_mode
-from wespeaker_tpu_torch.train.composite import build_model, jax_init_
+from wespeaker_tpu_torch.train.composite import (build_model, featurizers,
+                                                 jax_init_)
 from wespeaker_tpu_torch.train.optim import lr_scale_ratio
 from wespeaker_tpu_torch.train.train_step import (AugConfig,
                                                   build_train_state,
@@ -191,7 +193,8 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
         model, projection, optimizer, lr_fn, margin_fn, fbank_cfg, aug,
         compute_dtype=(torch.bfloat16 if configs.get("enable_amp")
                        else torch.float32),
-        device=dev, generator=generator)
+        device=dev, generator=generator,
+        featurize_fn=featurizers(configs)[0])
 
     start_epoch = 0
     if configs.get("model_init"):

@@ -35,6 +35,7 @@ from wespeaker_tpu_torch.diar.pipeline import (diarize_wav, embed_windows,
 from wespeaker_tpu_torch.diar.rttm import RTTM_LINE
 from wespeaker_tpu_torch.diar.vad import energy_vad
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig, compute_fbank
+from wespeaker_tpu_torch.train.composite import frontend_type
 from wespeaker_tpu_torch.utils.config import load_yaml
 
 CKPT_NAMES = ("avg_model.ckpt", "final_model.ckpt", "model.ckpt")
@@ -55,6 +56,9 @@ class Speaker:
     def __init__(self, model_dir: str, device: DeviceLike = None):
         self.device = resolve_device(device)
         configs = load_yaml(os.path.join(model_dir, "config.yaml"))
+        if frontend_type(configs) != "fbank":
+            raise ValueError("Speaker computes fbank; the "
+                             f"{frontend_type(configs)} frontend is not")
         self.configs = configs
         self.model = load_model_for_eval(configs,
                                          model_checkpoint(model_dir),

@@ -136,15 +136,20 @@ def _fused_dft_kernel(cfg: FbankConfig) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def _no_tf32():
-    """A float32 conv on the card runs in TF32 by default; the f32 fbank is
-    exact f32, as in JAX, so TF32 is off for the duration of the call."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+def no_tf32(matmul: bool = False, cudnn: bool = True):
+    """A float32 cuDNN conv (and, where allowed, a matmul) on the card runs
+    in TF32 by default; inside the block the chosen ones are exact f32, as
+    in JAX. The f32 fbank turns off cuDNN's TF32 for its DFT conv."""
+    flags = [b for b, on in ((torch.backends.cuda.matmul, matmul),
+                             (torch.backends.cudnn, cudnn)) if on]
+    prev = [b.allow_tf32 for b in flags]
+    for b in flags:
+        b.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        for b, p in zip(flags, prev):
+            b.allow_tf32 = p
 
 
 def _mel_log(power, cfg: FbankConfig, conv_dtype):
@@ -171,7 +176,7 @@ def _fbank_fused(wav: torch.Tensor, cfg: FbankConfig,
     lead = x.shape[:-1]
     x = x.reshape(-1, 1, x.shape[-1]).to(conv_dtype)
     w = kernel.t().unsqueeze(1).to(conv_dtype)  # (2*nbins, 1, win)
-    with _no_tf32():
+    with no_tf32():
         out = F.conv1d(x, w, stride=cfg.window_shift)
     out = out.float().transpose(1, 2)  # (N, T, 2*nbins)
     re, im = out[..., :nbins], out[..., nbins:]

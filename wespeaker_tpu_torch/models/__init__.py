@@ -1,13 +1,19 @@
 """Speaker-model registry: `get_speaker_model(name)` returns a constructor
 `f(feat_dim=..., embed_dim=..., **kwargs) -> nn.Module`, as in
-wespeaker_tpu/models/__init__.py. Ported so far: the ECAPA family,
-CAMPPlus, the Gemini DF-ResNet family, the ResNet family and the ReDimNet
-family (B0-B6)."""
+wespeaker_tpu/models/__init__.py. Every family that fbank features feed
+is ported: ECAPA-TDNN, ResNet, the x-vector, CAM++, ERes2Net, Res2Net,
+Gemini DF-ResNet, SimAM-ResNet, the xi-vector, RepVGG, ReDimNet2 and
+ReDimNet; the neural-frontend families (whisper_PMFA,
+w2vbert_adapter_mfa) are not."""
 
-from wespeaker_tpu_torch.models import (campplus, ecapa_tdnn,
-                                        gemini_dfresnet, redimnet, resnet)
+from wespeaker_tpu_torch.models import (campplus, ecapa_tdnn, eres2net,
+                                        gemini_dfresnet, redimnet, redimnet2,
+                                        repvgg, res2net, resnet, samresnet,
+                                        tdnn, xi_vector)
 
-_MODULES = [ecapa_tdnn, campplus, gemini_dfresnet, resnet, redimnet]
+_MODULES = [ecapa_tdnn, resnet, tdnn, campplus, eres2net, res2net,
+            gemini_dfresnet, samresnet, xi_vector, repvgg, redimnet2,
+            redimnet]
 
 
 def get_speaker_model(model_name: str):

@@ -18,7 +18,8 @@ a CPU tensor its plain version. The choice is made from the configuration
 before the call, never as a fallback. Training and `fused_blocks=False` run
 layer by layer. (The JAX package keeps its Pallas block kernel opt-in for a
 TPU compile cost per shape that a CUDA kernel does not have.)
-`return_frame_feat` is not ported yet.
+`return_frame_feat` returns the trunk's frame features after
+`out_nonlinear`, as the JAX package does.
 """
 
 from collections import OrderedDict
@@ -270,10 +271,11 @@ class CAMPPlus(nn.Module):
             getattr(self.xvector, f"block{i + 1}").fused = fused
         return self
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                return_frame_feat: bool = False) -> torch.Tensor:
         """x: (B, T, F) features; mask: optional (B, T). Returns
-        (B, embed_dim) in x's dtype."""
+        (B, embed_dim) in x's dtype, or with return_frame_feat the trunk's
+        frame features after `out_nonlinear`, (B, T', C)."""
         tv = self.xvector
         h = tv.tdnn(self.head(x))
         if mask is not None:
@@ -282,4 +284,6 @@ class CAMPPlus(nn.Module):
             h = getattr(tv, f"block{i + 1}")(h, mask)
             h = getattr(tv, f"transit{i + 1}")(h)
         h = tv.out_nonlinear(h)
+        if return_frame_feat:
+            return h
         return tv.dense(wide(tv.stats(h, mask))).to(x.dtype)

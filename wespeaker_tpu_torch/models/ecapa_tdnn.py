@@ -18,9 +18,11 @@ backward kernels; the tail has no BatchNorm, so it is exact in training),
 and the SE blocks run layer by layer, as in the JAX package, whose block
 kernel is inference-only. `fused=False` runs every module layer by layer.
 The tail is fused only for ASTP pooling (`pooling_func`, as in the JAX
-package); with TAP, TSDP or TSTP the MFA conv runs as a layer and its
-output goes through the pooling module, which in eval takes
-`ops.pooling`'s masked statistics (TSDP, TSTP).
+package); with any other pooling (TAP, TSDP, TSTP, ASP, MHASTP, MQMHASTP
+or the xi-vectors' XI) the MFA conv runs as a layer and its output goes
+through the pooling module, which in eval takes `ops.pooling`'s masked
+statistics (TSDP, TSTP). `return_frame_feat` returns the MFA conv's
+output, as the JAX package does.
 
 Narrower blocks (width 32 at 256 channels) run layer by layer in eval,
 as the JAX package's width rule routes them, and the tail still takes its
@@ -194,9 +196,8 @@ class ECAPA_TDNN(nn.Module):
         self.layer3 = SE_Res2Block(channels, 3, 1, 3, 3, 8, fused, fused_res2)
         self.layer4 = SE_Res2Block(channels, 3, 1, 4, 4, 8, fused, fused_res2)
         self.conv = nn.Conv1d(channels * 3, _MFA_DIM, kernel_size=1)
-        pool_kw = ({"global_context_att": global_context_att}
-                   if pooling_func == "ASTP" else {})
-        self.pool = get_pooling(pooling_func, _MFA_DIM, **pool_kw)
+        self.pool = get_pooling(pooling_func, _MFA_DIM,
+                                global_context_att=global_context_att)
         self.bn = nn.BatchNorm1d(pooling_out_dim(pooling_func, _MFA_DIM))
         self.linear = nn.Linear(self.bn.num_features, embed_dim)
         self.bn2 = nn.BatchNorm1d(embed_dim) if emb_bn else None
@@ -220,14 +221,17 @@ class ECAPA_TDNN(nn.Module):
                 self.pool.linear1.weight[:, :, 0].t(), self.pool.linear1.bias,
                 self.pool.linear2.weight[:, :, 0].t(), self.pool.linear2.bias)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                return_frame_feat: bool = False) -> torch.Tensor:
         """x: (B, T, F) features; mask: optional (B, T). Returns
-        (B, embed_dim), in f32 for f32 input and x's dtype otherwise."""
+        (B, embed_dim), in f32 for f32 input and x's dtype otherwise, or
+        with return_frame_feat the MFA conv's output (B, T, 1536)."""
         out1 = self.layer1(x)
         out2 = self.layer2(out1, mask)
         out3 = self.layer3(out2, mask)
         out4 = self.layer4(out3, mask)
+        if return_frame_feat:
+            return conv1d(torch.cat([out2, out3, out4], dim=-1), self.conv)
         # the fused tail is the MFA conv + ASTP; any other pooling runs
         # after the conv, as in the JAX package
         fusable = self.fused and self.pooling_func == "ASTP"

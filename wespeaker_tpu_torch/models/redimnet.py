@@ -117,11 +117,13 @@ class ConvNeXtLikeBlock1d(nn.Module):
 
 class ConvNeXtLikeBlock2d(nn.Module):
     """The same on a (B, C, F, T) map: grouped 3x3 convs with
-    groups = C // group_divisor, BN, exact gelu, a pointwise conv."""
+    groups = C // group_divisor, BN, exact gelu (or relu, ReDimNet2's
+    'convnext_like_relu'), a pointwise conv."""
 
     def __init__(self, C: int, kernel_sizes=((3, 3),),
-                 group_divisor: Optional[int] = 1):
+                 group_divisor: Optional[int] = 1, act: str = "gelu"):
         super().__init__()
+        self.act = torch.relu if act == "relu" else F.gelu
         groups = C // group_divisor if group_divisor is not None else 1
         self.dwconvs = nn.ModuleList(
             nn.Conv2d(C, C, ks, padding=(ks[0] // 2, ks[1] // 2),
@@ -131,7 +133,7 @@ class ConvNeXtLikeBlock2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = _cat([conv2d(x, conv) for conv in self.dwconvs], dim=1)
-        h = F.gelu(batch_norm(h, self.norm))
+        h = self.act(batch_norm(h, self.norm))
         return x + conv2d(h, self.pwconv1)
 
 
@@ -198,11 +200,12 @@ class ConvBlock2d(nn.Module):
     """Upstream's wrapper of one 2-D block (its `conv_block`)."""
 
     def __init__(self, c: int, f: int, block_type: str,
-                 group_divisor: Optional[int]):
+                 group_divisor: Optional[int], kernel_sizes=((3, 3),)):
         super().__init__()
-        if block_type == "convnext_like":
-            self.conv_block = ConvNeXtLikeBlock2d(c, ((3, 3),),
-                                                  group_divisor)
+        if block_type in ("convnext_like", "convnext_like_relu"):
+            self.conv_block = ConvNeXtLikeBlock2d(
+                c, tuple(tuple(k) for k in kernel_sizes), group_divisor,
+                "relu" if block_type.endswith("relu") else "gelu")
         elif block_type in ("basic_resnet", "basic_resnet_fwse"):
             self.conv_block = ResBasicBlock(
                 c, c, f, se_channels=min(64, max(c, 32)),
@@ -416,9 +419,8 @@ class ReDimNet(nn.Module):
                                      group_divisor=group_divisor,
                                      out_channels=out_channels, **bone_kw)
         out_dim = out_channels if out_channels is not None else C * feat_dim
-        pool_kw = ({"global_context_att": global_context_att}
-                   if pooling_func == "ASTP" else {})
-        self.pool = get_pooling(pooling_func, out_dim, **pool_kw)
+        self.pool = get_pooling(pooling_func, out_dim,
+                                global_context_att=global_context_att)
         self.seg_1 = nn.Linear(pooling_out_dim(pooling_func, out_dim),
                                embed_dim)
         self.two_emb_layer = two_emb_layer

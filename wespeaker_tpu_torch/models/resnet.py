@@ -84,6 +84,64 @@ class Bottleneck(nn.Module):
         return torch.relu(out + _residual(self.shortcut, x))
 
 
+def stem_input(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, F) features -> the (B, 1, F, T) channels_last map."""
+    return x.transpose(1, 2)[:, None].contiguous(
+        memory_format=torch.channels_last)
+
+
+def pooled_width(feat_dim: int, channels: int) -> int:
+    """C * F' after three stride-2 stages: F' = ceil(feat_dim / 8)."""
+    f = feat_dim
+    for _ in range(3):
+        f = (f - 1) // 2 + 1
+    return f * channels
+
+
+def frame_features(h: torch.Tensor) -> torch.Tensor:
+    """A (B, C, F', T') map as (B, T', F' * C), d = f * C + c."""
+    b, c, f, t = h.shape
+    return h.permute(0, 3, 2, 1).reshape(b, t, f * c)
+
+
+def pool_input(h: torch.Tensor, mask: Optional[torch.Tensor], stride: int):
+    """A (B, C, F', T') map as the pooling's (B, T', C * F') input, d =
+    c * F' + f, and the (B, T) mask strided to T'; None for no mask or a
+    mask shorter than T', as the JAX ResNet takes it."""
+    b, c, f, t = h.shape
+    feat = h.permute(0, 3, 1, 2).reshape(b, t, c * f)
+    if mask is None or mask.shape[1] < t:
+        return feat, None
+    return feat, mask[:, ::stride][:, :t]
+
+
+def embedding_head(model: nn.Module, pooling_func: str, stats_dim: int,
+                   embed_dim: int, two_emb_layer: bool) -> None:
+    """`pool`, `seg_1` and, with two_emb_layer, the affine-free `seg_bn_1`
+    and `seg_2` on `model`."""
+    model.pool = get_pooling(pooling_func, stats_dim)
+    model.seg_1 = nn.Linear(pooling_out_dim(pooling_func, stats_dim),
+                            embed_dim)
+    model.two_emb_layer = two_emb_layer
+    if two_emb_layer:
+        model.seg_bn_1 = nn.BatchNorm1d(embed_dim, affine=False)
+        model.seg_2 = nn.Linear(embed_dim, embed_dim)
+
+
+def embed_map(model: nn.Module, h: torch.Tensor,
+              mask: Optional[torch.Tensor], dtype,
+              return_frame_feat: bool) -> torch.Tensor:
+    """The embedding of the last stage's (B, C, F', T') map through
+    `embedding_head`'s modules, in `dtype`, or with return_frame_feat its
+    frame features."""
+    if return_frame_feat:
+        return frame_features(h)
+    out = model.seg_1(wide(model.pool(*pool_input(h, mask, 8))))
+    if model.two_emb_layer:
+        out = model.seg_2(batch_norm(torch.relu(out), model.seg_bn_1))
+    return out.to(dtype)
+
+
 class ResNet(nn.Module):
     def __init__(self, block: Type[nn.Module], num_blocks: Sequence[int],
                  m_channels: int = 32, feat_dim: int = 40,
@@ -102,40 +160,19 @@ class ResNet(nn.Module):
                 blocks.append(block(in_planes, planes, s))
                 in_planes = planes * block.expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
-        f = feat_dim
-        for _ in range(3):
-            f = (f - 1) // 2 + 1
-        stats_dim = f * in_planes
-        self.pool = get_pooling(pooling_func, stats_dim)
-        self.seg_1 = nn.Linear(pooling_out_dim(pooling_func, stats_dim),
-                               embed_dim)
-        self.two_emb_layer = two_emb_layer
-        if two_emb_layer:
-            self.seg_bn_1 = nn.BatchNorm1d(embed_dim, affine=False)
-            self.seg_2 = nn.Linear(embed_dim, embed_dim)
+        embedding_head(self, pooling_func, pooled_width(feat_dim, in_planes),
+                       embed_dim, two_emb_layer)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                 return_frame_feat: bool = False) -> torch.Tensor:
         """x: (B, T, F) features; mask: optional (B, T). Returns
         (B, embed_dim) in x's dtype, or with return_frame_feat the frame
         features (B, T', F' * C)."""
-        h = x.transpose(1, 2)[:, None].contiguous(
-            memory_format=torch.channels_last)  # (B, 1, F, T)
-        h = torch.relu(batch_norm(conv2d(h, self.conv1), self.bn1))
+        h = torch.relu(batch_norm(conv2d(stem_input(x), self.conv1),
+                                  self.bn1))
         for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
             h = layer(h)
-        b, c, f, t = h.shape
-        if return_frame_feat:
-            return h.permute(0, 3, 2, 1).reshape(b, t, f * c)
-        feat = h.permute(0, 3, 1, 2).reshape(b, t, c * f)
-        fmask = None
-        if mask is not None and mask.shape[1] >= t:
-            # T was strided 8x by the three stride-2 stages
-            fmask = mask[:, ::8][:, :t]
-        out = self.seg_1(wide(self.pool(feat, fmask)))
-        if self.two_emb_layer:
-            out = self.seg_2(batch_norm(torch.relu(out), self.seg_bn_1))
-        return out.to(x.dtype)
+        return embed_map(self, h, mask, x.dtype, return_frame_feat)
 
 
 def _constructor(block, num_blocks):

@@ -150,22 +150,30 @@ def build_embed_fn(configs: dict, checkpoint_path: str,
     package's build_embed_fn returns them. embed: (wavs, mask) -> (B, D)
     numpy embeddings; diarize: (wav, sr) -> merged segments [(utt, begin,
     end, label)] (diar/pipeline.py::diarize_wav: energy VAD, spectral
-    clustering with the count estimated). The checkpoint is a
+    clustering with the count estimated; None under a non-fbank frontend,
+    as in the JAX package; /diarize then answers 501). The
+    checkpoint is a
     torch state_dict (`.pt`, loaded with weights_only=True) or a JAX
     `.ckpt` (bin/extract.py's load_model_for_eval); both run in f32."""
     from wespeaker_tpu_torch.bin.extract import (fbank_config,
                                                  load_model_for_eval)
     from wespeaker_tpu_torch.diar.pipeline import diarize_wav, model_embedder
+    from wespeaker_tpu_torch.train.composite import featurizers
     from wespeaker_tpu_torch.train.train_step import make_eval_embed_fn
 
     dev = resolve_device(device)
     model = load_model_for_eval(configs, checkpoint_path, dev)
     fbank_cfg = fbank_config(configs)
-    fn = make_eval_embed_fn(model, fbank_cfg, device=dev)
-    embed_windows = model_embedder(model)
+    featurize_eval = featurizers(configs)[1]
+    fn = make_eval_embed_fn(model, fbank_cfg, device=dev,
+                            featurize_fn=featurize_eval)
 
     def embed(wavs, mask):
         return fn({"wav": wavs, "mask": mask}).cpu().numpy()
+
+    if featurize_eval is not None:
+        return embed, None  # diarization windows are fbank, as in JAX
+    embed_windows = model_embedder(model)
 
     def diarize(wav, sr):
         return diarize_wav("utt", wav, sr, embed_windows,

@@ -1,17 +1,23 @@
 """Config-driven model build for the trainers, the extractor and the
 server.
 
-Counterpart of wespeaker_tpu/train/composite.py. Only the fbank frontend
-is ported: `dataset_args.frontend` must be "fbank" (the default); the
-neural and DSP frontends of the JAX package come in later slices.
+Counterpart of wespeaker_tpu/train/composite.py. Two frontends are
+ported: `dataset_args.frontend` "fbank" (the default; the trainer and the
+extractor compute it themselves) and "tfmel" (the DSP frontend of the
+ReDimNet2 recipes, frontend/tfmel.py), whose hooks `featurizers` returns
+as the JAX package's BuiltModel carries them. The neural frontends come in
+later slices.
 """
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
+from wespeaker_tpu_torch.frontend.tfmel import TFMelConfig, tfmel
 from wespeaker_tpu_torch.models import get_speaker_model
+
+_FRONTENDS = ("fbank", "tfmel")
 
 
 def _sample_to_frame_mask(mask: torch.Tensor, num_frames: int, hop: int,
@@ -47,14 +53,51 @@ def jax_init_(model: nn.Module) -> nn.Module:
 
 
 
+def frontend_type(configs: Dict[str, Any]) -> str:
+    """The config's frontend; one that is not ported raises."""
+    name = configs.get("dataset_args", {}).get("frontend", "fbank")
+    if name not in _FRONTENDS:
+        raise KeyError(f"frontend {name} is not ported yet; the port "
+                       f"supports {', '.join(_FRONTENDS)}")
+    return name
+
+
+def _tfmel_config(configs: Dict[str, Any]) -> TFMelConfig:
+    return TFMelConfig(**configs["dataset_args"].get("tfmel_args", {}))
+
+
 def build_model(configs: Dict[str, Any]) -> nn.Module:
-    """The speaker model of `configs` (fbank frontend: feat (B, T, F) + mask
-    -> embedding), initialised as the JAX package's (`jax_init_`). The JAX
-    version's BuiltModel carries frontend hooks that only the neural
-    frontends need."""
-    frontend_type = configs.get("dataset_args", {}).get("frontend", "fbank")
-    if frontend_type != "fbank":
-        raise KeyError(f"frontend {frontend_type} is not ported yet; the "
-                       "port supports fbank")
-    return jax_init_(get_speaker_model(configs["model"])(
-        **configs["model_args"]))
+    """The speaker model of `configs` (features (B, T, F) + mask ->
+    embedding), initialised as the JAX package's (`jax_init_`); under the
+    tfmel frontend its feat_dim is the frontend's n_mels, as in the JAX
+    package."""
+    model_args = dict(configs["model_args"])
+    if frontend_type(configs) == "tfmel":
+        model_args["feat_dim"] = _tfmel_config(configs).n_mels
+    return jax_init_(get_speaker_model(configs["model"])(**model_args))
+
+
+def featurizers(configs: Dict[str, Any]) -> Tuple[Optional[Callable],
+                                                  Optional[Callable]]:
+    """The frontend's hooks, the JAX BuiltModel's featurize_train and
+    featurize_eval: (None, None) for fbank, which the trainer and the
+    extractor compute themselves; for tfmel
+    train(wav (B, N), generator) -> feat (B, T, F) with its time and
+    frequency masks, and eval(wav, sample mask or None) -> (feat, frame
+    mask or None)."""
+    if frontend_type(configs) == "fbank":
+        return None, None
+    cfg = _tfmel_config(configs)
+
+    def featurize_train(wav, generator):
+        return tfmel(wav, cfg, train=True, generator=generator)
+
+    def featurize_eval(wav, mask=None):
+        fmask = None
+        if mask is not None:
+            fmask = _sample_to_frame_mask(
+                mask, cfg.num_frames(wav.shape[-1]), cfg.hop_length,
+                cfg.win_length - cfg.hop_length)
+        return tfmel(wav, cfg, mask=fmask), fmask
+
+    return featurize_train, featurize_eval

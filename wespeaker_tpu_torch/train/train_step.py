@@ -107,13 +107,19 @@ def dither_wav(wav: torch.Tensor, amount: float,
 def features_from_batch(batch: Dict[str, Any], fbank_cfg: FbankConfig,
                         aug: Optional[AugConfig],
                         generator: Optional[torch.Generator], train: bool,
-                        device: torch.device) -> torch.Tensor:
+                        device: torch.device,
+                        featurize_fn: Optional[Callable] = None
+                        ) -> torch.Tensor:
     """{'wav': (B, N) in [-1, 1]} or {'feat': (B, T, F)} -> (B, T, F) f32
     normalised features. In training a wav batch with the device-aug
     fields (`aug_mode`, `aug_rir`, `aug_noise`, `aug_snr`) is augmented
     first (device_augment, one block), then dither is added to the
     waveform (after x 2^15) so the fused DFT-conv fbank stays usable;
-    spec-aug follows CMVN."""
+    spec-aug follows CMVN. A `featurize_fn(wav, generator)` (a non-fbank
+    frontend's train hook, train/composite.py::featurizers) replaces the
+    whole chain, as the JAX package's featurize_fn does."""
+    if featurize_fn is not None:
+        return featurize_fn(_on(batch["wav"], device), generator)
     if "feat" in batch:
         feat = _on(batch["feat"], device)
     else:
@@ -145,11 +151,12 @@ class TrainStep:
                  margin_fn: Callable, fbank_cfg: FbankConfig,
                  aug: Optional[AugConfig], compute_dtype: torch.dtype,
                  device: torch.device, generator: torch.Generator,
-                 step: int = 0):
+                 step: int = 0, featurize_fn: Optional[Callable] = None):
         self.model, self.projection = model, projection
         self.optimizer = optimizer
         self.lr_fn, self.margin_fn = lr_fn, margin_fn
         self.fbank_cfg, self.aug = fbank_cfg, aug
+        self.featurize_fn = featurize_fn
         self.compute_dtype, self.device = compute_dtype, device
         self.generator = generator
         self.step = step
@@ -163,7 +170,8 @@ class TrainStep:
         self.projection.train()
         label = _on(batch["label"], self.device, torch.long)
         feat = features_from_batch(batch, self.fbank_cfg, self.aug,
-                                   self.generator, True, self.device)
+                                   self.generator, True, self.device,
+                                   self.featurize_fn)
         embed = self.model(feat.to(self.compute_dtype)).float()
         out = self.projection(embed, label, margin)
         if isinstance(out, tuple):
@@ -185,18 +193,21 @@ def make_train_step(model: nn.Module, projection: nn.Module,
                     aug: Optional[AugConfig] = AugConfig(),
                     compute_dtype: torch.dtype = torch.float32,
                     device: DeviceLike = None,
-                    generator: Optional[torch.Generator] = None
-                    ) -> TrainStep:
+                    generator: Optional[torch.Generator] = None,
+                    featurize_fn: Optional[Callable] = None) -> TrainStep:
     """The train step on `device` (the card unless the caller passes
     device="cpu"); the modules are moved there. `generator` (on that
-    device) drives dither and spec-aug; a fresh unseeded one if None."""
+    device) drives dither and spec-aug (or the frontend's masks); a fresh
+    unseeded one if None. `featurize_fn(wav, generator)` replaces the
+    fbank chain (features_from_batch)."""
     dev = resolve_device(device)
     model.to(dev)
     projection.to(dev)
     if generator is None:
         generator = torch.Generator(device=dev)
     return TrainStep(model, projection, optimizer, lr_fn, margin_fn,
-                     fbank_cfg, aug, compute_dtype, dev, generator)
+                     fbank_cfg, aug, compute_dtype, dev, generator,
+                     featurize_fn=featurize_fn)
 
 
 def build_train_state(build_modules: Callable[[], Tuple[nn.Module,
@@ -236,17 +247,20 @@ def make_eval_embed_fn(model: nn.Module,
     from_wav=False: {"feat": (B, T, F) features, optional "mask": (B, T)
     frame validity}, as the `feat` data type's extraction passes them.
     Either way masked CMVN, then the model. Numpy arrays or tensors.
-    `featurize_fn` (the JAX version's hook for non-fbank frontends) is not
-    ported: the SSL frontends are not, and passing one raises."""
-    if featurize_fn is not None:
-        raise NotImplementedError("featurize_fn (non-fbank frontends) is not "
-                                  "ported yet")
+    `featurize_fn(wav, sample mask or None) -> (feat, frame mask or None)`
+    (a non-fbank frontend's eval hook, train/composite.py::featurizers)
+    replaces the fbank and CMVN, as the JAX version's does."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
 
     def embed_fn(batch: Dict[str, Any]) -> torch.Tensor:
         with torch.inference_mode():
             mask = batch.get("mask")
+            if featurize_fn is not None:
+                feat, fmask = featurize_fn(
+                    _on(batch["wav"], dev),
+                    None if mask is None else _on(mask, dev))
+                return model(feat.to(compute_dtype), fmask).float()
             if from_wav:
                 wav = _on(batch["wav"], dev) * (1 << 15)
                 feat = compute_fbank(wav, fbank_cfg,

@@ -119,8 +119,9 @@ def load_checkpoint(path: str, model: nn.Module,
     (_load_projection). Training-only keys of a `.pt` (the margin head)
     are dropped and BatchNorm counters missing from older ones set to 0,
     each by name; any other mismatch raises. The model's class name
-    (ECAPA_TDNN, CAMPPlus, Gemini_DF_ResNet, ResNet, ReDimNet) chooses the
-    flax name rules of a `.ckpt`."""
+    (ECAPA_TDNN, CAMPPlus, Gemini_DF_ResNet, ResNet, ERes2Net, Res2Net,
+    XVEC, SimAM_ResNet_ASP, RepVGG, ReDimNet, ReDimNet2Wrap) chooses the
+    flax name rules of a `.ckpt` (utils/weights.py::rules_for)."""
     sd, saved_head = read_checkpoint(path, type(model).__name__)
     for key, buf in model.state_dict().items():
         if key.endswith("num_batches_tracked") and key not in sd:

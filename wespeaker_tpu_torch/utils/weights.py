@@ -68,12 +68,47 @@ _LEAF_TO_TORCH = {
     "var": "running_var",
 }
 
+# the XI pooling's children (pool.lin1_relu_bn Sequential)
+_XI_RULES = (
+    (r"\blin1_bn\b", "lin1_relu_bn.2"),
+    (r"\blin1\b", "lin1_relu_bn.0"),
+)
+_ECAPA_RULES = (
+    (r"\bblock_(\d+)\b", r"se_res2block.\1"),
+    (r"\bconvs_(\d+)\b", r"convs.\1"),
+    (r"\bbns_(\d+)\b", r"bns.\1"),
+) + _XI_RULES
+_RESNET_RULES = (
+    (r"\blayer(\d)_(\d+)\b", r"layer\1.\2"),
+    (r"\bshortcut_conv\b", "shortcut.0"),
+    (r"\bshortcut_bn\b", "shortcut.1"),
+)
+_RES2_RULES = _RESNET_RULES + (
+    (r"\bconvs_(\d+)\b", r"convs.\1"),
+    (r"\bbns_(\d+)\b", r"bns.\1"),
+)
+_REDIM_BLOCK_RULES = (
+    (r"\bstem_(\d+)\b", r"stem.\1"),
+    (r"\bstage(\d+)_(\d+)_conv_block\b", r"stage\1.\2.conv_block"),
+    (r"\bstage(\d+)_(\d+)_(\d+)\b", r"stage\1.\2.\3"),
+    (r"\bstage(\d+)_(\d+)\b", r"stage\1.\2"),
+    (r"\bdwconvs_(\d+)\b", r"dwconvs.\1"),
+    (r"\bred_dim_conv_(\d+)\b", r"red_dim_conv.\1"),
+    (r"\btcm_(\d+)\b", r"tcm.\1"),
+    (r"\bfeed_forward_intermediate_dense\b",
+     "feed_forward.intermediate_dense"),
+    (r"\bfeed_forward_output_dense\b", "feed_forward.output_dense"),
+    (r"\bdownsample_conv\b", "downsample.0"),
+    (r"\bdownsample_bn\b", "downsample.1"),
+)
+
+# flax child names -> torch module paths, by model family: the rules of
+# wespeaker_tpu/utils/torch_compat.py's MODEL_RULES
 MODEL_RULES = {
-    "ECAPA_TDNN": (
-        (r"\bblock_(\d+)\b", r"se_res2block.\1"),
-        (r"\bconvs_(\d+)\b", r"convs.\1"),
-        (r"\bbns_(\d+)\b", r"bns.\1"),
-    ),
+    "ECAPA_TDNN": _ECAPA_RULES,
+    "XI_VEC_ECAPA_TDNN": _ECAPA_RULES,
+    "XI_VEC": _XI_RULES,
+    "XVEC": _XI_RULES,
     "CAMPPlus": (
         (r"\blayer(\d)_(\d+)\b", r"layer\1.\2"),
         (r"\bshortcut_conv\b", "shortcut.0"),
@@ -85,70 +120,67 @@ MODEL_RULES = {
         (r"\bdownsample_layers_(\d+)_(\d+)\b", r"downsample_layers.\1.\2"),
         (r"\bstages_(\d+)_(\d+)\b", r"stages.\1.\2"),
     ),
-    "ResNet": (
-        (r"\blayer(\d)_(\d+)\b", r"layer\1.\2"),
-        (r"\bshortcut_conv\b", "shortcut.0"),
-        (r"\bshortcut_bn\b", "shortcut.1"),
+    "ResNet": _RESNET_RULES,
+    "ERes2Net": _RES2_RULES + (
+        (r"\bfuse_models_(\d+)\b", r"fuse_models.\1"),
+        (r"\blocal_att_(\d+)\b", r"local_att.\1"),
     ),
-    "ReDimNet": (
-        (r"\binputs_weights_(\d+)\b", r"inputs_weights.\1"),
-        (r"\bstem_(\d+)\b", r"stem.\1"),
-        (r"\bmfa_(\d+)\b", r"mfa.\1"),
-        (r"\bstage(\d+)_(\d+)_conv_block\b", r"stage\1.\2.conv_block"),
-        (r"\bstage(\d+)_(\d+)_(\d+)\b", r"stage\1.\2.\3"),
-        (r"\bstage(\d+)_(\d+)\b", r"stage\1.\2"),
-        (r"\bdwconvs_(\d+)\b", r"dwconvs.\1"),
-        (r"\bred_dim_conv_(\d+)\b", r"red_dim_conv.\1"),
-        (r"\btcm_(\d+)\b", r"tcm.\1"),
-        (r"\bfeed_forward_intermediate_dense\b",
-         "feed_forward.intermediate_dense"),
-        (r"\bfeed_forward_output_dense\b", "feed_forward.output_dense"),
+    "Res2Net": _RES2_RULES,
+    "SimAM_ResNet": (
+        (r"\blayer(\d)_(\d+)\b", r"layer\1.\2"),
         (r"\bdownsample_conv\b", "downsample.0"),
         (r"\bdownsample_bn\b", "downsample.1"),
     ),
-}
-
-# the inverse of MODEL_RULES: torch names -> flax names
-INVERSE_RULES = {
-    "ECAPA_TDNN": (
-        (r"\bse_res2block\.(\d+)\b", r"block_\1"),
-        (r"\bconvs\.(\d+)\b", r"convs_\1"),
-        (r"\bbns\.(\d+)\b", r"bns_\1"),
-    ),
-    "CAMPPlus": (
-        (r"\blayer(\d)\.(\d+)\b", r"layer\1_\2"),
-        (r"\bshortcut\.0\b", "shortcut_conv"),
-        (r"\bshortcut\.1\b", "shortcut_bn"),
-        (r"\bout_nonlinear\.batchnorm\b", "out_nonlinear_bn"),
-        (r"\bnonlinear(\d?)\.batchnorm\b", r"nonlinear\1_bn"),
-    ),
-    "Gemini": (
-        (r"\bdownsample_layers\.(\d+)\.(\d+)\b",
-         r"downsample_layers_\1_\2"),
-        (r"\bstages\.(\d+)\.(\d+)\b", r"stages_\1_\2"),
-    ),
-    "ResNet": (
-        (r"\blayer(\d)\.(\d+)\b", r"layer\1_\2"),
-        (r"\bshortcut\.0\b", "shortcut_conv"),
-        (r"\bshortcut\.1\b", "shortcut_bn"),
+    # keyed by the port's (and upstream's) class name, which the loader
+    # passes; torch_compat keys it by the constructors' prefix `REPVGG`
+    "RepVGG": (
+        (r"\bstage(\d)_(\d+)\b", r"stage\1.\2"),
     ),
     "ReDimNet": (
-        (r"\binputs_weights\.(\d+)\b", r"inputs_weights_\1"),
-        (r"\bstem\.(\d+)\b", r"stem_\1"),
-        (r"\bmfa\.(\d+)\b", r"mfa_\1"),
-        (r"\bstage(\d+)\.(\d+)\.conv_block\b", r"stage\1_\2_conv_block"),
-        (r"\bstage(\d+)\.(\d+)\.(\d+)\b", r"stage\1_\2_\3"),
-        (r"\bstage(\d+)\.(\d+)\b", r"stage\1_\2"),
-        (r"\bdwconvs\.(\d+)\b", r"dwconvs_\1"),
-        (r"\bred_dim_conv\.(\d+)\b", r"red_dim_conv_\1"),
-        (r"\btcm\.(\d+)\b", r"tcm_\1"),
-        (r"\bfeed_forward\.intermediate_dense\b",
-         "feed_forward_intermediate_dense"),
-        (r"\bfeed_forward\.output_dense\b", "feed_forward_output_dense"),
-        (r"\bdownsample\.0\b", "downsample_conv"),
-        (r"\bdownsample\.1\b", "downsample_bn"),
-    ),
+        (r"\binputs_weights_(\d+)\b", r"inputs_weights.\1"),
+        _REDIM_BLOCK_RULES[0],
+        (r"\bmfa_(\d+)\b", r"mfa.\1"),
+    ) + _REDIM_BLOCK_RULES[1:],
+    "ReDimNet2": (
+        (r"\bstage(\d+)_0_w\b", r"stage\1.0.w"),
+        (r"\bfin_wght1d_w\b", "fin_wght1d.w"),
+    ) + _REDIM_BLOCK_RULES,
 }
+# pooling children of every family: torch_compat's COMMON_RULES (MHASTP's
+# heads, MQMHASTP's queries) and ASP's `attention` Sequential, which the
+# JAX package maps only under SimAM_ResNet and W2VBert
+COMMON_RULES = (
+    (r"\bheads_att_trans_(\d+)\b", r"heads_att_trans.\1"),
+    (r"\bn_query_(\d+)\b", r"n_query.\1"),
+    (r"\batt_conv1\b", "attention.0"),
+    (r"\batt_bn\b", "attention.2"),
+    (r"\batt_conv2\b", "attention.3"),
+)
+
+
+_GROUP = re.compile(r"\((\\d[+?]?)\)")
+
+
+def _inverse(rules):
+    """The torch -> flax rules of flax -> torch ones, in the same order:
+    each replacement becomes a pattern (its \\N the Nth group of the
+    rule's pattern) and each pattern's text the replacement."""
+    out = []
+    for pat, repl in rules:
+        groups = _GROUP.findall(pat)
+        inv = repl.replace(".", r"\.")
+        for n, g in enumerate(groups, start=1):
+            inv = inv.replace(f"\\{n}", f"({g})")
+        count = iter(range(1, len(groups) + 1))
+        back = _GROUP.sub(lambda _: f"\\{next(count)}",
+                          pat.replace(r"\b", ""))
+        out.append((r"\b" + inv + r"\b", back))
+    return tuple(out)
+
+
+# the inverse of MODEL_RULES and COMMON_RULES: torch names -> flax names
+INVERSE_RULES = {k: _inverse(v) for k, v in MODEL_RULES.items()}
+INVERSE_COMMON = _inverse(COMMON_RULES)
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
     for k, v in tree.items():
@@ -173,7 +205,7 @@ def rules_for(model_name: str) -> Tuple[Tuple[str, str], ...]:
 
 def _torch_key(mods, leaf: str, rules) -> str:
     key = ".".join(mods + (_LEAF_TO_TORCH.get(leaf, leaf),))
-    for pat, repl in rules:
+    for pat, repl in tuple(rules) + COMMON_RULES:
         key = re.sub(pat, repl, key)
     return key
 
@@ -229,7 +261,7 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
     {"params", "batch_stats"} tree of numpy f32 arrays that
     from_jax_variables reads (its exact inverse)."""
     family = _family(model_name)
-    rules = INVERSE_RULES[family] if family else ()
+    rules = (INVERSE_RULES[family] if family else ()) + INVERSE_COMMON
     out = {"params": {}, "batch_stats": {}}
     for key, value in state_dict.items():
         if key.endswith("num_batches_tracked") or (
