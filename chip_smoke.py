@@ -27,7 +27,9 @@ Phases, each printing one line:
               (rtol/atol 1e-4, each gradient scaled by its largest
               magnitude), except db1 against bf16 autograd (cosine >=
               0.99, see phase_train_kernels); db2 must be exactly zero;
-              then bf16 at C=1024 (random MFA weights), B=3, T=37, and
+              then bf16 at the WavLM + ECAPA recipes' shapes (T=149 at
+              B=256, T=299 at B=64), at C=1024 (random MFA weights),
+              B=3, T=37, and
               at C=256 (random MFA weights), B=64, T=200, bf16 and f32,
               each without the global context (the smoke's model) and
               with it;
@@ -292,9 +294,9 @@ Phases, each printing one line:
               within DER 0.05 of the plain path's; the window embeddings
               of the bf16 kernel path against the f32 plain path, and of
               the kernel path against the plain path in one type (bf16,
-              f32), at cosine >= 0.9999; each run's DER against the turns
-              printed
-              without a bar; an EmbeddingServer from the same YAML and
+              f32), at cosine >= 0.9999; two UMAP layouts of the same
+              window embeddings bit-identical; each run's DER against the
+              turns printed without a bar; an EmbeddingServer from the same YAML and
               checkpoint answers /diarize with the segments of
               diarize_wav in-process on the same model (energy VAD,
               spectral, f32 kernel path); cli/speaker.py's Speaker on a
@@ -417,7 +419,33 @@ Phases, each printing one line:
               model_args.deploy=true: cosine >= 0.99999;
  45. zoo timing  ERes2Net34_Base and XVEC extraction at B=512 x 2 s bf16
               with row 7 and then with plain pooling (CUDA events, 5
-              calls after 2), with the card's name and power limit.
+              calls after 2), with the card's name and power limit;
+ 46. frontend slice  the neural frontends' recipes at their YAMLs' full
+              widths with random weights from SEED, built on the card:
+              WavLM-Large + ECAPA_TDNN_GLOB_c512 (ecapa_wavlm_joint_ft),
+              the Whisper-large-v2 encoder (24 blocks) + whisper_PMFA
+              (whisper_pmfa_stage2), w2v-bert 2.0 + W2VBert_Adapter_MFA
+              (w2vbert_s2_ft). Each: bin/extract.py --bf16 on a ragged
+              list of 6 utterances in 2 batches, its launches (rows 1 x3
+              and 2 a batch for WavLM + ECAPA, rows 6 and 7 at D = 10,240
+              for Whisper-PMFA, none for w2v-bert's plain ASP), its
+              embeddings against the buckets embedded directly (>=
+              0.99999), the kernel route against the plain route in bf16
+              (>= 0.9999), f32 on the card against a CPU copy on two
+              utterances (>= 0.99999); for WavLM the raw waveform rounded
+              to bf16 against f32 (>= 0.9999) and the whole bf16 path
+              recorded; a server from the YAML and a .pt (replies against
+              the buckets, >= 0.99999, launches a batch; /diarize 501);
+ 47. frontend timing  extraction B=64 x 2 s bf16 audio-s/s of each
+              family (CUDA events, the median of 5 readings of 3 calls
+              after 1);
+ 48. frontend train  bin/train.py on the eight YAMLs of the three
+              families unchanged but for the corpus (write_shards at
+              4.2-6.5 s and the aug phase's stores), 3 steps at each
+              YAML's own batch size: rows 4 and 5 once a WavLM + ECAPA
+              step, no launch under the others, frozen frontends
+              bit-identical after the steps and joint ones moved, the
+              second step's wall ms and the third's device ms.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -459,6 +487,7 @@ from wespeaker_tpu_torch.bin.extract import (  # noqa: E402
 from wespeaker_tpu_torch.cli.speaker import Speaker  # noqa: E402
 from wespeaker_tpu_torch.diar import pipeline as diar_pipe  # noqa: E402
 from wespeaker_tpu_torch.diar import rttm as rttm_mod  # noqa: E402
+from wespeaker_tpu_torch.diar import manifold as diar_manifold  # noqa
 from wespeaker_tpu_torch.diar import (  # noqa: E402
     spectral_clusterer as spectral)
 from wespeaker_tpu_torch.data.dataset import (  # noqa: E402
@@ -952,7 +981,9 @@ GRAD_NAMES = ("dx2", "dx3", "dx4", "dwm", "dbm", "dk1", "db1", "dk2")
 def phase_train_kernels(model, dev):
     """The training tail's forward and backward kernels against their
     plain versions at B=64, C=512: bf16 at T=200 and f32 at T=198; bf16
-    at C=1024 (a random MFA conv), B=3, T=37; and at C=256 (the quality
+    at the WavLM + ECAPA recipes' shapes (3 s of 20 ms frames, T=149, at
+    B=256 and, for 6 s, T=299 at B=64); bf16 at C=1024 (a random MFA
+    conv), B=3, T=37; and at C=256 (the quality
     smoke's width, a random MFA conv), B=64, T=200, bf16 and f32, each
     without the global context (the smoke's ECAPA_TDNN) and with it. The
     backward takes the plain forward's residuals, so both sides see the
@@ -966,6 +997,8 @@ def phase_train_kernels(model, dev):
     for dtype, t, b, c, glob in (
             (torch.bfloat16, T, SLICE_BATCH, C, True),
             (torch.float32, 198, SLICE_BATCH, C, True),
+            (torch.bfloat16, 149, 256, C, True),
+            (torch.bfloat16, 299, SLICE_BATCH, C, True),
             (torch.bfloat16, 37, 3, 1024, True),
             (torch.bfloat16, T, SLICE_BATCH, SMOKE_C, False),
             (torch.float32, T, SLICE_BATCH, SMOKE_C, False),
@@ -1469,9 +1502,10 @@ CAM_YAML = ("model: CAMPPlus\nmodel_args:\n  feat_dim: 80\n"
             "dataset_args:\n  fbank_args:\n    num_mel_bins: 80\n")
 
 
-def serve_waves(model, dev, waves, yaml_text):
+def serve_waves(model, dev, waves, yaml_text, probe=None):
     """An EmbeddingServer built from a YAML and `model` saved as a .pt; each wave's requests are posted concurrently,
-    the waves in turn. Returns the replies, the batch shapes served and the
+    the waves in turn; then `probe(url)`, if given, before the server
+    closes. Returns the replies, the batch shapes served and the
     launches."""
     with tempfile.TemporaryDirectory() as d:
         ckpt, conf = os.path.join(d, "model.pt"), os.path.join(d, "m.yaml")
@@ -1499,6 +1533,8 @@ def serve_waves(model, dev, waves, yaml_text):
                                         {"wav": w.tolist(),
                                          "sample_rate": 16000}), wave)
             launches = counts()
+            if probe is not None:
+                probe(url)
         finally:
             server.close()
     return torch.tensor([r["embedding"] for r in replies]), served, launches
@@ -2494,8 +2530,9 @@ def stats_compare(got, want, dtype):
 def phase_pool_kernels(dev):
     """Rows 6 and 7 against their plain versions: at ReDimNetB2's pooling
     shape (B=512, T=200, D=1152), ResNet34's TSTP shape (T'=25,
-    D=2560), ERes2Net34's (T'=25, D=5120) and the x-vector's (T'=186,
-    D=1500) in bf16, and in f32 at T=198, D=600, B=3 with a ragged mask
+    D=2560), ERes2Net34's (T'=25, D=5120), the x-vector's (T'=186,
+    D=1500) and Whisper-PMFA's (B=64, T=100 and 250, D=10,240) in bf16,
+    and in f32 at T=198, D=600, B=3 with a ragged mask
     whose last utterance has no valid frame; the masked stats at ddof 0
     and 1; and the masked stats' edges (T = 1, count <= ddof, D = 7 and
     600, f32 with mean 1e3 and std 1e-2, 65,536 utterances). Inputs that
@@ -2505,7 +2542,9 @@ def phase_pool_kernels(dev):
     cases = ((torch.bfloat16, B, T, REDIM_D, False),
              (torch.bfloat16, B, *RESNET_TSTP, False),
              (torch.float32, 3, 198, 600, True),
-             *((torch.bfloat16, B, t, d, False) for t, d in ZOO_TSTP))
+             *((torch.bfloat16, B, t, d, False) for t, d in ZOO_TSTP),
+             *((torch.bfloat16, FRONTEND_B, t, d, False)
+               for t, d in WHISPER_POOL))
     for dtype, b, t, d, masked in cases:
         logits, x, mask = pool_inputs(rng, b, t, d, dtype, dev, masked)
         got = pooling.fused_softmax_stats(logits, x, mask)
@@ -3452,6 +3491,12 @@ def phase_diar(dev, root):
                         ("kernel f32", "plain f32"))}
     if min(cos.values()) < 0.9999:
         raise AssertionError(f"diar window embeddings: {cos}")
+    # the layout sums in fixed point: one result for the same embeddings
+    layouts = [diar_manifold.umap_embed(embs["kernel bf16"])
+               for _ in range(2)]
+    if not np.array_equal(*layouts):
+        raise AssertionError("diar: two UMAP layouts of the same window "
+                             "embeddings differ")
 
     server = EmbeddingServer(configs, ckpt, port=0, device=dev).start()
     try:
@@ -3497,6 +3542,7 @@ def phase_diar(dev, root):
           f"launches tail={n_batches} se=0 a run; " + "; ".join(report)
           + "; window embeddings min cosine "
           + ", ".join(f"{a} vs {b} {c:.7f}" for (a, b), c in cos.items())
+          + "; two UMAP layouts of the kernel bf16 embeddings bit-identical"
           + f"; /diarize {len(reply)} segments equal to diarize_wav "
           f"in-process (tail={served['tail']}); Speaker: diarize DER "
           f"{100 * spk_der:.2f}% (umap, energy VAD, no bar), similarity "
@@ -4058,19 +4104,21 @@ def phase_aug(dev, smi, root):
     return stores
 
 
-def write_shards(root, rng, n_spk=16, n_utt=8, per_shard=16):
+def write_shards(root, rng, n_spk=16, n_utt=8, per_shard=16,
+                 seconds=(2.5, 4.0)):
     """A synthetic corpus as the recipes read it: tar shards of
-    <key>.wav + <key>.spk (PCM16 wavs of 2.5-4 s, a tone per speaker plus
-    noise), shard.list and utt2spk. 8 shards, so that each of
-    resnet34_sre.yaml's 8 workers gets one (a worker with an empty stripe
-    yields nothing and never ends, as in the JAX package)."""
+    <key>.wav + <key>.spk (PCM16 wavs of `seconds` long, 2.5-4 s by
+    default, a tone per speaker plus noise), shard.list and utt2spk. 8
+    shards by default, so that each of resnet34_sre.yaml's 8 workers gets
+    one (a worker with an empty stripe yields nothing and never ends, as
+    in the JAX package)."""
     import tarfile
 
     items = []
     for s in range(n_spk):
         tone = 2 * np.pi * (150 + 25 * s) / 16000
         for u in range(n_utt):
-            n = int(rng.uniform(2.5, 4.0) * 16000)
+            n = int(rng.uniform(*seconds) * 16000)
             wav = (0.3 * np.sin(tone * np.arange(n))
                    + rng.uniform(-0.1, 0.1, n)).astype(np.float32)
             path = os.path.join(root, "utt.wav")
@@ -4348,6 +4396,9 @@ ZOO_DW = ((80, 200, 16, 16), (80, 200, 24, 24), (80, 200, 1, 64),
 # the TSTP widths of row 7 on the new paths, (T', D) at 200 frames:
 # ERes2Net34 and Res2Net34 (64 x 8 x 10), the x-vector (186 frames x 1500)
 ZOO_TSTP = ((25, 5120), (186, 1500))
+# Whisper-PMFA's ASTP with global context (rows 6 and 7): whisper-large-v2
+# layers 16-23 side by side, D = 8 x 1280, at T = 100 (2 s) and 250 (5 s)
+WHISPER_POOL = ((100, 10240), (250, 10240))
 
 
 def zoo_model(make, feat, dev, calibrate):
@@ -4690,6 +4741,304 @@ def phase_zoo_timing(dev, smi):
     return out
 
 
+# the neural frontends' recipes: each family's YAMLs as the recipes ship
+# them; the first is the one extracted and served
+V1_WHISPER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "examples", "voxceleb", "v1", "Whisper-PMFA",
+                          "conf")
+FRONTEND_FAMILIES = (
+    ("WavLM + ECAPA", V2_CONF,
+     ("ecapa_wavlm_joint_ft.yaml", "ecapa_wavlm_frozen.yaml",
+      "ecapa_wavlm_joint_lmft.yaml"),
+     dict(NO_LAUNCH, se=3, tail=1), dict(NO_LAUNCH, train_fwd=1,
+                                         train_bwd=1)),
+    ("Whisper-PMFA", V1_WHISPER,
+     ("whisper_pmfa_stage2.yaml", "whisper_pmfa_stage1.yaml"),
+     dict(NO_LAUNCH, softmax=1, masked=1), NO_LAUNCH),
+    ("w2v-bert + adapter-MFA", V2_CONF,
+     ("w2vbert_s2_ft.yaml", "w2vbert_s1.yaml", "w2vbert_s3_lmft.yaml"),
+     NO_LAUNCH, NO_LAUNCH))
+FRONTEND_B = 64        # the timing batch: B x 2 s
+FRONTEND_LIST = (1.3, 3.1, 2.2, 1.7, 2.9, 2.5)  # the ragged list, seconds
+
+
+def frontend_model(conf, dev):
+    """The recipe's composite at its full width, built on the card with
+    flax's init from SEED, in eval mode."""
+    configs = load_yaml(conf)
+    torch.manual_seed(SEED)
+    return configs, build_model(configs, device=dev).eval()
+
+
+def frontend_route(model, plain):
+    """The kernel route (plain False: ECAPA's fused blocks and tail, the
+    pooling kernels) or the plain one."""
+    set_pooling_fused(model, False if plain else None)
+    if hasattr(model.speaker_model, "set_fused"):
+        model.speaker_model.set_fused(not plain)
+    return model
+
+
+def frontend_embeds(model, configs, utts, dev, dtype, batch_size=4):
+    """{key: embedding} of (key, wav) utts in extraction buckets
+    (eval_batches, masks), through the frontend's eval hook."""
+    fn = make_eval_embed_fn(model, compute_dtype=dtype, device=dev,
+                            featurize_fn=featurizers(configs)[1])
+    out = {}
+    for batch in eval_batches(iter(utts), batch_size=batch_size,
+                              quantum_samples=16000):
+        out.update(zip(batch["key"], fn(batch).cpu()))
+    return out
+
+
+def stacked(d, keys):
+    return torch.stack([d[k] for k in keys])
+
+
+def phase_frontend_slice(dev, root, smi):
+    """The three families at their YAMLs' widths, random weights from
+    SEED: bin/extract.py --bf16 on a ragged list of 6 utterances (1.3-3.1
+    s, batches of 4) with each batch's launches (rows 1 x3 and 2 for
+    WavLM + ECAPA; rows 6 and 7 at D = 10,240 for Whisper-PMFA; none for
+    w2v-bert's plain ASP), its embeddings against the same buckets
+    embedded directly (>= 0.99999) and the kernel route against the plain
+    route in bf16 (>= 0.9999); f32 on the card against the CPU on two
+    utterances (>= 0.99999); WavLM: the raw waveform rounded to bf16
+    before the first conv against f32 (>= 0.9999), and the whole bf16
+    path against f32 recorded; a server from the YAML and a .pt answering
+    6 /embed requests in two waves (replies against the bucket embedded
+    directly, >= 0.99999) and /diarize with 501; extraction audio-s/s at
+    B=64 x 2 s bf16, the median of 5 readings (one reading of WavLM +
+    ECAPA ran 28% slow on an H100)."""
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 48)
+    utts = [(f"fe{i}", voice(rng, int(s * 16000)))
+            for i, s in enumerate(FRONTEND_LIST)]
+    lst = os.path.join(root, "frontend.list")
+    with open(lst, "w") as f:
+        for key, wav in utts:
+            path = os.path.join(root, f"{key}.wav")
+            write_wav(path, wav, 16000)
+            f.write(json.dumps({"key": key, "wav": path}) + "\n")
+    # as the extractor reads them (PCM16)
+    utts = list(iter_wavs_from_list(lst, read_threads=1))
+    keys = [k for k, _ in utts]
+    n_batches = len(list(eval_batches(iter(utts), batch_size=4,
+                                      quantum_samples=16000)))
+    timing_wav = rng.uniform(-0.5, 0.5, (FRONTEND_B, CHUNK_SAMPLES)).astype(
+        np.float32)
+    parts, rates, out = [], {}, {}
+    for family, conf_dir, yamls, per_forward, _ in FRONTEND_FAMILIES:
+        t0 = time.perf_counter()
+        conf = os.path.join(conf_dir, yamls[0])
+        configs, model = frontend_model(conf, dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        ckpt = os.path.join(root, "frontend.pt")
+        ckpt_io.save_checkpoint(ckpt, model)
+        prefix = os.path.join(root, "frontend_emb")
+        zero_counts()
+        extract_cli.main(["--config", conf, "--checkpoint", ckpt,
+                          "--data_list", lst, "--out_prefix", prefix,
+                          "--batch_size", "4", "--bf16"])
+        torch.cuda.synchronize()
+        launches = counts()
+        want = {k: v * n_batches for k, v in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"{family} extraction launches {launches}, "
+                                 f"want {want} ({n_batches} batches)")
+        ark = read_vec_scp_dict(prefix + ".scp")
+        got = torch.tensor(np.stack([ark[k] for k in keys]))
+        kern = frontend_embeds(frontend_route(model, False), configs, utts,
+                               dev, torch.bfloat16)
+        plain = frontend_embeds(frontend_route(model, True), configs, utts,
+                                dev, torch.bfloat16)
+        frontend_route(model, False)
+        vs_direct = row_cosines(got, stacked(kern, keys)).min().item()
+        vs_plain = row_cosines(stacked(kern, keys),
+                               stacked(plain, keys)).min().item()
+        cross = row_cosines(got[:-1], got[1:]).mean().item()
+        # f32: the card (kernel route) against a CPU copy, two utterances
+        two = utts[:2]
+        card = frontend_embeds(model, configs, two, dev, torch.float32)
+        cpu_model = copy.deepcopy(model).cpu()
+        host = frontend_embeds(cpu_model, configs, two, "cpu",
+                               torch.float32)
+        del cpu_model
+        vs_cpu = row_cosines(stacked(card, keys[:2]),
+                             stacked(host, keys[:2])).min().item()
+        line = (f"{family} ({os.path.basename(conf)}, {n_params / 1e6:.1f}M "
+                f"parameters): bin/extract.py bf16 over {len(utts)} "
+                f"utterances in {n_batches} batches, launches "
+                + (" ".join(f"{k}={v}" for k, v in launches.items() if v)
+                   or "none")
+                + f"; vs the buckets embedded directly {vs_direct:.7f}, "
+                f"kernel vs plain route bf16 {vs_plain:.7f}, f32 card vs "
+                f"CPU {vs_cpu:.7f}, neighbouring utterances {cross:.4f}")
+        bad = vs_direct < 0.99999 or vs_plain < 0.9999 or vs_cpu < 0.99999
+        if family.startswith("WavLM"):
+            # the raw waveform rounded to bf16 before the first conv, the
+            # rest in f32; and the whole bf16 path, both against f32
+            wav = torch.as_tensor(np.stack([w[:32000] for _, w in utts
+                                            if len(w) >= 32000]), device=dev)
+            with torch.inference_mode():
+                f32 = model(wav)
+                rounded = model(wav.bfloat16().float())
+                bf16 = model(wav.bfloat16()).float()
+            cast = row_cosines(rounded, f32).min().item()
+            whole = row_cosines(bf16, f32).min().item()
+            line += (f"; the waveform rounded to bf16 vs f32 {cast:.7f}, "
+                     f"the whole bf16 path vs f32 {whole:.7f}")
+            bad = bad or cast < 0.9999
+        # the server: two waves of concurrent requests from the YAML + .pt
+        waves = [[w for _, w in utts[:3]], [w for _, w in utts[3:]]]
+        with open(conf) as f:
+            yaml_text = f.read()
+        status = {}
+        replies, served, s_launches = serve_waves(
+            model, dev, waves, yaml_text,
+            probe=lambda url: diarize_status(url, status))
+        want = {k: v * len(served) for k, v in per_forward.items()}
+        bucket = []
+        fn = make_eval_embed_fn(model, device=dev,
+                                featurize_fn=featurizers(configs)[1])
+        for _, w in utts:
+            n = -(-len(w) // 16000) * 16000
+            padded, mask = np.zeros((1, n), np.float32), np.zeros(
+                (1, n), np.float32)
+            padded[0, :len(w)], mask[0, :len(w)] = w, 1.0
+            bucket.append(fn({"wav": padded, "mask": mask}).cpu())
+        vs_bucket = row_cosines(replies, torch.cat(bucket)).min().item()
+        line += (f"; server: batches {[tuple(s) for s in served]}, launches "
+                 + (" ".join(f"{k}={v}" for k, v in s_launches.items() if v)
+                    or "none")
+                 + f", replies vs the bucket embedded directly "
+                 f"{vs_bucket:.7f}")
+        bad = bad or vs_bucket < 0.99999 or s_launches != want
+        line += f", /diarize {status.get('diarize')}"
+        bad = bad or status.get("diarize") != 501
+        # timing: B=64 x 2 s bf16 through the kernel route
+        embed = make_eval_embed_fn(model, compute_dtype=torch.bfloat16,
+                                   device=dev,
+                                   featurize_fn=featurizers(configs)[1])
+        readings = [cuda_ms(lambda: embed({"wav": timing_wav}), iters=3,
+                            warmup=1) for _ in range(5)]
+        ms = float(np.median(readings))
+        rates[family] = (FRONTEND_B * CHUNK_SECONDS / (ms / 1e3), ms,
+                         min(readings), max(readings))
+        line += f"; {time.perf_counter() - t0:.1f} s"
+        parts.append(line)
+        out[family] = {"direct": vs_direct, "plain": vs_plain,
+                       "cpu": vs_cpu}
+        del model, embed, fn
+        torch.cuda.empty_cache()
+        if bad:
+            print("frontend slice: " + "; ".join(parts))
+            raise AssertionError(f"{family}: {line}")
+    print("frontend slice: " + "; ".join(parts)
+          + f"; {time.perf_counter() - t_start:.1f} s")
+    print(f"frontend timing [{smi}] extraction B={FRONTEND_B} x 2 s bf16 "
+          "(CUDA events, median of 5 readings of 3 calls after 1): "
+          + "; ".join(
+              f"{k} {v[0]:.1f} audio-s/s ({v[1]:.2f} ms/batch, readings "
+              f"{v[2]:.2f}-{v[3]:.2f})" for k, v in rates.items()))
+    return out
+
+
+def diarize_status(url, out):
+    """POST /diarize to the server at `url`; its HTTP status into
+    out["diarize"] (a neural frontend's server answers 501, as the JAX
+    package builds no diarize for it)."""
+    import urllib.error
+
+    try:
+        _post(f"{url}/diarize", {"wav": [0.0] * 16000,
+                                 "sample_rate": 16000})
+        out["diarize"] = 200
+    except urllib.error.HTTPError as e:
+        out["diarize"] = e.code
+
+
+@contextlib.contextmanager
+def frontend_before_steps():
+    """Yields a dict that gets "frontend": the model's frontend
+    parameters (cloned) as the first train step starts."""
+    from wespeaker_tpu_torch.train import train_step as ts
+
+    out = {}
+    call = ts.TrainStep.__call__
+
+    def first(self, batch):
+        if "frontend" not in out:
+            out["frontend"] = {k: v.detach().clone() for k, v in
+                               self.model.frontend.state_dict().items()}
+        return call(self, batch)
+
+    ts.TrainStep.__call__ = first
+    try:
+        yield out
+    finally:
+        ts.TrainStep.__call__ = call
+
+
+def phase_frontend_train(dev, root, stores, smi):
+    """bin/train.py on each family's YAMLs unchanged but for the corpus
+    (write_shards at 4.2-6.5 s, so that w2vbert_s3_lmft.yaml's 4 s minimum
+    keeps every utterance, and the aug phase's stores), 3 steps at each
+    YAML's own batch size: every loss finite, rows 4 and 5 once a step
+    under WavLM + ECAPA and no launch under the others, a frozen
+    frontend's parameters bit-identical after the steps and a joint one's
+    moved, the second step's wall ms (host clock) and the third's device
+    ms."""
+    t_start = time.perf_counter()
+    corpus_dir = os.path.join(root, "frontend_corpus")
+    os.makedirs(corpus_dir)
+    shard_list, utt2spk = write_shards(
+        corpus_dir, np.random.default_rng(SEED + 49), n_spk=8, n_utt=8,
+        seconds=(4.2, 6.5))
+    corpus = [f"train_data={shard_list}", f"utt2spk={utt2spk}",
+              f"reverb_data={stores[0]}", f"noise_data={stores[1]}"]
+    parts, bad, steps_ms = [], [], {}
+    for family, conf_dir, yamls, _, per_step in FRONTEND_FAMILIES:
+        for name in yamls:
+            conf = os.path.join(conf_dir, name)
+            configs = load_yaml(conf)
+            batch = configs["dataset_args"]["batch_size"]
+            frontend = configs["dataset_args"]["frontend"]
+            frozen = configs["dataset_args"][f"{frontend}_args"].get(
+                "frozen", False)
+            exp = os.path.join(root, "frontend_exp")
+            with frontend_before_steps() as before:
+                step, launches, clock = run_recipe(
+                    conf, corpus + [f"exp_dir={exp}"], 3, batch, timed=1)
+            after = step.model.frontend.state_dict()
+            same = all(torch.equal(after[k], v)
+                       for k, v in before["frontend"].items())
+            want = {k: 3 * v for k, v in per_step.items()}
+            parts.append(
+                f"{name} B={batch} ({'frozen' if frozen else 'joint'}): "
+                "losses " + " ".join(f"{v:.3f}" for v in clock["losses"])
+                + ", launches " + (" ".join(f"{k}={v}" for k, v in
+                                            launches.items() if v)
+                                   or "none")
+                + f", frontend {'unchanged' if same else 'moved'}, "
+                f"{clock['ms']:.1f} ms the second step, "
+                f"{clock['dev_ms']:.2f} ms device the third "
+                f"({clock['s']:.1f} s)")
+            steps_ms[name] = (clock["ms"], clock["dev_ms"])
+            if launches != want or same != frozen:
+                bad.append(name)
+            del step, after, before
+            shutil.rmtree(exp)
+            torch.cuda.empty_cache()
+    print(f"frontend train [{smi}]: " + "; ".join(parts)
+          + f"; {time.perf_counter() - t_start:.1f} s")
+    if bad:
+        raise AssertionError(f"frontend train: {bad} launched other "
+                             "kernels or moved a frozen frontend (or left "
+                             "a joint one)")
+    return steps_ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -4774,6 +5123,10 @@ def main():
         phase_repvgg_deploy(dev, root, corpus)
         phase_zoo_timing(dev, smi)
         print(f"zoo phases: {time.perf_counter() - t_zoo:.1f} s")
+        t_front = time.perf_counter()
+        phase_frontend_slice(dev, d, smi)
+        phase_frontend_train(dev, d, stores, smi)
+        print(f"frontend phases: {time.perf_counter() - t_front:.1f} s")
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),

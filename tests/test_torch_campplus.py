@@ -403,8 +403,11 @@ def test_rules_are_chosen_by_model_name(name):
     got = weights.rules_for(name)
     want = [tuple(r) for r in torch_compat.rules_for(name)]
     assert got and list(got) == want
-    # a model the port has no rules for (the neural-frontend families)
-    assert weights.rules_for("whisper_PMFA") == ()
+    # the neural-frontend heads have the JAX package's rules too, since
+    # their frontends are ported; a name of no family gets none
+    assert list(weights.rules_for("whisper_PMFA")) == [
+        tuple(r) for r in torch_compat.rules_for("whisper_PMFA")]
+    assert weights.rules_for("NoSuchModel") == ()
 
 
 def test_ecapa_conversion_is_unchanged():

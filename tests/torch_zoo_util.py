@@ -6,6 +6,7 @@ numpy."""
 import numpy as np
 import jax
 from flax.core import unfreeze
+from flax.linen import meta
 from flax.traverse_util import flatten_dict, unflatten_dict
 
 
@@ -16,8 +17,9 @@ def numpy_variables(module, example, seed, stats=True, **init_kw):
     BN means 0.1 normal and variances uniform in [0.5, 1.5], or with
     stats=False flax's own init of them (0 and 1) and of the norms' scale
     and bias (1 and 0)."""
-    shapes = jax.eval_shape(
-        lambda: module.init(jax.random.PRNGKey(0), example, **init_kw))
+    # unboxed: the SSL frontends' kernels carry logical partitioning
+    shapes = meta.unbox(jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(0), example, **init_kw)))
     rng = np.random.default_rng(seed)
     out = {}
     for path, s in flatten_dict(unfreeze(shapes)).items():
@@ -44,21 +46,31 @@ def numpy_variables(module, example, seed, stats=True, **init_kw):
 def torch_shapes(module, example, model_name, **init_kw):
     """{port state_dict key: shape} that the JAX module's variables map to
     (jax.eval_shape of its init, the port's name rules and kernel
-    layouts); BatchNorm counters, which flax does not keep, left out."""
+    layouts, a composite's by utils/weights.py's "<frontend>+<model>"
+    names); BatchNorm counters, which flax does not keep, left out."""
     from wespeaker_tpu_torch.utils import weights
 
-    shapes = jax.eval_shape(
-        lambda: module.init(jax.random.PRNGKey(0), example, **init_kw))
-    rules = weights.rules_for(model_name)
+    shapes = unfreeze(meta.unbox(jax.eval_shape(
+        lambda: module.init(jax.random.PRNGKey(0), example, **init_kw))))
+    # a composite ("<frontend family>+<speaker model>") names each of its
+    # two subtrees by its own rules, under its prefix
+    parts = ([((), model_name)] if "+" not in model_name else
+             [((p,), n) for p, n in zip(weights.COMPOSITE_PARTS,
+                                        model_name.split("+"))])
     out = {}
-    for collection in ("params", "batch_stats"):
-        tree = unfreeze(shapes).get(collection, {})
-        for (*mods, leaf), s in flatten_dict(tree).items():
-            shape = tuple(s.shape)
-            if leaf == "kernel":
-                shape = tuple(shape[i] for i in
-                              weights._KERNEL_AXES[len(shape)])
-            out[weights._torch_key(tuple(mods), leaf, rules)] = shape
+    for prefix, name in parts:
+        rules = weights.rules_for(name)
+        for collection in ("params", "batch_stats"):
+            tree = shapes.get(collection, {})
+            for k in prefix:
+                tree = tree.get(k, {})
+            for (*mods, leaf), s in flatten_dict(tree).items():
+                shape = tuple(s.shape)
+                if leaf == "kernel":
+                    shape = tuple(shape[i] for i in
+                                  weights._KERNEL_AXES[len(shape)])
+                key = weights._torch_key(tuple(mods), leaf, rules)
+                out[".".join(prefix + (key,))] = shape
     return out
 
 

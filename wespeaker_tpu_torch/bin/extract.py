@@ -19,9 +19,14 @@ only; with `data_type: feat` the list holds kaldi feature matrices
 frame buckets. The checkpoint is a port `.pt` file (a trainer's
 `model_<n>.pt`, `final_model.pt`, an averaged model or a state_dict) or
 the JAX package's msgpack `.ckpt` (its trainers' `model_<n>.ckpt`,
-`avg_model.ckpt`), told apart by content. A config with
-`dataset_args.frontend: tfmel` embeds through that frontend
-(train/composite.py::featurizers) instead of the fbank.
+`avg_model.ckpt`), told apart by content. A config with another
+`dataset_args.frontend` embeds through that frontend
+(train/composite.py::featurizers) instead of the fbank: tfmel, the
+Whisper encoder, WavLM / HuBERT / wav2vec 2.0 and w2v-bert read the wav
+list, `feat_stack` a feature list of `bin/precompute_feats.py --layer
+all` output. The attention frontends split a bucket into row groups of
+at most `train/composite.py::eval_rows_cap` rows, whose (B, H, T, T)
+scores grow as T^2; each group keeps the bucket's padded length.
 """
 
 import argparse
@@ -43,8 +48,8 @@ from wespeaker_tpu_torch.data.pipeline import (read_audio_any,
                                                resample_array)
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig, no_tf32
-from wespeaker_tpu_torch.train.composite import (build_model, featurizers,
-                                                 frontend_type)
+from wespeaker_tpu_torch.train.composite import (build_model, eval_rows_cap,
+                                                 featurizers, frontend_type)
 from wespeaker_tpu_torch.train.train_step import make_eval_embed_fn
 from wespeaker_tpu_torch.utils.config import parse_config_or_kwargs
 from wespeaker_tpu_torch.utils.eval_device import prepare_eval_placement
@@ -59,7 +64,7 @@ def load_model_for_eval(configs: Dict[str, Any], checkpoint_path: str,
     trainer (bin/train.py) wrote, whose model part is read, or a JAX
     `.ckpt` (its "params" and "batch_stats"), loaded strictly."""
     dev = resolve_device(device)
-    model = load_checkpoint(checkpoint_path, build_model(configs))
+    model = load_checkpoint(checkpoint_path, build_model(configs, device=dev))
     return model.to(dev).eval()
 
 
@@ -187,16 +192,20 @@ def extract(config, checkpoint_path, data_list, out_prefix, batch_size=8,
 def _extract_inner(configs, checkpoint_path, data_list, out_prefix,
                    batch_size, num_splits, split_index, bf16, read_threads,
                    data_parallel, pow2_buckets, dev):
+    feat_mode = configs.get("data_type") == "feat"
+    featurize_eval = featurizers(configs)[1]
+    name = frontend_type(configs)
+    if feat_mode and featurize_eval is not None and name != "feat_stack":
+        raise ValueError("data_type feat holds feature matrices; the "
+                         f"{name} frontend reads wavs")
+    if name == "feat_stack" and not feat_mode:
+        raise ValueError("the feat_stack frontend reads data_type feat "
+                         "(bin/precompute_feats.py --layer all output)")
     model = load_model_for_eval(configs, checkpoint_path, device=dev)
     model, compute_dtype = prepare_eval_placement(model, bf16, data_parallel,
                                                   device=dev)
     fbank_cfg = fbank_config(configs)
     rate = fbank_cfg.sample_rate
-    feat_mode = configs.get("data_type") == "feat"
-    featurize_eval = featurizers(configs)[1]
-    if feat_mode and featurize_eval is not None:
-        raise ValueError("data_type feat holds fbank matrices; the "
-                         f"{frontend_type(configs)} frontend reads wavs")
     embed_fn = make_eval_embed_fn(model, fbank_cfg,
                                   compute_dtype=compute_dtype, device=dev,
                                   from_wav=not feat_mode,
@@ -216,8 +225,12 @@ def _extract_inner(configs, checkpoint_path, data_list, out_prefix,
 
     def items():
         for batch in batches:
-            emb = embed_fn({data_key: batch[data_key],
-                            "mask": batch["mask"]}).cpu().numpy()
+            data, mask = batch[data_key], batch["mask"]
+            rows = eval_rows_cap(configs, data.shape[1]) or len(data)
+            emb = np.concatenate([
+                embed_fn({data_key: data[i:i + rows],
+                          "mask": mask[i:i + rows]}).cpu().numpy()
+                for i in range(0, len(data), rows)])
             yield from zip(batch["key"], emb)
 
     ark, scp = write_vec_ark_scp(out_prefix, items())

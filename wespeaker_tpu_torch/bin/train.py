@@ -27,9 +27,17 @@ default, or packed) sets the process-wide mode of `ops.conv_dw_pack`, as
 the JAX trainer does: packed computes the filter gradient of every
 eligible 3x3 conv (stride 1, Ci and Co <= 64) with the tap-packed kernel.
 
+The neural frontends (`dataset_args.frontend` whisper_encoder, wavlm /
+s3prl / hubert / wav2vec2, w2vbert, feat_stack; train/composite.py) run
+inside the step through their train hook; the model is built on the
+card. A frozen frontend (`<frontend>_args.frozen`) runs under no_grad and
+its parameters stay out of the optimizer, as the JAX trainer masks them.
+The wav frontends' chunk length comes from `fbank_args.frame_shift` and
+`frame_length` (20 ms for WavLM), as in the JAX trainer.
+
 Not ported yet, and refused rather than dropped: `distributed_args`
 (multi-card training) and a model axis > 1 (ROADMAP.md Queue 1 item 4,
-DDP), the neural frontends (item 7) and `profile_args` (item 8).
+DDP) and `profile_args` (item 8).
 """
 
 import argparse
@@ -143,7 +151,8 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
 
     seed = configs.get("seed", 42)
     model, projection, optimizer, generator = build_train_state(
-        lambda: (build_model(configs), build_projection(configs, num_class)),
+        lambda: (build_model(configs, device=dev),
+                 build_projection(configs, num_class)),
         configs, seed=seed, device=dev)
 
     batch_size = dataset_args.get(

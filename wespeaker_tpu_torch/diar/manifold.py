@@ -8,7 +8,11 @@ initialization and the curve fit of the low-dimensional kernel are host
 numpy/scipy, copied; the stochastic cross-entropy layout optimizer, a
 jitted `lax.fori_loop` there, is a loop of torch epochs on the
 embeddings' device here (`layout_epoch`, scatter-add updates through
-`index_add_`), its draws from a torch.Generator on that device.
+`index_add_`), its draws from a torch.Generator on that device. The
+scatter-add sums in fixed point (int64, 2^-32 units), whose sums do not
+depend on the order of the card's atomic adds: a layout is the same bits
+on every run, where float atomics let HDBSCAN's clusters differ between
+runs of the same embeddings.
 
 Deviation from umap-learn, as in the JAX package (DER-level parity is the
 contract): edge updates within an epoch are applied synchronously
@@ -121,6 +125,13 @@ def fit_ab(min_dist: float, spread: float = 1.0):
     return float(a), float(b)
 
 
+_FIXED = 2.0 ** 32  # fixed-point units of the layout's scatter-add
+
+
+def _fixed(v: torch.Tensor) -> torch.Tensor:
+    return torch.round(v.double() * _FIXED).long()
+
+
 def layout_epoch(y: torch.Tensor, heads: torch.Tensor, tails: torch.Tensor,
                  active: torch.Tensor, negs: torch.Tensor, a: float,
                  b: float, alpha: float) -> torch.Tensor:
@@ -128,7 +139,8 @@ def layout_epoch(y: torch.Tensor, heads: torch.Tensor, tails: torch.Tensor,
     edges with `active` set pull both endpoints together, and each
     repels its head from its `negs` (E, neg_rate) points; each gradient
     is clipped to +-4 per dimension (umap-learn) and the summed update
-    is scaled by the learning rate `alpha`."""
+    (in fixed point, exact in any order) is scaled by the learning rate
+    `alpha`."""
     yh, yt = y[heads], y[tails]
     diff = yh - yt
     d2 = (diff * diff).sum(1)
@@ -136,8 +148,8 @@ def layout_epoch(y: torch.Tensor, heads: torch.Tensor, tails: torch.Tensor,
         d2 > 0.0, (-2.0 * a * b * d2 ** (b - 1.0)) / (1.0 + a * d2 ** b),
         0.0)
     g_att = (att[:, None] * diff).clamp(-4.0, 4.0)
-    g_att = torch.where(active[:, None], g_att, 0.0)
-    upd = torch.zeros_like(y)
+    g_att = _fixed(torch.where(active[:, None], g_att, 0.0))
+    upd = torch.zeros(y.shape, dtype=torch.int64, device=y.device)
     upd.index_add_(0, heads, g_att)
     upd.index_add_(0, tails, -g_att)
 
@@ -146,8 +158,8 @@ def layout_epoch(y: torch.Tensor, heads: torch.Tensor, tails: torch.Tensor,
     rep = (2.0 * b) / ((0.001 + d2n) * (1.0 + a * d2n ** b))
     g_rep = (rep[..., None] * diffn).clamp(-4.0, 4.0)
     g_rep = torch.where(active[:, None, None], g_rep, 0.0)
-    upd.index_add_(0, heads, g_rep.sum(1))
-    return y + alpha * upd
+    upd.index_add_(0, heads, _fixed(g_rep.sum(1)))
+    return y + alpha * (upd.double() / _FIXED).to(y.dtype)
 
 
 def optimize_layout(y0: torch.Tensor, heads: torch.Tensor,

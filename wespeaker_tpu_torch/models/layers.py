@@ -93,6 +93,24 @@ def batch_norm(x: torch.Tensor, bn: nn.Module) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """`lin` on x (..., I) -> (..., O), in x's dtype (parameters are cast
+    to it), as flax's Dense under the JAX package's amp_cast."""
+    b = None if lin.bias is None else lin.bias.to(x.dtype)
+    return F.linear(x, lin.weight.to(x.dtype), b)
+
+
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
+    """`ln` over the last axis with statistics and affine in f32 (f64 for
+    an f64 x), result in x's dtype. The eps is the module's: flax's
+    LayerNorm defaults to 1e-6 where torch's does to 1e-5, so each port
+    module sets the one its JAX counterpart uses."""
+    y = wide(x)
+    w = None if ln.weight is None else ln.weight.to(y.dtype)
+    b = None if ln.bias is None else ln.bias.to(y.dtype)
+    return F.layer_norm(y, ln.normalized_shape, w, b, ln.eps).to(x.dtype)
+
+
 def fold_bn(bn: nn.BatchNorm1d):
     """Eval-mode BN as f32 (scale, shift): y = x * scale + shift."""
     scale = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)

@@ -7,8 +7,10 @@ nesterov and dampening 0 is the same update (decay added to the gradient
 before the momentum buffer, whose first value is that gradient in both).
 Adam and AdamW map to their torch classes (Adam: decay added to the
 gradient; AdamW: decoupled). The trainer writes the scheduled LR into
-every param_group before each step. The frozen-frontend mask of the JAX
-package waits for the neural frontends.
+every param_group before each step. The JAX package's frozen-frontend
+mask is the parameter list itself here: build_train_state passes only
+the parameters that require gradients, and a frozen frontend's do not
+(models/with_frontend.py), so they take no update and no decay.
 """
 
 from typing import Iterable

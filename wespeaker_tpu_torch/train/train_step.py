@@ -117,9 +117,11 @@ def features_from_batch(batch: Dict[str, Any], fbank_cfg: FbankConfig,
     waveform (after x 2^15) so the fused DFT-conv fbank stays usable;
     spec-aug follows CMVN. A `featurize_fn(wav, generator)` (a non-fbank
     frontend's train hook, train/composite.py::featurizers) replaces the
-    whole chain, as the JAX package's featurize_fn does."""
+    whole chain, as the JAX package's featurize_fn does; it takes the
+    batch's "feat" where there is one (feat_stack), else its "wav"."""
     if featurize_fn is not None:
-        return featurize_fn(_on(batch["wav"], device), generator)
+        return featurize_fn(_on(batch["feat"] if "feat" in batch
+                                else batch["wav"], device), generator)
     if "feat" in batch:
         feat = _on(batch["feat"], device)
     else:
@@ -215,17 +217,20 @@ def build_train_state(build_modules: Callable[[], Tuple[nn.Module,
                       optimizer_conf: Dict[str, Any], seed: int = 42,
                       device: DeviceLike = None):
     """The role of the JAX init_train_state: seed torch from `seed`, build
-    (model, projection) with build_modules() on the CPU and move them to
-    `device`, make the optimizer over both, and a generator on the device
-    seeded from `seed`. Returns (model, projection, optimizer,
-    generator)."""
+    (model, projection) with build_modules() (on the CPU, unless it
+    builds them elsewhere) and move them to `device`, make the optimizer
+    over their parameters that require gradients (a frozen frontend's do
+    not), and a generator on the device seeded from `seed`. Returns
+    (model, projection, optimizer, generator)."""
     dev = resolve_device(device)
     torch.manual_seed(seed)
     model, projection = build_modules()
     model.to(dev)
     projection.to(dev)
-    optimizer = make_optimizer(optimizer_conf, list(model.parameters())
-                               + list(projection.parameters()))
+    # a frozen frontend's parameters (requires_grad=False) stay out
+    optimizer = make_optimizer(optimizer_conf, [
+        p for p in list(model.parameters()) + list(projection.parameters())
+        if p.requires_grad])
     generator = torch.Generator(device=dev).manual_seed(seed)
     return model, projection, optimizer, generator
 
@@ -249,7 +254,8 @@ def make_eval_embed_fn(model: nn.Module,
     Either way masked CMVN, then the model. Numpy arrays or tensors.
     `featurize_fn(wav, sample mask or None) -> (feat, frame mask or None)`
     (a non-fbank frontend's eval hook, train/composite.py::featurizers)
-    replaces the fbank and CMVN, as the JAX version's does."""
+    replaces the fbank and CMVN, as the JAX version's does; it takes the
+    batch's "wav", or its "feat" with from_wav=False (feat_stack)."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
 
@@ -258,7 +264,7 @@ def make_eval_embed_fn(model: nn.Module,
             mask = batch.get("mask")
             if featurize_fn is not None:
                 feat, fmask = featurize_fn(
-                    _on(batch["wav"], dev),
+                    _on(batch["wav" if from_wav else "feat"], dev),
                     None if mask is None else _on(mask, dev))
                 return model(feat.to(compute_dtype), fmask).float()
             if from_wav:

@@ -26,7 +26,8 @@ import torch
 import torch.nn as nn
 
 from wespeaker_tpu_torch.utils import msgpack
-from wespeaker_tpu_torch.utils.weights import _unwrap, from_jax_checkpoint
+from wespeaker_tpu_torch.utils.weights import (_unwrap, from_jax_checkpoint,
+                                               rules_name)
 
 # upstream training checkpoints carry the margin head beside the model
 _TRAINING_ONLY_PREFIXES = ("projection.",)
@@ -118,11 +119,12 @@ def load_checkpoint(path: str, model: nn.Module,
     file and, when `projection` is given, the head by name
     (_load_projection). Training-only keys of a `.pt` (the margin head)
     are dropped and BatchNorm counters missing from older ones set to 0,
-    each by name; any other mismatch raises. The model's class name
-    (ECAPA_TDNN, CAMPPlus, Gemini_DF_ResNet, ResNet, ERes2Net, Res2Net,
-    XVEC, SimAM_ResNet_ASP, RepVGG, ReDimNet, ReDimNet2Wrap) chooses the
-    flax name rules of a `.ckpt` (utils/weights.py::rules_for)."""
-    sd, saved_head = read_checkpoint(path, type(model).__name__)
+    each by name; any other mismatch raises. The model's
+    utils/weights.py::rules_name (its class name: ECAPA_TDNN, CAMPPlus,
+    Gemini_DF_ResNet, ResNet, ERes2Net, Res2Net, XVEC, SimAM_ResNet_ASP,
+    RepVGG, ReDimNet, ReDimNet2Wrap; a composite's "<frontend
+    family>+<speaker model>") chooses the flax name rules of a `.ckpt`."""
+    sd, saved_head = read_checkpoint(path, rules_name(model))
     for key, buf in model.state_dict().items():
         if key.endswith("num_batches_tracked") and key not in sd:
             sd[key] = torch.zeros_like(buf)

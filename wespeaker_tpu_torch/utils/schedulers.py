@@ -15,14 +15,19 @@ import math
 def multi_process_coeff(step: float, warm_up_iter: int, scale_ratio: float,
                         warm_from_zero: bool = False) -> float:
     """LR scaling warm-up for a large global batch: ramp the scale_ratio
-    multiplier in over warm_up_iter iterations."""
+    multiplier in over warm_up_iter iterations. From warm_up_iter on
+    (every step when it is 0, as in a recipe with warm_up_epoch 0) the
+    multiplier is scale_ratio, as the JAX package's jnp.where selects it
+    past its ramp's division by zero."""
+    if step >= warm_up_iter:
+        return float(scale_ratio)
     if warm_from_zero:
         warm = scale_ratio * step / warm_up_iter
     elif scale_ratio > 1:
         warm = (scale_ratio - 1) * step / warm_up_iter + 1.0
     else:
         return float(scale_ratio)
-    return warm if step < warm_up_iter else float(scale_ratio)
+    return warm
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,6 +26,19 @@ state_dict. It inverts the rules of wespeaker_tpu/utils/torch_compat.py:
     downsample_conv / downsample_bn -> downsample.0 / .1), plus the frozen
     all-ones backbone.inputs_weights.0 that the flax tree does not keep
 
+The neural frontends keep the names that torch_compat maps to: HF's
+WavLMModel (WavLM: conv_layers_<i>_conv -> feature_extractor.conv_layers.
+<i>.conv, layers_<i> -> encoder.layers.<i>, pos_conv_embed_conv ->
+encoder.pos_conv_embed.conv, ...), HF's Wav2Vec2BertModel
+(Wav2Vec2Bert), the reference whisper encoder (WhisperEncoder:
+blocks_<i> -> blocks.<i>, mlp_<i> -> mlp.<i>), whisper_PMFA (bn_norm ->
+bn.norm) and W2VBert_Adapter_MFA (adapter_layers_<i> ->
+adapter_layers.<i>); an nn.Embed's `embedding` is its (rows, features)
+`weight`, untransposed both ways. A composite (models/with_frontend.py)
+is named "<frontend family>+<speaker model>" (`rules_name`): its
+`frontend` and `speaker_model` subtrees each take their own rules, under
+those prefixes, both ways.
+
 `from_jax_dino_state` maps the JAX package's DINO state (its fields as
 nested dicts of arrays, as flax.serialization.to_state_dict gives them)
 onto the port's student and teacher (ssl/dino.py's DINOModel): the
@@ -66,6 +79,7 @@ _LEAF_TO_TORCH = {
     "bias": "bias",
     "mean": "running_mean",
     "var": "running_var",
+    "embedding": "weight",
 }
 
 # the XI pooling's children (pool.lin1_relu_bn Sequential)
@@ -145,7 +159,53 @@ MODEL_RULES = {
         (r"\bstage(\d+)_0_w\b", r"stage\1.0.w"),
         (r"\bfin_wght1d_w\b", "fin_wght1d.w"),
     ) + _REDIM_BLOCK_RULES,
+    # the neural frontends' heads and encoders; an embedding's flax leaf
+    # `embedding` is its torch `weight` (_LEAF_TO_TORCH), kept (rows,
+    # features) in both
+    "W2VBert_Adapter_MFA": (
+        (r"\badapter_layers_(\d+)\b", r"adapter_layers.\1"),
+    ),
+    "whisper_PMFA": (
+        (r"\bbn_norm\b", "bn.norm"),
+    ),
+    # HF Wav2Vec2BertModel's names
+    "Wav2Vec2Bert": (
+        (r"\bfeature_projection_layer_norm\b",
+         "feature_projection.layer_norm"),
+        (r"\bfeature_projection_projection\b",
+         "feature_projection.projection"),
+        (r"\blayers_(\d+)\b", r"encoder.layers.\1"),
+    ),
+    # HF WavLMModel's names (the positional conv's weight norm folded)
+    "WavLM": (
+        (r"\bconv_layers_(\d+)_conv\b", r"conv_layers.\1.conv"),
+        (r"\bconv_layers_(\d+)_layer_norm\b", r"conv_layers.\1.layer_norm"),
+        (r"\bfeature_projection_layer_norm\b",
+         "feature_projection.layer_norm"),
+        (r"\bfeature_projection_projection\b",
+         "feature_projection.projection"),
+        (r"\bpos_conv_embed_conv\b", "encoder.pos_conv_embed.conv"),
+        (r"\bencoder_layer_norm\b", "encoder.layer_norm"),
+        (r"\blayers_(\d+)\b", r"encoder.layers.\1"),
+    ),
+    "WhisperEncoder": (
+        (r"\bblocks_(\d+)\b", r"blocks.\1"),
+        (r"\bmlp_(\d+)\b", r"mlp.\1"),
+    ),
+    # feat_stack's frontend: featurizer/weights keeps its names
+    "StackedFeat": (),
 }
+# modules whose 2-D `weight` is an embedding table (flax `embedding`),
+# not a dense kernel
+_EMBEDDINGS = ("rel_attn_embed", "distance_embedding")
+# the composite's children (models/with_frontend.py), each converted by
+# its own family's rules: "<frontend family>+<speaker model class>"
+COMPOSITE_PARTS = ("frontend", "speaker_model")
+# the frontend classes' rule families
+FRONTEND_FAMILY = {"WavLMWithFeaturizer": "WavLM",
+                   "WhisperEncoderFrontend": "WhisperEncoder",
+                   "W2VBertFrontend": "Wav2Vec2Bert",
+                   "StackedFeatFrontend": "StackedFeat"}
 # pooling children of every family: torch_compat's COMMON_RULES (MHASTP's
 # heads, MQMHASTP's queries) and ASP's `attention` Sequential, which the
 # JAX package maps only under SimAM_ResNet and W2VBert
@@ -196,6 +256,16 @@ def _family(model_name: str):
                key=len, default=None)
 
 
+def rules_name(model: nn.Module) -> str:
+    """The name whose rules map `model`'s flax variables: its class name,
+    or a composite's (models/with_frontend.py) "<frontend family>+<speaker
+    model class>"."""
+    if type(model).__name__ != "FrontendSpeakerModel":
+        return type(model).__name__
+    return (f"{FRONTEND_FAMILY[type(model.frontend).__name__]}+"
+            f"{type(model.speaker_model).__name__}")
+
+
 def rules_for(model_name: str) -> Tuple[Tuple[str, str], ...]:
     """The name rules of the longest `MODEL_RULES` prefix of model_name;
     none for a model without rules."""
@@ -221,7 +291,18 @@ def from_jax_variables(variables: Mapping[str, Any],
                        model_name: str = "ECAPA_TDNN") -> "OrderedDict":
     """flax {"params", "batch_stats"} tree (nested dicts of numpy or JAX
     arrays) of the model `model_name` -> the port's state_dict of torch
-    tensors."""
+    tensors. A composite's name is "<frontend family>+<speaker model>"
+    (`rules_name` of models/with_frontend.py's FrontendSpeakerModel): its
+    `frontend` and `speaker_model` subtrees are converted each by its own
+    rules, under those prefixes."""
+    if "+" in model_name:
+        sd = OrderedDict()
+        for part, name in zip(COMPOSITE_PARTS, model_name.split("+")):
+            tree = {c: (variables.get(c) or {}).get(part, {})
+                    for c in ("params", "batch_stats")}
+            for key, value in from_jax_variables(tree, name).items():
+                sd[f"{part}.{key}"] = value
+        return sd
     rules = rules_for(model_name)
     sd = OrderedDict()
     bn_prefixes = []
@@ -259,7 +340,16 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
                      model_name: str = "ECAPA_TDNN") -> Dict[str, Any]:
     """The port's state_dict of the model `model_name` -> the flax
     {"params", "batch_stats"} tree of numpy f32 arrays that
-    from_jax_variables reads (its exact inverse)."""
+    from_jax_variables reads (its exact inverse), a composite's too."""
+    if "+" in model_name:
+        out = {"params": {}, "batch_stats": {}}
+        for part, name in zip(COMPOSITE_PARTS, model_name.split("+")):
+            sub = {k[len(part) + 1:]: v for k, v in state_dict.items()
+                   if k.startswith(part + ".")}
+            for collection, tree in to_jax_variables(sub, name).items():
+                if tree:
+                    out[collection][part] = tree
+        return out
     family = _family(model_name)
     rules = (INVERSE_RULES[family] if family else ()) + INVERSE_COMMON
     out = {"params": {}, "batch_stats": {}}
@@ -274,6 +364,8 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
         collection = "params"
         if leaf in ("running_mean", "running_var"):
             collection, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight" and mods and mods[-1] in _EMBEDDINGS:
+            leaf = "embedding"
         elif leaf == "weight" and arr.ndim == 1:
             leaf = "scale"
         elif leaf == "weight":
