@@ -446,6 +446,26 @@ Phases, each printing one line:
               step, no launch under the others, frozen frontends
               bit-identical after the steps and joint ones moved, the
               second step's wall ms and the third's device ms.
+ 49. deploy  (right after the trainer, so that its trace is the process's
+              first torch.profiler session) ECAPA_TDNN_GLOB_c512 at full
+              width: recipe stage 1 (prep_data raw and shard over 8
+              speakers x 4 seeded wavs), 2 steps of bin/train.py on
+              ecapa_tdnn_c512.yaml unchanged but for the corpus, with
+              profile_args: rows 4 and 5 launch twice each and the trace
+              names their kernels; bin/export_model.py to .pt2 (on the
+              CPU) loaded on the card: at (B, T) = (64, 200) and (1, 137)
+              in f32 it launches se=3 tail=1 a call and meets the eager
+              model within 1e-4 of the largest magnitude (TF32 off), with
+              its ms against eager at B=64 (CUDA events, eager, .pt2,
+              .pt2, eager); the ONNX export run by export/onnx_numpy.py
+              against the eager CPU plain forward (relative 1e-4) at two
+              shapes; bin/infer_demo.py on a 3 s wav against
+              bin/extract.py's embedding (cosine >= 0.9999); the C++
+              runtime built with the host compiler: its fbank against the
+              port's (atol 2e-3, rtol 1e-3), its engine with the model on
+              the card as the callback against the same chunking in
+              Python (cosine >= 0.9999, rows 1 and 2 once a chunk) and its
+              real-time factor, extract_emb_main and asv_main.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -482,6 +502,10 @@ from wespeaker_tpu_torch.bin import (  # noqa: E402
 from wespeaker_tpu_torch.bin import train_dino as dino_cli  # noqa: E402
 from wespeaker_tpu_torch.bin import diarize as diarize_cli  # noqa: E402
 from wespeaker_tpu_torch.bin import convert_repvgg  # noqa: E402
+from wespeaker_tpu_torch.bin import (  # noqa: E402
+    export_model, infer_demo, prep_data)
+from wespeaker_tpu_torch import runtime_binding  # noqa: E402
+from wespeaker_tpu_torch.export import fx_to_onnx, onnx_numpy  # noqa: E402
 from wespeaker_tpu_torch.bin.extract import (  # noqa: E402
     fbank_config, iter_wavs_from_list, load_model_for_eval)
 from wespeaker_tpu_torch.cli.speaker import Speaker  # noqa: E402
@@ -504,7 +528,8 @@ from wespeaker_tpu_torch.bin.kernel_bounds import (  # noqa: E402
     masked_stats, softmax_stats)
 from wespeaker_tpu_torch.bin.time_kernels import graph_ms  # noqa: E402
 from wespeaker_tpu_torch.data.wav_io import read_wav, write_wav  # noqa: E402
-from wespeaker_tpu_torch.frontend.fbank import FbankConfig  # noqa: E402
+from wespeaker_tpu_torch.frontend.fbank import (  # noqa: E402
+    FbankConfig, compute_fbank)
 from wespeaker_tpu_torch.models.campplus import CAMPPlus  # noqa: E402
 from wespeaker_tpu_torch.models.ecapa_tdnn import (  # noqa: E402
     ECAPA_TDNN_GLOB_c512)
@@ -1854,8 +1879,13 @@ def phase_gemini_timing(model, dev, smi):
         inv_bottleneck.fused_inv_bottleneck_stage(x, *w)
         torch.cuda.synchronize()
         extra = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        # the gate reads the wrapper's counter (one a stage call); the
+        # profiler's kernel counts are printed only, as it has dropped
+        # records (35 of 36 once)
+        before = inv_bottleneck.fused_inv_bottleneck_stage.launches
         launched = count_launches(
-            lambda: inv_bottleneck.fused_inv_bottleneck_stage(x, *w))[:2]
+            lambda: inv_bottleneck.fused_inv_bottleneck_stage(x, *w))[:2] + (
+            inv_bottleneck.fused_inv_bottleneck_stage.launches - before,)
         # the parent's three-launch design allocated h and g, (B, F, T, 4C)
         # each
         hg = 2 * x.numel() * 4 * x.element_size() / 2 ** 30
@@ -1888,18 +1918,21 @@ def phase_gemini_timing(model, dev, smi):
         rates[path] = (B * CHUNK_SECONDS / (ms / 1e3), ms,
                        torch.cuda.max_memory_allocated() / 2 ** 30)
     set_pooling_fused(model.set_fused(None), None)
-    kernel_launches = sum(v[5][0] for v in stages)
-    if kernel_launches != sum(n for *_, n in GEMINI_STAGES):
-        raise AssertionError(f"bf16 stage kernel launches {kernel_launches}"
-                             ", want one a block")
+    wrapper_launches = [v[5][2] for v in stages]
+    if wrapper_launches != [1] * len(GEMINI_STAGES):
+        raise AssertionError(f"stage wrapper launches {wrapper_launches} "
+                             "over the four stage calls, want one each")
     fmt = "; ".join(
         f"stage{i} {ms:.3f} ms (plain {pm:.3f}, bound {bm:.3f} by {by}; "
-        f"{ln[0]} stage-kernel launches, {ln[1]} kernels in all; "
+        f"wrapper launches {ln[2]}; by torch.profiler, not gated: {ln[0]} "
+        f"stage-kernel launches, {ln[1]} kernels in all; "
         f"{ex:.3f} GiB beyond x, where the parent design's h and g took "
         f"{hg:.3f})" for i, ms, pm, bm, by, ln, ex, hg in stages)
     print(f"gemini timing [{smi}] B={B} T={T} bf16: {fmt}; four stages "
           f"{res['ms']:.3f} ms (plain {res['plain_ms']:.3f}, bound "
-          f"{res['bound_ms']:.3f}), {kernel_launches} stage-kernel launches; "
+          f"{res['bound_ms']:.3f}), {sum(wrapper_launches)} stage calls, "
+          f"{sum(v[5][0] for v in stages)} stage-kernel launches by "
+          "torch.profiler (not gated); "
           f"Gemini_DF_ResNet114 extraction kernel path "
           f"{rates['kernel'][0]:.1f} audio-s/s ({rates['kernel'][1]:.2f} "
           f"ms/batch, peak {rates['kernel'][2]:.3f} GiB), fused_stages=False "
@@ -5039,6 +5072,232 @@ def phase_frontend_train(dev, root, stores, smi):
     return steps_ms
 
 
+DEPLOY_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", "voxceleb", "v2", "conf",
+                           "ecapa_tdnn_c512.yaml")
+DEPLOY_BATCH = 64  # the YAML's own
+DEPLOY_SHAPES = ((64, 200), (1, 137))
+# rows 4 and 5's kernels in a bf16 glob step: the forward's context
+# statistics, the backward's weight-gradient GEMM and softmax backward
+DEPLOY_TRACE_NAMES = ("ctx_stats_kernel", "gemm_tn_sm90_kernel",
+                      "softmax_bwd_kernel")
+
+
+def deploy_stage1(root, rng, n_spk=8, n_utt=4):
+    """Recipe stage 1 on n_spk x n_utt seeded PCM16 wavs of 2-3.5 s (a
+    tone per speaker plus noise): wav.scp and utt2spk, then `prep_data
+    raw` and `prep_data shard` (8 utterances a shard, 2 processes). ->
+    (raw list, shard list, utt2spk, lines, shards)."""
+    os.makedirs(os.path.join(root, "wav"))
+    scp, u2s = [], []
+    for s in range(n_spk):
+        tone = 2 * np.pi * (150 + 25 * s) / 16000
+        for u in range(n_utt):
+            n = int(rng.uniform(2.0, 3.5) * 16000)
+            wav = (0.3 * np.sin(tone * np.arange(n))
+                   + rng.uniform(-0.1, 0.1, n)).astype(np.float32)
+            key = f"spk{s}-utt{u}"
+            path = os.path.join(root, "wav", f"{key}.wav")
+            write_wav(path, wav, 16000)
+            scp.append(f"{key} {path}")
+            u2s.append(f"{key} spk{s}")
+    files = {k: os.path.join(root, k) for k in (
+        "wav.scp", "utt2spk", "raw.list", "shard.list", "shards")}
+    for name, rows in (("wav.scp", scp), ("utt2spk", u2s)):
+        with open(files[name], "w") as f:
+            f.write("\n".join(rows) + "\n")
+    prep_data.main(["raw", "--wav_scp", files["wav.scp"], "--utt2spk",
+                    files["utt2spk"], "--out_list", files["raw.list"]])
+    prep_data.main(["shard", "--wav_scp", files["wav.scp"], "--utt2spk",
+                    files["utt2spk"], "--shards_dir", files["shards"],
+                    "--shards_list", files["shard.list"],
+                    "--num_utts_per_shard", "8", "--num_threads", "2"])
+    with open(files["raw.list"]) as f:
+        lines = len(f.readlines())
+    with open(files["shard.list"]) as f:
+        shards = len(f.readlines())
+    if lines != n_spk * n_utt or shards != -(-n_spk * n_utt // 8):
+        raise AssertionError(f"stage 1: {lines} raw lines, {shards} shards")
+    return (files["raw.list"], files["shard.list"], files["utt2spk"],
+            lines, shards)
+
+
+def phase_deploy(dev, smi):
+    """Recipe stage 1, 2 profiled recipe steps, then the deployment path
+    of their checkpoint: .pt2, ONNX, infer_demo and the C++ runtime with
+    the model on the card as its callback (the docstring's phase 49)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 60)
+    with tempfile.TemporaryDirectory() as root:
+        _, shard_list, utt2spk, lines, shards = deploy_stage1(root, rng)
+        exp = os.path.join(root, "exp")
+        zero_counts()
+        step = train_cli.train(DEPLOY_CONF, [
+            "data_type=shard", f"train_data={shard_list}",
+            f"utt2spk={utt2spk}", f"exp_dir={exp}", "num_epochs=1",
+            f"samples_per_epoch={2 * DEPLOY_BATCH}", "log_batch_interval=1",
+            "profile_args={start_step: 0, num_steps: 2}"], device=dev)
+        torch.cuda.synchronize()
+        launches = counts()
+        if step.step != 2 or launches != dict(NO_LAUNCH, train_fwd=2,
+                                              train_bwd=2):
+            raise AssertionError(f"deploy train: {step.step} steps, "
+                                 f"launches {launches}")
+        trace = os.path.join(exp, "profile", "steps_0-2.json")
+        with open(trace) as f:
+            text = f.read()
+        missing = [k for k in DEPLOY_TRACE_NAMES if k not in text]
+        if missing:
+            raise AssertionError(f"{trace} names none of {missing}")
+        conf = os.path.join(exp, "config.yaml")
+        ckpt = os.path.join(exp, "models", "model_0.pt")
+        configs = load_yaml(conf)
+
+        # .pt2: exported on the CPU, run on the card
+        t0 = time.perf_counter()
+        pt2 = export_model.export_pt2(conf, ckpt,
+                                      os.path.join(root, "ecapa.pt2"))
+        export_s = time.perf_counter() - t0
+        prog = export_model.load_exported(pt2, dev)
+        eager = load_model_for_eval(configs, ckpt, device=dev)
+        errs = []
+        for b, t in DEPLOY_SHAPES:
+            x = torch.as_tensor(rng.standard_normal((b, t, 80)).astype(
+                np.float32), device=dev)
+            zero_counts()
+            with torch.no_grad():
+                got = prog(x)
+                torch.cuda.synchronize()
+                n = counts()
+                want = eager(x)
+            if n != dict(NO_LAUNCH, se=3, tail=1):
+                raise AssertionError(f".pt2 at {(b, t)} launched {n}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if got.shape != (b, 192) or not err <= 1e-4 * scale:
+                raise AssertionError(f".pt2 at {(b, t)}: max error {err} "
+                                     f"of {scale}")
+            errs.append(err / scale)
+        x = torch.as_tensor(rng.standard_normal((64, 200, 80)).astype(
+            np.float32), device=dev)
+        with torch.no_grad():
+            turns = [cuda_ms(lambda: fn(x), iters=10) for fn in
+                     (eager, prog, prog, eager)]
+            # device kernels and copies a call, by torch.profiler (printed,
+            # not gated): where the two differ
+            kernels = [count_launches(lambda: fn(x), "ws::")
+                       for fn in (eager, prog)]
+
+        # ONNX, run by the port's numpy executor on the host
+        t0 = time.perf_counter()
+        onnx_path = export_model.export_onnx(
+            conf, ckpt, os.path.join(root, "ecapa.onnx"))
+        onnx_s = time.perf_counter() - t0
+        with open(onnx_path, "rb") as f:
+            blob = f.read()
+        plain_cpu = fx_to_onnx.plain_route(
+            load_model_for_eval(configs, ckpt, device="cpu"))
+        onnx_rel = []
+        for b, t in ((2, 200), (1, 137)):
+            feats = rng.standard_normal((b, t, 80)).astype(np.float32)
+            got = onnx_numpy.run(blob, {"feats": feats})["embs"]
+            with torch.no_grad():
+                want = plain_cpu(torch.from_numpy(feats)).numpy()
+            rel = float(np.abs(got - want).max() / np.abs(want).max())
+            if got.shape != want.shape or not rel < 1e-4:
+                raise AssertionError(f"ONNX at {(b, t)}: relative {rel}")
+            onnx_rel.append(rel)
+
+        # infer_demo on a 3 s wav (one whole extraction bucket, no padding)
+        # against bin/extract.py
+        probe = os.path.join(root, "probe.wav")
+        write_wav(probe, voice(rng, 48000), 16000)
+        zero_counts()
+        demo = infer_demo.infer(pt2, probe, 80, device=dev)
+        demo_launches = counts()
+        plist = os.path.join(root, "probe.list")
+        with open(plist, "w") as f:
+            f.write(json.dumps({"key": "probe", "wav": probe,
+                                "spk": "x"}) + "\n")
+        scp = extract_cli.extract(conf, ckpt, plist,
+                                  os.path.join(root, "probe_emb"),
+                                  batch_size=1, device=dev)
+        demo_cos = cosine(torch.from_numpy(demo), torch.from_numpy(
+            read_vec_scp_dict(scp)["probe"]))
+        if demo_cos < 0.9999 or demo_launches != dict(NO_LAUNCH, se=3,
+                                                      tail=1):
+            raise AssertionError(f"infer_demo: cosine {demo_cos} against "
+                                 f"extract, launches {demo_launches}")
+
+        # the C++ runtime: fbank, the engine with the model on the card,
+        # the two binaries
+        t0 = time.perf_counter()
+        bdir = runtime_binding.build_runtime()
+        build_s = time.perf_counter() - t0
+        wav16 = (voice(rng, 16000 * 3 + 4800) * (1 << 15)).astype(
+            np.float32)
+        nat = runtime_binding.NativeFbank(80)(wav16)
+        ref = compute_fbank(torch.as_tensor(wav16, device=dev),
+                            FbankConfig()).cpu().numpy()
+        np.testing.assert_allclose(nat, ref, atol=2e-3, rtol=1e-3)
+        embed = runtime_binding.model_embed_fn(eager, dev)
+        engine = runtime_binding.NativeEngine(80, embed_fn=embed,
+                                              embed_dim=192)
+        engine.extract(wav16)  # warm
+        zero_counts()
+        t0 = time.perf_counter()
+        emb = engine.extract(wav16)
+        torch.cuda.synchronize()
+        engine_s = time.perf_counter() - t0
+        eng_launches = counts()
+        chunks = runtime_binding.engine_chunks(nat)
+        py = np.mean([embed(c) for c in chunks], axis=0)
+        eng_cos = cosine(torch.from_numpy(emb), torch.from_numpy(py))
+        if eng_cos < 0.9999 or eng_launches != dict(
+                NO_LAUNCH, se=3 * len(chunks), tail=len(chunks)):
+            raise AssertionError(f"runtime engine: cosine {eng_cos}, "
+                                 f"launches {eng_launches} over "
+                                 f"{len(chunks)} chunks")
+        wscp = os.path.join(root, "rt_wav.scp")
+        with open(wscp, "w") as f:
+            f.write(f"probe {probe}\nprobe2 {probe}\n")
+        out = os.path.join(root, "rt_emb.txt")
+        r = subprocess.run([str(bdir / "extract_emb_main"), wscp, out, "80",
+                            "16000", "198", "2"], capture_output=True,
+                           text=True, timeout=120)
+        with open(out) as f:
+            rows = f.read().split("\n")
+        if r.returncode != 0 or "RTF" not in r.stderr or len(
+                [x for x in rows if x]) != 2:
+            raise AssertionError(f"extract_emb_main: {r.returncode} "
+                                 f"{r.stderr[-300:]}")
+        r = subprocess.run([str(bdir / "asv_main"), probe, probe, "0.9",
+                            "80"], capture_output=True, text=True,
+                           timeout=120)
+        if r.returncode != 0 or "ACCEPT" not in r.stdout:
+            raise AssertionError(f"asv_main: {r.returncode} {r.stdout}")
+    rtf = engine_s / (len(wav16) / 16000)
+    print(f"deploy [{smi}] ECAPA_TDNN_GLOB_c512: stage 1 prep_data raw "
+          f"{lines} lines, shard {shards} tars; bin/train.py "
+          f"ecapa_tdnn_c512.yaml 2 steps with profile_args, launches "
+          f"train_fwd={launches['train_fwd']} "
+          f"train_bwd={launches['train_bwd']}, trace "
+          f"{len(text)} bytes naming "
+          f"{', '.join(DEPLOY_TRACE_NAMES)}; .pt2 export {export_s:.2f} s "
+          f"(CPU), f32 on the card se=3 tail=1 a call, max error / max "
+          f"{max(errs):.2e} at {DEPLOY_SHAPES}; B=64 x 200 f32 ms eager "
+          f"{turns[0]:.3f} / {turns[3]:.3f}, .pt2 {turns[1]:.3f} / "
+          f"{turns[2]:.3f}; kernels a call by torch.profiler (ours, all, "
+          f"copies) eager {kernels[0]}, .pt2 {kernels[1]}; ONNX export {onnx_s:.2f} s, onnx_numpy vs "
+          f"eager CPU plain relative {max(onnx_rel):.2e}; infer_demo vs "
+          f"extract cosine {demo_cos:.7f}; runtime built in {build_s:.1f} "
+          f"s, fbank within 2e-3, engine callback {len(chunks)} chunks "
+          f"se={eng_launches['se']} tail={eng_launches['tail']} cosine "
+          f"{eng_cos:.7f}, real-time factor {rtf:.4f} ({engine_s * 1e3:.1f}"
+          f" ms for {len(wav16) / 16000:.1f} s); extract_emb_main and "
+          f"asv_main ran; phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5057,6 +5316,7 @@ def main():
     phase_serving(model, dev)
     phase_train_step(dev)
     train_launches = phase_trainer(dev)
+    phase_deploy(dev, smi)
     launches.update(train_fwd=train_launches["train_fwd"],
                     train_bwd=train_launches["train_bwd"])
     timing = phase_timing(model, dev, smi)

@@ -326,8 +326,9 @@ def test_trainer_cli_writes_a_checkpoint_the_extractor_loads(tmp_path):
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     raw, utt2spk = _corpus(str(tmp_path / "data"), n_spk=2, n_utt=1)
     conf = _tiny_config(tmp_path, raw, utt2spk)
+    # profile_args is ported (tests/test_torch_profiling.py)
     for ov in ("distributed_args={num_processes: 2}",
-               "parallel_args={model: 2}", "profile_args={start_step: 1}"):
+               "parallel_args={model: 2}"):
         with pytest.raises(NotImplementedError, match="not ported"):
             train_cli.train(conf, [ov], device="cpu")
     # conv_dw_mode is ported (packed or native); any other mode raises

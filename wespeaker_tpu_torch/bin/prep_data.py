@@ -1,6 +1,11 @@
-"""Data preparation tools: the augmentation stores, feature lists and the
-ones the scoring back end needs.
+"""Data preparation tools: the recipes' stage 1 lists and shards, the
+augmentation stores, feature lists and the ones the scoring back end needs.
 
+    python -m wespeaker_tpu_torch.bin.prep_data raw --wav_scp wav.scp \
+        --utt2spk utt2spk --out_list raw.list [--vad_file vad]
+    python -m wespeaker_tpu_torch.bin.prep_data shard --wav_scp wav.scp \
+        --utt2spk utt2spk --shards_dir shards --shards_list shard.list \
+        [--num_utts_per_shard 1000] [--num_threads 4]
     python -m wespeaker_tpu_torch.bin.prep_data aug_store --wav_scp \
         musan/wav.scp --out_prefix musan/store [--max_duration_s S]
     python -m wespeaker_tpu_torch.bin.prep_data feat --feat_scp feats.scp \
@@ -12,26 +17,33 @@ ones the scoring back end needs.
     python -m wespeaker_tpu_torch.bin.prep_data calibration_trial \
         --utt2spk utt2spk --out_trials cal_trials
 
-Counterpart of wespeaker_tpu/bin/prep_data.py (upstream tools/make_lmdb.py,
+Counterpart of wespeaker_tpu/bin/prep_data.py (upstream
+tools/make_raw_list.py, tools/make_shard_list.py, tools/make_lmdb.py,
 tools/make_feat_list.py, tools/wav2dur.py, tools/vector_mean.py,
-tools/generate_calibration_trial.py): the same files, line for line;
-`aug_store` writes the packed MUSAN/RIR store of data/store.py that the
-trainers' `noise_data` / `reverb_data` name. These are file tools on the
-host and take no `--device`. The list and shard tools (`raw`, `shard`)
-are not ported yet (ROADMAP.md Queue 1 item 8) and raise.
+tools/generate_calibration_trial.py): the same files, byte for byte. `raw`
+writes the jsonl list and `shard` the tar shards (PCM16 mono, resampled to
+16 kHz) that `data/dataset.py` reads; `aug_store` writes the packed
+MUSAN/RIR store of data/store.py that the trainers' `noise_data` /
+`reverb_data` name. These are file tools on the host and take no
+`--device`.
 """
 
 import argparse
+import io
+import json
+import multiprocessing
+import os
+import tarfile
 import wave
 from typing import Dict, List, Tuple
 
 import numpy as np
 
+from wespeaker_tpu_torch.data.dataset import _main_hidden
 from wespeaker_tpu_torch.data.store import build_packed_store
+from wespeaker_tpu_torch.data.wav_io import read_wav
 from wespeaker_tpu_torch.utils.kaldi_io import (read_vec_scp_dict,
                                                 write_vec_ark_scp)
-
-UNPORTED = ("raw", "shard")
 
 
 def read_scp(path: str) -> List[Tuple[str, str]]:
@@ -46,6 +58,101 @@ def read_scp(path: str) -> List[Tuple[str, str]]:
 
 def read_utt2spk(path: str) -> Dict[str, str]:
     return dict(read_scp(path))
+
+
+def make_raw_list(wav_scp, utt2spk, out_list, vad_file=None):
+    """wav.scp + utt2spk (+ optional vad segments `subseg utt begin end`)
+    -> the jsonl raw list, one {"key", "wav", "spk"[, "vad"]} a line in
+    wav.scp's order, utterances without a speaker left out
+    (tools/make_raw_list.py). Returns the number of lines."""
+    u2s = read_utt2spk(utt2spk)
+    vad = {}
+    if vad_file:
+        with open(vad_file) as f:
+            for line in f:
+                parts = line.split()
+                utt, b, e = parts[-3], float(parts[-2]), float(parts[-1])
+                vad.setdefault(utt, []).append([b, e])
+    n = 0
+    with open(out_list, "w") as fout:
+        for key, path in read_scp(wav_scp):
+            if key not in u2s:
+                continue
+            obj = {"key": key, "wav": path, "spk": u2s[key]}
+            if key in vad:
+                obj["vad"] = vad[key]
+            fout.write(json.dumps(obj) + "\n")
+            n += 1
+    return n
+
+
+def _add_member(tf: tarfile.TarFile, name: str, data: bytes) -> None:
+    info = tarfile.TarInfo(name)  # mtime, uid and gid 0: reproducible
+    info.size = len(data)
+    tf.addfile(info, io.BytesIO(data))
+
+
+def _write_one_shard(args):
+    """One tar of `key.wav` (PCM16 mono at `resample_rate`, resampled by
+    scipy's resample_poly where the file's rate differs) and `key.spk`
+    members, in the items' order; unreadable files are left out."""
+    shard_path, items, resample_rate = args
+    from scipy.signal import resample_poly
+
+    with tarfile.open(shard_path, "w") as tf:
+        for key, spk, path in items:
+            try:
+                wav, sr = read_wav(path)
+            except Exception:  # as the upstream tool: skip, keep going
+                continue
+            if wav.ndim > 1:
+                wav = wav[0]
+            if resample_rate and sr != resample_rate:
+                g = int(np.gcd(sr, resample_rate))
+                wav = resample_poly(wav, resample_rate // g, sr // g)
+                sr = resample_rate
+            pcm = (np.clip(wav, -1, 1) * 32767.0).round().astype(np.int16)
+            buf = io.BytesIO()
+            with wave.open(buf, "wb") as w:
+                w.setnchannels(1)
+                w.setsampwidth(2)
+                w.setframerate(sr)
+                w.writeframes(pcm.tobytes())
+            _add_member(tf, f"{key}.wav", buf.getvalue())
+            _add_member(tf, f"{key}.spk", spk.encode())
+    return shard_path
+
+
+def make_shard_list(wav_scp, utt2spk, shards_dir, shards_list,
+                    num_utts_per_shard=1000, num_threads=4,
+                    resample_rate=16000, shuffle=True, seed=42):
+    """wav.scp + utt2spk -> tar shards `shards_dir/shards_<i:09d>.tar` of
+    `num_utts_per_shard` utterances each, after numpy's default_rng(seed)
+    shuffle of the list, and the list of their paths
+    (tools/make_shard_list.py). `num_threads` spawned processes write the
+    shards. Returns the shard paths."""
+    u2s = read_utt2spk(utt2spk)
+    items = [(k, u2s[k], p) for k, p in read_scp(wav_scp) if k in u2s]
+    if shuffle:
+        np.random.default_rng(seed).shuffle(items)
+    os.makedirs(shards_dir, exist_ok=True)
+    tasks = []
+    for i in range(0, len(items), num_utts_per_shard):
+        shard_path = os.path.join(shards_dir,
+                                  f"shards_{i // num_utts_per_shard:09d}.tar")
+        tasks.append((shard_path, items[i:i + num_utts_per_shard],
+                      resample_rate))
+    if num_threads > 1 and len(tasks) > 1:
+        ctx = multiprocessing.get_context("spawn")
+        # the workers import this module and data/ only, not the caller
+        with _main_hidden(), ctx.Pool(min(num_threads, len(tasks))) as pool:
+            paths = pool.map(_write_one_shard, tasks)
+    else:
+        paths = [_write_one_shard(t) for t in tasks]
+    with open(shards_list, "w") as f:
+        for p in paths:
+            f.write(p + "\n")
+    return paths
 
 
 def make_aug_store(wav_scp, out_prefix, sample_rate=16000,
@@ -129,6 +236,18 @@ def generate_calibration_trial(utt2spk, out_trials, num_target=1000,
 def main(argv=None):
     ap = argparse.ArgumentParser()
     sub = ap.add_subparsers(dest="cmd", required=True)
+    r = sub.add_parser("raw")
+    r.add_argument("--wav_scp", required=True)
+    r.add_argument("--utt2spk", required=True)
+    r.add_argument("--out_list", required=True)
+    r.add_argument("--vad_file", default=None)
+    s = sub.add_parser("shard")
+    s.add_argument("--wav_scp", required=True)
+    s.add_argument("--utt2spk", required=True)
+    s.add_argument("--shards_dir", required=True)
+    s.add_argument("--shards_list", required=True)
+    s.add_argument("--num_utts_per_shard", type=int, default=1000)
+    s.add_argument("--num_threads", type=int, default=4)
     a = sub.add_parser("aug_store")
     a.add_argument("--wav_scp", required=True)
     a.add_argument("--out_prefix", required=True)
@@ -147,16 +266,15 @@ def main(argv=None):
     v.add_argument("--spk2utt", required=True)
     v.add_argument("--xvector_scp", required=True)
     v.add_argument("--out_prefix", required=True)
-    for name in UNPORTED:
-        sub.add_parser(name)
-    args, rest = ap.parse_known_args(argv)
-    if args.cmd in UNPORTED:
-        raise NotImplementedError(
-            f"prep_data {args.cmd} is not ported yet (ROADMAP.md Queue 1 "
-            "item 8)")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.cmd == "aug_store":
+    args = ap.parse_args(argv)
+    if args.cmd == "raw":
+        make_raw_list(args.wav_scp, args.utt2spk, args.out_list,
+                      args.vad_file)
+    elif args.cmd == "shard":
+        make_shard_list(args.wav_scp, args.utt2spk, args.shards_dir,
+                        args.shards_list, args.num_utts_per_shard,
+                        args.num_threads)
+    elif args.cmd == "aug_store":
         make_aug_store(args.wav_scp, args.out_prefix,
                        max_duration_s=args.max_duration_s)
     elif args.cmd == "feat":

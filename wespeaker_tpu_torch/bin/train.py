@@ -35,9 +35,14 @@ its parameters stay out of the optimizer, as the JAX trainer masks them.
 The wav frontends' chunk length comes from `fbank_args.frame_shift` and
 `frame_length` (20 ms for WavLM), as in the JAX trainer.
 
+`profile_args: {start_step, num_steps, log_dir}` writes a torch.profiler
+trace of global steps [start, start + num) of this process, by default to
+`exp_dir/profile/steps_<start>-<stop>.json` (utils/profiling.py), as the
+JAX trainer captures a jax.profiler timeline of them.
+
 Not ported yet, and refused rather than dropped: `distributed_args`
 (multi-card training) and a model axis > 1 (ROADMAP.md Queue 1 item 4,
-DDP) and `profile_args` (item 8).
+DDP).
 """
 
 import argparse
@@ -64,6 +69,7 @@ from wespeaker_tpu_torch.train.train_step import (AugConfig,
                                                   build_train_state,
                                                   make_train_step)
 from wespeaker_tpu_torch.utils import checkpoint as ckpt
+from wespeaker_tpu_torch.utils import profiling
 from wespeaker_tpu_torch.utils.config import dump_yaml, parse_config_or_kwargs
 from wespeaker_tpu_torch.utils.schedulers import (MarginScheduler,
                                                   get_lr_scheduler)
@@ -92,7 +98,6 @@ def _refuse_unported(configs):
             bool(configs.get("distributed_args")),
         "parallel_args.model > 1 (Queue 1 item 4)":
             configs.get("parallel_args", {}).get("model", 1) > 1,
-        "profile_args (Queue 1 item 8)": bool(configs.get("profile_args")),
     }
     bad = [k for k, v in unported.items() if v]
     if bad:
@@ -223,13 +228,18 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
     log_interval = configs.get("log_batch_interval", 100)
     save_interval = configs.get("save_epoch_interval", 1)
     num_avg = configs.get("num_avg", 1)
+    gstep = 0
     with _sigterm_event() as preempted, _batches(
             ds_args, ds_kwargs, dataset, batch_size,
-            configs.get("dataloader_args", {})) as batches:
+            configs.get("dataloader_args", {})) as batches, \
+            profiling.StepWindow(configs.get("profile_args"), exp_dir,
+                                 dev) as window:
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             for it in range(epoch_iter):
+                window.before(gstep)
                 metrics = step(next(batches))
+                gstep += 1
                 if it % log_interval == 0:
                     logger.info(
                         f"epoch {epoch} it {it}/{epoch_iter} "

@@ -325,6 +325,17 @@ __global__ void __launch_bounds__(256) gemm_wmma_kernel(GemmArgs p) {
   }
 }
 
+// The GEMM kernels launched so far in this library, counted on the host
+// where each launch is made: [gemm_sm90, gemm_tn_sm90, WMMA, FMA]. Each
+// library compiles its own copy; ws_gemm_route_counts reads it, so a test
+// can tell which GEMM a call took without a profiler.
+enum GemmRoute { kRouteSm90 = 0, kRouteTnSm90 = 1, kRouteWmma = 2,
+                 kRouteFma = 3, kRoutes = 4 };
+inline long long* gemm_route_counts() {
+  static long long counts[kRoutes] = {0, 0, 0, 0};
+  return counts;
+}
+
 // One launch of the GEMM kernel for operand type T in the given form and
 // column tile; checks the sizes every form shares.
 template <typename T, typename OutT, int kForm, int kBN>
@@ -337,9 +348,11 @@ cudaError_t gemm_launch(const GemmArgs& p, cudaStream_t stream) {
   const dim3 grid((unsigned)blocks);
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     gemm_wmma_kernel<OutT, kForm, kBN><<<grid, 256, 0, stream>>>(p);
+    ++gemm_route_counts()[kRouteWmma];
   } else {
     static_assert(std::is_same<T, float>::value, "f32 or bf16 operands");
     gemm_fma_kernel<OutT, kForm, kBN><<<grid, 256, 0, stream>>>(p);
+    ++gemm_route_counts()[kRouteFma];
   }
   return cudaGetLastError();
 }

@@ -559,6 +559,7 @@ cudaError_t gemm_sm90_maps(const void* const* a, int lda, const void* wt,
   const int grid = tiles < sm_count() ? tiles : sm_count();
   gemm_sm90_kernel<kForm, kParts>
       <<<grid, kG9Threads, kSmem, stream>>>(tm_a, tm_w, p);
+  ++gemm_route_counts()[kRouteSm90];
   return cudaGetLastError();
 }
 

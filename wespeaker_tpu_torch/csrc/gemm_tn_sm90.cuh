@@ -287,6 +287,7 @@ inline cudaError_t gemm_tn_sm90(const TnOperand* ops, int nops, int k,
   const int units = p.tiles * p.splits;
   const int grid = units < sm_count() ? units : sm_count();
   gemm_tn_sm90_kernel<<<grid, kG9Threads, kTnSmem, stream>>>(tm, p);
+  ++gemm_route_counts()[kRouteTnSm90];
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   splitk_reduce_kernel<<<(unsigned)((p.slab + 255) / 256), 256, 0,
                          stream>>>(work, ops[0].out, p.splits,

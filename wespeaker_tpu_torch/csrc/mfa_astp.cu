@@ -72,3 +72,9 @@ extern "C" int ws_gemm_sm90_tail(const void* a0, const void* a1,
     return ws::gemm_sm90_3<ws::kFormPost>(a0, a1, a2, lda, wt, ldw, p, s);
   return cudaErrorInvalidValue;
 }
+
+// The GEMM launches this library has made, by route (common.cuh's
+// GemmRoute order: gemm_sm90, gemm_tn_sm90, WMMA, FMA), into out[4].
+extern "C" void ws_gemm_route_counts(long long* out) {
+  for (int i = 0; i < ws::kRoutes; ++i) out[i] = ws::gemm_route_counts()[i];
+}

@@ -672,3 +672,9 @@ extern "C" int ws_gemm_tn_sm90(const void* a, const void* b, float* out,
   return ws::gemm_tn_sm90(&op, 1, k, wsp, (size_t)ws_elems,
                           static_cast<cudaStream_t>(stream));
 }
+
+// The GEMM launches this library has made, by route (common.cuh's
+// GemmRoute order: gemm_sm90, gemm_tn_sm90, WMMA, FMA), into out[4].
+extern "C" void ws_gemm_route_counts(long long* out) {
+  for (int i = 0; i < ws::kRoutes; ++i) out[i] = ws::gemm_route_counts()[i];
+}

@@ -49,6 +49,7 @@ class SpeakerDataset:
         if mode not in ("random", "expanded"):
             raise ValueError(f"unknown speed_perturb_mode {mode}")
         self.data_type = data_type
+        self.data_list_file = data_list_file
         self.lists = P.read_lists(data_list_file)
         self.configs = configs
         self.spk2id = spk2id
@@ -134,13 +135,24 @@ class SpeakerDataset:
         """Batches from one sample stream spanning epochs (endless unless
         max_epochs is reached), so a partial batch at an epoch boundary
         carries over instead of being dropped: a worker's stripe may hold
-        fewer utterances than a batch. An empty stripe yields nothing and
-        never ends, as in the JAX package."""
+        fewer utterances than a batch. An epoch that yields no sample (an
+        empty stripe, or every utterance filtered out) raises ValueError;
+        the JAX package spins there for ever."""
 
         def stream():
             epoch = 0
             while True:
-                yield from self._epoch_iter(epoch)
+                n = 0
+                for sample in self._epoch_iter(epoch):
+                    n += 1
+                    yield sample
+                if n == 0:
+                    raise ValueError(
+                        f"epoch {epoch} of rank {self.rank} (world size "
+                        f"{self.world_size}), worker {self.worker_id} of "
+                        f"{self.num_workers}, yields no sample from "
+                        f"{self.data_list_file}: its stripe of the list is "
+                        "empty or every utterance was filtered out")
                 epoch += 1
                 if max_epochs and epoch >= max_epochs:
                     return

@@ -53,8 +53,9 @@ def _std(x: torch.Tensor, mask: Optional[torch.Tensor], ddof: int):
         sq = sq * m
         count = m.sum(dim=1)
     else:
-        count = torch.tensor(float(x.shape[1]), dtype=x.dtype,
-                             device=x.device)
+        # a tensor of the size, not float(size): an exported graph keeps
+        # T symbolic
+        count = torch.full((), x.shape[1], dtype=x.dtype, device=x.device)
     var = sq.sum(dim=1) / torch.clamp(count - ddof, min=1.0)
     return mean.squeeze(1), torch.sqrt(var + 1e-7)
 

@@ -89,6 +89,20 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+GEMM_ROUTES = ("gemm_sm90", "gemm_tn_sm90", "wmma", "fma")
+
+
+def gemm_routes(name: str) -> Dict[str, int]:
+    """The GEMM launches library `name` (mfa_astp or mfa_astp_train) has
+    made so far in this process, by route, as the library counts them
+    where it launches each (csrc/common.cuh::gemm_route_counts)."""
+    lib = load(name)
+    out = (ctypes.c_longlong * len(GEMM_ROUTES))()
+    lib.ws_gemm_route_counts.argtypes = [ctypes.c_void_p]
+    lib.ws_gemm_route_counts(out)
+    return dict(zip(GEMM_ROUTES, out))
+
+
 def pointers(tensors) -> list:
     """Device addresses of contiguous tensors, as the kernels read them
     (16-byte vector loads)."""

@@ -147,13 +147,43 @@ def fused_mfa_astp(x2, x3, x4, wm, bm, k1, b1, k2, b2,
     b2: (D,). mask: optional (B, T) frame validity. Returns (B, 2D) f32
     pooled [mean | std].
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel, or raises for a shape or type it does not take."""
-    if x2.device.type == "cpu":
-        return mfa_astp_reference(x2, x3, x4, wm, bm, k1, b1, k2, b2,
-                                  mask=mask, glob=glob)
-    if x2.device.type != "cuda":
+    The call goes through the custom op `wespeaker_tpu_torch::
+    fused_mfa_astp`, so a torch.export program of the model holds it as
+    one node: its CPU implementation is the plain version, its CUDA one
+    the kernel (or raises for a shape or type the kernel does not take).
+    The op has no autograd formula, so on the CPU with gradients wanted
+    the plain version runs directly."""
+    args = (x2, x3, x4, wm, bm, k1, b1, k2, b2)
+    if x2.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_mfa_astp: no kernel for {x2.device}")
+    if (x2.device.type == "cpu" and torch.is_grad_enabled()
+            and any(v.requires_grad for v in args + (mask,)
+                    if v is not None)):
+        return mfa_astp_reference(*args, mask=mask, glob=glob).float()
+    return torch.ops.wespeaker_tpu_torch.fused_mfa_astp(*args, mask, glob)
+
+
+fused_mfa_astp.launches = 0
+
+_T = torch.Tensor
+
+
+@torch.library.custom_op("wespeaker_tpu_torch::fused_mfa_astp",
+                         mutates_args=(), device_types="cpu")
+def _tail_op(x2: _T, x3: _T, x4: _T, wm: _T, bm: _T, k1: _T, b1: _T,
+             k2: _T, b2: _T, mask: Optional[_T], glob: bool) -> _T:
+    return mfa_astp_reference(x2, x3, x4, wm, bm, k1, b1, k2, b2, mask=mask,
+                              glob=glob).float()
+
+
+@_tail_op.register_fake
+def _tail_op_fake(x2, x3, x4, wm, *rest):
+    return x2.new_empty((x2.shape[0], 2 * wm.shape[-1]),
+                        dtype=torch.float32)
+
+
+@_tail_op.register_kernel("cuda")
+def _tail_op_cuda(x2, x3, x4, wm, bm, k1, b1, k2, b2, mask, glob):
     _check_cuda_args(x2, x3, x4, wm, k1, k2, mask, glob)
     b, t, c = x2.shape
     d, a = _MFA_DIM, _ATT_DIM
@@ -214,7 +244,6 @@ def unit_affine(d: int, device) -> torch.Tensor:
     return torch.cat([torch.ones(1, d), torch.zeros(1, d)]).to(device)
 
 
-fused_mfa_astp.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

@@ -201,14 +201,47 @@ def fused_se_res2_block(x, w1, b1, s1, h1, cw, cb, cs, ch,
     optional (B, T) frame validity; it gates only the SE squeeze. Returns
     x + gate * block(x) in x's dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel, or raises for a shape or type it does not take."""
-    if x.device.type == "cpu":
-        return se_res2_block_reference(x, w1, b1, s1, h1, cw, cb, cs, ch,
-                                       w2, b2, s2, h2, sw1, sb1, sw2, sb2,
-                                       dilation, mask)
-    if x.device.type != "cuda":
+    The call goes through the custom op `wespeaker_tpu_torch::
+    fused_se_res2_block`, so a torch.export program of the model holds it
+    as one node: its CPU implementation is the plain version, its CUDA
+    one the kernel (or raises for a shape or type the kernel does not
+    take). The op has no autograd formula, so on the CPU with gradients
+    wanted the plain version runs directly."""
+    args = (x, w1, b1, s1, h1, cw, cb, cs, ch, w2, b2, s2, h2, sw1, sb1,
+            sw2, sb2)
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_se_res2_block: no kernel for {x.device}")
+    if (x.device.type == "cpu" and torch.is_grad_enabled()
+            and any(v.requires_grad for v in args + (mask,)
+                    if v is not None)):
+        return se_res2_block_reference(*args, dilation, mask)
+    return torch.ops.wespeaker_tpu_torch.fused_se_res2_block(
+        *args, dilation, mask)
+
+
+fused_se_res2_block.launches = 0
+
+_T = torch.Tensor
+
+
+@torch.library.custom_op("wespeaker_tpu_torch::fused_se_res2_block",
+                         mutates_args=(), device_types="cpu")
+def _se_op(x: _T, w1: _T, b1: _T, s1: _T, h1: _T, cw: _T, cb: _T, cs: _T,
+           ch: _T, w2: _T, b2: _T, s2: _T, h2: _T, sw1: _T, sb1: _T,
+           sw2: _T, sb2: _T, dilation: int, mask: Optional[_T]) -> _T:
+    return se_res2_block_reference(x, w1, b1, s1, h1, cw, cb, cs, ch, w2,
+                                   b2, s2, h2, sw1, sb1, sw2, sb2, dilation,
+                                   mask)
+
+
+@_se_op.register_fake
+def _se_op_fake(x, *rest):
+    return torch.empty_like(x)
+
+
+@_se_op.register_kernel("cuda")
+def _se_op_cuda(x, w1, b1, s1, h1, cw, cb, cs, ch, w2, b2, s2, h2, sw1, sb1,
+                sw2, sb2, dilation, mask):
     _check_cuda_args(x, cw, sw1, mask, dilation)
     b, t, c = x.shape
     nums, _, width, _ = cw.shape
@@ -249,9 +282,6 @@ def fused_se_res2_block(x, w1, b1, s1, h1, cw, cb, cs, ch,
     _build.check(lib, rc, "fused_se_res2_block")
     fused_se_res2_block.launches += 1
     return out
-
-
-fused_se_res2_block.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
