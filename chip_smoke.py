@@ -466,6 +466,53 @@ Phases, each printing one line:
               the card as the callback against the same chunking in
               Python (cosine >= 0.9999, rows 1 and 2 once a chunk) and its
               real-time factor, extract_emb_main and asv_main.
+ 50. ddp eval  (after diar, on its files) --data_parallel with two
+              replicas on cuda:0 against one replica: bin/extract.py bf16
+              with ECAPA_TDNN_GLOB_c512 (random weights from SEED) over
+              the quality corpus's evaluation list, the same keys in the
+              same order at cosine >= 0.9999, rows 1 x3 and 2 x1 a
+              replica batch (twice the one replica's); bin/diarize.py on
+              the diar recording with the quality checkpoint, the same
+              RTTM.
+ 51. ddp  (after recipe train, with the aug stores) the parallel layer
+              on one card. Two ranks of this script (--ddp-rank) over gloo
+              on CUDA tensors (NCCL refuses two ranks on one device):
+              bin/train.py on ecapa_tdnn_c512.yaml unchanged but for the
+              corpus (write_shards) with distributed_args, B=64 a rank, 3
+              steps: each rank launches rows 4 and 5 three times, the
+              ranks' parameters and buffers hash alike, rank 0 alone
+              writes model_0.pt and a resume in 2 ranks loads it; a step's
+              wall and device ms and one gradient all_reduce's ms (gloo
+              stages through the host: no NCCL figure). One step of
+              ECAPA_TDNN_GLOB_c512 + ArcMargin 17,982 in 2 ranks x 64 rows
+              against one process on the 128 (the parent's rows, dither 0,
+              no spec-aug, no aug; rank 1's rows quiet in their first
+              half), the one process taking its BatchNorm statistics as
+              the ranks do (from the sums, through a group of one): f32
+              (TF32 off) the loss within 1e-4, every BatchNorm running
+              statistic element-wise within 1e-4 of max(1, its largest
+              magnitude), every parameter after the step within 1e-4 of
+              the same or twice what the one-process step moves it when
+              the same rows come in another order, whichever is larger
+              (~1e-4 on the H100 at LR 0.1), each layer's update at
+              cosine >= 0.999; the f32 step with each rank's
+              own BatchNorm statistics must miss that bar; bf16 the loss
+              within 1e-3, each layer's error against the f32 step's
+              update at most 1.1 x the one-process bf16 step's + 0.05
+              (phase dino's bf16 bar), and cosine >= 0.999 in every
+              layer where the control (the one-process step with the
+              plain two-pass statistics, a change of f32 rounding only)
+              stays at >= 0.9999; the control's cosines are printed.
+              DINO, MoCo and SimCLR one f32 and one bf16 step each on the
+              quality smoke's ECAPA_TDNN (C=256) in 2 ranks x 16 against
+              one process on the global 32 (view-major), at the same
+              bars; DINO's centre and MoCo's new queue rows at cosine >=
+              0.999 and bit-identical over the ranks. parallel_args.model
+              2 (data 1): 2 steps within 1e-3 of one process's losses, the
+              checkpoint holding the whole head loads into a one-card
+              model. NCCL in a world of one: an all_reduce and one step;
+              two ranks over NCCL only where there are two cards, which
+              the line says.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -4828,6 +4875,34 @@ def stacked(d, keys):
     return torch.stack([d[k] for k in keys])
 
 
+def direct_miss(got, direct, keys, utts, model, configs, dev):
+    """What the frontend slice prints when bin/extract.py's embeddings
+    miss the same buckets embedded directly: the lowest row's key, length
+    and bucket (its batch of eval_batches and padded samples), that
+    utterance embedded alone in a bucket of its padded length against the
+    extraction and against the direct row, and the direct buckets
+    embedded again against themselves (run-to-run agreement)."""
+    cos = row_cosines(got, stacked(direct, keys))
+    i = int(cos.argmin())
+    key, wav = keys[i], dict(utts)[keys[i]]
+    batch_no, n = next(
+        (j, b["wav"].shape[1]) for j, b in enumerate(eval_batches(
+            iter(utts), batch_size=4, quantum_samples=16000))
+        if key in b["key"])
+    fn = make_eval_embed_fn(model, compute_dtype=torch.bfloat16, device=dev,
+                            featurize_fn=featurizers(configs)[1])
+    padded, mask = np.zeros((1, n), np.float32), np.zeros((1, n), np.float32)
+    padded[0, :len(wav)], mask[0, :len(wav)] = wav, 1.0
+    alone = fn({"wav": padded, "mask": mask}).cpu()[0]
+    again = frontend_embeds(model, configs, utts, dev, torch.bfloat16)
+    rerun = row_cosines(stacked(again, keys), stacked(direct, keys)).min()
+    return (f"MISS: lowest row {key} ({len(wav)} samples, batch {batch_no} "
+            f"padded to {n}) at {cos[i].item():.7f}; alone in a bucket of "
+            f"{n} vs the extraction {cosine(alone, got[i]):.7f}, vs the "
+            f"direct row {cosine(alone, direct[key]):.7f}; the direct "
+            f"buckets embedded again vs themselves {rerun.item():.7f}")
+
+
 def phase_frontend_slice(dev, root, smi):
     """The three families at their YAMLs' widths, random weights from
     SEED: bin/extract.py --bf16 on a ragged list of 6 utterances (1.3-3.1
@@ -4907,6 +4982,9 @@ def phase_frontend_slice(dev, root, smi):
                 + f"; vs the buckets embedded directly {vs_direct:.7f}, "
                 f"kernel vs plain route bf16 {vs_plain:.7f}, f32 card vs "
                 f"CPU {vs_cpu:.7f}, neighbouring utterances {cross:.4f}")
+        if vs_direct < 0.99999:
+            line += "; " + direct_miss(got, kern, keys, utts, model,
+                                       configs, dev)
         bad = vs_direct < 0.99999 or vs_plain < 0.9999 or vs_cpu < 0.99999
         if family.startswith("WavLM"):
             # the raw waveform rounded to bf16 before the first conv, the
@@ -5298,6 +5376,656 @@ def phase_deploy(dev, smi):
           f"asv_main ran; phase {time.perf_counter() - t_phase:.1f} s")
 
 
+# --- ddp: the parallel layer (parallel/) on one card ---------------------
+DDP_RANKS = 2
+DDP_BATCH = 64      # ecapa_tdnn_c512.yaml's batch_size, each rank's
+DDP_STEPS = 3
+DDP_SSL_B = 16      # each rank's utterances in the SSL checks
+DDP_SSL_EMBED = 128  # the quality smoke's ECAPA_TDNN: C=256, embed 128
+DDP_QUEUE = 4096
+DDP_TIMEOUT = 600
+
+
+def state_hash(modules):
+    """sha256 (16 hex digits) over the modules' parameters and buffers,
+    by name and bytes: equal hashes mean bit-identical states."""
+    import hashlib
+    h = hashlib.sha256()
+    for mod in modules:
+        for k, v in mod.state_dict().items():
+            h.update(k.encode())
+            h.update(v.detach().contiguous().reshape(-1).view(
+                torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def ddp_compare_rows(rng):
+    """The global batch of the two-rank comparison (dither 0, spec-aug and
+    aug off): 2 x 64 chunks of 2 s, rank 1's quiet in their first half,
+    so that the two ranks' BatchNorm statistics differ."""
+    wav = rng.uniform(-0.5, 0.5, (DDP_RANKS * DDP_BATCH, CHUNK_SAMPLES))
+    wav[DDP_BATCH:, :CHUNK_SAMPLES // 2] *= 0.01
+    return {"wav": wav.astype(np.float32),
+            "label": rng.integers(0, NUM_CLASS, DDP_RANKS * DDP_BATCH)}
+
+
+def ddp_one_step(dev, batch, dtype, mesh=None, global_stats=True):
+    """One step of train_modules' ECAPA_TDNN_GLOB_c512 + ArcMargin from the
+    seeded weights on `batch` (this rank's rows), LR 0.1 and margin 0.2
+    (phase_train_step's); -> (the global loss, each parameter's update and
+    each BatchNorm running statistic after the step, on the CPU, and each
+    parameter's largest magnitude after the step)."""
+    model, proj, opt, _ = train_modules(dev)
+    start = {n: p.detach().clone() for n, p in model.named_parameters()}
+    step = make_train_step(model, proj, opt, lambda s: 0.1, lambda s: 0.2,
+                           FbankConfig(dither=0.0), AugConfig(spec_aug=False),
+                           compute_dtype=dtype, device=dev, mesh=mesh,
+                           global_stats=global_stats)
+    loss = float(step({k: torch.as_tensor(v, device=dev)
+                       for k, v in batch.items()})["loss"])
+    upd = {n: (p.detach() - start[n]).float().cpu()
+           for n, p in model.named_parameters()}
+    stats = {n: b.float().cpu() for n, b in model.named_buffers()
+             if n.rsplit(".", 1)[-1] in ("running_mean", "running_var")}
+    top = {n: p.detach().abs().max().item()
+           for n, p in model.named_parameters()}
+    del model, proj, opt, step
+    torch.cuda.empty_cache()
+    return loss, upd, stats, top
+
+
+def ddp_ssl_step(method, dev, batch, dtype, mesh=None):
+    """One `dtype` step (TF32 off in f32) of DINO, MoCo or SimCLR on the
+    quality smoke's ECAPA_TDNN (C=256, embed 128) built from SEED, DINO
+    with the SSL
+    smoke's BN head (8,192 out), MoCo with a 4,096 queue; -> (the global
+    loss, each student / encoder parameter's update on the CPU, DINO's
+    centre or MoCo's queue, each parameter's largest magnitude after the
+    step)."""
+    from wespeaker_tpu_torch.models.ecapa_tdnn import ECAPA_TDNN
+    from wespeaker_tpu_torch.ssl import contrastive as SC
+    from wespeaker_tpu_torch.ssl import dino as SD
+    torch.manual_seed(SEED)
+    enc = ECAPA_TDNN(SMOKE_C, 80, DDP_SSL_EMBED, global_context_att=False)
+    if method == "dino":
+        head = SD.DINOHead(DDP_SSL_EMBED, 8192, use_bn=True,
+                           hidden_dim=1024, bottleneck_dim=128)
+        state = SD.init_dino_state(enc, head, lambda m: torch.optim.SGD(
+            [p for p in m.parameters() if p.requires_grad], lr=0.0,
+            momentum=0.9), dev)
+        step = SD.DINOTrainStep(
+            state, lambda s: 0.05, lambda s: 0.996, lambda s: 0.04,
+            SD.DINOConfig(out_dim=8192, n_global=2, n_local=4),
+            compute_dtype=dtype, mesh=mesh)
+        module = step.student
+    else:
+        enc = enc.to(dev)
+        opt = torch.optim.SGD(enc.parameters(), lr=0.0, momentum=0.9)
+        if method == "moco":
+            queue = SC.l2norm(torch.randn(
+                (DDP_QUEUE, DDP_SSL_EMBED),
+                generator=torch.Generator(device=dev).manual_seed(SEED),
+                device=dev))
+            step = SC.MoCoTrainStep(enc, opt, lambda s: 0.05, queue,
+                                    compute_dtype=dtype, mesh=mesh)
+        else:
+            step = SC.SimCLRTrainStep(enc, opt, lambda s: 0.05,
+                                      compute_dtype=dtype,
+                                      mesh=mesh)
+        module = enc
+    start = {n: p.detach().clone() for n, p in module.named_parameters()}
+    loss = float(step({k: torch.as_tensor(v, device=dev)
+                       for k, v in batch.items()})["loss"])
+    upd = {n: (p.detach() - start[n]).float().cpu()
+           for n, p in module.named_parameters()}
+    top = {n: p.detach().abs().max().item()
+           for n, p in module.named_parameters()}
+    # DINO's centre, MoCo's queue rows this step wrote
+    extra = (step.center if method == "dino" else
+             step.queue[:DDP_RANKS * DDP_SSL_B] if method == "moco"
+             else torch.zeros(1)).float().cpu()
+    del step, module, enc
+    torch.cuda.empty_cache()
+    return loss, upd, extra, top
+
+
+def ddp_ssl_batches(rng):
+    """Each rank's SSL rows (features, view-major), rank 1's scaled and
+    shifted; and the global batch in view-major order."""
+    def rows(shape, r):
+        x = rng.standard_normal(shape).astype(np.float32)
+        return x * 3.0 + 1.0 if r else x
+
+    b = DDP_SSL_B
+    ranks = {"dino": [{"global_feat": rows((2 * b, 200, 80), r),
+                       "local_feat": rows((4 * b, 100, 80), r)}
+                      for r in range(DDP_RANKS)],
+             "moco": [{k: rows((b, 200, 80), r) for k in ("q_feat",
+                                                         "k_feat")}
+                      for r in range(DDP_RANKS)],
+             "simclr": [{"feat": rows((2 * b, 200, 80), r)}
+                        for r in range(DDP_RANKS)]}
+
+    def view_major(parts, views):
+        return np.concatenate([p.reshape(views, b, *p.shape[1:])
+                               for p in parts], axis=1).reshape(
+            -1, *parts[0].shape[1:])
+
+    glob = {"dino": {"global_feat": view_major(
+                [p["global_feat"] for p in ranks["dino"]], 2),
+                     "local_feat": view_major(
+                [p["local_feat"] for p in ranks["dino"]], 4)},
+            "moco": {k: np.concatenate([p[k] for p in ranks["moco"]])
+                     for k in ("q_feat", "k_feat")},
+            "simclr": {"feat": view_major(
+                [p["feat"] for p in ranks["simclr"]], 2)}}
+    return ranks, glob
+
+
+def ddp_trainer_args(inputs, rank, name, samples, extra=()):
+    """bin/train.py overrides for the ranks: ecapa_tdnn_c512.yaml on the
+    shard corpus, one epoch of `samples`, distributed_args."""
+    return (list(inputs["corpus"])
+            + [f"exp_dir={os.path.join(inputs['root'], name)}",
+               "num_epochs=1", "log_batch_interval=1",
+               f"samples_per_epoch={samples}",
+               f"distributed_args={{coordinator: localhost:"
+               f"{inputs['port']}, num_processes: {inputs['world']}, "
+               f"process_id: {rank}}}"] + list(extra))
+
+
+def ddp_rank(rank, world, workdir):
+    """One rank of phase_ddp (chip_smoke.py --ddp-rank RANK WORLD DIR):
+    joins the group of DIR/inputs.pt, runs its tasks and writes
+    DIR/rank<RANK>.pt. The parent has built every kernel already."""
+    import torch.distributed as dist
+
+    from wespeaker_tpu_torch.parallel.mesh import make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(os.path.join(workdir, "inputs.pt"),
+                        weights_only=False)
+    inputs["world"] = world
+    backend = inputs["backend"]
+    dev = torch.device(inputs.get("device", "cuda"))
+    conf = os.path.join(V2_CONF, "ecapa_tdnn_c512.yaml")
+    out = {}
+    writes = []
+    save = ckpt_io.save_checkpoint
+
+    def counted(path, *a, **kw):
+        writes.append(os.path.basename(path))
+        return save(path, *a, **kw)
+
+    ckpt_io.save_checkpoint = counted
+    # the trainer: 3 steps, each rank's launches, its state's hash, a
+    # step's wall and device time, and a resume from rank 0's checkpoint
+    over = ddp_trainer_args(inputs, rank, "dp",
+                            DDP_STEPS * world * DDP_BATCH)
+    zero_counts()
+    # rank 0 times its second step and profiles its third
+    with step_clock(*((1, 1) if rank == 0 else ())) as clock:
+        step = train_cli.train(conf, over, device=dev, backend=backend)
+    torch.cuda.synchronize()
+    out["trainer"] = {
+        "launches": counts(), "hash": state_hash([step.model,
+                                                  step.projection]),
+        "steps": step.step, "losses": [float(v) for v in clock["losses"]],
+        "ms": clock.get("ms"), "dev_ms": clock.get("dev_ms"),
+        "grad_numel": sum(p.numel() for p in step.params)}
+    ckpt = os.path.join(inputs["root"], "dp", "models", "model_0.pt")
+    resumed = train_cli.train(conf, over + [f"checkpoint={ckpt}"],
+                              device=dev, backend=backend)
+    saved = torch.load(ckpt, map_location="cpu", weights_only=True)
+    out["trainer"]["resumed"] = resumed.step == DDP_STEPS and all(
+        torch.equal(saved["state_dict"][k], v.cpu())
+        for k, v in resumed.model.state_dict().items())
+    del step, resumed
+    torch.cuda.empty_cache()
+    mesh = make_mesh()
+    # one gradient all_reduce of the trainer's size (median of 5)
+    flat = torch.randn(out["trainer"]["grad_numel"], device=dev)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out["allreduce_ms"] = float(np.median(times[1:]))
+    if inputs["tasks"] == ["trainer"]:
+        ckpt_io.save_checkpoint = save
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+        dist.destroy_process_group()
+        return 0
+    # two ranks against one process: this rank's rows of the global batch
+    rows = {k: v[rank * DDP_BATCH:(rank + 1) * DDP_BATCH]
+            for k, v in inputs["rows"].items()}
+    out["compare"] = {
+        name: ddp_one_step(dev, rows, dtype, mesh, gs)
+        for name, dtype, gs in (("bf16", torch.bfloat16, True),
+                                ("f32", torch.float32, True),
+                                ("f32 per-rank BN", torch.float32, False))}
+    out["ssl"] = {(m, dt): ddp_ssl_step(m, dev, inputs["ssl"][m][rank], dt,
+                                        mesh)
+                  for m in ("dino", "moco", "simclr")
+                  for dt in (torch.float32, torch.bfloat16)}
+    # the model axis: parallel_args.model 2 (data 1), 2 steps
+    zero_counts()
+    with step_clock() as clock:
+        # data 1: the global batch is one rank's
+        train_cli.train(conf, ddp_trainer_args(
+            inputs, rank, "mp", 2 * DDP_BATCH, ["parallel_args={model: 2}"]),
+            device=dev, backend=backend)
+    out["model_axis"] = {"losses": [float(v) for v in clock["losses"]],
+                         "launches": counts()}
+    ckpt_io.save_checkpoint = save
+    out["writes"] = writes
+    torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def run_ddp_ranks(workdir, inputs, world=DDP_RANKS):
+    """Start `world` ranks of this script on inputs, wait for them, stop
+    them all on any failure; -> each rank's results and seconds."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        inputs["port"] = s.getsockname()[1]
+    torch.save(inputs, os.path.join(workdir, "inputs.pt"))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK")}
+    t0 = time.perf_counter()
+    logs = [open(os.path.join(workdir, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--ddp-rank", str(r),
+         str(world), workdir], env=env, stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        deadline = time.time() + DDP_TIMEOUT
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    secs = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            raise AssertionError(f"ddp rank {r} exited {p.returncode}:\n"
+                                 f"{text[-6000:]}")
+    return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
+                       weights_only=False) for r in range(world)], secs
+
+
+def update_check(got, want, skip=(B2,)):
+    """PERF.md section 2's per-layer bar on one step's updates (a module's
+    parameters as one vector): cosine >= 0.999. -> (the lowest three
+    (layer, cosine), passed)."""
+    low = layer_cosines(got, want, skip)
+    return low[:3], low[0][1] >= 0.999
+
+
+def param_errors(got, want, skip):
+    """Per parameter, the largest element error after the step of max(1,
+    the tensor's largest magnitude), the scale of
+    tests/test_torch_parallel.py (the parameters start equal, so it is
+    the update's error); `skip`'s exact gradient is 0."""
+    return {n: (got[1][n] - u).abs().max().item() / max(want[3][n], 1.0)
+            for n, u in want[1].items() if n not in skip}
+
+
+def f32_check(got, want, skip, order=None):
+    """The f32 bar (TF32 off) of a step (loss, updates, BatchNorm running
+    statistics or None, largest magnitudes) against the one-process step:
+    the loss within 1e-4 (relative), each running statistic element-wise
+    within 1e-4 of max(1, its largest magnitude), each layer's update at
+    cosine >= 0.999, and each parameter after the step element-wise
+    within 1e-4 (param_errors), or, given `order` (the one-process step
+    on the same rows in another order, which changes every reduction's
+    order and nothing else), within twice the error that the reordering
+    alone makes where that is larger: at LR 0.1 from init the reordering
+    alone moves a parameter by ~1e-4 of max(1, its largest) on the
+    H100 (PERF.md, Findings). -> (the line's text, passed)."""
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    err = param_errors(got, want, skip)
+    limit, floor = 1e-4, ""
+    if order is not None:
+        own = max(param_errors(order, want, skip).items(),
+                  key=lambda kv: kv[1])
+        limit = max(limit, 2 * own[1])
+        floor = (f" (bar {limit:.3g}: the same rows reordered in one "
+                 f"process move {own[0]} by {own[1]:.3g})")
+    if want[2] is not None:
+        stats = {n: (got[2][n] - w).abs().max().item()
+                 / max(w.abs().max().item(), 1.0)
+                 for n, w in want[2].items()}
+        top = max(stats.items(), key=lambda kv: kv[1])
+    worst = sorted(err.items(), key=lambda kv: -kv[1])
+    low, cos_ok = update_check(got[1], want[1], skip)
+    text = (f"loss rel {rel:.2e}, parameters after the step, largest error "
+            "of max(1, the tensor's largest) "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst[:3]) + floor
+            + (f"; running statistics {top[0]} {top[1]:.3g}"
+               if want[2] is not None else "")
+            + f"; update cosine per layer lowest {fmt_low(low)}")
+    return text, (rel <= 1e-4 and worst[0][1] <= limit and cos_ok
+                  and (want[2] is None or top[1] <= 1e-4))
+
+
+def bf16_check(got, want, exact, control, skip):
+    """A bf16 step of the ranks (loss, updates) against the one-process
+    bf16 step that takes its statistics as the ranks do: the loss within
+    1e-3, and, per layer, the ranks' error against the exact update (the
+    one-process f32 step's) at most 1.1 x the one-process bf16 step's own
+    + DINO_BF16_FLOOR (phase dino's bar). `control` is the one-process
+    bf16 step with the plain two-pass statistics instead of the sums, a
+    change of f32 rounding in the statistics only: the per-layer cosine
+    between the two one-process steps shows how far bf16 rounding carries
+    such a change. Every layer that the control leaves at cosine >= 0.9999
+    must meet PERF.md section 2's >= 0.999 between the ranks and the one
+    process. -> (the line's text, passed)."""
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    cos = per_layer(cosine, got[1], want[1], skip)
+    ctrl = per_layer(cosine, control[1], want[1], skip)
+    low = sorted(cos.items(), key=lambda kv: kv[1])
+    ctrl_low = sorted(ctrl.items(), key=lambda kv: kv[1])
+    steady = [k for k in cos if ctrl[k] >= 0.9999]
+    steady_low = sorted(((cos[k], k) for k in steady))[:1]
+    err = [per_layer(lambda a, b: ((a - b).norm() / b.norm()).item(), u,
+                     exact, skip) for u in (got[1], want[1])]
+    near = sorted(((err[0][k] - 1.1 * err[1][k], k, err[0][k], err[1][k])
+                   for k in err[0]), reverse=True)
+    text = (f"loss rel {rel:.2e}; update cosine per layer lowest "
+            f"{fmt_low(low)}; control (one process, two-pass statistics "
+            f"vs the sums) lowest {fmt_low(ctrl_low)}; of the "
+            f"{len(steady)}/{len(cos)} layers that the control leaves at "
+            ">= 0.9999 the lowest "
+            + (f"{steady_low[0][1]} {steady_low[0][0]:.6f}" if steady_low
+               else "none")
+            + " (bar 0.999); error against the f32 step's update, ranks <= "
+            f"1.1 x one process + {DINO_BF16_FLOOR}, nearest "
+            + ", ".join(f"{k} {e:.4f} vs {p:.4f}"
+                        for _, k, e, p in near[:2]))
+    return text, (rel <= 1e-3 and near[0][0] <= DINO_BF16_FLOOR
+                  and all(c >= 0.999 for c, _ in steady_low))
+
+
+def phase_ddp(dev, smi, stores):
+    """Two ranks over gloo on the one card (NCCL refuses two ranks on one
+    device), then NCCL; see the module docstring (phase 51)."""
+    import torch.distributed as dist
+
+    from wespeaker_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    t_start = time.perf_counter()
+    rng = np.random.default_rng(SEED + 61)
+    parts, bad = [], []
+    with tempfile.TemporaryDirectory() as root:
+        shard_list, utt2spk = write_shards(root, rng)
+        corpus = [f"train_data={shard_list}", f"utt2spk={utt2spk}",
+                  f"reverb_data={stores[0]}", f"noise_data={stores[1]}",
+                  "data_type=shard"]
+        rows = ddp_compare_rows(rng)
+        ssl_ranks, ssl_global = ddp_ssl_batches(rng)
+        out, rank_s = run_ddp_ranks(root, {
+            "backend": "gloo", "root": root, "corpus": corpus,
+            "tasks": ["trainer", "compare", "ssl", "model_axis"],
+            "rows": rows, "ssl": ssl_ranks})
+        tr = [o["trainer"] for o in out]
+        want = dict(NO_LAUNCH, train_fwd=DDP_STEPS, train_bwd=DDP_STEPS)
+        hashes = [t["hash"] for t in tr]
+        if (any(t["launches"] != want or t["steps"] != DDP_STEPS
+                or not t["resumed"] for t in tr) or len(set(hashes)) != 1
+                or out[0]["writes"][:1] != ["model_0.pt"]
+                or any(o["writes"] for o in out[1:])):
+            bad.append("trainer")
+        losses = tr[0]["losses"]
+        if not np.all(np.isfinite(losses)):
+            bad.append("trainer losses")
+        parts.append(
+            f"bin/train.py ecapa_tdnn_c512.yaml in {DDP_RANKS} ranks "
+            f"(gloo on CUDA tensors, one card) x B={DDP_BATCH}, "
+            f"{DDP_STEPS} steps: launches per rank "
+            + "; ".join(" ".join(f"{k}={v}" for k, v in t["launches"].items()
+                                 if v) for t in tr)
+            + f", state hashes {hashes}, losses "
+            f"{[round(v, 4) for v in losses]}, rank 0 wrote "
+            f"{out[0]['writes']}, rank 1 {out[1]['writes']}, resume in "
+            f"{DDP_RANKS} ranks loads model_0.pt "
+            f"{all(t['resumed'] for t in tr)}; a step {tr[0]['ms']:.1f} ms "
+            f"wall ({tr[0]['dev_ms']:.1f} ms on the device, rank 0); one "
+            f"gradient all_reduce of {tr[0]['grad_numel']:,} f32 "
+            f"{out[0]['allreduce_ms']:.1f} ms (gloo stages through the "
+            "host: not an NCCL figure, not a scaling figure)")
+
+        # the model axis against one process on the same data
+        ma = [o["model_axis"] for o in out]
+        zero_counts()
+        with step_clock() as clock:
+            train_cli.train(os.path.join(V2_CONF, "ecapa_tdnn_c512.yaml"),
+                            list(corpus) + [
+                                f"exp_dir={os.path.join(root, 'mp1')}",
+                                "num_epochs=1", "log_batch_interval=1",
+                                f"samples_per_epoch={2 * DDP_BATCH}"],
+                            device=dev)
+        one = [float(v) for v in clock["losses"]]
+        rels = [abs(a - b) / abs(b) for a, b in zip(ma[0]["losses"], one)]
+        path = os.path.join(root, "mp", "models", "model_0.pt")
+        model_sd, head_sd = ckpt_io.read_checkpoint(path,
+                                                    "ECAPA_TDNN_GLOB_c512")
+        full = ArcMarginProduct(192, head_sd["weight"].shape[0])
+        model = ECAPA_TDNN_GLOB_c512(80, 192)
+        ckpt_io.load_checkpoint(path, model, full)
+        rows_one = torch.load(os.path.join(root, "mp1", "models",
+                                           "model_0.pt"),
+                              weights_only=True)["projection"]["weight"]
+        if (len(rels) != 2 or max(rels) > 1e-3
+                or ma[0]["losses"] != ma[1]["losses"]
+                or head_sd["weight"].shape != rows_one.shape):
+            bad.append("model axis")
+        parts.append(
+            f"model axis (parallel_args.model 2, data 1) 2 steps: losses "
+            f"{[round(v, 5) for v in ma[0]['losses']]} vs one process "
+            f"{[round(v, 5) for v in one]} (rel {max(rels):.2e}), launches "
+            "a rank " + " ".join(f"{k}={v}" for k, v in ma[0]["launches"]
+                                 .items() if v)
+            + f"; model_0.pt holds the head's {head_sd['weight'].shape[0]} "
+            f"rows and loads into a one-card model; ranks {rank_s:.1f} s")
+        del model, full
+
+        # The one-process references on the global batch take their
+        # BatchNorm statistics as the ranks do (the sums of
+        # models/layers.py::_global_batch_norm, through a group of one), in
+        # a world of one over NCCL whose own all_reduce and train step are
+        # checked too. The f32 step's update is the exact one that the
+        # bf16 steps are held against. The controls are the same
+        # one-process steps with the plain two-pass statistics
+        # (batch_norm without a group).
+        import socket
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                world_size=1, rank=0,
+                                device_id=torch.device("cuda", 0))
+        try:
+            solo = Mesh(data_group=dist.group.WORLD)
+            want = ddp_one_step(dev, rows, torch.float32, solo)
+            exact = want[1]
+            # the same rows, rank 1's first: the reductions' order alone
+            swapped = {k: np.concatenate([v[DDP_BATCH:], v[:DDP_BATCH]])
+                       for k, v in rows.items()}
+            order = ddp_one_step(dev, swapped, torch.float32, solo)
+            line, ok = f32_check(out[0]["compare"]["f32"], want, (B2,),
+                                 order)
+            ctrl_line, _ = f32_check(ddp_one_step(dev, rows, torch.float32),
+                                     want, (B2,))
+            pr_line, pr_ok = f32_check(out[0]["compare"]["f32 per-rank BN"],
+                                       want, (B2,), order)
+            parts.append(
+                f"f32 step, 2 ranks vs one process on the global "
+                f"B={DDP_RANKS * DDP_BATCH}: {line}; control (one process, "
+                f"two-pass statistics vs the sums, recorded): {ctrl_line}; "
+                "with each rank's own BN statistics (the sensitivity check, "
+                f"must miss): {pr_line}")
+            if not ok:
+                bad.append("f32 step")
+            if pr_ok:
+                bad.append("per-rank BN passes the f32 bar")
+            del want, order
+            line, ok = bf16_check(
+                out[0]["compare"]["bf16"],
+                ddp_one_step(dev, rows, torch.bfloat16, solo), exact,
+                ddp_one_step(dev, rows, torch.bfloat16), (B2,))
+            parts.append(f"bf16 step, 2 ranks vs one process: {line}")
+            if not ok:
+                bad.append("bf16 step")
+            del exact
+            # SSL: f32 (TF32 off) at the f32 bar, then bf16 against the f32
+            # one-process step's update
+            for method in ("dino", "moco", "simclr"):
+                skip = DINO_ZERO_GRAD if method == "dino" else (B2,)
+                what = {"dino": "centre", "moco": "queue's new rows"}.get(
+                    method)
+                batch = ssl_global[method]
+                want = ddp_ssl_step(method, dev, batch, torch.float32,
+                                    solo)
+                got = out[0]["ssl"][method, torch.float32]
+                line, ok = f32_check((got[0], got[1], None, got[3]),
+                                     (want[0], want[1], None, want[3]),
+                                     skip)
+                ecos = cosine(got[2], want[2])
+                line = (f"{method} B={DDP_RANKS}x{DDP_SSL_B} vs one process, "
+                        f"f32: {line}")
+                want16 = ddp_ssl_step(method, dev, batch, torch.bfloat16,
+                                      solo)
+                got16 = out[0]["ssl"][method, torch.bfloat16]
+                text, ok16 = bf16_check(
+                    got16, want16, want[1],
+                    ddp_ssl_step(method, dev, batch, torch.bfloat16), skip)
+                line += f"; bf16: {text}"
+                if what:
+                    cos16 = cosine(got16[2], want16[2])
+                    same = all(torch.equal(o["ssl"][method, dt][2],
+                                           out[0]["ssl"][method, dt][2])
+                               for o in out for dt in (torch.float32,
+                                                       torch.bfloat16))
+                    line += (f"; {what} cosine f32 {ecos:.7f} bf16 "
+                             f"{cos16:.7f}, bit-identical over ranks {same}")
+                    ok = ok and min(ecos, cos16) >= 0.999 and same
+                parts.append(line)
+                if not (ok and ok16):
+                    bad.append(method)
+                del want, want16
+            # NCCL's own: an all_reduce and a train step in the world of one
+            x = torch.ones(4, device=dev)
+            dist.all_reduce(x)
+            loss = ddp_one_step(dev, {k: v[:DDP_BATCH]
+                                      for k, v in rows.items()},
+                                torch.bfloat16, make_mesh())[0]
+        finally:
+            dist.destroy_process_group()
+        if x.sum().item() != 4 or not np.isfinite(loss):
+            bad.append("nccl world of one")
+        nccl = f"NCCL world of one: all_reduce and one step (loss {loss:.4f})"
+        if torch.cuda.device_count() >= 2:
+            two, _ = run_ddp_ranks(root, {
+                "backend": "nccl", "root": root, "corpus": corpus,
+                "tasks": ["trainer"]})
+            ok = len({o["trainer"]["hash"] for o in two}) == 1
+            bad += [] if ok else ["nccl two cards"]
+            nccl += (f"; NCCL on two cards: 3 steps, hashes equal {ok}, "
+                     f"all_reduce {two[0]['allreduce_ms']:.1f} ms")
+        else:
+            nccl += ("; NCCL across two cards not run: "
+                     f"{torch.cuda.device_count()} card")
+        parts.append(nccl)
+    print(f"ddp [{smi}]: " + "; ".join(parts)
+          + f"; {time.perf_counter() - t_start:.1f} s")
+    if bad:
+        raise AssertionError(f"ddp: {bad}")
+
+
+def phase_ddp_eval(dev, root):
+    """--data_parallel extraction and diarization with two replicas on the
+    one card against one replica: bin/extract.py bf16 with
+    ECAPA_TDNN_GLOB_c512 (random weights from SEED) over the quality
+    phase's evaluation list, and bin/diarize.py on the diar phase's
+    recording with the quality checkpoint."""
+    t_start = time.perf_counter()
+    model = random_model(dev)
+    ckpt = os.path.join(root, "c512.pt")
+    ckpt_io.save_checkpoint(ckpt, model)
+    del model
+    cfg = os.path.join(root, "c512.yaml")
+    with open(cfg, "w") as f:
+        f.write("model: ECAPA_TDNN_GLOB_c512\nmodel_args:\n  feat_dim: 80\n"
+                "  embed_dim: 192\ndataset_args:\n  fbank_args:\n"
+                "    num_mel_bins: 80\n")
+    lst = os.path.join(root, "eval.list")
+    runs = {}
+    for name, kw in (("one", {}),
+                     ("two", {"data_parallel": True,
+                              "devices": ["cuda:0", "cuda:0"]})):
+        zero_counts()
+        scp = extract_cli.extract(cfg, ckpt, lst,
+                                  os.path.join(root, f"dp_{name}"),
+                                  batch_size=QUALITY_BATCH, bf16=True,
+                                  device=dev, **kw)
+        torch.cuda.synchronize()
+        with open(scp) as f:
+            keys = [ln.split()[0] for ln in f]
+        runs[name] = (keys, read_vec_scp_dict(scp), counts())
+    (k1, e1, c1), (k2, e2, c2) = runs["one"], runs["two"]
+    cos = row_cosines(torch.tensor(np.stack([e2[k] for k in k1])),
+                      torch.tensor(np.stack([e1[k] for k in k1])))
+    bad = (k1 != k2 or cos.min().item() < 0.9999
+           or c2 != dict(NO_LAUNCH, se=3 * c2["tail"], tail=2 * c1["tail"])
+           or c1 != dict(NO_LAUNCH, se=3 * c1["tail"], tail=c1["tail"]))
+    exp = os.path.join(root, "exp")
+    diar = os.path.join(root, "diar")
+    rttms = []
+    for name, kw in (("one", {}),
+                     ("two", {"data_parallel": True,
+                              "devices": ["cuda:0", "cuda:0"]})):
+        out = os.path.join(diar, f"dp_{name}.rttm")
+        with contextlib.redirect_stdout(io.StringIO()):
+            diarize_cli.diarize(os.path.join(exp, "config.yaml"),
+                                os.path.join(exp, "models",
+                                             "final_model.pt"),
+                                os.path.join(diar, "wav.scp"), out,
+                                sad_rttm=os.path.join(diar, "ref.rttm"),
+                                batch_size=DIAR_BATCH, bf16=True,
+                                device=dev, **kw)
+        with open(out) as f:
+            rttms.append(f.read())
+    bad = bad or rttms[0] != rttms[1]
+    print(f"ddp eval: bin/extract.py --data_parallel bf16 with 2 replicas "
+          f"on cuda:0 vs one replica, ECAPA_TDNN_GLOB_c512 over "
+          f"{len(k1)} utterances (batch {QUALITY_BATCH}): keys in the same "
+          f"order {k1 == k2}, min cosine {cos.min().item():.7f}, launches "
+          "one replica " + " ".join(f"{k}={v}" for k, v in c1.items() if v)
+          + ", two " + " ".join(f"{k}={v}" for k, v in c2.items() if v)
+          + " (rows 1 x3 and 2 x1 a replica batch); bin/diarize.py "
+          "--data_parallel on the diar phase's recording: RTTM identical "
+          f"{rttms[0] == rttms[1]} ({rttms[0].count(chr(10))} lines); "
+          f"{time.perf_counter() - t_start:.1f} s")
+    if bad:
+        raise AssertionError("ddp eval: --data_parallel differs from one "
+                             "replica")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5364,11 +6092,13 @@ def main():
     with tempfile.TemporaryDirectory() as d:
         phase_quality(dev, d)
         phase_diar(dev, d)
+        phase_ddp_eval(dev, d)
     phase_diar_full(dev, smi)
     phase_backend(dev)
     with tempfile.TemporaryDirectory() as d:
         stores = phase_aug(dev, smi, d)
         phase_recipe_train(dev, smi, stores)
+        phase_ddp(dev, smi, stores)
         t_zoo = time.perf_counter()
         phase_zoo_slice(dev)
         phase_zoo_serving(dev)
@@ -5424,4 +6154,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-rank"]:  # one rank of phase_ddp
+        sys.exit(ddp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -254,11 +254,17 @@ def test_extract_refusals_and_precision(corpus, monkeypatch):
 
     model = torch.nn.Linear(2, 2)
     got, dtype = eval_device.prepare_eval_placement(
-        model, bf16=True, data_parallel=True, device="cpu")
+        model, bf16=True, device="cpu")
     assert got is model and dtype == torch.bfloat16
     assert model.weight.dtype == torch.float32  # cast per call, not here
+    # data_parallel takes every visible card, one replica each, and rounds
+    # the batch up to a multiple of them (JAX's eval_device.py); without
+    # it, or on the CPU, one replica
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        eval_device.prepare_eval_placement(model, data_parallel=True,
-                                           device="cuda")
+    assert eval_device.replica_devices(True, "cuda") == [
+        torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert eval_device.replica_devices(False, "cuda") == [
+        torch.device("cuda")]
+    assert eval_device.replica_devices(True, "cpu") == [torch.device("cpu")]
+    assert [eval_device.round_batch(b, 2) for b in (5, 6)] == [6, 6]

@@ -58,6 +58,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
             "ops/inv_bottleneck.py", "models/gemini_dfresnet.py",
             "ops/conv_dw_pack.py", "ops/res2_chain.py",
             "models/resnet.py", "ssl/dino.py", "ssl/contrastive.py",
+            "parallel/mesh.py", "parallel/collect.py",
             "ssl/dataset.py", "ssl/featurize.py", "bin/train_dino.py",
             "bin/train_contrastive.py", "bin/extract.py",
             "utils/kaldi_io.py", "utils/eval_device.py",

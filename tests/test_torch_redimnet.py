@@ -20,7 +20,8 @@ same numpy inputs, in f32 on the CPU.
   converter maps the port's state_dict back to the same tree; a saved
   state_dict (upstream's names) loads strictly through load_checkpoint.
 - A tiny-width redimnet.yaml-style YAML serves on the CPU; the 'gru' time
-  block raises.
+  block builds (tests/test_torch_redimnet_gru.py) and an unknown one
+  raises.
 """
 
 import concurrent.futures
@@ -293,8 +294,12 @@ def test_redimnet_yaml_serves_on_cpu(tmp_path):
 
 
 def test_gru_time_block_is_not_ported():
-    with pytest.raises(NotImplementedError, match="gru"):
-        redimnet.TimeContextBlock1d(64, 16, block_type="gru")
+    """The 'gru' block is ported (tests/test_torch_redimnet_gru.py holds it
+    to JAX's); a time block the JAX package does not have still raises."""
+    block = redimnet.TimeContextBlock1d(64, 16, block_type="gru")
+    assert block(torch.zeros(2, 5, 64)).shape == (2, 5, 64)
+    with pytest.raises(NotImplementedError, match="lstm"):
+        redimnet.TimeContextBlock1d(64, 16, block_type="lstm")
     with pytest.raises(NotImplementedError):
-        redimnet.ReDimNet(feat_dim=16, C=4, block_1d_type="gru",
+        redimnet.ReDimNet(feat_dim=16, C=4, block_1d_type="lstm",
                           stages_setup=((1, 1, 1, K, 4),), group_divisor=2)

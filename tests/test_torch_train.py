@@ -326,11 +326,15 @@ def test_trainer_cli_writes_a_checkpoint_the_extractor_loads(tmp_path):
 def test_trainer_refuses_what_is_not_ported(tmp_path, monkeypatch):
     raw, utt2spk = _corpus(str(tmp_path / "data"), n_spk=2, n_utt=1)
     conf = _tiny_config(tmp_path, raw, utt2spk)
-    # profile_args is ported (tests/test_torch_profiling.py)
-    for ov in ("distributed_args={num_processes: 2}",
-               "parallel_args={model: 2}"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            train_cli.train(conf, [ov], device="cpu")
+    # profile_args is ported (tests/test_torch_profiling.py), and so are
+    # distributed_args and parallel_args (tests/test_torch_parallel.py):
+    # distributed_args without the rendezvous address raises before any
+    # rank waits, and a model axis must divide the ranks
+    with pytest.raises(ValueError, match="coordinator"):
+        train_cli.train(conf, ["distributed_args={num_processes: 2, "
+                               "process_id: 0}"], device="cpu")
+    with pytest.raises(ValueError, match="must divide the world size 1"):
+        train_cli.train(conf, ["parallel_args={model: 2}"], device="cpu")
     # conv_dw_mode is ported (packed or native); any other mode raises
     with pytest.raises(ValueError, match="native|packed"):
         train_cli.train(conf, ["conv_dw_mode=fast"], device="cpu")

@@ -5,7 +5,8 @@ the card.
         --checkpoint exp/models/avg_model.pt|.ckpt --wav_scp wav.scp \
         --out_rttm out.rttm [--sad_rttm sad.rttm | --sad_model vad.jit] \
         [--clusterer spectral|umap] [--num_spks N] [--ref_rttm ref.rttm] \
-        [--batch_size 64] [--bf16] [--device cuda|cpu] [k=v overrides]
+        [--batch_size 64] [--bf16] [--data_parallel [--devices LIST]] \
+        [--device cuda|cpu] [k=v overrides]
 
 Counterpart of wespeaker_tpu/bin/diarize.py: the staged voxconverse
 recipe (examples/voxconverse/v2/run.sh stages 2-8) as one pass per
@@ -14,7 +15,9 @@ clustering -> merged RTTM -> optional DER against a reference RTTM. The
 checkpoint is a port `.pt` or the JAX package's `.ckpt`
 (bin/extract.py's load_model_for_eval). --bf16 runs the activations in
 bfloat16 (utils/eval_device.py), through the model's kernels.
---data_parallel is refused over more than one card.
+--data_parallel splits each window batch over one model replica a card
+(or the `--devices` given), as bin/extract.py does; the RTTM is the one
+replica's.
 """
 
 import argparse
@@ -29,14 +32,23 @@ from wespeaker_tpu_torch.diar.pipeline import (CLUSTERERS, diarize_wav,
                                                model_embedder)
 from wespeaker_tpu_torch.diar.vad import TorchJitVad, system_sad
 from wespeaker_tpu_torch.utils.config import parse_config_or_kwargs
-from wespeaker_tpu_torch.utils.eval_device import prepare_eval_placement
+from wespeaker_tpu_torch.utils.eval_device import (prepare_eval_placement,
+                                                   replica_devices,
+                                                   replicate, round_batch,
+                                                   split_over)
+
+
+def _on(embed_batch, device):
+    """embed_batch taking its windows on `device`."""
+    return lambda banks: embed_batch(banks.to(device))
 
 
 def diarize(config, checkpoint_path, wav_scp, out_rttm, sad_rttm=None,
             clusterer="spectral", num_spks=None, ref_rttm=None,
             batch_size=64, bf16=False, data_parallel=False,
             sad_model=None, sad_threshold=0.18,
-            overrides=None, device: DeviceLike = None, **kwargs):
+            overrides=None, device: DeviceLike = None, devices=None,
+            **kwargs):
     """Diarize every recording of `wav_scp` into `out_rttm`; returns
     (out_rttm, DER against ref_rttm or None). Runs on the card unless the
     caller passes device="cpu"."""
@@ -46,9 +58,12 @@ def diarize(config, checkpoint_path, wav_scp, out_rttm, sad_rttm=None,
                          f"{frontend_type(configs)} frontend is not")
     dev = resolve_device(device)
     model = load_model_for_eval(configs, checkpoint_path, device=dev)
-    model, compute_dtype = prepare_eval_placement(model, bf16, data_parallel,
-                                                  device=dev)
-    embed_batch = model_embedder(model, compute_dtype)
+    model, compute_dtype = prepare_eval_placement(model, bf16, device=dev)
+    devices = replica_devices(data_parallel, dev, devices)
+    batch_size = round_batch(batch_size, len(devices))
+    embed_batch = split_over([
+        _on(model_embedder(replica, compute_dtype), d)
+        for replica, d in zip(replicate(model, devices), devices)])
     fbank_cfg = fbank_config(configs)
     rate = fbank_cfg.sample_rate
 
@@ -109,8 +124,11 @@ def main(argv=None):
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 activations (parameters stay f32, cast per "
                          "call)")
+    ap.add_argument("--devices", default=None,
+                    help="with --data_parallel, the replicas' devices, "
+                         "comma-separated (one may repeat)")
     ap.add_argument("--data_parallel", action="store_true",
-                    help="refused over more than one card (not ported)")
+                    help="split each window batch over one replica a card")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("overrides", nargs="*")
     args = ap.parse_intermixed_args(argv)
@@ -118,6 +136,7 @@ def main(argv=None):
                    args.sad_rttm, args.clusterer, args.num_spks,
                    args.ref_rttm, batch_size=args.batch_size, bf16=args.bf16,
                    data_parallel=args.data_parallel,
+                   devices=args.devices.split(",") if args.devices else None,
                    sad_model=args.sad_model,
                    sad_threshold=args.sad_threshold,
                    overrides=args.overrides, device=args.device)

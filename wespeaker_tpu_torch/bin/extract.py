@@ -5,6 +5,7 @@ embeddings, on the card.
         --checkpoint exp/models/final_model.pt --data_list eval.list \
         --out_prefix out/xvector [--batch_size 8] [--bf16] \
         [--pow2_buckets] [--num_splits N --split_index i] \
+        [--data_parallel [--devices cuda:0,cuda:1]] \
         [--device cuda|cpu] [k=v overrides]
 
 Counterpart of wespeaker_tpu/bin/extract.py (upstream
@@ -27,6 +28,10 @@ list, `feat_stack` a feature list of `bin/precompute_feats.py --layer
 all` output. The attention frontends split a bucket into row groups of
 at most `train/composite.py::eval_rows_cap` rows, whose (B, H, T, T)
 scores grow as T^2; each group keeps the bucket's padded length.
+`--data_parallel` splits each batch over one model replica a card (or the
+`--devices` given, which may repeat one device) as the JAX package splits
+it over its local devices (utils/eval_device.py); the ark/scp is the one
+replica's, in the same order.
 """
 
 import argparse
@@ -52,7 +57,10 @@ from wespeaker_tpu_torch.train.composite import (build_model, eval_rows_cap,
                                                  featurizers, frontend_type)
 from wespeaker_tpu_torch.train.train_step import make_eval_embed_fn
 from wespeaker_tpu_torch.utils.config import parse_config_or_kwargs
-from wespeaker_tpu_torch.utils.eval_device import prepare_eval_placement
+from wespeaker_tpu_torch.utils.eval_device import (prepare_eval_placement,
+                                                   replica_devices,
+                                                   replicate, round_batch,
+                                                   split_over)
 from wespeaker_tpu_torch.utils.kaldi_io import write_vec_ark_scp
 from wespeaker_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -170,7 +178,8 @@ def matmul_precision(precision: str):
 def extract(config, checkpoint_path, data_list, out_prefix, batch_size=8,
             overrides=None, num_splits=1, split_index=0, bf16=False,
             read_threads=4, precision="default", data_parallel=False,
-            pow2_buckets=False, device: DeviceLike = None, **kwargs):
+            pow2_buckets=False, device: DeviceLike = None, devices=None,
+            **kwargs):
     """Embed every utterance of `data_list` on `device` (the card unless
     the caller passes device="cpu") and write `<out_prefix>.ark/.scp`;
     returns the scp path. num_splits/split_index stripe the list across
@@ -178,20 +187,23 @@ def extract(config, checkpoint_path, data_list, out_prefix, batch_size=8,
     bf16 runs the activations in bfloat16 (the parameters stay f32, cast
     per call). read_threads overlap wav reading with the forward.
     precision: see matmul_precision. pow2_buckets: the geometric
-    length ladder instead of the linear 1 s grid. data_parallel: refused
-    over more than one card (utils/eval_device.py)."""
+    length ladder instead of the linear 1 s grid. data_parallel: each
+    batch split over one replica a device of `devices` (every visible card
+    by default; utils/eval_device.py), batch_size rounded up to a multiple
+    of them."""
     configs = parse_config_or_kwargs(config, overrides, **kwargs)
     dev = resolve_device(device)
     with matmul_precision(precision):
         return _extract_inner(configs, checkpoint_path, data_list,
                               out_prefix, batch_size, num_splits,
                               split_index, bf16, read_threads,
-                              data_parallel, pow2_buckets, dev)
+                              replica_devices(data_parallel, dev, devices),
+                              pow2_buckets, dev)
 
 
 def _extract_inner(configs, checkpoint_path, data_list, out_prefix,
                    batch_size, num_splits, split_index, bf16, read_threads,
-                   data_parallel, pow2_buckets, dev):
+                   devices, pow2_buckets, dev):
     feat_mode = configs.get("data_type") == "feat"
     featurize_eval = featurizers(configs)[1]
     name = frontend_type(configs)
@@ -202,14 +214,15 @@ def _extract_inner(configs, checkpoint_path, data_list, out_prefix,
         raise ValueError("the feat_stack frontend reads data_type feat "
                          "(bin/precompute_feats.py --layer all output)")
     model = load_model_for_eval(configs, checkpoint_path, device=dev)
-    model, compute_dtype = prepare_eval_placement(model, bf16, data_parallel,
-                                                  device=dev)
+    model, compute_dtype = prepare_eval_placement(model, bf16, device=dev)
     fbank_cfg = fbank_config(configs)
     rate = fbank_cfg.sample_rate
-    embed_fn = make_eval_embed_fn(model, fbank_cfg,
-                                  compute_dtype=compute_dtype, device=dev,
-                                  from_wav=not feat_mode,
-                                  featurize_fn=featurize_eval)
+    batch_size = round_batch(batch_size, len(devices))
+    embed_fn = split_over([
+        make_eval_embed_fn(replica, fbank_cfg, compute_dtype=compute_dtype,
+                           device=d, from_wav=not feat_mode,
+                           featurize_fn=featurize_eval)
+        for replica, d in zip(replicate(model, devices), devices)])
     if feat_mode:
         batches = eval_feat_batches(
             iter_feats_from_list(data_list, num_splits, split_index),
@@ -251,8 +264,10 @@ def main(argv=None):
                     help="bf16 activations (parameters stay f32, cast per "
                          "call)")
     ap.add_argument("--data_parallel", action="store_true",
-                    help="refused over more than one card (not ported); "
-                         "stripe with --num_splits instead")
+                    help="split each batch over one replica a card")
+    ap.add_argument("--devices", default=None,
+                    help="with --data_parallel, the replicas' devices, "
+                         "comma-separated (one may repeat)")
     ap.add_argument("--precision", choices=["default", "high", "float32"],
                     default="default",
                     help="high or float32 turn TF32 off for f32 matmuls "
@@ -270,7 +285,8 @@ def main(argv=None):
             args.batch_size, args.overrides, args.num_splits,
             args.split_index, bf16=args.bf16, read_threads=args.read_threads,
             precision=args.precision, data_parallel=args.data_parallel,
-            pow2_buckets=args.pow2_buckets, device=args.device)
+            pow2_buckets=args.pow2_buckets, device=args.device,
+            devices=args.devices.split(",") if args.devices else None)
 
 
 if __name__ == "__main__":

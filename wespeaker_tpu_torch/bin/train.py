@@ -40,9 +40,21 @@ trace of global steps [start, start + num) of this process, by default to
 `exp_dir/profile/steps_<start>-<stop>.json` (utils/profiling.py), as the
 JAX trainer captures a jax.profiler timeline of them.
 
-Not ported yet, and refused rather than dropped: `distributed_args`
-(multi-card training) and a model axis > 1 (ROADMAP.md Queue 1 item 4,
-DDP).
+Several ranks (parallel/mesh.py) train one global batch as the JAX
+trainer does over its mesh: `distributed_args` {coordinator: host:port,
+num_processes, process_id} (the JAX package's keys), or a `torchrun
+--nproc_per_node N` launch; one rank a card, NCCL between cards, or gloo
+when the caller passes backend="gloo" (two ranks on one card).
+`dataset_args.batch_size` is each data rank's and the global batch that
+times the data ranks; the epoch's steps and the LR scale come
+from the global batch; each data rank loads its stripe of the list (the
+ranks of one model group the same one); BatchNorm statistics, gradients,
+loss and accuracy are the global batch's (train/train_step.py).
+`parallel_args.model` > 1 pads the classes to a multiple of it and
+splits the margin head's rows over each model group
+(models/projections.py::shard_rows). Rank 0 alone logs, dumps
+config.yaml and writes checkpoints (the whole head gathered); every rank
+resumes from them; the SIGTERM save is a collective.
 """
 
 import argparse
@@ -60,8 +72,10 @@ from wespeaker_tpu_torch.data.dataset import (MPPrefetcher, Prefetcher,
 from wespeaker_tpu_torch.data.pipeline import spk2id_from_utt2spk
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig
-from wespeaker_tpu_torch.models.projections import get_projection
+from wespeaker_tpu_torch.models.projections import get_projection, shard_rows
 from wespeaker_tpu_torch.ops.conv_dw_pack import set_conv_dw_mode
+from wespeaker_tpu_torch.parallel.mesh import (init_distributed, make_mesh,
+                                               process_data_stripe)
 from wespeaker_tpu_torch.train.composite import (build_model, featurizers,
                                                  jax_init_)
 from wespeaker_tpu_torch.train.optim import lr_scale_ratio
@@ -75,9 +89,14 @@ from wespeaker_tpu_torch.utils.schedulers import (MarginScheduler,
                                                   get_lr_scheduler)
 
 
-def setup_logger(exp_dir):
+def setup_logger(exp_dir, rank: int = 0):
+    """The trainer's logger: to exp_dir/train.log and the console on rank
+    0; other ranks log warnings to the console only."""
     os.makedirs(exp_dir, exist_ok=True)
     logger = logging.getLogger("wespeaker_tpu_torch")
+    if rank != 0:
+        logger.setLevel(logging.WARNING)
+        return logger
     logger.setLevel(logging.INFO)
     log_file = os.path.join(exp_dir, "train.log")
     if not any(getattr(h, "baseFilename", None) == os.path.abspath(log_file)
@@ -90,18 +109,6 @@ def setup_logger(exp_dir):
             h.setFormatter(fmt)
             logger.addHandler(h)
     return logger
-
-
-def _refuse_unported(configs):
-    unported = {
-        "distributed_args (DDP, ROADMAP.md Queue 1 item 4)":
-            bool(configs.get("distributed_args")),
-        "parallel_args.model > 1 (Queue 1 item 4)":
-            configs.get("parallel_args", {}).get("model", 1) > 1,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
 def build_projection(configs, num_class):
@@ -117,18 +124,25 @@ def build_projection(configs, num_class):
     return jax_init_(get_projection(proj_conf))
 
 
-def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
+def train(config: str, overrides=None, device: DeviceLike = None,
+          backend: str = None, **kwargs):
     """Run the training of `config` on `device` (the card unless the caller
     passes device="cpu"). Returns the TrainStep (modules, optimizer, step
-    count)."""
+    count). `backend` chooses the ranks' collective backend (NCCL on the
+    card, gloo on the CPU by default; "gloo" puts two ranks on one card)."""
     configs = parse_config_or_kwargs(config, overrides, **kwargs)
-    _refuse_unported(configs)
     dev = resolve_device(device)
+    dist_args = configs.get("distributed_args") or {}
+    rank, _ = init_distributed(dist_args.get("coordinator"),
+                               dist_args.get("num_processes"),
+                               dist_args.get("process_id"),
+                               backend=backend, device=dev.type)
+    mesh = make_mesh(configs.get("parallel_args", {}).get("model", 1))
     set_conv_dw_mode(configs.get("conv_dw_mode", "native"))
     exp_dir = configs["exp_dir"]
     model_dir = os.path.join(exp_dir, "models")
     os.makedirs(model_dir, exist_ok=True)
-    logger = setup_logger(exp_dir)
+    logger = setup_logger(exp_dir, rank)
 
     spk2id = spk2id_from_utt2spk(configs["spk2id"] if "spk2id" in configs
                                  else configs["utt2spk"])
@@ -146,23 +160,45 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
         dataset_args = {**dataset_args, "utt2spk": configs["utt2spk"]}
     ds_args = (configs["data_type"], configs["train_data"], dataset_args,
                spk2id)
+    stripe, num_stripes = process_data_stripe(mesh)
     ds_kwargs = dict(reverb_store_prefix=configs.get("reverb_data"),
                      noise_store_prefix=configs.get("noise_data"),
+                     rank=stripe, world_size=num_stripes,
                      seed=configs.get("seed", 42))
     dataset = SpeakerDataset(*ds_args, **ds_kwargs)
     num_class = dataset.num_classes() * (3 if lm_keep_3x else 1)
+    if num_class % mesh.model:
+        # the head's rows split evenly over the model axis; padded rows are
+        # never targets and train as always-negative classes (JAX's)
+        num_class = -(-num_class // mesh.model) * mesh.model
     logger.info(f"speakers: {len(spk2id)} classes: {num_class} device: "
-                f"{dev}")
+                f"{dev} ranks: {mesh.world} (data {mesh.data} x model "
+                f"{mesh.model})")
+
+    start_epoch = 0
+
+    def prepare(model, projection):
+        # loads before the head is split, so a checkpoint holds all rows
+        if configs.get("model_init"):
+            # weights only, fresh head and schedules (the SSL fine-tune
+            # entry)
+            ckpt.load_checkpoint(configs["model_init"], model)
+            logger.info(f"initialized model from {configs['model_init']}")
+        if configs.get("checkpoint"):
+            ckpt.load_checkpoint(configs["checkpoint"], model, projection)
+        shard_rows(projection, mesh.model_group)
 
     seed = configs.get("seed", 42)
     model, projection, optimizer, generator = build_train_state(
         lambda: (build_model(configs, device=dev),
                  build_projection(configs, num_class)),
-        configs, seed=seed, device=dev)
+        configs, seed=seed, device=dev, stripe=stripe, prepare=prepare)
 
     batch_size = dataset_args.get(
         "batch_size", configs.get("dataloader_args", {}).get("batch_size",
                                                              64))
+    # the batch splits over the data axis only; a model group shares rows
+    global_batch = batch_size * mesh.data
     num_epochs = configs.get("num_epochs", 10)
     num_samples = configs.get("samples_per_epoch")
     if num_samples is None:
@@ -170,7 +206,7 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
             num_samples = sum(1 for _ in f)
         if configs["data_type"] == "shard":
             num_samples *= 1000
-    epoch_iter = max(num_samples // batch_size, 1)
+    epoch_iter = max(num_samples // global_batch, 1)
 
     sched_args = dict(configs.get("scheduler_args", {}))
     sched_args.setdefault("initial_lr", 0.1)
@@ -178,7 +214,7 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
     sched_args.setdefault("warm_up_epoch", 6)
     sched_args["num_epochs"] = num_epochs
     sched_args["epoch_iter"] = epoch_iter
-    sched_args["scale_ratio"] = lr_scale_ratio(1, batch_size)
+    sched_args["scale_ratio"] = lr_scale_ratio(1, global_batch)
     lr_fn = get_lr_scheduler(configs.get("scheduler", "ExponentialDecrease"),
                              **sched_args)
     margin_args = dict(configs.get("margin_scheduler_args",
@@ -208,32 +244,32 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
         compute_dtype=(torch.bfloat16 if configs.get("enable_amp")
                        else torch.float32),
         device=dev, generator=generator,
-        featurize_fn=featurizers(configs)[0])
+        featurize_fn=featurizers(configs)[0], mesh=mesh)
 
-    start_epoch = 0
-    if configs.get("model_init"):
-        # weights only, fresh head and schedules (the SSL fine-tune entry)
-        ckpt.load_checkpoint(configs["model_init"], model)
-        logger.info(f"initialized model from {configs['model_init']}")
     if configs.get("checkpoint"):
-        ckpt.load_checkpoint(configs["checkpoint"], model, projection)
         start_epoch = ckpt.parse_start_epoch(configs["checkpoint"])
         step.step = start_epoch * epoch_iter
         logger.info(f"resumed from {configs['checkpoint']} at epoch "
                     f"{start_epoch}")
 
-    dump_yaml({**configs, "num_class": num_class, "epoch_iter": epoch_iter},
-              os.path.join(exp_dir, "config.yaml"))
+    if rank == 0:
+        dump_yaml({**configs, "num_class": num_class,
+                   "epoch_iter": epoch_iter},
+                  os.path.join(exp_dir, "config.yaml"))
+
+    def save(path):
+        # every rank joins (the head's rows are gathered); rank 0 writes
+        ckpt.save_checkpoint_collective(path, model, projection, mesh, dev)
 
     log_interval = configs.get("log_batch_interval", 100)
     save_interval = configs.get("save_epoch_interval", 1)
     num_avg = configs.get("num_avg", 1)
     gstep = 0
-    with _sigterm_event() as preempted, _batches(
-            ds_args, ds_kwargs, dataset, batch_size,
-            configs.get("dataloader_args", {})) as batches, \
-            profiling.StepWindow(configs.get("profile_args"), exp_dir,
-                                 dev) as window:
+    with _sigterm_event() as event, _any_rank(event, mesh) as preempted, \
+            _batches(ds_args, ds_kwargs, dataset, batch_size,
+                     configs.get("dataloader_args", {})) as batches, \
+            profiling.StepWindow(configs.get("profile_args") if rank == 0
+                                 else None, exp_dir, dev) as window:
         for epoch in range(start_epoch, num_epochs):
             t0 = time.time()
             for it in range(epoch_iter):
@@ -247,10 +283,10 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
                         f"acc {float(metrics['acc']):.4f} "
                         f"lr {metrics['lr']:.6f} "
                         f"margin {metrics['margin']:.3f}")
-                if preempted.is_set():
+                if preempted():
                     path = os.path.join(model_dir,
                                         f"preempt_model_{epoch}.pt")
-                    ckpt.save_checkpoint(path, model, projection)
+                    save(path)
                     logger.info(f"SIGTERM: saved {path} at epoch {epoch} "
                                 f"it {it}; resume with checkpoint={path}")
                     return step
@@ -259,16 +295,46 @@ def train(config: str, overrides=None, device: DeviceLike = None, **kwargs):
             # counts epochs from 1, this loop from 0)
             if ((epoch + 1) % save_interval == 0
                     or epoch + 1 > num_epochs - num_avg):
-                ckpt.save_checkpoint(os.path.join(model_dir,
-                                                  f"model_{epoch}.pt"),
-                                     model, projection)
+                save(os.path.join(model_dir, f"model_{epoch}.pt"))
     last = os.path.join(model_dir, f"model_{num_epochs - 1}.pt")
-    if num_epochs > start_epoch and os.path.exists(last):
+    if rank == 0 and num_epochs > start_epoch and os.path.exists(last):
         final = os.path.join(model_dir, "final_model.pt")
         if os.path.lexists(final):
             os.remove(final)
         os.symlink(os.path.basename(last), final)
     return step
+
+
+@contextlib.contextmanager
+def _any_rank(event: threading.Event, mesh):
+    """-> poll(): whether `event` (SIGTERM) was set on any rank, so that
+    every rank joins the save at the same step. One process reads its
+    event. Over several ranks each poll starts an all_reduce of this
+    rank's flag over a gloo group of host tensors and returns the one
+    that the poll before started: the host never waits for the device,
+    and every rank reads the same answer one step after the signal."""
+    if mesh.world == 1:
+        yield event.is_set
+        return
+    group = torch.distributed.new_group(backend="gloo")
+    pending = []
+
+    def poll() -> bool:
+        seen = False
+        if pending:
+            work, flag = pending.pop()
+            work.wait()
+            seen = flag.item() > 0
+        flag = torch.tensor([float(event.is_set())])
+        pending.append((torch.distributed.all_reduce(
+            flag, group=group, async_op=True), flag))
+        return seen
+
+    try:
+        yield poll
+    finally:
+        for work, _ in pending:
+            work.wait()
 
 
 @contextlib.contextmanager

@@ -16,9 +16,11 @@ epoch writes `models/model_<epoch>.pt` ({"state_dict": the query / SimCLR
 encoder}), which bin/extract.py::load_model_for_eval loads.
 
 `reverb_data` / `noise_data` augment each view on its own, as in
-bin/train_dino.py, which also refuses for both trainers what they do not
-run (`refuse_unported`: `distributed_args`, `dataloader_args.num_workers`
-> 0).
+bin/train_dino.py, which also joins the ranks for both trainers
+(`join_ranks`: `batch_size` is each rank's, the LR scale, the epoch's
+steps and MoCo's queue_size % batch check take the global batch; rank 0
+alone writes) and refuses what they do not run (`refuse_unported`:
+`dataloader_args.num_workers` > 0).
 """
 
 import argparse
@@ -29,13 +31,14 @@ import numpy as np
 import torch
 
 from wespeaker_tpu_torch.bin.train import setup_logger
-from wespeaker_tpu_torch.bin.train_dino import (epoch_iters,
+from wespeaker_tpu_torch.bin.train_dino import (epoch_iters, join_ranks,
                                                 refuse_unported,
                                                 ssl_dataset)
 from wespeaker_tpu_torch.data.dataset import Prefetcher
 from wespeaker_tpu_torch.data.pipeline import get_random_chunk
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig
+from wespeaker_tpu_torch.parallel.mesh import barrier
 from wespeaker_tpu_torch.ssl import contrastive as C
 from wespeaker_tpu_torch.ssl.dino import cosine_scheduler
 from wespeaker_tpu_torch.ssl.featurize import make_ssl_featurize
@@ -67,26 +70,29 @@ def _two_view_batches(dataset, batch: int, chunk_len: int, seed: int,
 
 
 def train_contrastive(config: str, overrides=None, device: DeviceLike = None,
-                      **kwargs):
+                      backend: str = None, **kwargs):
     """Run the MoCo or SimCLR pretraining of `config` on `device` (the card
     unless the caller passes device="cpu"). Returns the MoCoTrainStep or
-    SimCLRTrainStep."""
+    SimCLRTrainStep. `backend`: see bin/train.py::train."""
     configs = parse_config_or_kwargs(config, overrides, **kwargs)
     refuse_unported(configs)
     method = configs.get("ssl_method", "moco")
     if method not in ("moco", "simclr"):
         raise ValueError(f"unknown ssl_method {method}")
     dev = resolve_device(device)
+    mesh, stripe, num_stripes = join_ranks(configs, dev, backend)
     exp_dir = configs["exp_dir"]
     model_dir = os.path.join(exp_dir, "models")
     os.makedirs(model_dir, exist_ok=True)
-    logger = setup_logger(exp_dir)
-    dump_yaml(configs, os.path.join(exp_dir, "config.yaml"))
+    logger = setup_logger(exp_dir, mesh.rank)
+    if mesh.rank == 0:
+        dump_yaml(configs, os.path.join(exp_dir, "config.yaml"))
 
     seed = configs.get("seed", 42)
     feat_dim = configs["model_args"].get("feat_dim", 80)
     embed_dim = configs["model_args"]["embed_dim"]
-    batch = configs["dataset_args"].get("batch_size", 32)
+    local_batch = configs["dataset_args"].get("batch_size", 32)
+    batch = local_batch * mesh.data  # the global batch
     num_epochs = configs.get("num_epochs", 10)
     epoch_iter = epoch_iters(configs, batch)
     ssl_args = configs.get("ssl_args", {})
@@ -111,19 +117,22 @@ def train_contrastive(config: str, overrides=None, device: DeviceLike = None,
                                      device=dev))
         step = C.MoCoTrainStep(encoder, optimizer, lr_fn, queue,
                                m=ssl_args.get("momentum", 0.999),
-                               T=temperature, compute_dtype=compute_dtype)
+                               T=temperature, compute_dtype=compute_dtype,
+                               mesh=mesh)
     else:
         step = C.SimCLRTrainStep(encoder, optimizer, lr_fn, n_views=2,
-                                 T=temperature, compute_dtype=compute_dtype)
+                                 T=temperature, compute_dtype=compute_dtype,
+                                 mesh=mesh)
 
-    dataset, crop_aug = ssl_dataset(configs)
+    dataset, crop_aug = ssl_dataset(configs, stripe, num_stripes)
     sr = configs["dataset_args"].get("resample_rate", 16000)
     chunk_len = int(ssl_args.get("chunk_sec", 2.0) * sr)
     featurize = make_ssl_featurize(FbankConfig(num_mel_bins=feat_dim,
                                                dither=0.0),
-                                   configs["dataset_args"], seed, device=dev)
-    batches = iter(Prefetcher(_two_view_batches(dataset, batch, chunk_len,
-                                                seed, crop_aug)))
+                                   configs["dataset_args"],
+                                   seed + 1_000_003 * stripe, device=dev)
+    batches = iter(Prefetcher(_two_view_batches(dataset, local_batch,
+                                                chunk_len, seed, crop_aug)))
     log_interval = configs.get("log_batch_interval", 50)
     for epoch in range(num_epochs):
         t0 = time.time()
@@ -141,8 +150,11 @@ def train_contrastive(config: str, overrides=None, device: DeviceLike = None,
                             f"{float(metrics['loss']):.4f} lr "
                             f"{metrics['lr']:.5f}")
         logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
-        ckpt.save_checkpoint(os.path.join(model_dir, f"model_{epoch}.pt"),
-                             step.encoder)
+        if mesh.rank == 0:
+            ckpt.save_checkpoint(os.path.join(model_dir,
+                                              f"model_{epoch}.pt"),
+                                 step.encoder)
+        barrier(mesh, dev)
     return step
 
 

@@ -28,9 +28,15 @@ aug_store`) augment each view on its own with probability `aug_prob`
 (data/pipeline.py::make_crop_aug); without a store the views go
 unaugmented, as in the JAX package.
 
-Not ported yet, and refused: `distributed_args` (DDP, ROADMAP.md Queue 1
-item 4). `dataloader_args.num_workers` > 0 is refused too: the JAX
-package's SSL trainers take no worker processes either.
+Several ranks train one global batch as bin/train.py's do
+(`distributed_args`, or a torchrun launch; backend="gloo" for two
+ranks on one card): `batch_size` is each rank's, the LR scale and the
+epoch's steps come from the global batch, each rank loads its stripe of
+the list, and the step is the global batch's (ssl/dino.py). Rank 0 alone
+dumps config.yaml and writes the checkpoints; every rank resumes from
+them. `dataloader_args.num_workers`
+> 0 is refused: the JAX package's SSL trainers take no worker processes
+either.
 """
 
 import argparse
@@ -46,6 +52,9 @@ from wespeaker_tpu_torch.data.pipeline import (make_crop_aug,
                                                spk2id_from_utt2spk)
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
 from wespeaker_tpu_torch.frontend.fbank import FbankConfig
+from wespeaker_tpu_torch.parallel.mesh import (barrier, init_distributed,
+                                               make_mesh,
+                                               process_data_stripe)
 from wespeaker_tpu_torch.ssl import dataset as ssl_data
 from wespeaker_tpu_torch.ssl import dino as D
 from wespeaker_tpu_torch.ssl.featurize import make_ssl_featurize
@@ -56,22 +65,29 @@ from wespeaker_tpu_torch.utils.config import dump_yaml, parse_config_or_kwargs
 
 def refuse_unported(configs):
     """The options of the SSL trainers that the port does not run."""
-    unported = {
-        "distributed_args (DDP, ROADMAP.md Queue 1 item 4)":
-            bool(configs.get("distributed_args")),
-        "dataloader_args.num_workers > 0 (the SSL trainers prefetch in "
-        "one thread, as the JAX package's do)":
-            configs.get("dataloader_args", {}).get("num_workers", 0) > 0,
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+    if configs.get("dataloader_args", {}).get("num_workers", 0) > 0:
+        raise NotImplementedError(
+            "not ported yet: dataloader_args.num_workers > 0 (the SSL "
+            "trainers prefetch in one thread, as the JAX package's do)")
 
 
-def ssl_dataset(configs):
-    """The trainers' dataset: whole utterances (each view is cropped from
-    the whole and augmented on its own), no speed perturb; and the
-    per-view aug_fn over the config's stores (None without one)."""
+def join_ranks(configs, device: torch.device, backend=None):
+    """The SSL trainers' ranks (parallel/mesh.py): (mesh, stripe, number
+    of stripes), all data ranks."""
+    dist_args = configs.get("distributed_args") or {}
+    init_distributed(dist_args.get("coordinator"),
+                     dist_args.get("num_processes"),
+                     dist_args.get("process_id"), backend=backend,
+                     device=device.type)
+    mesh = make_mesh()
+    return (mesh,) + process_data_stripe(mesh)
+
+
+def ssl_dataset(configs, stripe: int = 0, num_stripes: int = 1):
+    """The trainers' dataset (this rank's stripe of the list): whole
+    utterances (each view is cropped from the whole and augmented on its
+    own), no speed perturb; and the per-view aug_fn over the config's
+    stores (None without one)."""
     ds_args = dict(configs["dataset_args"])
     ds_args["speed_perturb"] = False
     ds_args["defer_chunk_aug"] = True
@@ -79,6 +95,7 @@ def ssl_dataset(configs):
                              ds_args, spk2id_from_utt2spk(configs["utt2spk"]),
                              reverb_store_prefix=configs.get("reverb_data"),
                              noise_store_prefix=configs.get("noise_data"),
+                             rank=stripe, world_size=num_stripes,
                              seed=configs.get("seed", 42))
     return dataset, make_crop_aug(dataset.reverb, dataset.noise,
                                   ds_args.get("aug_prob", 0.6))
@@ -91,24 +108,28 @@ def epoch_iters(configs, batch: int) -> int:
 
 
 def train_dino(config: str, overrides=None, device: DeviceLike = None,
-               **kwargs) -> D.DINOTrainStep:
+               backend: str = None, **kwargs) -> D.DINOTrainStep:
     """Run the DINO pretraining of `config` on `device` (the card unless
-    the caller passes device="cpu"). Returns the DINOTrainStep."""
+    the caller passes device="cpu"). Returns the DINOTrainStep. `backend`:
+    see bin/train.py::train."""
     configs = parse_config_or_kwargs(config, overrides, **kwargs)
     refuse_unported(configs)
     dev = resolve_device(device)
+    mesh, stripe, num_stripes = join_ranks(configs, dev, backend)
     exp_dir = configs["exp_dir"]
     model_dir = os.path.join(exp_dir, "models")
     os.makedirs(model_dir, exist_ok=True)
-    logger = setup_logger(exp_dir)
-    dump_yaml(configs, os.path.join(exp_dir, "config.yaml"))
+    logger = setup_logger(exp_dir, mesh.rank)
+    if mesh.rank == 0:
+        dump_yaml(configs, os.path.join(exp_dir, "config.yaml"))
 
     seed = configs.get("seed", 42)
     dino_args = configs.get("dino_args", {})
     n_global = dino_args.get("global_chunk_num", 2)
     n_local = dino_args.get("local_chunk_num", 4)
     feat_dim = configs["model_args"].get("feat_dim", 80)
-    batch = configs["dataset_args"].get("batch_size", 32)
+    local_batch = configs["dataset_args"].get("batch_size", 32)
+    batch = local_batch * mesh.data  # the global batch
     num_epochs = configs.get("num_epochs", 10)
     epoch_iter = epoch_iters(configs, batch)
 
@@ -142,7 +163,7 @@ def train_dino(config: str, overrides=None, device: DeviceLike = None,
     step = D.DINOTrainStep(state, lr_fn, mom_fn, temp_fn, cfg,
                            compute_dtype=(torch.bfloat16
                                           if configs.get("enable_amp")
-                                          else torch.float32))
+                                          else torch.float32), mesh=mesh)
 
     start_epoch = 0
     trainer_ckpt = os.path.join(model_dir, "trainer_state.pt")
@@ -156,8 +177,9 @@ def train_dino(config: str, overrides=None, device: DeviceLike = None,
 
     featurize = make_ssl_featurize(FbankConfig(num_mel_bins=feat_dim,
                                                dither=0.0),
-                                   configs["dataset_args"], seed, device=dev)
-    dataset, crop_aug = ssl_dataset(configs)
+                                   configs["dataset_args"],
+                                   seed + 1_000_003 * stripe, device=dev)
+    dataset, crop_aug = ssl_dataset(configs, stripe, num_stripes)
     sr = configs["dataset_args"].get("resample_rate", 16000)
     g_len = int(dino_args.get("global_chunk_sec", 2.0) * sr)
     l_len = int(dino_args.get("local_chunk_sec", 1.0) * sr)
@@ -169,7 +191,7 @@ def train_dino(config: str, overrides=None, device: DeviceLike = None,
             data = ssl_data.multi_crop(dataset._epoch_iter(epoch), g_len,
                                        l_len, n_global, n_local,
                                        aug_fn=crop_aug, rng=rng)
-            yield from ssl_data.dino_batch(data, batch)
+            yield from ssl_data.dino_batch(data, local_batch)
             epoch += 1
 
     log_interval = configs.get("log_batch_interval", 50)
@@ -189,11 +211,14 @@ def train_dino(config: str, overrides=None, device: DeviceLike = None,
                     f"m {metrics['momentum']:.4f} temp "
                     f"{metrics['teacher_temp']:.3f}")
         logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
-        ckpt.save_checkpoint(os.path.join(model_dir, f"model_{epoch}.pt"),
-                             step.teacher.backbone)
-        tmp = f"{trainer_ckpt}.tmp"
-        torch.save({**step.state_dict(), "epoch": epoch + 1}, tmp)
-        os.replace(tmp, trainer_ckpt)
+        if mesh.rank == 0:
+            ckpt.save_checkpoint(os.path.join(model_dir,
+                                              f"model_{epoch}.pt"),
+                                 step.teacher.backbone)
+            tmp = f"{trainer_ckpt}.tmp"
+            torch.save({**step.state_dict(), "epoch": epoch + 1}, tmp)
+            os.replace(tmp, trainer_ckpt)
+        barrier(mesh, dev)
     return step
 
 

@@ -607,16 +607,23 @@ __global__ void __launch_bounds__(32 * kSmWarps)
   }
 }
 
-// The card's SMs, read once (132 on an H100 SXM, taken where the query
-// fails); device.py::sm_count gives the Python mirrors the same count.
+// The current device's SMs, read once a device (132 on an H100 SXM, taken
+// where the query fails): each launcher runs with its tensors' device
+// current (ops/_build.py::on_device), so replicas on cards of two kinds
+// each get their own count. device.py::sm_count gives the Python mirrors
+// the same count.
 inline int sm_count() {
-  static const int n = [] {
-    int dev = 0, v = 0;
-    cudaGetDevice(&dev);
+  constexpr int kMaxDevices = 64;
+  static int counts[kMaxDevices] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= kMaxDevices) dev = 0;
+  if (counts[dev] == 0) {
+    int v = 0;
     cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
-    return v > 0 ? v : 132;
-  }();
-  return n;
+    counts[dev] = v > 0 ? v : 132;
+  }
+  return counts[dev];
 }
 
 // tw, the warps an item's frames are split over: 1 where the items fill

@@ -29,6 +29,8 @@ import torch.nn.functional as F
 
 from wespeaker_tpu_torch.ops.conv_dw_pack import (Conv2dPackedDW,
                                                   conv_dw_mode, eligible)
+from wespeaker_tpu_torch.parallel.collect import all_reduce_sum
+from wespeaker_tpu_torch.parallel.mesh import stats_group
 
 
 def conv1d(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
@@ -70,11 +72,20 @@ def batch_norm(x: torch.Tensor, bn: nn.Module) -> torch.Tensor:
     ones as flax's nn.BatchNorm (momentum 0.9) does, which the JAX package
     uses: running = (1 - m) running + m batch with torch's m = 0.1, and the
     batch variance is the biased one (mean of squared deviations). PyTorch's
-    own update would store the unbiased variance, n / (n - 1) times it."""
+    own update would store the unbiased variance, n / (n - 1) times it.
+
+    A BatchNorm that parallel/mesh.py::global_batch_stats gave a group
+    takes, in training, the statistics of the batch over every rank of
+    that group, as the JAX package's global array does: one all_reduce of
+    (sum x, sum x^2, n) in f32, mean and biased variance from them (flax's
+    own formula), with the gradient of the reduction (SyncBatchNorm's)."""
     y = wide(x)
     if y.dim() == 3:
         y = y.transpose(1, 2)  # F.batch_norm takes channels second
-    if bn.training:
+    group = stats_group(bn)
+    if bn.training and group is not None:
+        y = _global_batch_norm(y, bn, group)
+    elif bn.training:
         with torch.no_grad():
             dims = [d for d in range(y.dim()) if d != 1]
             var, mean = torch.var_mean(y, dim=dims, correction=0)
@@ -91,6 +102,31 @@ def batch_norm(x: torch.Tensor, bn: nn.Module) -> torch.Tensor:
     if y.dim() == 3:
         y = y.transpose(1, 2)
     return y.to(x.dtype)
+
+
+def _global_batch_norm(y: torch.Tensor, bn: nn.Module,
+                       group) -> torch.Tensor:
+    """y (B, C, ...) normalised by the statistics over the group's ranks;
+    the running statistics updated from them as batch_norm does."""
+    dims = [d for d in range(y.dim()) if d != 1]
+    count = torch.full((1,), y.numel() // y.shape[1], dtype=y.dtype,
+                       device=y.device)
+    sums = all_reduce_sum(torch.cat([y.sum(dims), (y * y).sum(dims),
+                                     count]), group)
+    c = y.shape[1]
+    n = sums[-1]
+    mean = sums[:c] / n
+    var = torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(bn.momentum * mean)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(bn.momentum * var)
+        bn.num_batches_tracked.add_(1)
+    shape = [1, c] + [1] * (y.dim() - 2)
+    out = (y - mean.view(shape)) * torch.rsqrt(var.view(shape) + bn.eps)
+    if bn.weight is not None:
+        out = (out * bn.weight.to(y.dtype).view(shape)
+               + bn.bias.to(y.dtype).view(shape))
+    return out
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:

@@ -18,6 +18,15 @@ head computes in f32 on the f32 embedding (f64 on an f64 one). The Linear
 head carries a BatchNorm: in train mode (module.training) it normalises by
 the batch and updates its running statistics as flax does
 (models/layers.py::batch_norm).
+
+The model axis (`parallel_args.model > 1`): `shard_rows` keeps a rank's
+rows of a head's `weight` ((rows, embed_dim), the parameter the JAX
+trainer shards over 'model'; the Linear head holds none and stays whole),
+and the head computes its logits of those rows and gathers them over the
+model group before the margin and the loss, as GSPMD inserts the logits
+all-gather (parallel/collect.py: the gather's backward takes this rank's
+slot, the embedding's gradient is summed over the group). `full_state_dict`
+gathers the rows back, so a checkpoint holds the whole head.
 """
 
 import math
@@ -28,6 +37,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from wespeaker_tpu_torch.models.layers import batch_norm, wide
+from wespeaker_tpu_torch.parallel.collect import (all_gather_embeddings,
+                                                  all_gather_rows,
+                                                  copy_to_group)
+from wespeaker_tpu_torch.parallel.mesh import group_rank, group_size
 
 
 def _margin_weight(rows: int, in_features: int) -> nn.Parameter:
@@ -42,6 +55,44 @@ def _cosine(embed: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     embed = wide(embed)
     return F.linear(F.normalize(embed, dim=-1),
                     F.normalize(weight.to(embed.dtype), dim=-1))
+
+
+def _rows(head: nn.Module, embed: torch.Tensor, fn) -> torch.Tensor:
+    """fn(embed, weight) -> (B, rows) over the head's `weight`; over a
+    model group (shard_rows) each rank's rows, gathered in rank order."""
+    group = getattr(head, "model_group", None)
+    if group is None:
+        return fn(embed, head.weight)
+    return all_gather_rows(fn(copy_to_group(embed, group), head.weight),
+                           group, dim=-1, backward="slice")
+
+
+def shard_rows(head: nn.Module, group) -> nn.Module:
+    """Keep this rank's block of the rows of `head.weight` over the model
+    `group` (rank order, equal blocks; the trainer pads the classes to a
+    multiple of the group's size). A head without such a weight, or a
+    group of one rank, is left whole. Returns the head."""
+    n = group_size(group)
+    weight = getattr(head, "weight", None)
+    if n == 1 or not isinstance(weight, nn.Parameter):
+        return head
+    if weight.shape[0] % n:
+        raise ValueError(f"{weight.shape[0]} head rows do not split over "
+                         f"{n} model ranks")
+    head.weight = nn.Parameter(
+        weight.detach().chunk(n)[group_rank(group)].clone())
+    head.model_group = group
+    return head
+
+
+def full_state_dict(head: nn.Module):
+    """The head's state_dict with a sharded `weight` gathered back to all
+    its rows; a collective over the model group (every rank calls it)."""
+    sd = head.state_dict()
+    group = getattr(head, "model_group", None)
+    if group is not None:
+        sd["weight"] = all_gather_embeddings(sd["weight"], group)
+    return sd
 
 
 def _one_hot(label: torch.Tensor, n: int, like: torch.Tensor
@@ -77,7 +128,7 @@ class ArcMarginProduct(nn.Module):
 
     def forward(self, embed: torch.Tensor, label: torch.Tensor,
                 margin: float = 0.0) -> torch.Tensor:
-        cosine = _cosine(embed, self.weight)
+        cosine = _rows(self, embed, _cosine)
         phi, _ = _arc(cosine, margin, self.easy_margin)
         one_hot = _one_hot(label, self.out_features, cosine)
         return self.scale * (one_hot * phi + (1.0 - one_hot) * cosine)
@@ -96,7 +147,7 @@ class AddMarginProduct(nn.Module):
 
     def forward(self, embed: torch.Tensor, label: torch.Tensor,
                 margin: float = 0.0) -> torch.Tensor:
-        cosine = _cosine(embed, self.weight)
+        cosine = _rows(self, embed, _cosine)
         one_hot = _one_hot(label, self.out_features, cosine)
         return self.scale * (cosine - one_hot * margin)
 
@@ -129,7 +180,7 @@ class ArcMarginIntertopkSubcenter(nn.Module):
         k_top = 0 if self.do_lm else self.k_top
         mp_eff = mp * (margin / 0.2) if margin > 0.001 else 0.0
         cos_mp, sin_mp = math.cos(mp_eff), math.sin(mp_eff)
-        cosine = _cosine(embed, self.weight).reshape(
+        cosine = _rows(self, embed, _cosine).reshape(
             -1, self.out_features, self.K).amax(dim=2)
         phi, sine = _arc(cosine, margin, self.easy_margin)
         phi_mp = cosine * cos_mp + sine * sin_mp
@@ -164,7 +215,7 @@ class SphereFace2(nn.Module):
 
     def forward(self, embed: torch.Tensor, label: torch.Tensor,
                 margin: float = 0.0):
-        cos = _cosine(embed, self.weight)
+        cos = _rows(self, embed, _cosine)
 
         def fun_g(z):
             return 2.0 * ((z + 1.0) / 2.0) ** self.t - 1.0
@@ -216,7 +267,7 @@ class SphereProduct(nn.Module):
         lamb = max(self.lambda_min,
                    self.base * (1 + self.gamma * it) ** (-self.power))
         embed = wide(embed)
-        cos_theta = torch.clamp(_cosine(embed, self.weight), -1, 1)
+        cos_theta = torch.clamp(_rows(self, embed, _cosine), -1, 1)
         cos_m_theta = self._MLAMBDA[self.margin](cos_theta)
         k = torch.floor(self.margin * torch.arccos(cos_theta) / math.pi)
         sign = 1.0 - 2.0 * torch.remainder(k, 2.0)  # (-1)^k
@@ -247,18 +298,23 @@ class HyperbolicAMSoftmax(nn.Module):
         max_norm = (1.0 - eps) / (self.curvature ** 0.5)
         return x * torch.clamp(max_norm / norm, max=1.0)
 
-    def forward(self, embed: torch.Tensor, label: torch.Tensor,
-                margin: float = 0.0) -> torch.Tensor:
+    def _distance(self, embed: torch.Tensor, weight: torch.Tensor
+                  ) -> torch.Tensor:
+        """(B, rows) Poincare distances of the embeddings to the rows."""
         eps = 1e-5
-        x = self.proj_to_ball(wide(embed))               # (B, D)
-        w = self.proj_to_ball(self.weight.to(x.dtype))   # (C, D)
+        x = self.proj_to_ball(embed)                     # (B, D)
+        w = self.proj_to_ball(weight.to(x.dtype))        # (C, D)
         xn = torch.clamp(torch.linalg.vector_norm(x, dim=-1), 0.0, 1 - eps)
         wn = torch.clamp(torch.linalg.vector_norm(w, dim=-1), 0.0, 1 - eps)
         diff2 = ((x[:, None, :] - w[None, :, :]) ** 2).sum(-1)
         denom = torch.clamp((1 - xn[:, None] ** 2) * (1 - wn[None, :] ** 2),
                             min=eps)
-        dist = torch.arccosh(torch.clamp(1 + 2 * diff2 / denom,
+        return torch.arccosh(torch.clamp(1 + 2 * diff2 / denom,
                                          min=1.0 + eps))
+
+    def forward(self, embed: torch.Tensor, label: torch.Tensor,
+                margin: float = 0.0) -> torch.Tensor:
+        dist = _rows(self, wide(embed), self._distance)
         one_hot = _one_hot(label, self.out_features, dist)
         return -self.scale * (dist + one_hot * margin)
 

@@ -27,7 +27,8 @@ models/pooling_layers.py), each launched once per forward;
 softmax, as the JAX package leaves them to XLA) and the stage weighting
 are PyTorch. An optional (B, T) frame mask reaches only the pooling (the
 convolutions see the padding, as in the JAX package). The 'gru' time
-block, which no released configuration uses, is not ported and raises.
+block, which no released configuration uses, is a bidirectional nn.GRU
+(`GRU`) under upstream's names, with the JAX package's `gru_quirk_compat`.
 """
 
 from typing import Optional, Sequence
@@ -271,12 +272,34 @@ class TransformerEncoderLayer(nn.Module):
         return layer_norm(x + self.feed_forward(x), self.final_layer_norm)
 
 
+class GRU(nn.Module):
+    """The 'gru' block's bidirectional one-layer GRU, (B, T, C) -> (B, T,
+    2C), under upstream's names (`gru.weight_ih_l0`, ... `_reverse`), so
+    an upstream state_dict loads as it is. Counterpart of the JAX package's
+    BiGRU (wespeaker_tpu/models/redimnet.py): it recurs over time, and
+    with `torch_quirk` over the batch axis, as upstream's
+    nn.GRU(batch_first=False) fed (B, T, C) does. torch's nn.GRU computes
+    it (no kernel of the JAX package is on this path), in f32."""
+
+    def __init__(self, hidden: int, torch_quirk: bool = False):
+        super().__init__()
+        self.torch_quirk = torch_quirk
+        self.gru = nn.GRU(hidden, hidden, num_layers=1, bias=True,
+                          batch_first=False, bidirectional=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = wide(x)
+        if self.torch_quirk:
+            return self.gru(h)[0].to(x.dtype)
+        return self.gru(h.transpose(0, 1))[0].transpose(0, 1).to(x.dtype)
+
+
 class TimeContextBlock1d(nn.Module):
     """Residual time-context block on (B, T, C): reduce to hC (conv + LN),
     the `tcm` stack of the block type, expand back to C."""
 
     def __init__(self, C: int, hC: int, pos_ker_sz: int = 59,
-                 block_type: str = "att"):
+                 block_type: str = "att", gru_quirk_compat: bool = False):
         super().__init__()
         self.block_type = block_type
         self.red_dim_conv = nn.Sequential(nn.Conv1d(C, hC, 1), _ln(hC))
@@ -291,11 +314,13 @@ class TimeContextBlock1d(nn.Module):
             self.tcm = nn.Sequential(
                 *(ConvNeXtLikeBlock1d(hC, (ks,), 1) for ks in (7, 19, 31, 59)),
                 TransformerEncoderLayer(hC, hC, 4))
-        else:
-            # 'gru' (a bidirectional GRU, torch_compat's packed weights) is
+        elif block_type == "gru":
             # used by no released configuration
+            self.tcm = nn.Sequential(GRU(hC, gru_quirk_compat),
+                                     nn.Conv1d(2 * hC, hC, 1))
+        else:
             raise NotImplementedError(
-                f"time-context block {block_type!r} is not ported")
+                f"time-context block {block_type!r}")
         self.exp_dim_conv = nn.Conv1d(hC, C, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -303,6 +328,8 @@ class TimeContextBlock1d(nn.Module):
         if self.block_type == "fc":
             h = F.gelu(layer_norm(conv1d(h, self.tcm[0]), self.tcm[1]))
             h = conv1d(h, self.tcm[3])
+        elif self.block_type == "gru":
+            h = conv1d(self.tcm[0](h), self.tcm[1])
         else:
             for m in self.tcm:
                 h = m(h)
@@ -328,7 +355,8 @@ class ReDimNetBone(nn.Module):
                      (1, 5, 1, ((7, 1),), 8),
                      (2, 3, 1, ((3, 3),), 8)),
                  group_divisor: Optional[int] = 1,
-                 out_channels: Optional[int] = 512):
+                 out_channels: Optional[int] = 512,
+                 gru_quirk_compat: bool = False):
         super().__init__()
         self.stem = nn.Sequential(nn.Conv2d(1, C, 3, padding=1), _ln(C))
         n = len(stages_setup)
@@ -359,7 +387,8 @@ class ReDimNetBone(nn.Module):
             if att_red is not None:
                 layers.append(TimeContextBlock1d(
                     C * feat_dim, (C * feat_dim) // att_red,
-                    block_type=block_1d_type))
+                    block_type=block_1d_type,
+                    gru_quirk_compat=gru_quirk_compat))
             setattr(self, f"stage{si}", nn.Sequential(*layers))
         self.num_stages = n
         self.mfa = None
@@ -410,14 +439,17 @@ class ReDimNet(nn.Module):
                  group_divisor: Optional[int] = 4,
                  out_channels: Optional[int] = None, embed_dim: int = 192,
                  pooling_func: str = "ASTP", global_context_att: bool = True,
-                 two_emb_layer: bool = False):
+                 two_emb_layer: bool = False,
+                 gru_quirk_compat: bool = False):
         super().__init__()
         bone_kw = {} if stages_setup is None else {
             "stages_setup": stages_setup}
         self.backbone = ReDimNetBone(feat_dim, C, block_1d_type,
                                      block_2d_type,
                                      group_divisor=group_divisor,
-                                     out_channels=out_channels, **bone_kw)
+                                     out_channels=out_channels,
+                                     gru_quirk_compat=gru_quirk_compat,
+                                     **bone_kw)
         out_dim = out_channels if out_channels is not None else C * feat_dim
         self.pool = get_pooling(pooling_func, out_dim,
                                 global_context_att=global_context_att)

@@ -115,6 +115,32 @@ def pointers(tensors) -> list:
     return out
 
 
+def on_device(fn):
+    """Run the launcher `fn` with the device of its first CUDA tensor
+    argument (or of a list's first tensor) current. The C entry points
+    launch on the current device: the shared-memory opt-in
+    (cudaFuncSetAttribute), the launch, the error check and the SM count
+    (csrc/common.cuh::sm_count) all act on it, so a tensor on cuda:1
+    launched while cuda:0 is current would fail. CPU tensors pass
+    through."""
+    import torch
+
+    @functools.wraps(fn)
+    def launch(*args, **kwargs):
+        dev = None
+        for a in args:
+            t = a[0] if isinstance(a, (list, tuple)) and a else a
+            if isinstance(t, torch.Tensor):
+                dev = t.device
+                break
+        if dev is None or dev.type != "cuda":
+            return fn(*args, **kwargs)
+        with torch.cuda.device(dev):
+            return fn(*args, **kwargs)
+
+    return launch
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if rc != 0:

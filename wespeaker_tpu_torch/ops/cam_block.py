@@ -207,6 +207,7 @@ def fused_cam_dense_block(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2,
 fused_cam_dense_block.launches = 0
 
 
+@_build.on_device
 def _launch(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2, dilation,
             seg_len, mask, out):
     """The C entry on checked CUDA operands, into `out` (B, T, C_end), a

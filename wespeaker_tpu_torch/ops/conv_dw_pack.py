@@ -113,6 +113,7 @@ def _check_args(x, dy):
         raise TypeError(f"x is {x.dtype} and dy {dy.dtype}")
 
 
+@_build.on_device
 def dw_pack(x: torch.Tensor, dy: torch.Tensor,
             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Filter gradient of a 3x3, stride-1, pad-1 conv. x: (B, H, W, Ci), dy:

@@ -143,6 +143,7 @@ def gemm_sm90_tail_reference(parts, wt, form, bias=None, scale=None,
             + shift.float()).to(torch.bfloat16)
 
 
+@_build.on_device
 def gemm_sm90_tail(parts, wt, form, bias=None, scale=None, shift=None,
                    row_bias=None, t=None):
     """parts: three (M, kp) bf16 CUDA tensors, the K-slices of A, for the
@@ -197,6 +198,7 @@ def gemm_sm90_tail(parts, wt, form, bias=None, scale=None, shift=None,
 gemm_sm90_tail.launches = 0
 
 
+@_build.on_device
 def gemm_sm90(a, k, wt, scale, shift, bias=None, a_scale=None, a_shift=None,
               t: Optional[int] = None, seg_len: Optional[int] = None,
               mask=None):
@@ -295,6 +297,7 @@ def gemm_tn_sm90_reference(a, b):
     return a.float().t() @ b.float()
 
 
+@_build.on_device
 def gemm_tn_sm90(a, b):
     """a (K, M), b (K, N) bf16 CUDA tensors, M and N multiples of 128 ->
     a^T b (M, N) f32, split over K with a fixed-order sum. Raises for a

@@ -231,6 +231,7 @@ def _check_cuda_args(x):
                          "kernel's 32-bit row count")
 
 
+@_build.on_device
 def fused_inv_bottleneck_stage(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3):
     """x: (B, C, F, T) in channels-last memory format. Stacked per-block
     weights, BN folded:

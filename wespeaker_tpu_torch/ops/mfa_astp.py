@@ -183,6 +183,7 @@ def _tail_op_fake(x2, x3, x4, wm, *rest):
 
 
 @_tail_op.register_kernel("cuda")
+@_build.on_device
 def _tail_op_cuda(x2, x3, x4, wm, bm, k1, b1, k2, b2, mask, glob):
     _check_cuda_args(x2, x3, x4, wm, k1, k2, mask, glob)
     b, t, c = x2.shape

@@ -204,6 +204,7 @@ def _on_cuda(x2, what):
     return True
 
 
+@_build.on_device
 def mfa_astp_train_fwd(x2, x3, x4, wm, bm, k1, b1, k2, b2,
                        glob: bool = True):
     """Training forward: (pooled, h, att, cstats) as
@@ -257,6 +258,7 @@ def mfa_astp_train_fwd(x2, x3, x4, wm, bm, k1, b1, k2, b2,
 mfa_astp_train_fwd.launches = 0
 
 
+@_build.on_device
 def mfa_astp_train_bwd(x2, x3, x4, wm, k1, b2, k2, pooled, h, att, cstats,
                        g, glob: bool = True):
     """Training backward: the nine gradients as

@@ -155,6 +155,7 @@ def _mask_arg(mask):
     return None if mask is None else mask.to(torch.float32).contiguous()
 
 
+@_build.on_device
 def fused_softmax_stats(logits: torch.Tensor, x: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
                         concat: bool = False):
@@ -195,6 +196,7 @@ def fused_softmax_stats(logits: torch.Tensor, x: torch.Tensor,
 fused_softmax_stats.launches = 0
 
 
+@_build.on_device
 def fused_masked_stats(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                        ddof: int = 1, concat: bool = False):
     """Masked mean and ddof-adjusted std (+1e-7 inside the sqrt) over T of

@@ -69,6 +69,7 @@ def _check_cuda_args(x, width, dilation, nums=7):
     check_chain_smem(x, width, nums, dilation)
 
 
+@_build.on_device
 def fused_res2_chain(x, kernels, biases, bn_scale, bn_shift, dilation: int):
     """x: (B, T, C); kernels: (nums, 3, W, W) taps [t-d, t, t+d] (in, out),
     C = (nums + 1) W; biases, bn_scale, bn_shift: (nums, W), the conv bias

@@ -240,6 +240,7 @@ def _se_op_fake(x, *rest):
 
 
 @_se_op.register_kernel("cuda")
+@_build.on_device
 def _se_op_cuda(x, w1, b1, s1, h1, cw, cb, cs, ch, w2, b2, s2, h2, sw1, sb1,
                 sw2, sb2, dilation, mask):
     _check_cuda_args(x, cw, sw1, mask, dilation)

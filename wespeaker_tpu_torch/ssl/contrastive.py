@@ -2,10 +2,16 @@
 
 Counterpart of wespeaker_tpu/ssl/contrastive.py (upstream
 wespeaker/ssl/models/moco_wrapper.py: momentum key encoder and a ring
-buffer of negatives; simclr_wrapper.py: InfoNCE over n_views). On one
-card the batch is the whole batch, so upstream's all_gather of the keys
-and its shuffled-BN trick have nothing to do, as under the JAX package's
-global jit.
+buffer of negatives; simclr_wrapper.py: InfoNCE over n_views). The JAX
+package runs both on one global batch, in place of upstream's
+concat_all_gather of the keys and its shuffled-BN trick; across data
+ranks (a `mesh`, parallel/mesh.py) the port follows it: the query
+encoder's BatchNorms take the global statistics, gradients and metrics
+are averaged over the ranks (one all_reduce), MoCo enqueues every rank's
+keys in rank order on every rank (the queues stay identical), and
+SimCLR's rows see every rank's rows as negatives, each rank's loss over
+its own rows of the global view-major batch, so that the ranks' mean
+gradient is the global loss's.
 
 MoCo: the query encoder trains; the key encoder runs in eval mode under
 no_grad (on the card, with an ECAPA backbone, the SE-Res2 block and
@@ -24,6 +30,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from wespeaker_tpu_torch.parallel.collect import (all_gather_embeddings,
+                                                  all_gather_rows,
+                                                  mean_gradients)
+from wespeaker_tpu_torch.parallel.mesh import (Mesh, global_batch_stats,
+                                               group_rank, group_size)
 from wespeaker_tpu_torch.train.train_step import _on
 
 
@@ -66,7 +77,14 @@ def simclr_loss(features: torch.Tensor, n_views: int = 2,
     """InfoNCE over every view: features (n_views * B, D), view-major; each
     row's positives are the other views of its utterance, its negatives
     the rows of other utterances; log-sum-exp over the positives less
-    log(n_views - 1) against log-sum-exp over both."""
+    log(n_views - 1) against log-sum-exp over both. The mean of
+    simclr_terms."""
+    return simclr_terms(features, n_views, T).mean()
+
+
+def simclr_terms(features: torch.Tensor, n_views: int = 2,
+                 T: float = 0.07) -> torch.Tensor:
+    """simclr_loss's (n_views * B,) per-row terms."""
     n = features.shape[0]
     bs = n // n_views
     labels = torch.arange(bs, device=features.device).repeat(n_views)
@@ -79,7 +97,23 @@ def simclr_loss(features: torch.Tensor, n_views: int = 2,
     denom = torch.logsumexp(torch.where(pos_mask | ~same, sim, neg_inf),
                             dim=1)
     pos = torch.logsumexp(torch.where(pos_mask, sim, neg_inf), dim=1)
-    return (denom - (pos - float(np.log(n_views - 1.0)))).mean()
+    return denom - (pos - float(np.log(n_views - 1.0)))
+
+
+def global_view_major(local: torch.Tensor, n_views: int, group
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every rank's view-major (n_views * B, D) rows as the global batch's
+    view-major (n_views * W * B, D) rows (view v: rank 0's B rows, rank
+    1's, ...), differentiable (each rank's gradient summed over the
+    ranks); and the global row indices of this rank's rows."""
+    w, r = group_size(group), group_rank(group)
+    b = local.shape[0] // n_views
+    full = all_gather_rows(local, group, backward="sum")
+    full = full.reshape(w, n_views, b, -1).transpose(0, 1).reshape(
+        w * n_views * b, -1)
+    mine = (torch.arange(n_views, device=local.device)[:, None] * w * b
+            + r * b + torch.arange(b, device=local.device)[None, :])
+    return full, mine.reshape(-1)
 
 
 class MoCoTrainStep:
@@ -90,9 +124,12 @@ class MoCoTrainStep:
     def __init__(self, encoder: nn.Module, optimizer: torch.optim.Optimizer,
                  lr_fn: Callable, queue: torch.Tensor, m: float = 0.999,
                  T: float = 0.07,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 mesh: Mesh = None):
         self.encoder, self.optimizer, self.lr_fn = encoder, optimizer, lr_fn
+        self.group = (mesh or Mesh()).data_group
         self.key_encoder = copy.deepcopy(encoder)
+        global_batch_stats([encoder, self.key_encoder], self.group)
         for p in self.key_encoder.parameters():
             p.requires_grad_(False)
         self.queue, self.queue_ptr = queue, 0
@@ -114,6 +151,8 @@ class MoCoTrainStep:
         loss, acc, k = moco_loss(q, k, self.queue, self.T)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss, acc = mean_gradients(self.encoder.parameters(), self.group,
+                                   loss.detach(), acc)
         self.optimizer.step()
         with torch.no_grad():
             k_params = list(self.key_encoder.parameters())
@@ -123,10 +162,11 @@ class MoCoTrainStep:
             for kb, qb in zip(self.key_encoder.buffers(),
                               self.encoder.buffers()):
                 kb.copy_(qb)
-            self.queue, self.queue_ptr = enqueue(self.queue, self.queue_ptr,
-                                                 k)
+            self.queue, self.queue_ptr = enqueue(
+                self.queue, self.queue_ptr,
+                all_gather_embeddings(k, self.group))
         self.step += 1
-        return {"loss": loss.detach(), "acc": acc, "lr": lr}
+        return {"loss": loss, "acc": acc, "lr": lr}
 
 
 class SimCLRTrainStep:
@@ -136,8 +176,11 @@ class SimCLRTrainStep:
 
     def __init__(self, encoder: nn.Module, optimizer: torch.optim.Optimizer,
                  lr_fn: Callable, n_views: int = 2, T: float = 0.07,
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 mesh: Mesh = None):
         self.encoder, self.optimizer, self.lr_fn = encoder, optimizer, lr_fn
+        self.group = (mesh or Mesh()).data_group
+        global_batch_stats([encoder], self.group)
         self.n_views, self.T, self.compute_dtype = n_views, T, compute_dtype
         self.device = next(encoder.parameters()).device
         self.step = 0
@@ -149,9 +192,12 @@ class SimCLRTrainStep:
         self.encoder.train()
         emb = self.encoder(_on(batch["feat"], self.device,
                                self.compute_dtype)).float()
-        loss = simclr_loss(emb, self.n_views, self.T)
+        full, mine = global_view_major(emb, self.n_views, self.group)
+        loss = simclr_terms(full, self.n_views, self.T)[mine].mean()
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        loss, = mean_gradients(self.encoder.parameters(), self.group,
+                               loss.detach())
         self.optimizer.step()
         self.step += 1
-        return {"loss": loss.detach(), "lr": lr}
+        return {"loss": loss, "lr": lr}

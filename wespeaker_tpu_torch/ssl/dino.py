@@ -30,6 +30,13 @@ as they are plain jnp in the JAX package.
 AMP is the JAX package's: parameters stay f32 and are cast to the
 activation type where they are used; the features are cast to the
 compute type and the head outputs back to f32 for the loss.
+
+Across data ranks (a `mesh`, parallel/mesh.py) the step is the JAX
+package's on its global batch: the student's BatchNorms take the global
+statistics, the gradients and the loss are averaged over the ranks
+before the clip (one all_reduce, parallel/collect.py::mean_gradients),
+and the centre moves towards the teacher output's mean over every rank's
+rows (one all_reduce).
 """
 
 import copy
@@ -42,6 +49,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from wespeaker_tpu_torch.models.layers import batch_norm
+from wespeaker_tpu_torch.parallel.collect import (all_reduce_sum,
+                                                  mean_gradients)
+from wespeaker_tpu_torch.parallel.mesh import (Mesh, global_batch_stats,
+                                               group_size)
 from wespeaker_tpu_torch.train.train_step import _on
 
 
@@ -299,13 +310,18 @@ class DINOTrainStep:
     """{"global_feat": (n_global * B, T, F), "local_feat": (n_local * B,
     T', F)} view-major features -> metrics {loss (device tensor), lr,
     momentum, teacher_temp (floats)}; updates the student, the teacher,
-    the center and the optimizer in place and counts steps in `step`."""
+    the center and the optimizer in place and counts steps in `step`.
+    Over a `mesh` each rank passes its own rows and the loss is the global
+    batch's."""
 
     def __init__(self, state: DINOState, lr_fn: Callable,
                  momentum_fn: Callable, temp_fn: Callable,
                  cfg: DINOConfig = DINOConfig(),
-                 compute_dtype: torch.dtype = torch.float32):
+                 compute_dtype: torch.dtype = torch.float32,
+                 mesh: Mesh = None):
         self.student, self.teacher, self.center, self.optimizer = state
+        self.group = (mesh or Mesh()).data_group
+        global_batch_stats([self.student, self.teacher], self.group)
         self.lr_fn, self.momentum_fn, self.temp_fn = (lr_fn, momentum_fn,
                                                       temp_fn)
         self.cfg, self.compute_dtype = cfg, compute_dtype
@@ -334,6 +350,8 @@ class DINOTrainStep:
         loss.backward()
         named = [(n, p) for n, p in self.student.named_parameters()
                  if p.grad is not None]
+        loss, = mean_gradients([p for _, p in named], self.group,
+                               loss.detach())
         param_wise_clip([p.grad for _, p in named], cfg.clip_grad)
         if step < cfg.freeze_last_layer_iters:
             # zeros, not None: the momentum buffers decay as optax's do
@@ -348,11 +366,14 @@ class DINOTrainStep:
                                 alpha=1.0 - m)
             for tb, sb in zip(self.teacher.buffers(), self.student.buffers()):
                 tb.copy_(sb)
+            # every rank holds as many rows: the global mean
+            t_mean = all_reduce_sum(t_out.sum(dim=0, keepdim=True),
+                                    self.group) / (
+                t_out.shape[0] * group_size(self.group))
             self.center = (self.center * cfg.center_momentum
-                           + t_out.mean(dim=0, keepdim=True)
-                           * (1 - cfg.center_momentum))
+                           + t_mean * (1 - cfg.center_momentum))
         self.step += 1
-        return {"loss": loss.detach(), "lr": lr, "momentum": m,
+        return {"loss": loss, "lr": lr, "momentum": m,
                 "teacher_temp": temp}
 
     def state_dict(self) -> Dict[str, Any]:

@@ -10,6 +10,10 @@ outside any kernel), the SNR-scaled mixing and the peak normalise run on
 the card in the train step. Reverb matches the host path to FFT rounding
 (both are FFT convolutions), noise mixing exactly; RIRs are cut to a fixed
 length (1 s by default), which the host path does not do.
+
+`blocks` is the JAX package's: there one global array holds every
+process's front-packed block. Here each rank (parallel/mesh.py) augments
+its own local batch, one block, so the trainer never passes more.
 """
 
 import torch

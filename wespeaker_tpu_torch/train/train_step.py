@@ -19,6 +19,16 @@ augmented on its device first (train/device_aug.py). The loss is the
 head's own where it returns (logits, loss) (SphereFace2), else softmax
 cross-entropy; a head with BatchNorm (the Linear head) runs in train mode
 and keeps its running statistics.
+
+Across ranks (parallel/mesh.py) the step follows the JAX package's
+global batch: the BatchNorms normalise by the statistics over the data
+group, and after the backward one all_reduce averages the gradients, the
+loss and the accuracy over it (parallel/collect.py::mean_gradients). That
+is chosen over torch's DistributedDataParallel because the step's
+parameters are two modules, one of which (a model-axis head) must not be
+averaged over the model group, DINO clips the averaged gradients, and
+one explicit collective, with no bucketing and no buffer broadcast,
+keeps the ranks' parameters and buffers bit-identical by construction.
 """
 
 import dataclasses
@@ -34,6 +44,8 @@ from wespeaker_tpu_torch.frontend.fbank import (FbankConfig, apply_cmvn,
                                                 compute_fbank)
 from wespeaker_tpu_torch.train.composite import _sample_to_frame_mask
 from wespeaker_tpu_torch.train.device_aug import device_augment
+from wespeaker_tpu_torch.parallel.collect import mean_gradients
+from wespeaker_tpu_torch.parallel.mesh import Mesh, global_batch_stats
 from wespeaker_tpu_torch.train.optim import make_optimizer
 
 
@@ -146,14 +158,24 @@ def features_from_batch(batch: Dict[str, Any], fbank_cfg: FbankConfig,
 class TrainStep:
     """batch -> metrics {loss, acc, lr, margin}; updates the modules and
     the optimizer in place and counts steps in `step`. loss and acc are
-    device tensors (reading them synchronises), lr and margin floats."""
+    device tensors (reading them synchronises), lr and margin floats; over
+    a `mesh` of more than one data rank, the means over the global batch.
+    `global_stats=False` keeps each rank's BatchNorm statistics its own,
+    which the JAX package never does: tests use it to show the
+    difference."""
 
     def __init__(self, model: nn.Module, projection: nn.Module,
                  optimizer: torch.optim.Optimizer, lr_fn: Callable,
                  margin_fn: Callable, fbank_cfg: FbankConfig,
                  aug: Optional[AugConfig], compute_dtype: torch.dtype,
                  device: torch.device, generator: torch.Generator,
-                 step: int = 0, featurize_fn: Optional[Callable] = None):
+                 step: int = 0, featurize_fn: Optional[Callable] = None,
+                 mesh: Optional[Mesh] = None, global_stats: bool = True):
+        self.mesh = mesh or Mesh()
+        if global_stats:
+            global_batch_stats([model, projection], self.mesh.data_group)
+        self.params = [p for group in optimizer.param_groups
+                       for p in group["params"]]
         self.model, self.projection = model, projection
         self.optimizer = optimizer
         self.lr_fn, self.margin_fn = lr_fn, margin_fn
@@ -182,10 +204,12 @@ class TrainStep:
             logits, loss = out, F.cross_entropy(out, label)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        acc = (logits.detach().argmax(dim=-1) == label).float().mean()
+        loss, acc = mean_gradients(self.params, self.mesh.data_group,
+                                   loss.detach(), acc)
         self.optimizer.step()
         self.step += 1
-        acc = (logits.detach().argmax(dim=-1) == label).float().mean()
-        return {"loss": loss.detach(), "acc": acc, "lr": lr, "margin": margin}
+        return {"loss": loss, "acc": acc, "lr": lr, "margin": margin}
 
 
 def make_train_step(model: nn.Module, projection: nn.Module,
@@ -196,12 +220,15 @@ def make_train_step(model: nn.Module, projection: nn.Module,
                     compute_dtype: torch.dtype = torch.float32,
                     device: DeviceLike = None,
                     generator: Optional[torch.Generator] = None,
-                    featurize_fn: Optional[Callable] = None) -> TrainStep:
+                    featurize_fn: Optional[Callable] = None,
+                    mesh: Optional[Mesh] = None,
+                    global_stats: bool = True) -> TrainStep:
     """The train step on `device` (the card unless the caller passes
     device="cpu"); the modules are moved there. `generator` (on that
     device) drives dither and spec-aug (or the frontend's masks); a fresh
     unseeded one if None. `featurize_fn(wav, generator)` replaces the
-    fbank chain (features_from_batch)."""
+    fbank chain (features_from_batch). `mesh` and `global_stats`: see
+    TrainStep."""
     dev = resolve_device(device)
     model.to(dev)
     projection.to(dev)
@@ -209,29 +236,37 @@ def make_train_step(model: nn.Module, projection: nn.Module,
         generator = torch.Generator(device=dev)
     return TrainStep(model, projection, optimizer, lr_fn, margin_fn,
                      fbank_cfg, aug, compute_dtype, dev, generator,
-                     featurize_fn=featurize_fn)
+                     featurize_fn=featurize_fn, mesh=mesh,
+                     global_stats=global_stats)
 
 
 def build_train_state(build_modules: Callable[[], Tuple[nn.Module,
                                                         nn.Module]],
                       optimizer_conf: Dict[str, Any], seed: int = 42,
-                      device: DeviceLike = None):
+                      device: DeviceLike = None, stripe: int = 0,
+                      prepare: Optional[Callable] = None):
     """The role of the JAX init_train_state: seed torch from `seed`, build
     (model, projection) with build_modules() (on the CPU, unless it
-    builds them elsewhere) and move them to `device`, make the optimizer
-    over their parameters that require gradients (a frozen frontend's do
-    not), and a generator on the device seeded from `seed`. Returns
-    (model, projection, optimizer, generator)."""
+    builds them elsewhere), `prepare(model, projection)` them if given
+    (a resume's load, the model-axis head's rows), move them to `device`,
+    make the optimizer over their parameters that require gradients (a
+    frozen frontend's do not), and a generator on the device seeded from
+    (`seed`, `stripe`): the ranks of one data stripe (parallel/mesh.py)
+    draw the same dither and masks, other stripes others. Returns (model,
+    projection, optimizer, generator)."""
     dev = resolve_device(device)
     torch.manual_seed(seed)
     model, projection = build_modules()
+    if prepare is not None:
+        prepare(model, projection)
     model.to(dev)
     projection.to(dev)
     # a frozen frontend's parameters (requires_grad=False) stay out
     optimizer = make_optimizer(optimizer_conf, [
         p for p in list(model.parameters()) + list(projection.parameters())
         if p.requires_grad])
-    generator = torch.Generator(device=dev).manual_seed(seed)
+    generator = torch.Generator(device=dev).manual_seed(
+        seed + 1_000_003 * stripe)
     return model, projection, optimizer, generator
 
 

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from wespeaker_tpu_torch.models.projections import full_state_dict
+from wespeaker_tpu_torch.parallel.mesh import barrier
 from wespeaker_tpu_torch.utils import msgpack
 from wespeaker_tpu_torch.utils.weights import (_unwrap, from_jax_checkpoint,
                                                rules_name)
@@ -34,15 +36,32 @@ _TRAINING_ONLY_PREFIXES = ("projection.",)
 
 
 def save_checkpoint(path: str, model: nn.Module,
-                    projection: Optional[nn.Module] = None) -> None:
+                    projection: Optional[nn.Module] = None,
+                    projection_state: Optional[Mapping] = None) -> None:
+    """model (and the head, or its given `projection_state`) to `path`."""
     obj = {"state_dict": {k: v.detach().cpu()
                           for k, v in model.state_dict().items()}}
-    if projection is not None:
+    if projection is not None and projection_state is None:
+        projection_state = projection.state_dict()
+    if projection_state is not None:
         obj["projection"] = {k: v.detach().cpu()
-                             for k, v in projection.state_dict().items()}
+                             for k, v in projection_state.items()}
     tmp = f"{path}.tmp"
     torch.save(obj, tmp)
     os.replace(tmp, path)
+
+
+def save_checkpoint_collective(path: str, model: nn.Module,
+                               projection: nn.Module, mesh,
+                               device: torch.device) -> None:
+    """The trainers' save over ranks (parallel/mesh.py): every rank joins
+    the gather of a model-axis head's rows (models/projections.py::
+    full_state_dict), rank 0 writes, and every rank waits at a barrier
+    until the file is there, so that a rank that reads it next finds it."""
+    head = full_state_dict(projection)
+    if mesh.rank == 0:
+        save_checkpoint(path, model, projection_state=head)
+    barrier(mesh, device)
 
 
 def save_msgpack_checkpoint(path: str, tree: Mapping[str, Any]) -> None:

@@ -24,7 +24,10 @@ state_dict. It inverts the rules of wespeaker_tpu/utils/torch_compat.py:
     inputs_weights_<i> -> inputs_weights.<i>, stem_/mfa_/dwconvs_/
     red_dim_conv_/tcm_<i> -> .<i>, feed_forward_* -> feed_forward.*,
     downsample_conv / downsample_bn -> downsample.0 / .1), plus the frozen
-    all-ones backbone.inputs_weights.0 that the flax tree does not keep
+    all-ones backbone.inputs_weights.0 that the flax tree does not keep,
+    and the 'gru' block's flax GRUCell leaves (fwd / bwd: ir, iz, in, hr,
+    hz, hn) packed into upstream's nn.GRU tensors (`pack_gru_keys`; back
+    with `expand_gru_keys`, torch_compat's split)
 
 The neural frontends keep the names that torch_compat maps to: HF's
 WavLMModel (WavLM: conv_layers_<i>_conv -> feature_extractor.conv_layers.
@@ -323,7 +326,65 @@ def from_jax_variables(variables: Mapping[str, Any],
         # upstream's frozen all-ones stage-0 input weight, which the flax
         # tree does not keep (torch_compat ignores it)
         sd["backbone.inputs_weights.0"] = torch.ones(1, 1, 1, 1)
+    return pack_gru_keys(sd)
+
+
+_GATES = ("r", "z", "n")
+_CELL = re.compile(r"(.*)\.(fwd|bwd)\.ir\.weight$")
+
+
+def pack_gru_keys(sd: "OrderedDict") -> "OrderedDict":
+    """flax GRUCell leaves (`<p>.fwd|bwd.{ir,iz,in,hr,hz,hn}.weight`, the
+    i* and hn biases) -> torch nn.GRU's packed `<p>.gru.weight_ih_l0`,
+    `weight_hh_l0`, `bias_ih_l0`, `bias_hh_l0` (`_reverse` for bwd), gates
+    in torch's order r, z, n. flax's r and z gates have one bias each,
+    which goes to bias_ih; their bias_hh rows are 0. The inverse of
+    expand_gru_keys up to that fold."""
+    cells = [(m.group(1), m.group(2)) for m in map(_CELL.match, sd) if m]
+    for prefix, direction in cells:
+        base = f"{prefix}.{direction}"
+        w = {f"{k}{g}": sd.pop(f"{base}.{k}{g}.weight")
+             for k in "ih" for g in _GATES}
+        b = {f"i{g}": sd.pop(f"{base}.i{g}.bias") for g in _GATES}
+        hn = sd.pop(f"{base}.hn.bias")
+        rev = "_reverse" if direction == "bwd" else ""
+        out = f"{prefix}.gru."
+        sd[f"{out}weight_ih_l0{rev}"] = torch.cat(
+            [w[f"i{g}"] for g in _GATES])
+        sd[f"{out}weight_hh_l0{rev}"] = torch.cat(
+            [w[f"h{g}"] for g in _GATES])
+        sd[f"{out}bias_ih_l0{rev}"] = torch.cat([b[f"i{g}"] for g in _GATES])
+        sd[f"{out}bias_hh_l0{rev}"] = torch.cat(
+            [torch.zeros_like(hn), torch.zeros_like(hn), hn])
     return sd
+
+
+def expand_gru_keys(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """torch nn.GRU's packed `<p>.gru.*_l0[_reverse]` -> flax GRUCell
+    leaves under `<p>.fwd` / `<p>.bwd` in torch's (out, in) layout, as
+    torch_compat.expand_torch_gru_keys splits them: b_hr and b_hz fold
+    into the ir and iz biases, b_hn is hn's bias (flax's n = tanh(in(x) +
+    r * hn(h)) is torch's)."""
+    out = dict(sd)
+    for key in list(sd):
+        m = re.match(r"(.*)\.gru\.weight_ih_l0(_reverse)?$", key)
+        if not m:
+            continue
+        prefix, rev = m.group(1), m.group(2) or ""
+        base = f"{prefix}.{'bwd' if rev else 'fwd'}"
+        w_ih = out.pop(f"{prefix}.gru.weight_ih_l0{rev}")
+        w_hh = out.pop(f"{prefix}.gru.weight_hh_l0{rev}")
+        b_ih = out.pop(f"{prefix}.gru.bias_ih_l0{rev}")
+        b_hh = out.pop(f"{prefix}.gru.bias_hh_l0{rev}")
+        for g, w_i, w_h in zip(_GATES, w_ih.chunk(3), w_hh.chunk(3)):
+            out[f"{base}.i{g}.weight"] = w_i
+            out[f"{base}.h{g}.weight"] = w_h
+        bi, bh = b_ih.chunk(3), b_hh.chunk(3)
+        out[f"{base}.ir.bias"] = bi[0] + bh[0]
+        out[f"{base}.iz.bias"] = bi[1] + bh[1]
+        out[f"{base}.in.bias"] = bi[2]
+        out[f"{base}.hn.bias"] = bh[2]
+    return out
 
 
 def _nest(tree: dict, path, value) -> None:
@@ -353,7 +414,7 @@ def to_jax_variables(state_dict: Mapping[str, torch.Tensor],
     family = _family(model_name)
     rules = (INVERSE_RULES[family] if family else ()) + INVERSE_COMMON
     out = {"params": {}, "batch_stats": {}}
-    for key, value in state_dict.items():
+    for key, value in expand_gru_keys(state_dict).items():
         if key.endswith("num_batches_tracked") or (
                 family == "ReDimNet" and key == "backbone.inputs_weights.0"):
             continue
