@@ -513,6 +513,24 @@ Phases, each printing one line:
               model. NCCL in a world of one: an all_reduce and one step;
               two ranks over NCCL only where there are two cards, which
               the line says.
+ 52. deploy families  (last: torch.profiler on the card's machine sees
+              fewer kernel records as a process ages, sooner after
+              torch.export, and earlier phases gate on its counts) a .pt2
+              of each family whose eval route holds rows 3 and 6-9
+              (DEPLOY_FAMILIES, full width, seeded weights and BN from
+              synthetic voices: campplus.yaml, gemini_dfresnet_adam.yaml at
+              Gemini_DF_ResNet60's depth, resnet.yaml, redimnet.yaml and
+              ecapa_tdnn_c512.yaml with fused: false, fused_res2: true),
+              exported on the CPU (its seconds printed) and loaded on the
+              card: at (64, 200) and (1, 137) in f32 its launches a call
+              equal eager's and the table's (cam=3 masked=1; gemini=4
+              masked=1; masked=1; softmax=1 masked=1; res2=3 softmax=1
+              masked=1), its embeddings within 1e-4 of the largest
+              magnitude of eager's, its ms against eager at B=64 (eager,
+              .pt2, .pt2, eager); infer_demo on the CAM++ .pt2 against
+              bin/extract.py (cosine >= 0.9999, cam=3 masked=1);
+              torch.library.opcheck of the seven ops on the card at B=2,
+              T=16 in f32 and bf16.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -992,12 +1010,14 @@ def phase_timing(model, dev, smi):
         *kernel_bounds.mfa_astp_tail(B, T, C))
     tail_floor = sum(ms for _, ms, _ in kernel_bounds.mfa_astp_tail_floor(
         B, T, C))
-    # the tail's launches a call, and those on gemm_sm90 (the MFA, context,
-    # tanh and logits products) and on the WMMA GEMM (none)
-    tail_sm90 = count_launches(lambda: mfa_astp.fused_mfa_astp(
-        *xs, *tw, glob=True), "gemm_sm90_kernel")[0]
-    tail_wmma, tail_all, _ = count_launches(lambda: mfa_astp.fused_mfa_astp(
-        *xs, *tw, glob=True), "gemm_wmma_kernel")
+    # the tail's launches a call (torch.profiler, printed), and those on
+    # gemm_sm90 (the MFA, context, tanh and logits products) and on the
+    # WMMA GEMM (none), as the library counts them
+    tail_call = lambda: mfa_astp.fused_mfa_astp(  # noqa: E731
+        *xs, *tw, glob=True)
+    tail_all = count_launches(tail_call, "ws::")[1]
+    routes = routes_launched("mfa_astp", tail_call)
+    tail_sm90, tail_wmma = routes["gemm_sm90"], routes["wmma"]
     if (tail_sm90, tail_wmma) != (4, 0):
         raise AssertionError(f"the bf16 tail launched gemm_sm90 {tail_sm90} "
                              f"times and the WMMA GEMM {tail_wmma}, not 4 "
@@ -1363,14 +1383,15 @@ def phase_train_timing(model, dev, smi):
         res_t[k]["bound_ms"], res_t[k]["bound_by"] = bound(fl, nb)
     bwd_floor = sum(ms for _, ms, _ in kernel_bounds.mfa_astp_tail_bwd_floor(
         b, T, C))
-    # a bf16 backward call's launches (torch.profiler): the logits, dpre,
-    # dcms, dacc and dx products on gemm_sm90, the three weight gradients
-    # in one gemm_tn_sm90 launch, and nothing on the WMMA or FMA GEMMs
+    # a bf16 backward call's launches (torch.profiler, printed), and as the
+    # library counts them: the logits, dpre, dcms, dacc and dx products on
+    # gemm_sm90, the three weight gradients in one gemm_tn_sm90 launch, and
+    # nothing on the WMMA or FMA GEMMs
     bwd_call = lambda: mfa_astp_vjp.mfa_astp_train_bwd(*res)  # noqa: E731
-    bwd_sm90, bwd_all, _ = count_launches(bwd_call, "gemm_sm90_kernel")
-    bwd_tn = count_launches(bwd_call, "gemm_tn_sm90_kernel")[0]
-    bwd_old = (count_launches(bwd_call, "wmma")[0]
-               + count_launches(bwd_call, "fma_kernel")[0])
+    bwd_all = count_launches(bwd_call, "ws::")[1]
+    routes = routes_launched("mfa_astp_train", bwd_call)
+    bwd_sm90, bwd_tn = routes["gemm_sm90"], routes["gemm_tn_sm90"]
+    bwd_old = routes["wmma"] + routes["fma"]
     if (bwd_sm90, bwd_tn, bwd_old) != (5, 1, 0):
         raise AssertionError(f"the bf16 backward launched gemm_sm90 "
                              f"{bwd_sm90}, gemm_tn_sm90 {bwd_tn} and the "
@@ -1885,6 +1906,20 @@ def phase_gemini_serving(dev):
           f"directly {vs_bucket.min().item():.7f}, vs batch=1 (not gated) "
           f"{vs_single.min().item():.7f}, between neighbouring replies "
           f"{row_cosines(embs[:-1], embs[1:]).mean().item():.4f}")
+
+
+def routes_launched(lib, fn):
+    """The GEMM launches one call of fn makes, by route, as library `lib`
+    counts them where it launches each (_build.gemm_routes). Gates read
+    these: torch.profiler drops kernel records now and then on the card's
+    machine (2 of a tail call's 4 gemm_sm90 launches once, late in a
+    run)."""
+    torch.cuda.synchronize()
+    before = _build.gemm_routes(lib)
+    fn()
+    torch.cuda.synchronize()
+    after = _build.gemm_routes(lib)
+    return {k: after[k] - before[k] for k in after}
 
 
 def count_launches(fn, mark="inv_block_kernel"):
@@ -5155,6 +5190,21 @@ DEPLOY_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "ecapa_tdnn_c512.yaml")
 DEPLOY_BATCH = 64  # the YAML's own
 DEPLOY_SHAPES = ((64, 200), (1, 137))
+# the families whose eval route holds rows 3 and 6-9, each exported to a
+# .pt2 at full width with seeded weights: (name, its YAML under
+# DEPLOY_CONF's directory, overrides, the launches of one eval forward,
+# eager's and the .pt2's on the card). Gemini is the YAML's widths at
+# Gemini_DF_ResNet60's depth (3, 3, 9, 3 blocks): the same four stage
+# calls, and a shorter phase
+DEPLOY_FAMILIES = (
+    ("CAMPPlus", "campplus.yaml", (), dict(cam=3, masked=1)),
+    ("Gemini_DF_ResNet60", "gemini_dfresnet_adam.yaml",
+     ("model=Gemini_DF_ResNet60",), dict(gemini=4, masked=1)),
+    ("ResNet34", "resnet.yaml", (), dict(masked=1)),
+    ("ReDimNetB2", "redimnet.yaml", (), dict(softmax=1, masked=1)),
+    ("ECAPA_TDNN_GLOB_c512 fused_res2", "ecapa_tdnn_c512.yaml",
+     ("model_args.fused=false", "model_args.fused_res2=true"),
+     dict(res2=3, softmax=1, masked=1)))
 # rows 4 and 5's kernels in a bf16 glob step: the forward's context
 # statistics, the backward's weight-gradient GEMM and softmax backward
 DEPLOY_TRACE_NAMES = ("ctx_stats_kernel", "gemm_tn_sm90_kernel",
@@ -5198,6 +5248,147 @@ def deploy_stage1(root, rng, n_spk=8, n_utt=4):
         raise AssertionError(f"stage 1: {lines} raw lines, {shards} shards")
     return (files["raw.list"], files["shard.list"], files["utt2spk"],
             lines, shards)
+
+
+def seeded_checkpoint(yaml_name, over, root, dev):
+    """The YAML's model with the overrides `over` at full width
+    (build_model from SEED, BN statistics from synthetic voices as
+    randomised_bn takes them), written as a .pt beside a copy of the YAML
+    under root: (config path, checkpoint path)."""
+    d = os.path.join(root, os.path.splitext(yaml_name)[0])
+    os.makedirs(d)
+    conf = shutil.copy(os.path.join(os.path.dirname(DEPLOY_CONF), yaml_name),
+                       os.path.join(d, "config.yaml"))
+    configs = parse_config_or_kwargs(conf, list(over))
+    torch.manual_seed(SEED)
+    model = randomised_bn(build_model(configs), dev, True,
+                          fbank_config(configs))
+    ckpt = os.path.join(d, "model.pt")
+    torch.save({k: v.cpu() for k, v in model.state_dict().items()}, ckpt)
+    return conf, ckpt
+
+
+def deploy_pt2(name, conf, ckpt, over, want, root, rng, dev, smi):
+    """One family's .pt2: bin/export_model.py on the CPU, load_exported on
+    the card; at DEPLOY_SHAPES in f32 (TF32 off) its launches a call equal
+    eager's, and those equal `want`, and its embeddings meet eager's within
+    1e-4 of the largest magnitude; then B=64 x 200 timed by CUDA events,
+    eager, .pt2, .pt2, eager. Returns (.pt2 path, the eager model)."""
+    t0 = time.perf_counter()
+    pt2 = export_model.export_pt2(conf, ckpt, os.path.join(
+        root, name.split()[0] + ".pt2"), overrides=list(over))
+    export_s = time.perf_counter() - t0
+    prog = export_model.load_exported(pt2, dev)
+    configs = parse_config_or_kwargs(conf, list(over))
+    eager = load_model_for_eval(configs, ckpt, device=dev)
+    feat = configs["model_args"]["feat_dim"]
+    rels = []
+    for b, t in DEPLOY_SHAPES:
+        x = torch.as_tensor(rng.standard_normal((b, t, feat)).astype(
+            np.float32), device=dev)
+        with torch.no_grad():
+            zero_counts()
+            got = prog(x)
+            torch.cuda.synchronize()
+            n_pt2 = counts()
+            zero_counts()
+            ref = eager(x)
+            torch.cuda.synchronize()
+            n_eager = counts()
+        if n_pt2 != n_eager or n_eager != dict(NO_LAUNCH, **want):
+            raise AssertionError(f"{name} .pt2 at {(b, t)} launched "
+                                 f"{n_pt2}, eager {n_eager}; want {want}")
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        if got.shape != ref.shape or not err <= 1e-4 * scale:
+            raise AssertionError(f"{name} .pt2 at {(b, t)}: max error {err} "
+                                 f"of {scale}")
+        rels.append(err / scale)
+    x = torch.as_tensor(rng.standard_normal((64, 200, feat)).astype(
+        np.float32), device=dev)
+    with torch.no_grad():
+        turns = [cuda_ms(lambda: fn(x), iters=10) for fn in
+                 (eager, prog, prog, eager)]
+    print(f"deploy .pt2 [{smi}] {name}: export {export_s:.2f} s (CPU); "
+          f"on the card {', '.join(f'{k}={v}' for k, v in want.items())} "
+          f"a call, as eager; f32 max error / max {max(rels):.2e} at "
+          f"{DEPLOY_SHAPES}; B=64 x 200 f32 ms eager {turns[0]:.3f} / "
+          f"{turns[3]:.3f}, .pt2 {turns[1]:.3f} / {turns[2]:.3f}")
+    return pt2, eager
+
+
+def deploy_opcheck(ecapa, cam, gemini, dev):
+    """torch.library.opcheck of the seven eval ops on the card, at B=2,
+    T=16 in f32 and bf16 (masks ragged where the op takes one): the fake
+    against the kernel's output, the schema, autograd's registration and
+    a dynamic-shape AOT trace. Returns the number of ops checked."""
+    ops = torch.ops.wespeaker_tpu_torch
+    rng = np.random.default_rng(SEED + 61)
+    b, t = 2, 16
+    mask = ragged_mask(rng, b, t, dev)
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        x, w, dil = se_inputs(ecapa, rng, b, t, dtype, dev)
+        xs, tw = tail_inputs(ecapa, rng, b, t, dtype, dev)
+        cx, cw, cdil = chain_inputs(ecapa.layer3, rng, b, t, dtype, dev)
+        logits, px, pmask = pool_inputs(rng, b, t, 128, dtype, dev, True)
+        mx, mw, mdil = cam_inputs(cam, 0, rng, b, t, dtype, dev)
+        gx, gw = gemini_inputs(gemini, 0, rng, b, t, dtype, dev)
+        for op, args in (
+                (ops.fused_se_res2_block, (x, *w, dil, mask)),
+                (ops.fused_mfa_astp, (*xs, *tw, mask, True)),
+                (ops.fused_res2_chain, (cx, *cw, cdil)),
+                (ops.fused_softmax_stats, (logits, px, pmask)),
+                (ops.fused_masked_stats, (px, pmask, 1)),
+                (ops.fused_cam_dense_block, (mx, *mw, mdil, 100, mask)),
+                (ops.fused_inv_bottleneck_stage, (gx, *gw))):
+            torch.library.opcheck(op, args)
+            n += 1
+    return n
+
+
+def phase_deploy_families(dev, smi):
+    """The families whose eval route holds rows 3 and 6-9 (the docstring's
+    phase 52): a .pt2 each (deploy_pt2), CAM++'s also through infer_demo
+    on a 3 s wav against bin/extract.py; then opcheck of the seven ops."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 62)
+    models = {}
+    with tempfile.TemporaryDirectory() as root:
+        probe = os.path.join(root, "probe.wav")
+        write_wav(probe, voice(rng, 48000), 16000)
+        plist = os.path.join(root, "probe.list")
+        with open(plist, "w") as f:
+            f.write(json.dumps({"key": "probe", "wav": probe,
+                                "spk": "x"}) + "\n")
+        for name, yaml_name, over, want in DEPLOY_FAMILIES:
+            conf, ckpt = seeded_checkpoint(yaml_name, over, root, dev)
+            pt2, models[name] = deploy_pt2(name, conf, ckpt, over, want,
+                                           root, rng, dev, smi)
+            if name != "CAMPPlus":
+                continue
+            zero_counts()
+            demo = infer_demo.infer(pt2, probe, 80, device=dev)
+            demo_launches = counts()
+            scp = extract_cli.extract(conf, ckpt, plist,
+                                      os.path.join(root, "cam_emb"),
+                                      batch_size=1, device=dev)
+            cam_cos = cosine(torch.from_numpy(demo), torch.from_numpy(
+                read_vec_scp_dict(scp)["probe"]))
+            if cam_cos < 0.9999 or demo_launches != dict(NO_LAUNCH, **want):
+                raise AssertionError(f"CAM++ infer_demo: cosine {cam_cos} "
+                                     f"against extract, launches "
+                                     f"{demo_launches}")
+    families_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    checked = deploy_opcheck(models["ECAPA_TDNN_GLOB_c512 fused_res2"],
+                             models["CAMPPlus"], models["Gemini_DF_ResNet60"],
+                             dev)
+    print(f"deploy families [{smi}]: {len(DEPLOY_FAMILIES)} .pt2 "
+          f"{families_s:.1f} s; CAM++ infer_demo vs extract cosine "
+          f"{cam_cos:.7f}; opcheck of {checked} (op, dtype) pairs on the "
+          f"card {time.perf_counter() - t0:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_deploy(dev, smi):
@@ -6117,6 +6308,7 @@ def main():
         phase_frontend_slice(dev, d, smi)
         phase_frontend_train(dev, d, stores, smi)
         print(f"frontend phases: {time.perf_counter() - t_front:.1f} s")
+    phase_deploy_families(dev, smi)
     csrc, ops = "wespeaker_tpu_torch/csrc/", "wespeaker_tpu/ops/"
     rows = [("fused_se_res2_block", "se", csrc + "se_block.cu",
              ops + "se_block_pallas.py:204"),

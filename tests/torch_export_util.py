@@ -108,17 +108,17 @@ def _cut_cam_blocks(monkeypatch):
                         lambda n, *a, **k: torig(1, *a, **k))
 
 
-def _port_campplus():
-    """The port's CAM++ at FAMILIES' width with one layer a block: the
-    transit layers take what one layer leaves (their outputs keep the
-    full model's widths, as JAX's do)."""
-    model = campplus.CAMPPlus(feat_dim=40, embed_dim=EMB, growth_rate=8,
-                              bn_size=2, init_channels=16)
-    c = 16
+def _port_campplus(growth=8, bn_size=2, init=16):
+    """The port's CAM++ (FAMILIES' width by default) with one layer a
+    block: the transit layers take what one layer leaves (their outputs
+    keep the full model's widths, as JAX's do)."""
+    model = campplus.CAMPPlus(feat_dim=40, embed_dim=EMB, growth_rate=growth,
+                              bn_size=bn_size, init_channels=init)
+    c = init
     for i, n in enumerate(CAM_LAYERS):
-        out = (c + n * 8) // 2
+        out = (c + n * growth) // 2
         setattr(model.xvector, f"transit{i + 1}",
-                campplus.TransitLayer(c + 8, out))
+                campplus.TransitLayer(c + growth, out))
         c = out
     return model
 

@@ -14,14 +14,18 @@ runs on the CPU in f32.
 - `pt2` (the JAX package's StableHLO artifact's counterpart):
   `torch.export.save` of the forward on the model's own routes.
   `load_exported(path, device)` loads it and moves it to the card with
-  `move_to_device_pass`. ECAPA's eval kernels are the custom ops
+  `move_to_device_pass`. Every eval kernel is a custom op (CPU: its plain
+  version; CUDA: the kernel), so the program holds one node a kernel
+  call and on the card launches what the eager model launches:
   `wespeaker_tpu_torch::fused_se_res2_block` and `::fused_mfa_astp`
-  (ops/se_block.py, ops/mfa_astp.py), so on the card a `.pt2` of
-  ECAPA_TDNN launches rows 1 and 2 of PERF.md's table (three SE blocks
-  and one tail a call). The other families' eval kernels (the Res2
-  chain, the pooling statistics, the CAM++ dense block, the Gemini stage)
-  are not registered as ops yet: their `.pt2` holds the plain graph
-  (ROADMAP.md Queue 1).
+  (ECAPA c512 and c1024: 3 and 1 a call), `::fused_res2_chain` (ECAPA
+  with `fused: false, fused_res2: true`: 3), `::fused_cam_dense_block`
+  (CAM++: 3), `::fused_inv_bottleneck_stage` (Gemini: 4),
+  `::fused_softmax_stats` (ASTP: ReDimNet, the `fused_res2` ECAPA) and
+  `::fused_masked_stats` (TSTP, TSDP and ASTP's global context: ResNet,
+  CAM++, Gemini, ReDimNet and the zoo), from ops/se_block.py,
+  ops/mfa_astp.py, ops/res2_chain.py, ops/cam_block.py,
+  ops/inv_bottleneck.py and ops/pooling.py.
 - `onnx`: export/fx_to_onnx.py on the plain route, opset 14; check it
   with export/onnx_numpy.py (neither `onnx` nor onnxruntime is needed).
 - `mnn`: the ONNX file, then MNNConvert if it is on PATH; otherwise the
@@ -65,7 +69,8 @@ def load_exported(path: str, device: DeviceLike = None):
     """A `.pt2` as a callable feats -> embs on `device` (the card unless
     the caller passes device="cpu"). Importing the ops modules registers
     the custom ops the program may hold."""
-    from wespeaker_tpu_torch.ops import mfa_astp, se_block  # noqa: F401
+    from wespeaker_tpu_torch.ops import (  # noqa: F401
+        cam_block, inv_bottleneck, mfa_astp, pooling, res2_chain, se_block)
 
     dev = resolve_device(device)
     ep = torch.export.load(path)

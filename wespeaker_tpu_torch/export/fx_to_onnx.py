@@ -7,9 +7,10 @@ output `embs` (B, D), B and T dynamic, opset 14, and an optional mean
 subtracted inside the graph.
 
 1. A copy of the model is traced by `torch.export.export` on the CPU in
-   f32, in eval and on the plain route (`set_fused(False)` and plain
-   pooling: the kernels' custom ops have no ONNX form), with B and T
-   dynamic. They are `Dim.AUTO`, not named `Dim`s: a named Dim fails
+   f32, in eval and on the plain route (`plain_route`: every kernel
+   off, ECAPA's Res2 chain too, and plain pooling; the kernels' custom
+   ops have no ONNX form), with B and T dynamic. They are `Dim.AUTO`,
+   not named `Dim`s: a named Dim fails
    the export on guards its solver cannot prove for every T (CAM++'s
    pad to a segment multiple, ReDimNet2's T // 4 reshapes), which AUTO
    keeps as run-time assertions. The trace must keep both symbolic; a
@@ -31,6 +32,7 @@ checked without the `onnx` package (neither machine has it).
 """
 
 import copy
+import inspect
 import operator
 from typing import Dict, List, Optional, Sequence
 
@@ -73,13 +75,21 @@ class _Embed(nn.Module):
 
 
 def plain_route(model: nn.Module) -> nn.Module:
-    """`model` set to eval on the plain torch route: no fused block, tail
-    or stage calls and plain pooling (in place; returns it)."""
+    """`model` set to eval on the plain torch route: no fused block, chain,
+    tail or stage calls and plain pooling (in place; returns it). Every
+    submodule with a `set_fused` is reached, and ECAPA's Res2 chain kernel
+    is turned off with its blocks, so no kernel's custom op can reach the
+    converter."""
     from wespeaker_tpu_torch.models.pooling_layers import set_pooling_fused
 
     model.eval()
-    if hasattr(model, "set_fused"):
-        model.set_fused(False)
+    for m in model.modules():
+        if not hasattr(m, "set_fused"):
+            continue
+        if "fused_res2" in inspect.signature(m.set_fused).parameters:
+            m.set_fused(False, fused_res2=False)
+        else:
+            m.set_fused(False)
     return set_pooling_fused(model, False)
 
 

@@ -187,13 +187,50 @@ def fused_cam_dense_block(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2,
     mask: optional (B, T) frame validity; it gates only the context means.
     Returns the dense-concatenated (B, T, C_end) in x's dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel, or raises for a shape or type it does not take."""
-    if x.device.type == "cpu":
-        return cam_dense_block_reference(x, s1, t1, w1, s2, t2, w2, wc1, bc1,
-                                         wc2, bc2, dilation, seg_len, mask)
-    if x.device.type != "cuda":
+    The call goes through the custom op `wespeaker_tpu_torch::
+    fused_cam_dense_block`, so a torch.export program holds it as one node:
+    its CPU implementation is the plain version, its CUDA one the kernel
+    (or raises for a shape or type it does not take; those checks read B
+    and T, so they run there and not on an export's symbolic shapes). The
+    op has no autograd formula, so on the CPU with gradients wanted the
+    plain version runs directly."""
+    args = (x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2)
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_cam_dense_block: no kernel for {x.device}")
+    if w1.dim() != 3 or w1.shape[0] < 1:
+        raise ValueError(f"fused_cam_dense_block takes w1 (L, C_end, 128) "
+                         f"with L >= 1; got {tuple(w1.shape)}")
+    if (x.device.type == "cpu" and torch.is_grad_enabled()
+            and any(v.requires_grad for v in args + (mask,)
+                    if v is not None)):
+        return cam_dense_block_reference(*args, dilation, seg_len, mask)
+    return torch.ops.wespeaker_tpu_torch.fused_cam_dense_block(
+        *args, dilation, seg_len, mask)
+
+
+fused_cam_dense_block.launches = 0
+
+_T = torch.Tensor
+
+
+@torch.library.custom_op("wespeaker_tpu_torch::fused_cam_dense_block",
+                         mutates_args=(), device_types="cpu")
+def _block_op(x: _T, s1: _T, t1: _T, w1: _T, s2: _T, t2: _T, w2: _T,
+              wc1: _T, bc1: _T, wc2: _T, bc2: _T, dilation: int,
+              seg_len: int, mask: Optional[_T]) -> _T:
+    return cam_dense_block_reference(x, s1, t1, w1, s2, t2, w2, wc1, bc1,
+                                     wc2, bc2, dilation, seg_len, mask)
+
+
+@_block_op.register_fake
+def _block_op_fake(x, s1, t1, w1, *rest):
+    b, t, c0 = x.shape
+    return x.new_empty((b, t, c0 + GROWTH * w1.shape[0]))
+
+
+@_block_op.register_kernel("cuda")
+def _block_op_cuda(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2, dilation,
+                   seg_len, mask):
     _check_cuda_args(x, s1, w1, w2, wc1, wc2, mask, seg_len, dilation)
     b, t, c0 = x.shape
     out = torch.empty((b, t, c0 + GROWTH * w1.shape[0]), device=x.device,
@@ -202,9 +239,6 @@ def fused_cam_dense_block(x, s1, t1, w1, s2, t2, w2, wc1, bc1, wc2, bc2,
             seg_len, mask, out)
     fused_cam_dense_block.launches += 1
     return out
-
-
-fused_cam_dense_block.launches = 0
 
 
 @_build.on_device

@@ -104,12 +104,13 @@ def inv_bottleneck_stage_reference(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3):
 
 
 def _check_args(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3):
-    """The contract, on every device: x a channels-last (B, C, F, T) map
-    and the stacked per-block weights of its width."""
-    if x.dim() != 4 or not x.is_contiguous(memory_format=torch.channels_last):
+    """The contract, on every device, in what a torch.export trace keeps
+    static: x four-dimensional and the stacked per-block weights of its
+    width C, at least one block."""
+    if x.dim() != 4:
         raise ValueError(f"fused_inv_bottleneck_stage takes x as a "
                          f"channels-last (B, C, F, T) map; got shape "
-                         f"{tuple(x.shape)}, strides {x.stride()}")
+                         f"{tuple(x.shape)}")
     c = x.shape[1]
     num_blocks = w1.shape[0]
     want = {"w1": (w1, (num_blocks, c, 4 * c)),
@@ -122,9 +123,20 @@ def _check_args(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3):
         if tuple(v.shape) != shape:
             raise ValueError(f"{name} {tuple(v.shape)} != {shape} for a "
                              f"stage of {num_blocks} blocks at width {c}")
-    if num_blocks < 1 or x.numel() == 0:
-        raise ValueError(f"empty stage: {num_blocks} blocks, x "
-                         f"{tuple(x.shape)}")
+    if num_blocks < 1:
+        raise ValueError("empty stage: 0 blocks")
+
+
+def _check_map(x):
+    """The map's layout and size, checked where the op runs on real
+    tensors: on an export's symbolic B and T these would specialise them
+    (a dimension of 1 makes channels-last ambiguous)."""
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"fused_inv_bottleneck_stage takes x as a "
+                         f"channels-last (B, C, F, T) map; got shape "
+                         f"{tuple(x.shape)}, strides {x.stride()}")
+    if x.numel() == 0:
+        raise ValueError(f"empty stage input {tuple(x.shape)}")
 
 
 # Per stage width, csrc/inv_bottleneck.cu's InvCfg: channels of 4C a
@@ -231,7 +243,6 @@ def _check_cuda_args(x):
                          "kernel's 32-bit row count")
 
 
-@_build.on_device
 def fused_inv_bottleneck_stage(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3):
     """x: (B, C, F, T) in channels-last memory format. Stacked per-block
     weights, BN folded:
@@ -241,18 +252,51 @@ def fused_inv_bottleneck_stage(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3):
       s2/t2 (L, 4C)        folded bn2
       w2 (L, 4C, C)        1x1 project (in, out), no bias
       s3/t3 (L, C)         folded bn3
-    Returns the stage output, (B, C, F, T) channels-last in x's dtype.
+    Returns the stage output, (B, C, F, T) channels-last in x's dtype (a
+    view of a contiguous (B, F, T, C) buffer).
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (bf16: one launch a block; f32: three), or raises for a shape
-    or type it does not take."""
-    _check_args(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3)
-    if x.device.type == "cpu":
-        return inv_bottleneck_stage_reference(x, w1, s1, t1, wdw, s2, t2,
-                                              w2, s3, t3)
-    if x.device.type != "cuda":
+    The call goes through the custom op `wespeaker_tpu_torch::
+    fused_inv_bottleneck_stage`, so a torch.export program holds it as one
+    node: its CPU implementation is the plain version, its CUDA one the
+    kernel (bf16: one launch a block; f32: three), or raises for a shape,
+    layout or type it does not take. The op has no autograd formula, so on
+    the CPU with gradients wanted the plain version runs directly."""
+    args = (x, w1, s1, t1, wdw, s2, t2, w2, s3, t3)
+    _check_args(*args)
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_inv_bottleneck_stage: no kernel for "
                          f"{x.device}")
+    if (x.device.type == "cpu" and torch.is_grad_enabled()
+            and any(v.requires_grad for v in args)):
+        _check_map(x)
+        return inv_bottleneck_stage_reference(*args)
+    return torch.ops.wespeaker_tpu_torch.fused_inv_bottleneck_stage(*args)
+
+
+fused_inv_bottleneck_stage.launches = 0
+
+_T = torch.Tensor
+
+
+@torch.library.custom_op("wespeaker_tpu_torch::fused_inv_bottleneck_stage",
+                         mutates_args=(), device_types="cpu")
+def _stage_op(x: _T, w1: _T, s1: _T, t1: _T, wdw: _T, s2: _T, t2: _T,
+              w2: _T, s3: _T, t3: _T) -> _T:
+    _check_map(x)
+    return inv_bottleneck_stage_reference(x, w1, s1, t1, wdw, s2, t2, w2,
+                                          s3, t3)
+
+
+@_stage_op.register_fake
+def _stage_op_fake(x, *rest):
+    b, c, f, t = x.shape
+    return x.new_empty((b, f, t, c)).permute(0, 3, 1, 2)
+
+
+@_stage_op.register_kernel("cuda")
+@_build.on_device
+def _stage_op_cuda(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3):
+    _check_map(x)
     _check_cuda_args(x)
     b, c, f, t = x.shape
     num_blocks = w1.shape[0]
@@ -267,13 +311,13 @@ def fused_inv_bottleneck_stage(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3):
         return v.to(device=dev, dtype=torch.float32).contiguous()
 
     xs = x.permute(0, 2, 3, 1)  # contiguous (B, F, T, C): the same storage
-    out = torch.empty_like(xs)
+    out = xs.new_empty((b, f, t, c))
     lib = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if plan is not None:
         # K-major operands: w1 as (L, 4C, C), w2 as (L, C, 4C); and each
         # chunk's vectors packed as the kernel loads them
-        tmp = torch.empty_like(xs) if num_blocks > 1 else None
+        tmp = torch.empty_like(out) if num_blocks > 1 else None
         ops = [xs, io_(w1.transpose(1, 2)), io_(w2.transpose(1, 2)),
                _chunk_vectors(s1, t1, s2, t2, io_(wdw), plan.chunk),
                f32(s3), f32(t3), out]
@@ -292,9 +336,6 @@ def fused_inv_bottleneck_stage(x, w1, s1, t1, wdw, s2, t2, w2, s3, t3):
     _build.check(lib, rc, "fused_inv_bottleneck_stage")
     fused_inv_bottleneck_stage.launches += 1
     return out.permute(0, 3, 1, 2)
-
-
-fused_inv_bottleneck_stage.launches = 0
 
 
 @functools.lru_cache(maxsize=None)

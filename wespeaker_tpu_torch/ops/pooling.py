@@ -41,7 +41,11 @@ valid frame, and the parts combine by Chan's formula in a fixed order (raw
 sums of x and x^2 would cancel where |mean| >> std). Its grid is 1-D, so
 any B with B * ceil(D / 128) < 2^31 (bf16) launches. Neither has a
 backward (nor had the TPU kernels): a CUDA input that requires grad
-raises, and the layers take them only with autograd off.
+raises, and the layers take them only with autograd off. Each is the
+custom op `wespeaker_tpu_torch::fused_softmax_stats` or `::
+fused_masked_stats` (CPU: the plain version; CUDA: the kernel), so a
+torch.export program of a model holds one node a call and launches the
+kernel on the card.
 
 Bound on an H100 at ReDimNetB2's pooling shape (B=512, T=200, D=1152,
 bf16 logits and x): row 6 reads 472 MB and writes 4.7 MB, 0.142 ms at
@@ -155,7 +159,16 @@ def _mask_arg(mask):
     return None if mask is None else mask.to(torch.float32).contiguous()
 
 
-@_build.on_device
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        v.requires_grad for v in tensors if v is not None)
+
+
+def _on_cpu_or_cuda(what, x):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: no kernel for {x.device}")
+
+
 def fused_softmax_stats(logits: torch.Tensor, x: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
                         concat: bool = False):
@@ -163,20 +176,72 @@ def fused_softmax_stats(logits: torch.Tensor, x: torch.Tensor,
     weighted mean and std of x (B, T, D). Returns (mean, std) (B, D) f32,
     views of one (B, 2D) buffer, or with concat the buffer [mean | std].
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
+    The call goes through the custom op `wespeaker_tpu_torch::
+    fused_softmax_stats` (the split stays outside it: an op's output may
+    alias nothing), so a torch.export program holds it as one node. Its
+    CPU implementation is the plain version; its CUDA one launches the
     kernel, or raises for a type other than f32/bf16, a non-contiguous
-    logits or x, a mask that is not (B, T) or an operand that requires
-    grad."""
+    logits or x, or an operand that requires grad. A mask that is not
+    (B, T) raises on every device. The op has no autograd formula, so on
+    the CPU with gradients wanted the plain version runs directly."""
     what = "fused_softmax_stats"
     _check_args(what, x, mask, logits)
-    d = x.shape[-1]
-    if x.device.type == "cpu":
-        return _split(torch.cat(softmax_stats_reference(logits, x, mask), -1),
-                      d, concat)
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for {x.device}")
+    _on_cpu_or_cuda(what, x)
+    if x.device.type == "cpu" and _wants_grad(logits, x, mask):
+        out = torch.cat(softmax_stats_reference(logits, x, mask), -1)
+    else:
+        out = torch.ops.wespeaker_tpu_torch.fused_softmax_stats(logits, x,
+                                                                mask)
+    return _split(out, x.shape[-1], concat)
+
+
+fused_softmax_stats.launches = 0
+
+
+def fused_masked_stats(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                       ddof: int = 1, concat: bool = False):
+    """Masked mean and ddof-adjusted std (+1e-7 inside the sqrt) over T of
+    x (B, T, D). Returns (mean, std) (B, D) f32, views of one (B, 2D)
+    buffer, or with concat the buffer [mean | std].
+
+    Goes through the custom op `wespeaker_tpu_torch::fused_masked_stats`
+    and raises as fused_softmax_stats does."""
+    what = "fused_masked_stats"
+    _check_args(what, x, mask)
+    _on_cpu_or_cuda(what, x)
+    if x.device.type == "cpu" and _wants_grad(x, mask):
+        out = torch.cat(masked_stats_reference(x, mask, ddof), -1)
+    else:
+        out = torch.ops.wespeaker_tpu_torch.fused_masked_stats(x, mask, ddof)
+    return _split(out, x.shape[-1], concat)
+
+
+fused_masked_stats.launches = 0
+
+_T = torch.Tensor
+
+
+def _stats_fake(x):
+    return x.new_empty((x.shape[0], 2 * x.shape[-1]), dtype=torch.float32)
+
+
+@torch.library.custom_op("wespeaker_tpu_torch::fused_softmax_stats",
+                         mutates_args=(), device_types="cpu")
+def _softmax_op(logits: _T, x: _T, mask: Optional[_T]) -> _T:
+    return torch.cat(softmax_stats_reference(logits, x, mask), -1)
+
+
+@_softmax_op.register_fake
+def _softmax_op_fake(logits, x, mask):
+    return _stats_fake(x)
+
+
+@_softmax_op.register_kernel("cuda")
+@_build.on_device
+def _softmax_op_cuda(logits, x, mask):
+    what = "fused_softmax_stats"
     _check_cuda_args(what, [x, logits], mask)
-    b, t, _ = x.shape
+    b, t, d = x.shape
     mask = _mask_arg(mask)
     out = torch.empty(b, 2 * d, device=x.device, dtype=torch.float32)
     lib = _lib()
@@ -190,31 +255,26 @@ def fused_softmax_stats(logits: torch.Tensor, x: torch.Tensor,
                               torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, what)
     fused_softmax_stats.launches += 1
-    return _split(out, d, concat)
+    return out
 
 
-fused_softmax_stats.launches = 0
+@torch.library.custom_op("wespeaker_tpu_torch::fused_masked_stats",
+                         mutates_args=(), device_types="cpu")
+def _masked_op(x: _T, mask: Optional[_T], ddof: int) -> _T:
+    return torch.cat(masked_stats_reference(x, mask, ddof), -1)
 
 
+@_masked_op.register_fake
+def _masked_op_fake(x, mask, ddof):
+    return _stats_fake(x)
+
+
+@_masked_op.register_kernel("cuda")
 @_build.on_device
-def fused_masked_stats(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                       ddof: int = 1, concat: bool = False):
-    """Masked mean and ddof-adjusted std (+1e-7 inside the sqrt) over T of
-    x (B, T, D). Returns (mean, std) (B, D) f32, views of one (B, 2D)
-    buffer, or with concat the buffer [mean | std].
-
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel, or raises as fused_softmax_stats does."""
+def _masked_op_cuda(x, mask, ddof):
     what = "fused_masked_stats"
-    _check_args(what, x, mask)
-    d = x.shape[-1]
-    if x.device.type == "cpu":
-        return _split(torch.cat(masked_stats_reference(x, mask, ddof), -1),
-                      d, concat)
-    if x.device.type != "cuda":
-        raise ValueError(f"{what}: no kernel for {x.device}")
     _check_cuda_args(what, [x], mask)
-    b, t, _ = x.shape
+    b, t, d = x.shape
     mask = _mask_arg(mask)
     out = torch.empty(b, 2 * d, device=x.device, dtype=torch.float32)
     lib = _lib()
@@ -226,10 +286,7 @@ def fused_masked_stats(x: torch.Tensor, mask: Optional[torch.Tensor] = None,
                              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, rc, what)
     fused_masked_stats.launches += 1
-    return _split(out, d, concat)
-
-
-fused_masked_stats.launches = 0
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -69,21 +69,49 @@ def _check_cuda_args(x, width, dilation, nums=7):
     check_chain_smem(x, width, nums, dilation)
 
 
-@_build.on_device
 def fused_res2_chain(x, kernels, biases, bn_scale, bn_shift, dilation: int):
     """x: (B, T, C); kernels: (nums, 3, W, W) taps [t-d, t, t+d] (in, out),
     C = (nums + 1) W; biases, bn_scale, bn_shift: (nums, W), the conv bias
     and eval BN folded to an affine. Returns the chain outputs concatenated
     with the passthrough group, (B, T, C) in x's dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel, or raises for a width or type it does not take."""
+    The call goes through the custom op `wespeaker_tpu_torch::
+    fused_res2_chain`, so a torch.export program holds it as one node: its
+    CPU implementation is the plain version, its CUDA one the kernel (or
+    raises for a width or type it does not take). The op has no autograd
+    formula, so on the CPU with gradients wanted the plain version runs
+    directly."""
     _check_args(x, kernels, biases, bn_scale, bn_shift)
-    if x.device.type == "cpu":
-        return res2_chain_reference(x, kernels, biases, bn_scale, bn_shift,
-                                    dilation)
-    if x.device.type != "cuda":
+    args = (x, kernels, biases, bn_scale, bn_shift)
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_res2_chain: no kernel for {x.device}")
+    if (x.device.type == "cpu" and torch.is_grad_enabled()
+            and any(v.requires_grad for v in args)):
+        return res2_chain_reference(*args, dilation)
+    return torch.ops.wespeaker_tpu_torch.fused_res2_chain(*args, dilation)
+
+
+fused_res2_chain.launches = 0
+
+_T = torch.Tensor
+
+
+@torch.library.custom_op("wespeaker_tpu_torch::fused_res2_chain",
+                         mutates_args=(), device_types="cpu")
+def _chain_op(x: _T, kernels: _T, biases: _T, bn_scale: _T, bn_shift: _T,
+              dilation: int) -> _T:
+    return res2_chain_reference(x, kernels, biases, bn_scale, bn_shift,
+                                dilation)
+
+
+@_chain_op.register_fake
+def _chain_op_fake(x, *rest):
+    return x.new_empty(x.shape)
+
+
+@_chain_op.register_kernel("cuda")
+@_build.on_device
+def _chain_op_cuda(x, kernels, biases, bn_scale, bn_shift, dilation):
     nums, _, width, _ = kernels.shape
     _check_cuda_args(x, width, dilation, nums)
     b, t, c = x.shape
@@ -95,7 +123,7 @@ def fused_res2_chain(x, kernels, biases, bn_scale, bn_shift, dilation: int):
     cw = cw.contiguous()
     caff = torch.stack([v.to(device=dev, dtype=torch.float32)
                         for v in (biases, bn_scale, bn_shift)]).contiguous()
-    out = torch.empty_like(x)
+    out = x.new_empty(x.shape)
     lib = _lib()
     ptr = _build.pointers([x, cw, caff, out])
     rc = lib.ws_res2_chain(*ptr, b, t, c, width, nums, dilation,
@@ -104,9 +132,6 @@ def fused_res2_chain(x, kernels, biases, bn_scale, bn_shift, dilation: int):
     _build.check(lib, rc, "fused_res2_chain")
     fused_res2_chain.launches += 1
     return out
-
-
-fused_res2_chain.launches = 0
 
 
 @functools.lru_cache(maxsize=None)
