@@ -345,7 +345,13 @@ Phases, each printing one line:
               bin/compute_metrics.py; each LLR of the trial list on the
               card within 1e-4 of the same function in f64 on the CPU,
               relative to max(|LLR|, 1); each step's seconds and the EERs
-              (random model, no bar) printed.
+              (random model, no bar) printed. The files are the JAX
+              package's formats: embd_proc.pkl a pickle, plda.h5 and
+              plda_adapt.h5 HDF5 (by their first bytes); each read back
+              through the port's readers equals, to the bit, the model
+              estimated in memory from the same arks, and the LLRs on the
+              card from plda_adapt.h5 read back equal the in-memory
+              model's exactly.
  39. aug      the recipes' MUSAN/RIR stores, synthetic (24 decaying-noise
               RIRs of 0.3-1 s; 24 noises keyed noise-, music-, speech-),
               packed by `python -m wespeaker_tpu_torch.bin.prep_data
@@ -531,6 +537,15 @@ Phases, each printing one line:
               bin/extract.py (cosine >= 0.9999, cam=3 masked=1);
               torch.library.opcheck of the seven ops on the card at B=2,
               T=16 in f32 and bf16.
+ 53. http shards  (after recipe train, on its 8 shards and the aug
+              stores) the shards served by a ThreadingHTTPServer on
+              127.0.0.1 (loopback) and a shard list of their URLs: the
+              first SpeakerDataset batch of ecapa_tdnn_c512.yaml's
+              dataset_args from the URLs equal to the local list's at the
+              same seed, then bin/train.py on ecapa_tdnn_c512.yaml (B=64,
+              ArcMargin, host aug, one process) from the URL list for 3
+              steps: rows 4 and 5 once a step and nothing else, every loss
+              finite, the server's GET count and the phase's seconds.
 Then the script's total seconds, one JSON line of per-kernel results and,
 last, the result line. Any failure raises and exits non-zero; without a
 GPU the script exits 1.
@@ -539,13 +554,17 @@ GPU the script exits 1.
 import concurrent.futures
 import contextlib
 import copy
+import functools
+import http.server
 import io
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.request
 
@@ -555,6 +574,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from wespeaker_tpu_torch.backend.embedding_processing import (  # noqa
+    EmbeddingProcessingChain)
 from wespeaker_tpu_torch.backend.plda import TwoCovPLDA, _llr  # noqa: E402
 from wespeaker_tpu_torch.bin import train as train_cli  # noqa: E402
 from wespeaker_tpu_torch.bin import (  # noqa: E402
@@ -630,6 +651,7 @@ from wespeaker_tpu_torch.train.device_aug import (  # noqa: E402
 from wespeaker_tpu_torch.train.train_step import (  # noqa: E402
     features_from_batch)
 from wespeaker_tpu_torch.utils import checkpoint as ckpt_io  # noqa: E402
+from wespeaker_tpu_torch.utils import hdf5  # noqa: E402
 from wespeaker_tpu_torch.utils.config import (  # noqa: E402
     load_yaml, parse_config_or_kwargs)
 from wespeaker_tpu_torch.utils.kaldi_io import (  # noqa: E402
@@ -4029,11 +4051,11 @@ def phase_backend(dev):
 
         dev_arg = ["--device", str(dev.type)]
         proc = os.path.join(root, "embd_proc.pkl")
-        proc_cli.main(["prep", "--chain",
-                       f"mean-subtract --scp {scp['adapt']} | length-norm | "
-                       f"lda --scp {scp['cts']} --utt2spk "
-                       f"{data['train_utt2spk']} --dim {BACKEND_LDA} | "
-                       "length-norm", "--out", proc, *dev_arg])
+        chain = (f"mean-subtract --scp {scp['adapt']} | length-norm | "
+                 f"lda --scp {scp['cts']} --utt2spk "
+                 f"{data['train_utt2spk']} --dim {BACKEND_LDA} | "
+                 "length-norm")
+        proc_cli.main(["prep", "--chain", chain, "--out", proc, *dev_arg])
         for name in list(scp):
             proc_cli.main(["apply", "--proc", proc, "--in_scp", scp[name],
                            "--out_prefix", os.path.join(root, name + "_proc"),
@@ -4049,6 +4071,43 @@ def phase_backend(dev):
         plda_cli.main(["adapt", "--model_path", plda, "--adapt_scp_path",
                        scp["adapt_proc"], "--out_model", adapted, *dev_arg])
         lap("plda_adapt")
+        # the files are the JAX package's formats, and the port's readers
+        # give back the models that the CLIs held in memory, to the bit
+        mem_chain = EmbeddingProcessingChain(chain)
+        mem_plda = TwoCovPLDA(BACKEND_LDA, normalize_length=True).train(
+            read_spk2emb(scp["cts_proc"], data["train_utt2spk"]), 5)
+        mem_adapted = mem_plda.adapt(np.vstack(list(read_vec_scp_dict(
+            scp["adapt_proc"]).values())), 0.5, 0.5)
+        heads = {}
+        for path in (proc, plda, adapted):
+            with open(path, "rb") as f:
+                heads[os.path.basename(path)] = f.read(8)
+        if heads["embd_proc.pkl"][:1] != pickle.PROTO or any(
+                heads[k] != hdf5.SIGNATURE for k in ("plda.h5",
+                                                     "plda_adapt.h5")):
+            raise AssertionError(f"backend: file heads {heads}, want a "
+                                 "pickle and two HDF5 files")
+        file_chain = EmbeddingProcessingChain().load(proc)
+        if [type(x) for x in file_chain.links] != \
+                [type(x) for x in mem_chain.links] or any(
+                sorted(vars(a)) != sorted(vars(b)) or any(
+                    vars(a)[k].tobytes() != v.tobytes()
+                    for k, v in vars(b).items())
+                for a, b in zip(file_chain.links, mem_chain.links)):
+            raise AssertionError("backend: embd_proc.pkl read back differs "
+                                 "from the chain estimated in memory")
+        for path, mem in ((plda, mem_plda), (adapted, mem_adapted)):
+            got = TwoCovPLDA.load(path)
+            for name in ("mu", "transform", "psi", "offset"):
+                if getattr(got, name).tobytes() != \
+                        getattr(mem, name).tobytes():
+                    raise AssertionError(f"backend: {path} read back: "
+                                         f"{name} differs from memory")
+            if (got.normalize_length, got.subtract_train_set_mean) != (
+                    mem.normalize_length, mem.subtract_train_set_mean):
+                raise AssertionError(f"backend: {path} flags differ")
+        h5_bytes = os.path.getsize(adapted)
+        lap("files_check")
         eers = {}
         for name, model_path in (("plda", plda), ("plda_adapt", adapted)):
             score_file = os.path.join(root, name + ".score")
@@ -4071,6 +4130,12 @@ def phase_backend(dev):
         with open(data["trials"]) as f:
             pairs = [tuple(line.split()[:2]) for line in f]
         card = model.score_trials(enroll, test, pairs, device=dev)
+        mem_card = mem_adapted.score_trials(enroll, test, pairs, device=dev)
+        if not np.array_equal(card, mem_card):
+            raise AssertionError(
+                "backend: LLRs on the card from plda_adapt.h5 read back "
+                "differ from the in-memory model's by up to "
+                f"{np.abs(card - mem_card).max():.3g}")
         e, t_, n, ei, ti = model.trial_tables(enroll, test, pairs)
         f64 = _llr(torch.as_tensor(model.psi, dtype=torch.float64),
                    torch.as_tensor(e)[ei], torch.as_tensor(t_)[ti],
@@ -4092,7 +4157,12 @@ def phase_backend(dev):
           f"v3 chain (LDA {BACKEND_LDA}) via bin/embd_proc.py, "
           f"bin/plda_tools.py train/adapt/eval on {len(pairs)} trials: "
           f"PLDA EER {eers['plda']:.3f}%, adapted {eers['plda_adapt']:.3f}% "
-          f"(random model, no bar); LLR card vs f64 CPU max error "
+          f"(random model, no bar); embd_proc.pkl a pickle (protocol "
+          f"{heads['embd_proc.pkl'][1]}), plda.h5 and plda_adapt.h5 HDF5 "
+          f"({h5_bytes} bytes), each read back equal to "
+          f"the in-memory model to the bit, the {len(pairs)} LLRs on the "
+          f"card from plda_adapt.h5 equal the in-memory model's; LLR card "
+          f"vs f64 CPU max error "
           f"{rel.max():.3g} of max(|LLR|, 1) (raw relative "
           f"{raw_rel.max():.3g}, |LLR| {np.abs(f64).min():.3g}-"
           f"{np.abs(f64).max():.3g}); seconds {json.dumps(secs)}; "
@@ -4353,17 +4423,18 @@ def host_pipeline_ms(conf, shard_list, utt2spk, stores, extra, n=4):
     return (time.perf_counter() - t0) * 1e3 / n
 
 
-def phase_recipe_train(dev, smi, stores):
+def phase_recipe_train(dev, smi, stores, shard_root):
     """The recipes' training stage on the card: the stores of
-    write_aug_stores, a shard corpus, bin/train.py on the YAMLs unchanged
-    but for the corpus paths, the epoch and step counts, the batch size
-    and the options the phase is about (num_workers, device_aug,
-    conv_dw_mode, project_type); see the module docstring (phase 40)."""
+    write_aug_stores, a shard corpus written into `shard_root`, bin/train.py
+    on the YAMLs unchanged but for the corpus paths, the epoch and step
+    counts, the batch size and the options the phase is about
+    (num_workers, device_aug, conv_dw_mode, project_type); see the module
+    docstring (phase 40). -> (shard.list, utt2spk) of the corpus."""
     t_start = time.perf_counter()
     rng = np.random.default_rng(SEED + 39)
     parts, timings = [], {}
+    shard_list, utt2spk = write_shards(shard_root, rng)
     with tempfile.TemporaryDirectory() as root:
-        shard_list, utt2spk = write_shards(root, rng)
         with open(shard_list) as f:
             n_shards = len(f.read().split())
         corpus = [f"train_data={shard_list}", f"utt2spk={utt2spk}",
@@ -4471,7 +4542,81 @@ def phase_recipe_train(dev, smi, stores):
     torch.cuda.empty_cache()
     print(f"recipe train [{smi}]: " + "; ".join(parts)
           + f"; {time.perf_counter() - t_start:.1f} s")
-    return timings
+    return shard_list, utt2spk
+
+
+class _CountingHandler(http.server.SimpleHTTPRequestHandler):
+    """Serves a directory quietly and counts the GET requests."""
+    gets = 0
+
+    def do_GET(self):
+        _CountingHandler.gets += 1
+        super().do_GET()
+
+    def log_message(self, *args):
+        pass
+
+
+def phase_http_shards(dev, smi, stores, shard_list, utt2spk):
+    """The recipe train phase's shards streamed from a loopback http
+    server; see the module docstring (phase 53)."""
+    t_start = time.perf_counter()
+    root = os.path.dirname(shard_list)
+    server = http.server.ThreadingHTTPServer(
+        ("127.0.0.1", 0), functools.partial(_CountingHandler, directory=root))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        url_list = os.path.join(root, "http_shard.list")
+        with open(shard_list) as f:
+            urls = [f"{base}/{os.path.relpath(p, root)}"
+                    for p in f.read().split()]
+        with open(url_list, "w") as f:
+            f.write("\n".join(urls) + "\n")
+        ecapa = os.path.join(V2_CONF, "ecapa_tdnn_c512.yaml")
+        args = load_yaml(ecapa)["dataset_args"]
+        first = {name: next(SpeakerDataset(
+            "shard", path, args, spk2id_from_utt2spk(utt2spk),
+            reverb_store_prefix=stores[0], noise_store_prefix=stores[1],
+            seed=SEED).batches(args["batch_size"]))
+            for name, path in (("local", shard_list), ("http", url_list))}
+        if first["http"]["key"] != first["local"]["key"] or sorted(
+                first["http"]) != sorted(first["local"]) or any(
+                not np.array_equal(first["http"][k], first["local"][k])
+                for k in first["local"] if k != "key"):
+            raise AssertionError("http shards: the first batch from the "
+                                 "URLs differs from the local list's")
+        gets_before = _CountingHandler.gets
+        with tempfile.TemporaryDirectory() as exp:
+            step, launches, clock = run_recipe(
+                ecapa, [f"train_data={url_list}", f"utt2spk={utt2spk}",
+                        f"reverb_data={stores[0]}",
+                        f"noise_data={stores[1]}", "data_type=shard",
+                        f"exp_dir={exp}/ecapa_http"], 3, 64)
+            del step
+        gets = _CountingHandler.gets - gets_before
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+    want = dict(NO_LAUNCH, train_fwd=3, train_bwd=3)
+    if launches != want:
+        raise AssertionError(f"http shards: launches {launches}, want "
+                             f"{want}")
+    if gets < 1:
+        raise AssertionError("http shards: the trainer fetched no URL")
+    torch.cuda.empty_cache()
+    print(f"http shards [{smi}]: {len(urls)} shards of the recipe train "
+          f"phase served by a ThreadingHTTPServer on 127.0.0.1; the first "
+          f"batch of {args['batch_size']} from the URLs equal to the local "
+          f"list's (SpeakerDataset, the stores, seed {SEED}); "
+          f"bin/train.py on ecapa_tdnn_c512.yaml (B=64, ArcMargin, host "
+          f"aug) from the URL list: 3 steps, rows 4/5 "
+          f"x{launches['train_fwd']}/{launches['train_bwd']}, losses "
+          + " ".join(f"{v:.3f}" for v in clock["losses"])
+          + f", {gets} shard GETs ({clock['s']:.1f} s); "
+          f"{time.perf_counter() - t_start:.1f} s")
 
 
 # ---- the rest of the model zoo (ERes2Net, Res2Net, RepVGG, the x-vector,
@@ -5728,10 +5873,15 @@ def ddp_trainer_args(inputs, rank, name, samples, extra=()):
 def ddp_rank(rank, world, workdir):
     """One rank of phase_ddp (chip_smoke.py --ddp-rank RANK WORLD DIR):
     joins the group of DIR/inputs.pt, runs its tasks and writes
-    DIR/rank<RANK>.pt. The parent has built every kernel already."""
+    DIR/rank<RANK>.pt. The parent has built every kernel already. A
+    fatal signal prints every thread's Python stack to the rank's log."""
+    import faulthandler
+
     import torch.distributed as dist
 
     from wespeaker_tpu_torch.parallel.mesh import make_mesh
+
+    faulthandler.enable()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5848,13 +5998,16 @@ def run_ddp_ranks(workdir, inputs, world=DDP_RANKS):
                 p.kill()
             p.wait()
     secs = time.perf_counter() - t0
+    failed = []
     for r, (p, log) in enumerate(zip(procs, logs)):
         log.seek(0)
         text = log.read()
         log.close()
         if p.returncode != 0:
-            raise AssertionError(f"ddp rank {r} exited {p.returncode}:\n"
-                                 f"{text[-6000:]}")
+            failed.append(f"ddp rank {r} exited {p.returncode}:\n"
+                          f"{text[-6000:]}")
+    if failed:  # every failed rank: the first to fail may not be rank 0
+        raise AssertionError("\n".join(failed))
     return [torch.load(os.path.join(workdir, f"rank{r}.pt"),
                        weights_only=False) for r in range(world)], secs
 
@@ -6288,7 +6441,10 @@ def main():
     phase_backend(dev)
     with tempfile.TemporaryDirectory() as d:
         stores = phase_aug(dev, smi, d)
-        phase_recipe_train(dev, smi, stores)
+        recipe = os.path.join(d, "recipe")
+        os.makedirs(recipe)
+        shards = phase_recipe_train(dev, smi, stores, recipe)
+        phase_http_shards(dev, smi, stores, *shards)
         phase_ddp(dev, smi, stores)
         t_zoo = time.perf_counter()
         phase_zoo_slice(dev)

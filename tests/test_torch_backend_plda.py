@@ -8,12 +8,16 @@ subcommands of prep_data, against the JAX package on the CPU.
   `score_trials` (multisession averaging or counts, an in-domain mean)
   run in torch f32 (here on the CPU device) against JAX's jnp f32 within
   rtol 1e-5, atol 1e-4. A Kaldi binary `<Plda>` written here (f32 and
-  f64 records) reads equal in both packages. The port's `.npz` model
-  round-trips exactly at a path without that suffix (`plda.h5`), and the
-  JAX package's HDF5 file is refused with a message naming the format.
+  f64 records) reads equal in both packages. `plda.h5` crosses both ways
+  to the bit (the port's HDF5 writer and reader, utils/hdf5.py, against
+  h5py in the JAX package; tests/test_torch_hdf5.py holds the subset);
+  the `.npz` model of earlier versions of the port still loads, and an
+  HDF5 file outside the subset is refused naming what it holds.
 - The chain (`backend/embedding_processing.py`, host f64): sre v3's chain
-  string and `update_link` within 1e-10; the `.npz` archive round-trips
-  exactly, and the JAX package's pickle is refused by name.
+  string and `update_link` within 1e-10; `embd_proc.pkl` crosses both
+  ways (protocols 4 and 5) and applies exactly as the original; a pickle
+  naming any other global is refused before it runs; the `.npz` chain of
+  earlier versions of the port still loads.
 - QMF (`backend/calibration.py`, scipy L-BFGS-B in f64): the fitted
   weights within 1e-8, and the JAX package's `qmf.npz` loads unchanged.
 - The CLIs on one ark, mirroring the recipe stages that
@@ -22,12 +26,16 @@ subcommands of prep_data, against the JAX package on the CPU.
   calibration_trial give the same files line for line; embd_proc's
   processed arks within 1e-5; plda_tools' score files line for line
   (keys, order, labels) with scores within 1e-4 and its printed EER
-  equal; score_calibration's output within 1e-5.
+  equal; score_calibration's output within 1e-5. Each package's
+  `embd_proc.pkl` and `plda.h5` also go through the other's `embd_proc
+  apply` and `plda_tools eval`, to the same arks (1e-5) and scores
+  (within LLR_TOL).
 """
 
 import contextlib
 import io
 import os
+import pickle
 import struct
 import wave
 
@@ -147,22 +155,41 @@ def test_kaldi_plda_reads_equal(tmp_path, double):
 
 
 def test_plda_npz_round_trip_and_hdf5_refused(tmp_path):
-    pytest.importorskip("h5py")
+    """plda.h5 crosses between the packages to the bit; the `.npz` model
+    that earlier versions of the port wrote under that name still loads;
+    an HDF5 model outside the subset (f32, as another tool may write it)
+    is refused naming its datatype."""
+    h5py = pytest.importorskip("h5py")
     dim = 16
     spk2emb = _spk2emb(5, dim=dim)
     t = tplda.TwoCovPLDA(dim, normalize_length=True,
                          subtract_train_set_mean=True).train(spk2emb, 3)
-    path = str(tmp_path / "plda.h5")
-    t.save(path)
-    assert os.listdir(tmp_path) == ["plda.h5"]
-    back = tplda.TwoCovPLDA.load(path)
+    j = _trained(jplda, spk2emb, dim)
+    paths = {k: str(tmp_path / k) for k in ("t.h5", "j.h5", "old.h5",
+                                            "f32.h5")}
+    t.save(paths["t.h5"])
+    j.save(paths["j.h5"])
+    for got, want in ((jplda.TwoCovPLDA.load(paths["t.h5"]), t),
+                      (tplda.TwoCovPLDA.load(paths["j.h5"]), j),
+                      (tplda.TwoCovPLDA.load(paths["t.h5"]), t)):
+        for name in ("mu", "transform", "psi", "offset"):
+            assert getattr(got, name).tobytes() == \
+                getattr(want, name).tobytes()
+        assert (got.normalize_length, got.subtract_train_set_mean) == \
+            (want.normalize_length, want.subtract_train_set_mean)
+    with open(paths["old.h5"], "wb") as f:  # as earlier versions saved
+        np.savez(f, mu=t.mu, transform=t.transform, psi=t.psi,
+                 offset=t.offset, normalize_length=1,
+                 subtract_train_set_mean=1)
+    back = tplda.TwoCovPLDA.load(paths["old.h5"])
     for name in ("mu", "transform", "psi", "offset"):
         assert np.array_equal(getattr(back, name), getattr(t, name))
     assert back.normalize_length and back.subtract_train_set_mean
-    jpath = str(tmp_path / "jax_plda.h5")
-    _trained(jplda, spk2emb, dim).save(jpath)
-    with pytest.raises(ValueError, match="HDF5"):
-        tplda.TwoCovPLDA.load(jpath)
+    with h5py.File(paths["f32.h5"], "w") as f:
+        for name in ("mu", "transform", "psi", "offset"):
+            f.create_dataset(name, data=getattr(t, name).astype(np.float32))
+    with pytest.raises(ValueError, match="floating-point of 4 bytes"):
+        tplda.TwoCovPLDA.load(paths["f32.h5"])
 
 
 def _chain_data(seed, dim=20, n_spk=8, n_utt=10):
@@ -202,11 +229,103 @@ def test_embedding_chain_and_update_link_match_jax(tmp_path):
     path = str(tmp_path / "embd_proc.pkl")
     t.save(path)
     back = tep.EmbeddingProcessingChain().load(path)
-    assert back.specs == t.specs and np.array_equal(back(x), t(x))
+    assert [type(link) for link in back.links] == \
+        [type(link) for link in t.links]
+    assert np.array_equal(back(x), t(x))
     jpath = str(tmp_path / "jax_proc.pkl")
     j.save(jpath)
-    with pytest.raises(ValueError, match="pickle"):
-        tep.EmbeddingProcessingChain().load(jpath)
+    np.testing.assert_array_equal(tep.EmbeddingProcessingChain().load(
+        jpath)(x), j(x))
+
+
+WHITENING_CHAIN = ("mean-subtract --scp adapt.scp | whitening --scp w.scp "
+                   "| length-norm")
+
+
+@pytest.mark.parametrize("protocol", [4, 5])
+@pytest.mark.parametrize("chain", [SRE_V3_CHAIN, WHITENING_CHAIN],
+                         ids=["sre_v3", "whitening"])
+def test_chain_pickles_cross_between_the_packages(tmp_path, monkeypatch,
+                                                  chain, protocol):
+    """A JAX `embd_proc.pkl` loads in the port and a port one in JAX,
+    each applying exactly as the original, with the same link classes
+    and attribute dicts."""
+    spk2emb, indomain = _chain_data(11)
+    x = np.vstack(list(spk2emb.values()))
+    j = jep.EmbeddingProcessingChain(chain, _loaders(spk2emb, indomain))
+    t = tep.EmbeddingProcessingChain(chain, _loaders(spk2emb, indomain))
+    jpath, tpath = str(tmp_path / "j.pkl"), str(tmp_path / "t.pkl")
+    with open(jpath, "wb") as f:
+        pickle.dump(j.links, f, protocol=protocol)
+    monkeypatch.setattr(tep, "PICKLE_PROTOCOL", protocol)
+    t.save(tpath)
+    with open(tpath, "rb") as f:
+        assert f.read(2) == bytes([0x80, protocol])
+    in_port = tep.EmbeddingProcessingChain().load(jpath)
+    in_jax = jep.EmbeddingProcessingChain().load(tpath)
+    for got, want in ((in_port, j), (in_jax, t)):
+        assert [type(g).__name__ for g in got.links] == \
+            [type(w).__name__ for w in want.links]
+        for g, w in zip(got.links, want.links):
+            assert sorted(vars(g)) == sorted(vars(w))
+            for name, value in vars(w).items():
+                assert vars(g)[name].tobytes() == value.tobytes()
+        assert np.array_equal(got(x), want(x))
+    assert all(type(link).__module__ == tep.__name__
+               for link in in_port.links)
+    assert all(type(link).__module__ == jep.__name__
+               for link in in_jax.links)
+
+
+class _Runs:
+    """Pickles as a call of `fn(*args)`."""
+
+    def __init__(self, fn, *args):
+        self.fn, self.args = fn, args
+
+    def __reduce__(self):
+        return self.fn, self.args
+
+
+@pytest.mark.parametrize("global_", [
+    "os.system", "builtins.eval", "builtins.open", "numpy.load",
+    "embedding_processing.chain_string_to_dict"])
+def test_chain_pickle_naming_another_global_is_refused(tmp_path, global_):
+    """The pickle would create a marker file when its global runs; the
+    load raises naming the global and the marker never appears."""
+    marker = tmp_path / "ran"
+    payload = {"os.system": _Runs(os.system, f"touch {marker}"),
+               "builtins.eval": _Runs(eval, f"open({str(marker)!r}, 'w')"),
+               "builtins.open": _Runs(open, str(marker), "w"),
+               "numpy.load": _Runs(np.load, str(marker)),
+               "embedding_processing.chain_string_to_dict": _Runs(
+                   jep.chain_string_to_dict, str(marker))}[global_]
+    path = str(tmp_path / "embd_proc.pkl")
+    with open(path, "wb") as f:
+        pickle.dump([jep.LengthNorm(), payload], f)
+    name = global_.split(".")[-1]
+    with pytest.raises(ValueError, match=f"names .*{name}.*refused"):
+        tep.EmbeddingProcessingChain().load(path)
+    assert not marker.exists()
+
+
+def test_npz_chain_of_earlier_versions_still_loads(tmp_path):
+    spk2emb, indomain = _chain_data(12)
+    x = np.vstack(list(spk2emb.values()))
+    t = tep.EmbeddingProcessingChain(SRE_V3_CHAIN,
+                                     _loaders(spk2emb, indomain))
+    arrays = {"specs": np.asarray([s.strip() for s in
+                                   SRE_V3_CHAIN.split("|")])}
+    for i, link in enumerate(t.links):  # the archive as it was written
+        for name in type(link).ARRAYS:
+            arrays[f"{i}.{name}"] = getattr(link, name)
+    path = str(tmp_path / "embd_proc.pkl")
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+    back = tep.EmbeddingProcessingChain().load(path)
+    assert [type(link) for link in back.links] == \
+        [type(link) for link in t.links]
+    assert np.array_equal(back(x), t(x))
 
 
 def _factors(seed, n=300):
@@ -286,12 +405,13 @@ def _lines(path):
         return [line.split() for line in f]
 
 
-def _same_score_lines(got_path, want_path, atol):
+def _same_score_lines(got_path, want_path, atol, rtol=0.0):
     got, want = _lines(got_path), _lines(want_path)
     assert len(got) == len(want) > 0
     for g, w in zip(got, want):
         assert g[:2] == w[:2] and g[3:] == w[3:]
-        assert abs(float(g[2]) - float(w[2])) <= atol, (g, w)
+        assert abs(float(g[2]) - float(w[2])) <= \
+            atol + rtol * abs(float(w[2])), (g, w)
 
 
 def _same_arks(got_scp, want_scp, atol):
@@ -360,6 +480,28 @@ def test_recipe_back_end_stages_match_jax(tmp_path):
         _same_score_lines(os.path.join(td, name), os.path.join(jd, name),
                           1e-4)
     assert t_printed == j_printed and "PLDA EER" in t_printed[0]
+    # each package's embd_proc.pkl and plda.h5 through the other's CLIs
+    for src, ep, plda, kw in ((jd, t_ep, t_plda, {"device": "cpu"}),
+                              (td, j_ep, j_plda, {})):
+        d = src + "_read_by_the_other"
+        os.makedirs(d)
+        ep.apply(os.path.join(src, "embd_proc.pkl.upd"), emb,
+                 os.path.join(d, "emb_proc"), **kw)
+        _same_arks(os.path.join(d, "emb_proc.scp"),
+                   os.path.join(src, "emb_proc.scp"), 0)
+        proc_scp = os.path.join(src, "emb_proc.scp")
+        model = os.path.join(src, "plda.h5")
+        for m, name in ((model, "plda.score"), (model + ".adapt",
+                                                 "plda_adapt.score")):
+            with contextlib.redirect_stdout(io.StringIO()):
+                plda.eval_plda(
+                    proc_scp, p["utt2utt"], proc_scp, p["trials"],
+                    os.path.join(d, name), m,
+                    indomain_scp=proc_scp if name == "plda.score" else None,
+                    **kw)
+            _same_score_lines(os.path.join(d, name),
+                              os.path.join(src, name),
+                              LLR_TOL["atol"], LLR_TOL["rtol"])
 
 
 def test_qmf_recipe_stage_matches_jax(tmp_path):
@@ -424,4 +566,5 @@ def test_back_end_entry_points_need_the_card_unless_told(monkeypatch,
             cli.main(argv)
     t_ep.main(["prep", "--chain", "length-norm", "--out", x,
                "--device", "cpu"])
-    assert tep.EmbeddingProcessingChain().load(x).specs == ["length-norm"]
+    assert [type(link) for link in tep.EmbeddingProcessingChain().load(
+        x).links] == [tep.LengthNorm]

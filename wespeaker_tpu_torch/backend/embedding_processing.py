@@ -12,13 +12,19 @@ builds a chain in which each estimated link (mean, LDA, whitening) sees
 its training data through the chain's prefix, as upstream does. Data
 come from kaldi scp files or from in-memory loaders.
 
-Persistence differs from the JAX package, which pickles its link objects:
-those pickles name wespeaker_tpu classes, and loading a pickle runs code.
-The port stores the chain as an `.npz` archive at exactly the path given:
-each link's spec string ("specs") and its arrays ("<i>.<name>"); loading
-reads arrays only (allow_pickle=False). A JAX pickle is refused by name.
+Persistence: a pickle of the list of links, as the JAX package writes
+(`pickle.dump(self.links, f)`), so that an `embd_proc.pkl` of either
+package loads in the other with the same attribute dicts. The port
+writes the classes under the JAX package's module name without importing
+it (`_ChainPickler`), and reads through a restricted unpickler
+(`_ChainUnpickler`) that maps those names to the port's link classes and
+allows numpy's array-rebuilding globals only; any other global is
+refused by name before anything runs. `load` also reads the `.npz`
+archive (each link's spec string and arrays) that earlier versions of
+the port wrote under the same names.
 """
 
+import pickle
 import re
 from typing import Dict, Optional
 
@@ -57,7 +63,7 @@ def _load_spk2emb(args, loader=None):
 
 
 class _Link:
-    """A link's arrays, by name, for the archive."""
+    """A link's arrays, by name, for the `.npz` archive."""
     ARRAYS = ()
 
     @classmethod
@@ -171,16 +177,59 @@ def _build_link(spec: str, prefix, loaders):
     return STRING2CLASS[method](args, prefix, **kw)
 
 
+JAX_MODULE = "wespeaker_tpu.backend.embedding_processing"
+_LINKS = {cls.__name__: cls for cls in STRING2CLASS.values()}
+# numpy's own reducers: an array pickles as _reconstruct (protocol < 5) or
+# _frombuffer (protocol 5, in-band), a numpy scalar as scalar; numpy 2
+# names their module numpy._core, numpy 1 numpy.core
+_ALLOWED = {("numpy", "ndarray"): np.ndarray, ("numpy", "dtype"): np.dtype}
+for _core in ("numpy._core", "numpy.core"):
+    _ALLOWED.update({
+        (_core + ".multiarray", "_reconstruct"): np.zeros(1).__reduce__()[0],
+        (_core + ".multiarray", "scalar"): np.float64(0).__reduce__()[0],
+        (_core + ".numeric", "_frombuffer"): np.zeros(1).__reduce_ex__(5)[0]})
+
+
+class _ChainUnpickler(pickle.Unpickler):
+    """The JAX package's link classes as the port's, numpy's array
+    globals, and nothing else."""
+
+    def find_class(self, module, name):
+        if module == JAX_MODULE and name in _LINKS:
+            return _LINKS[name]
+        if (module, name) in _ALLOWED:
+            return _ALLOWED[(module, name)]
+        raise ValueError(f"embedding chain pickle names {module}.{name}, "
+                         "which is not a link class or a numpy array "
+                         "global: refused")
+
+
+class _ChainPickler(pickle._Pickler):
+    """The stock pickler checks a class by importing its module: the link
+    classes are written as STACK_GLOBAL under JAX_MODULE without it."""
+
+    def save_global(self, obj, name=None):
+        if _LINKS.get(getattr(obj, "__name__", None)) is not obj:
+            return super().save_global(obj, name)
+        self.save(JAX_MODULE)
+        self.save(obj.__name__)
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+# as the JAX package's pickle.dump; 4 or more since Python 3.8, as
+# STACK_GLOBAL needs
+PICKLE_PROTOCOL = pickle.DEFAULT_PROTOCOL
+
+
 class EmbeddingProcessingChain:
     def __init__(self, chain: Optional[str] = None, loaders=None):
         """loaders: optional dict method-name -> data loader callable, for
         supplying in-memory data instead of scp files (tests, library
         use)."""
         self.links = []
-        self.specs = []
         for spec in (chain.split("|") if chain else []):
             self.links.append(_build_link(spec, self, loaders or {}))
-            self.specs.append(spec.strip())
 
     def __call__(self, embd):
         for link in self.links:
@@ -188,26 +237,23 @@ class EmbeddingProcessingChain:
         return embd
 
     def save(self, path):
-        arrays = {"specs": np.asarray(self.specs, dtype=np.str_)}
-        for i, link in enumerate(self.links):
-            for name in link.ARRAYS:
-                arrays[f"{i}.{name}"] = getattr(link, name)
         with open(path, "wb") as f:
-            np.savez(f, **arrays)
+            _ChainPickler(f, PICKLE_PROTOCOL).dump(self.links)
 
     def load(self, path):
         with open(path, "rb") as f:
-            head = f.read(2)
-        if head[:1] == b"\x80":
-            raise ValueError(
-                f"{path} is a pickle (the JAX package's chain format), which "
-                "the port does not load: rebuild it with the port's "
-                "embd_proc prep, which writes an .npz archive")
+            if f.read(1) == pickle.PROTO:
+                f.seek(0)
+                links = _ChainUnpickler(f).load()
+                if not isinstance(links, list) or not all(
+                        isinstance(link, _Link) for link in links):
+                    raise ValueError(f"{path}: not a list of chain links")
+                self.links = links
+                return self
         with np.load(path, allow_pickle=False) as z:
-            self.specs = [str(s) for s in z["specs"]]
             self.links = []
-            for i, spec in enumerate(self.specs):
-                cls = STRING2CLASS[chain_string_to_dict(spec)[0][0]]
+            for i, spec in enumerate(z["specs"]):
+                cls = STRING2CLASS[chain_string_to_dict(str(spec))[0][0]]
                 self.links.append(cls.from_arrays(
                     {n: z[f"{i}.{n}"] for n in cls.ARRAYS}))
         return self
@@ -219,4 +265,3 @@ class EmbeddingProcessingChain:
         prefix = EmbeddingProcessingChain()
         prefix.links = self.links[:index]
         self.links[index] = _build_link(new_link, prefix, loaders or {})
-        self.specs[index] = new_link.strip()

@@ -16,12 +16,13 @@ does for cosine: the JAX package stacks one enroll and one test vector per
 trial on the host, which at SRE16's ~2 million trials and D = 256 in f64
 is gigabytes. The scores are the same.
 
-Persistence: the JAX package saves its six fields with h5py, which the
-card's machine lacks. The port writes the same fields (mu, transform,
-psi, offset, normalize_length, subtract_train_set_mean) as an `.npz`
-archive at exactly the path given (the recipes say `plda.h5`), and reads
-that archive and Kaldi's binary `<Plda>` model; an HDF5 file is refused
-by name.
+Persistence: the six fields (mu, transform, psi, offset,
+normalize_length, subtract_train_set_mean) as an HDF5 file in the
+layout h5py gives the JAX package's `save`, written and read by the
+port's own HDF5 subset (utils/hdf5.py; the card's machine has no h5py),
+so that a `plda.h5` of either package loads in the other to the bit.
+`load` also reads Kaldi's binary `<Plda>` model and the `.npz` archive
+that earlier versions of the port wrote under the same names.
 """
 
 import math
@@ -32,8 +33,8 @@ import numpy as np
 import torch
 
 from wespeaker_tpu_torch.device import DeviceLike, resolve_device
+from wespeaker_tpu_torch.utils import hdf5
 
-_HDF5_MAGIC = b"\x89HDF"
 _KALDI_PLDA = b"\x00B<Plda> "
 
 
@@ -300,33 +301,35 @@ class TwoCovPLDA:
     # ---------------- persistence ----------------
 
     def save(self, path: str):
-        """The six fields as an `.npz` archive at exactly `path`."""
-        with open(path, "wb") as f:
-            np.savez(f, mu=self.mu, transform=self.transform, psi=self.psi,
-                     offset=self.offset,
-                     normalize_length=int(self.normalize_length),
-                     subtract_train_set_mean=int(
-                         self.subtract_train_set_mean))
+        """The six fields as HDF5 at exactly `path`, as the JAX package's
+        h5py writes them."""
+        hdf5.write_datasets(path, {
+            "mu": self.mu, "transform": self.transform, "psi": self.psi,
+            "offset": self.offset,
+            "normalize_length": int(self.normalize_length),
+            "subtract_train_set_mean": int(self.subtract_train_set_mean)})
 
     @classmethod
     def load(cls, path: str) -> "TwoCovPLDA":
-        """A model the port saved, or Kaldi's binary `<Plda>`."""
+        """An HDF5 model (either package's), Kaldi's binary `<Plda>`, or
+        the `.npz` archive of earlier versions of the port."""
         with open(path, "rb") as f:
             head = f.read(len(_KALDI_PLDA))
-        if head.startswith(_HDF5_MAGIC):
-            raise ValueError(
-                f"{path} is an HDF5 file (the JAX package's h5py PLDA "
-                "format), which the port does not read: retrain with the "
-                "port's plda_tools, which writes an .npz archive")
+        if head.startswith(hdf5.SIGNATURE):
+            return cls._from_fields(hdf5.read_datasets(path))
         if head == _KALDI_PLDA:
             return cls.load_kaldi(path)
         with np.load(path, allow_pickle=False) as z:
-            obj = cls(dim=z["mu"].shape[0],
-                      normalize_length=bool(z["normalize_length"]),
-                      subtract_train_set_mean=bool(
-                          z["subtract_train_set_mean"]))
-            obj.mu, obj.transform = z["mu"], z["transform"]
-            obj.psi, obj.offset = z["psi"], z["offset"]
+            return cls._from_fields(dict(z))
+
+    @classmethod
+    def _from_fields(cls, fields) -> "TwoCovPLDA":
+        obj = cls(dim=fields["mu"].shape[0],
+                  normalize_length=bool(fields["normalize_length"]),
+                  subtract_train_set_mean=bool(
+                      fields["subtract_train_set_mean"]))
+        obj.mu, obj.transform = fields["mu"], fields["transform"]
+        obj.psi, obj.offset = fields["psi"], fields["offset"]
         return obj
 
     @classmethod

@@ -13,9 +13,10 @@ Counterpart of wespeaker_tpu/bin/embd_proc.py (upstream
 wespeaker/bin/{prep,apply,update}_embd_proc.py). The chain is estimated
 and applied on the host in f64, as in the JAX package; `--device` is
 resolved as every entry point's is (the card unless "cpu"). The chain
-file is the port's `.npz` archive at the path given
-(backend/embedding_processing.py); the JAX package's pickles are refused
-by name. apply writes `<out_prefix>.ark/.scp` in f32.
+file is a pickle of the links as the JAX package writes it, read through
+a restricted unpickler (backend/embedding_processing.py), so either
+package reads the other's; the `.npz` archive of earlier versions of the
+port still loads. apply writes `<out_prefix>.ark/.scp` in f32.
 """
 
 import argparse

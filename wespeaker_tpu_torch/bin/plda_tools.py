@@ -15,9 +15,10 @@
 Counterpart of wespeaker_tpu/bin/plda_tools.py (upstream
 wespeaker/bin/{train,eval,adapt}_plda.py). Training and adaptation run
 on the host in f64 (backend/plda.py); eval's log-likelihood ratios run
-on `--device`. The model file is the port's `.npz` archive at the path
-given (the JAX package writes HDF5 there, which the port refuses by
-name), or with --from_kaldi a Kaldi binary `<Plda>`. eval writes `enroll
+on `--device`. The model file is HDF5 in the layout the JAX package's
+h5py writes (utils/hdf5.py), so either package reads the other's; eval
+also reads the `.npz` archive of earlier versions of the port, and with
+--from_kaldi a Kaldi binary `<Plda>`. eval writes `enroll
 test score label` lines and, when every trial has a label, prints
 `PLDA EER = … % minDCF = …`.
 """

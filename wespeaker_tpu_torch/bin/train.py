@@ -340,11 +340,12 @@ def _any_rank(event: threading.Event, mesh):
 @contextlib.contextmanager
 def _batches(ds_args, ds_kwargs, dataset, batch_size, loader_args):
     """The trainer's batch iterator: `num_workers` spawned worker processes
-    (MPPrefetcher, ended on exit) or, with none, one thread over
-    `dataset`."""
+    (MPPrefetcher) or, with none, one thread over `dataset` (Prefetcher);
+    either is ended on exit."""
     workers = loader_args.get("num_workers", 0)
     if workers <= 0:
-        yield iter(Prefetcher(dataset.batches(batch_size)))
+        with Prefetcher(dataset.batches(batch_size)) as prefetch:
+            yield iter(prefetch)
         return
     prefetch = MPPrefetcher(ds_args, ds_kwargs, batch_size,
                             num_workers=workers,

@@ -131,30 +131,31 @@ def train_contrastive(config: str, overrides=None, device: DeviceLike = None,
                                                dither=0.0),
                                    configs["dataset_args"],
                                    seed + 1_000_003 * stripe, device=dev)
-    batches = iter(Prefetcher(_two_view_batches(dataset, local_batch,
-                                                chunk_len, seed, crop_aug)))
-    log_interval = configs.get("log_batch_interval", 50)
-    for epoch in range(num_epochs):
-        t0 = time.time()
-        for _ in range(epoch_iter):
-            b = next(batches)
-            it = step.step
-            if method == "moco":
-                metrics = step({"q_feat": featurize(b["q"]),
-                                "k_feat": featurize(b["k"])})
-            else:
-                metrics = step({"feat": featurize(np.concatenate(
-                    [b["q"], b["k"]]))})
-            if it % log_interval == 0:
-                logger.info(f"epoch {epoch} it {it} loss "
-                            f"{float(metrics['loss']):.4f} lr "
-                            f"{metrics['lr']:.5f}")
-        logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
-        if mesh.rank == 0:
-            ckpt.save_checkpoint(os.path.join(model_dir,
-                                              f"model_{epoch}.pt"),
-                                 step.encoder)
-        barrier(mesh, dev)
+    with Prefetcher(_two_view_batches(dataset, local_batch, chunk_len,
+                                      seed, crop_aug)) as prefetch:
+        batches = iter(prefetch)
+        log_interval = configs.get("log_batch_interval", 50)
+        for epoch in range(num_epochs):
+            t0 = time.time()
+            for _ in range(epoch_iter):
+                b = next(batches)
+                it = step.step
+                if method == "moco":
+                    metrics = step({"q_feat": featurize(b["q"]),
+                                    "k_feat": featurize(b["k"])})
+                else:
+                    metrics = step({"feat": featurize(np.concatenate(
+                        [b["q"], b["k"]]))})
+                if it % log_interval == 0:
+                    logger.info(f"epoch {epoch} it {it} loss "
+                                f"{float(metrics['loss']):.4f} lr "
+                                f"{metrics['lr']:.5f}")
+            logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
+            if mesh.rank == 0:
+                ckpt.save_checkpoint(os.path.join(model_dir,
+                                                  f"model_{epoch}.pt"),
+                                     step.encoder)
+            barrier(mesh, dev)
     return step
 
 

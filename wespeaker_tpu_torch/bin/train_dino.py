@@ -196,29 +196,30 @@ def train_dino(config: str, overrides=None, device: DeviceLike = None,
 
     log_interval = configs.get("log_batch_interval", 50)
     stop_epoch = min(num_epochs, configs.get("stop_epoch") or num_epochs)
-    batches = iter(Prefetcher(crops()))
-    for epoch in range(start_epoch, stop_epoch):
-        t0 = time.time()
-        for _ in range(epoch_iter):
-            b = next(batches)
-            it = step.step
-            metrics = step({"global_feat": featurize(b["global_wav"]),
-                            "local_feat": featurize(b["local_wav"])})
-            if it % log_interval == 0:
-                logger.info(
-                    f"epoch {epoch} it {it} loss "
-                    f"{float(metrics['loss']):.4f} lr {metrics['lr']:.5f} "
-                    f"m {metrics['momentum']:.4f} temp "
-                    f"{metrics['teacher_temp']:.3f}")
-        logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
-        if mesh.rank == 0:
-            ckpt.save_checkpoint(os.path.join(model_dir,
-                                              f"model_{epoch}.pt"),
-                                 step.teacher.backbone)
-            tmp = f"{trainer_ckpt}.tmp"
-            torch.save({**step.state_dict(), "epoch": epoch + 1}, tmp)
-            os.replace(tmp, trainer_ckpt)
-        barrier(mesh, dev)
+    with Prefetcher(crops()) as prefetch:
+        batches = iter(prefetch)
+        for epoch in range(start_epoch, stop_epoch):
+            t0 = time.time()
+            for _ in range(epoch_iter):
+                b = next(batches)
+                it = step.step
+                metrics = step({"global_feat": featurize(b["global_wav"]),
+                                "local_feat": featurize(b["local_wav"])})
+                if it % log_interval == 0:
+                    logger.info(
+                        f"epoch {epoch} it {it} loss "
+                        f"{float(metrics['loss']):.4f} lr {metrics['lr']:.5f} "
+                        f"m {metrics['momentum']:.4f} temp "
+                        f"{metrics['teacher_temp']:.3f}")
+            logger.info(f"epoch {epoch} done in {time.time() - t0:.1f}s")
+            if mesh.rank == 0:
+                ckpt.save_checkpoint(os.path.join(model_dir,
+                                                  f"model_{epoch}.pt"),
+                                     step.teacher.backbone)
+                tmp = f"{trainer_ckpt}.tmp"
+                torch.save({**step.state_dict(), "epoch": epoch + 1}, tmp)
+                os.replace(tmp, trainer_ckpt)
+            barrier(mesh, dev)
     return step
 
 

@@ -264,17 +264,26 @@ class MPPrefetcher:
 
 class Prefetcher:
     """Background-thread batch prefetch with a bounded queue; an error in
-    the producer is raised in the consumer."""
+    the producer is raised in the consumer. close() (or leaving a `with`
+    block) stops the producer after the item in hand, closes its iterator
+    and joins the thread: a thread still inside a torch op when the
+    interpreter exits aborts the process ("terminate called without an
+    active exception")."""
 
     def __init__(self, iterator, depth: int = 4):
         self.q = queue.Queue(maxsize=depth)
         self._done = object()
         self._err = None
+        self._stop = threading.Event()
 
         def worker():
             try:
                 for item in iterator:
                     self.q.put(item)
+                    if self._stop.is_set():
+                        if hasattr(iterator, "close"):
+                            iterator.close()
+                        break
             except BaseException as e:  # propagate to consumer
                 self._err = e
             finally:
@@ -282,6 +291,22 @@ class Prefetcher:
 
         self.thread = threading.Thread(target=worker, daemon=True)
         self.thread.start()
+
+    def close(self):
+        """Stop the producer and wait for it, draining what it puts."""
+        self._stop.set()
+        while self.thread.is_alive():
+            try:
+                self.q.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        self.thread.join()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
 
     def __iter__(self):
         while True:

@@ -13,7 +13,8 @@ the chunk length ((num_frms - 1) * frame_shift + frame_length) ms yields
 exactly num_frms fbank frames. MUSAN noise and RIRs come from packed
 stores (data/store.py). With `device_aug` the host only picks the RIR or
 noise and the SNR (`attach_device_aug`) and the card convolves and mixes
-(train/device_aug.py). Not ported: http(s) shards.
+(train/device_aug.py). A shard list may name http(s) URLs: each streams
+through urllib into tarfile's stream mode, as in the JAX package.
 """
 
 import json
@@ -86,19 +87,31 @@ def parse_raw(lines: Iterable[str]) -> Iterator[dict]:
                "sample_rate": sr}
 
 
+def _open_shard(path: str):
+    """-> (tarfile, the http response to close or None); raises if the
+    shard cannot be opened. A URL is read as a stream (mode "r|*")."""
+    if not path.startswith(("http://", "https://")):
+        return tarfile.open(path), None
+    import urllib.request
+    stream = urllib.request.urlopen(path)
+    try:
+        return tarfile.open(fileobj=stream, mode="r|*"), stream
+    except Exception:
+        stream.close()
+        raise
+
+
 def parse_shard(tar_paths: Iterable[str]) -> Iterator[dict]:
     """Tar shards of <key>.wav + <key>.spk entries grouped by prefix
-    (upstream processor.py tar_file_and_group:68); unreadable shards are
-    skipped."""
+    (upstream processor.py tar_file_and_group:68); http(s) URLs stream
+    through urllib (upstream shells out to wget, processor.py
+    url_opener:37); shards that cannot be opened are skipped."""
     for path in tar_paths:
-        if path.startswith(("http://", "https://")):
-            raise ValueError(f"shard {path}: http(s) shards are not ported "
-                             "yet; give a local path")
         try:
-            tf = tarfile.open(path)
+            tf, stream = _open_shard(path)
         except Exception:
             continue
-        with tf:
+        try:
             current = {}
             prev_key = None
             for member in tf:
@@ -120,6 +133,10 @@ def parse_shard(tar_paths: Iterable[str]) -> Iterator[dict]:
                     current["spk"] = data.decode().strip()
             if "wav" in current and "spk" in current:
                 yield current
+        finally:
+            tf.close()
+            if stream is not None:
+                stream.close()
 
 
 def parse_feat(scp_lines: Iterable[str],
